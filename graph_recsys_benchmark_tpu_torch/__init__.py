@@ -6,13 +6,17 @@ against it.  This package imports neither JAX nor anything of the JAX
 package: what it needs of the JAX package's jax-free modules (the HIN
 builders) is copied.
 
-Slice 1 covers PEAGAT inference on the hybrid GAT plan:
-``train.pea_trainer.PEATrainer(hin, cfg, tcfg).evaluate(params, generator)``
-runs the step-1 union graph through ``ops/flash_gat`` and the step-2
-shared-edge groups through ``ops/batch_gat``, each backed by a CUDA kernel
-in ``csrc/`` (built with nvcc at first use, ``ops/_cuda.py``).  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``; the plain PyTorch
-versions of the kernels serve CPU tensors only.
+It covers PEAGAT on the hybrid GAT plan, inference and training:
+``trainer = train.pea_trainer.PEATrainer(hin, cfg, tcfg)``, then
+``params = trainer.init(seed)``, ``opt = trainer.optimizer(params)``,
+``trainer.run_epoch(params, opt, generator)`` (BPR + the entity-aware
+regularizer, Adam) and ``trainer.evaluate(params, generator)``.  The
+step-1 union graph runs through ``ops/flash_gat`` and the step-2
+shared-edge groups through ``ops/batch_gat``; their forwards and backwards
+are CUDA kernels in ``csrc/`` (built with nvcc at first use,
+``ops/_cuda.py``).  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; the plain PyTorch versions of the kernels serve CPU
+tensors only.
 """
 
 from .device import resolve_device

@@ -1,4 +1,4 @@
-"""PEAGAT (metapath- and entity-aware GAT recommender): inference path.
+"""PEAGAT (metapath- and entity-aware GAT recommender): forward and loss.
 
 Port of the JAX package's ``models/pea.py`` for the hybrid GAT plan, which
 replicates the reference model family (models/base.py:129-214 +
@@ -15,8 +15,10 @@ models/peagat.py):
 
 Per step, the hybrid plan batches channels sharing one edge list through
 ``ops/batch_gat`` and runs the rest as one union graph through
-``ops/flash_gat``.  Training (loss, entity regularizer, dropout) and the
-other conv types come in later slices (ROADMAP Queue 1).
+``ops/flash_gat``; both are differentiable (their backwards are kernels
+too).  ``pea_loss`` is BPR plus the entity-aware regularizer
+(base.py:43-80).  Attention dropout and the other conv types come in later
+slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..graph import StepGraph, fuse_step_graphs
@@ -45,6 +48,9 @@ class PEAConfig:
     repr_dim: int = 16
     num_heads: int = 1
     channel_aggr: str = "att"  # 'att' | 'mean' | 'concat'
+    dropout: float = 0.0  # attention dropout; > 0 in training is not ported
+    entity_aware: bool = False
+    entity_aware_coff: float = 0.1
 
     @property
     def num_channels(self):
@@ -276,3 +282,52 @@ def pea_predict(model: PEA, cached_repr, unids, inids):
     z = torch.cat([cached_repr[unids], cached_repr[inids]], dim=-1)
     z = torch.relu(linear(model.fc1, z))
     return linear(model.fc2, z)[..., 0]
+
+
+def _log_sigmoid(z):
+    # numerically stable log σ(z) = -softplus(-z)
+    return -F.softplus(-z)
+
+
+def entity_reg_loss(x_table, batch, row_mask):
+    """Entity-aware contrastive regularizer, exactly as base.py:50-76.
+
+    batch columns: [u, pos_i, neg_i, pos_item_ent, neg_item_ent, item_mask,
+                    pos_user_ent, neg_user_ent, user_mask]."""
+
+    def sq(a, b):
+        d = x_table[a] - x_table[b]
+        return torch.sum(d * d, dim=-1)
+
+    item_pos = sq(batch[:, 1], batch[:, 3])
+    item_neg = sq(batch[:, 1], batch[:, 4])
+    user_pos = sq(batch[:, 0], batch[:, 6])
+    user_neg = sq(batch[:, 0], batch[:, 7])
+    item_term = -_log_sigmoid((item_pos - item_neg) * batch[:, 5])
+    user_term = -_log_sigmoid((user_pos - user_neg) * batch[:, 8])
+    return torch.sum((item_term + user_term) * row_mask)
+
+
+def pea_loss(model: PEA, plan, cfg: PEAConfig, batch, row_mask=None,
+             transport="f32"):
+    """Training loss: BPR with the optional entity-aware regularizer
+    (base.py:43-80).
+
+    batch: int64[B, 3] or [B, 9] (entity-aware columns, see
+    entity_reg_loss); row_mask: float[B], 0 for the padding rows of an
+    epoch's last batch."""
+    if cfg.dropout > 0.0:
+        raise NotImplementedError(
+            "attention dropout in training runs the per-channel path in the "
+            "JAX package, which is not ported (ROADMAP Queue 1 item 3)"
+        )
+    if row_mask is None:
+        row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)
+    cached = pea_forward(model, plan, cfg, transport=transport)
+    pos = pea_predict(model, cached, batch[:, 0], batch[:, 1])
+    neg = pea_predict(model, cached, batch[:, 0], batch[:, 2])
+    cf_loss = torch.sum(-_log_sigmoid(pos - neg) * row_mask)
+    if cfg.entity_aware:
+        reg = entity_reg_loss(model.x, batch, row_mask)
+        return cf_loss + cfg.entity_aware_coff * reg
+    return cf_loss

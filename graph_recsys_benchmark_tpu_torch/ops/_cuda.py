@@ -38,6 +38,10 @@ _SIGNATURES = {
     # num_edges, num_rows, kz, n_ch, slope, stream
     "gat_fwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P,
                 ctypes.c_longlong, _I, _I, _I, ctypes.c_float, _P],
+    # device, table, bf16, round_att_first, gtab, logden, adst, src, dst,
+    # dpk, dadst, num_edges, num_rows, kz, n_ch, slope, stream
+    "gat_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                ctypes.c_longlong, _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

@@ -1,26 +1,38 @@
-"""Batched flash-GAT for channel groups sharing ONE edge list.  Forward only
-in this slice.
+"""Batched flash-GAT for channel groups sharing ONE edge list, forward and
+backward.
 
-Port of the JAX package's ``ops/batch_gat.py`` forward.  The reference's
-metapath table reuses one edge list across several channels (ML-small: 7 of
-the 9 second steps ride the item->user graph), so each shared edge list is
+Port of the JAX package's ``ops/batch_gat.py``.  The reference's metapath
+table reuses one edge list across several channels (ML-small: 7 of the 9
+second steps ride the item->user graph), so each shared edge list is
 processed once for up to 8 channels.  Per channel the semantics are exactly
 ``ops/flash_gat.flash_gat_attention`` (bound-shift softmax, +1e-16 guard)
 over a loop-materialized edge list.
 
-Kernel: ``batch_gat_fwd`` launches csrc/gat_fwd.cu (ops/flash_gat.gat_fwd)
+Kernels: ``batch_gat_fwd`` launches csrc/gat_fwd.cu (ops/flash_gat.gat_fwd)
 at K3's rounding points and replaces the TPU kernel K3
-(ops/batch_gat.py:_make_fwd_kernel).  Its input is the row-major table
-``[num_rows, n_ch*(kz+1)]`` whose row j holds every channel's band
-``[z_c[j] | a_src_c[j]]``, so one edge visit reads all channels' sources at
-once.  CPU tensors take the plain version in this module.
+(ops/batch_gat.py:_make_fwd_kernel); ``batch_gat_bwd`` launches
+csrc/gat_bwd.cu (ops/flash_gat.gat_bwd) at K4's rounding points and
+replaces K4 (ops/batch_gat.py:_make_bwd_kernel).  Their input is the
+row-major table ``[num_rows, n_ch*(kz+1)]`` whose row j holds every
+channel's band ``[z_c[j] | a_src_c[j]]``, so one edge visit reads all
+channels' sources at once.  CPU tensors take the plain versions in this
+module.  ``BatchGAT`` (a ``torch.autograd.Function``) packs the table
+inside itself, so z's gradient comes back in f32 unrounded, as the JAX
+VJP's ``dz.astype(z.dtype)`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_gat import bound_shift, gat_fwd, gat_fwd_plain, t_dtype_of
+from .flash_gat import (
+    bound_shift,
+    gat_bwd,
+    gat_bwd_plain,
+    gat_fwd,
+    gat_fwd_plain,
+    t_dtype_of,
+)
 from .segment import segment_softmax, segment_sum
 
 # Kernel layout limits, as the JAX package's batched kernels: at most 8
@@ -72,27 +84,86 @@ def batch_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
 batch_gat_fwd.launches = 0
 
 
+def batch_gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                        negative_slope=0.2):
+    """Plain PyTorch version of batch_gat_bwd, same inputs and rounding
+    points (K4's: g·z rounded before the sum, att and dpre rounded)."""
+    return gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz, True,
+                         negative_slope)
+
+
+def batch_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                  negative_slope=0.2):
+    """(dpk f32[n, n_ch*(kz+1)], da_dst f32[n_ch, num_rows]):
+    ops/flash_gat.gat_bwd at K4's rounding points.
+
+    table: the forward's bands in the transport dtype; gtab:
+    f32[num_rows, n_ch*(kz+1)] bands ``[round_T(g_c) | gout_c]``; logden,
+    adst_r: f32[n_ch, num_rows]; src, dst: int32[E] with padding ``dst >=
+    num_rows``.  Launches counted in ``batch_gat_bwd.launches``."""
+    n_ch = adst_r.shape[0]
+    if not (1 <= n_ch <= MAX_CHANNELS and 1 <= kz <= MAX_KZ):
+        raise ValueError(f"batch_gat_bwd: n_ch {n_ch} / kz {kz} outside 1..8 / 1..125")
+    return gat_bwd(batch_gat_bwd, table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                   True, negative_slope)
+
+
+batch_gat_bwd.launches = 0
+
+
+class BatchGAT(torch.autograd.Function):
+    """batch_gat_fwd + normalization, differentiable in z, a_src and a_dst.
+
+    forward(z f32[n_ch, N, kz], a_src, a_dst f32[n_ch, N], src, dst
+    int32[E], num_rows, negative_slope, transport) -> out f32[n_ch, N, kz].
+    The backward builds the stat bands as ``_batch_bwd`` does
+    (ops/batch_gat.py:532-552) and returns dz, da_src, da_dst in f32
+    (:608-612).  A graph without edges gives exact zeros both ways."""
+
+    @staticmethod
+    def forward(ctx, z, a_src, a_dst, src, dst, num_rows, negative_slope, transport):
+        n_ch, _, kz = z.shape
+        table, adst_r, mhat = _pack_tables(z, a_src, a_dst, num_rows, kz, n_ch,
+                                           negative_slope, t_dtype_of(transport))
+        acc = batch_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
+                            negative_slope)
+        acc_b = acc.view(num_rows, n_ch, kz + 1)
+        s = acc_b[:, :, kz].t()  # [n_ch, N]
+        out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
+        ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst)
+        ctx.consts = (num_rows, kz, negative_slope)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        table, adst_r, mhat, s, out, src, dst = ctx.saved_tensors
+        num_rows, kz, negative_slope = ctx.consts
+        n_ch = adst_r.shape[0]
+        g = g.float()
+        gout = (g * out).sum(dim=2)  # [n_ch, N]
+        gband = torch.cat([g.to(table.dtype).float(), gout[:, :, None]], dim=2)
+        gtab = gband.permute(1, 0, 2).reshape(num_rows, n_ch * (kz + 1)).contiguous()
+        logden = (mhat + torch.log(s + 1e-16)).contiguous()
+        dpk, da_dst = batch_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows,
+                                    kz, negative_slope)
+        dpk_b = dpk.view(-1, n_ch, kz + 1)[:num_rows]
+        dz = dpk_b[:, :, :kz].permute(1, 0, 2)
+        da_src = dpk_b[:, :, kz].t()
+        return dz, da_src, da_dst, None, None, None, None, None
+
+
 def batch_gat_attention(z, a_src, a_dst, src, dst, num_rows,
                         negative_slope=0.2, transport="f32"):
     """Single-head GAT attention for n_ch channels sharing ONE
     loop-materialized edge list (padding sentinel ``dst == num_rows``).
 
     z: [n_ch, num_rows, kz]; a_src/a_dst: [n_ch, num_rows] f32.
-    Returns [n_ch, num_rows, kz] f32."""
-    t_dtype = t_dtype_of(transport)
-    n_ch, _, kz = z.shape
-    if dst.shape[0] == 0:
-        return torch.zeros((n_ch, num_rows, kz), dtype=torch.float32, device=z.device)
-    table, adst_r, mhat = _pack_tables(
-        z, a_src, a_dst, num_rows, kz, n_ch, negative_slope, t_dtype
+    Returns [n_ch, num_rows, kz] f32, differentiable in z, a_src and a_dst
+    (BatchGAT)."""
+    return BatchGAT.apply(
+        z, a_src, a_dst, src.to(torch.int32).contiguous(),
+        dst.to(torch.int32).contiguous(), num_rows, negative_slope, transport,
     )
-    acc = batch_gat_fwd(
-        table, adst_r, mhat, src.to(torch.int32).contiguous(),
-        dst.to(torch.int32).contiguous(), num_rows, kz, negative_slope,
-    )
-    acc_b = acc.view(num_rows, n_ch, kz + 1)
-    s = acc_b[:, :, kz].t()  # [n_ch, N]
-    return acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
 
 
 def batch_gat_reference(z, a_src, a_dst, src, dst, num_rows,

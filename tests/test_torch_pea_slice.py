@@ -190,6 +190,8 @@ def test_port_imports_without_jax():
         os.path.relpath(os.path.join(d, f), REPO)[:-3].replace(os.sep, ".")
         for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")
     )
+    # slice 2's training modules are among them
+    assert {f"graph_recsys_benchmark_tpu_torch.train.{m}" for m in ("engine", "optim")} <= set(mods)
     code = (
         "import sys\n"
         "for m in ('jax', 'optax', 'graph_recsys_benchmark_tpu'):\n"
