@@ -6,17 +6,19 @@ against it.  This package imports neither JAX nor anything of the JAX
 package: what it needs of the JAX package's jax-free modules (the HIN
 builders) is copied.
 
-It covers PEAGAT on the hybrid GAT plan, inference and training:
-``trainer = train.pea_trainer.PEATrainer(hin, cfg, tcfg)``, then
+It covers PEAGAT, PEAGCN and PEASage (``PEAConfig.conv``), inference and
+training: ``trainer = train.pea_trainer.PEATrainer(hin, cfg, tcfg)``, then
 ``params = trainer.init(seed)``, ``opt = trainer.optimizer(params)``,
 ``trainer.run_epoch(params, opt, generator)`` (BPR + the entity-aware
-regularizer, Adam) and ``trainer.evaluate(params, generator)``.  The
-step-1 union graph runs through ``ops/flash_gat`` and the step-2
-shared-edge groups through ``ops/batch_gat``; their forwards and backwards
-are CUDA kernels in ``csrc/`` (built with nvcc at first use,
-``ops/_cuda.py``).  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; the plain PyTorch versions of the kernels serve CPU
-tensors only.
+regularizer, Adam) and ``trainer.evaluate(params, generator)``.  PEAGAT
+runs the hybrid GAT plan: the step-1 union graph through
+``ops/flash_gat`` and the step-2 shared-edge groups through
+``ops/batch_gat``.  PEAGCN and PEASage run one union graph a step: a row
+gather (``ops/gather``) and a segment-sum (``ops/segment_kernels``).  The
+forwards and backwards of all of them are CUDA kernels in ``csrc/`` (built
+with nvcc at first use, ``ops/_cuda.py``).  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; the plain PyTorch versions of
+the kernels serve CPU tensors only.
 """
 
 from .device import resolve_device

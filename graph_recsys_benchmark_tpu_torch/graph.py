@@ -1,16 +1,23 @@
 """Static graph tensors: padded, block-sorted edge lists per metapath step.
 
-Port of the JAX package's ``graph.py`` for the GAT path.  Every array is
-built with numpy exactly as there, so both packages run on bitwise-equal
-edge lists:
+Port of the JAX package's ``graph.py`` for the GAT, GCN and SAGE convs.
+Every array is built with numpy exactly as there, so both packages run on
+bitwise-equal edge lists (``w`` too: f64 math rounded once to f32):
 
   * edges are sorted by (dst // 128, src, dst) — "block order".  The JAX
     package sorts with a native counting sort whose numpy fallback is this
     very ``np.lexsort``; both are stable, so the edge order is identical.
-    The CUDA kernels match ids by value and need no order; block order is
-    kept for parity with the reference and for src locality,
-  * GAT self-loops (remove existing, add one per node — PyG 1.5 GATConv)
-    are materialized as real edges,
+    The segment-sum kernel needs it: ``dst // 128`` never decreases, so
+    each 128-row dst block owns one contiguous edge range
+    (ops/segment_kernels).  The other kernels match ids by value; for them
+    block order only keeps the src side local,
+  * self-loops where the conv needs them are materialized as real edges,
+    and the normalization is precomputed into the per-edge weight ``w``:
+      GCN  — PyG 1.5 ``add_remaining_self_loops`` (only missing loops are
+             added), deg over the source row, w = deg^-1/2[src] deg^-1/2[dst];
+      GAT  — remove existing loops, add one per node, w = 1 (attention
+             replaces it at run time);
+      SAGE — mean aggregation, w = 1/indeg(dst), no loops,
   * arrays are padded to a multiple of ``pad_to`` with destination sentinel
     ``dst == num_nodes`` (src 0, w 0); every consumer drops such edges.
 
@@ -43,8 +50,9 @@ class StepGraph:
              dst == num_nodes, src = 0.
     w:       float32[E_pad] per-edge coefficient; 0 on padding edges.
     rel:     int32[E_pad] signed relation ids (0 when unused).
-    src_perm/src_sorted: the stable sort of `src` (used by the backward,
-             slice 2).
+    src_perm/src_sorted: the stable sort of `src`, kept for parity with
+             the JAX package (whose gather backward can fall back to a
+             sorted segment-sum); the port's scatter-add needs no order.
     Equality is identity: the hybrid plan groups channels by object.
     """
 
@@ -113,6 +121,28 @@ def _mean_src_span(src, dst, num_nodes, chunk=512):
     return float(spans.mean())
 
 
+def build_gcn_graph(src, dst, num_nodes, pad_to=PAD_TO) -> StepGraph:
+    """PyG 1.5 GCNConv norm: add the missing self-loops
+    (``add_remaining_self_loops`` keeps existing ones), deg over the source
+    row, w_e = deg^-1/2[src] * deg^-1/2[dst]."""
+    has_loop = np.zeros(num_nodes, dtype=bool)
+    orig_src = np.asarray(src, dtype=np.int64)
+    orig_dst = np.asarray(dst, dtype=np.int64)
+    loop_mask = orig_src == orig_dst
+    has_loop[orig_src[loop_mask]] = True
+    loops = np.arange(num_nodes, dtype=np.int64)[~has_loop]
+    src2 = np.concatenate([orig_src, loops])
+    dst2 = np.concatenate([orig_dst, loops])
+
+    deg = np.bincount(src2, minlength=num_nodes).astype(np.float64)
+    dinv = np.zeros_like(deg)
+    nz = deg > 0
+    dinv[nz] = deg[nz] ** -0.5
+    w = (dinv[src2] * dinv[dst2]).astype(np.float32)
+    rel = np.zeros_like(src2)
+    return _sort_pad(src2, dst2, w, rel, num_nodes, pad_to)
+
+
 def build_gat_graph(src, dst, num_nodes, pad_to=PAD_TO,
                     analytic_loops=False) -> StepGraph:
     """PyG 1.5 GATConv: remove self-loops, add one per node; w=1 (attention
@@ -140,22 +170,42 @@ def build_gat_graph(src, dst, num_nodes, pad_to=PAD_TO,
     return _sort_pad(src2, dst2, w, rel, num_nodes, pad_to)
 
 
+def build_sage_graph(src, dst, num_nodes, pad_to=PAD_TO) -> StepGraph:
+    """PyG 1.5 SAGEConv mean aggregation: w_e = 1/indeg(dst), no self-loops."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    indeg = np.bincount(dst, minlength=num_nodes).astype(np.float64)
+    w = (1.0 / np.maximum(indeg, 1.0))[dst].astype(np.float32)
+    rel = np.zeros_like(src)
+    return _sort_pad(src, dst, w, rel, num_nodes, pad_to)
+
+
+_BUILDERS = {
+    "gcn": build_gcn_graph,
+    "gat": build_gat_graph,
+    "sage": build_sage_graph,
+}
+
+
 def build_metapath_graphs(
     metapath_steps, num_nodes, conv: str, pad_to=PAD_TO,
     analytic_gat_loops=False,
 ) -> Tuple[Tuple[StepGraph, ...], ...]:
     """Compile a metapath list (list of lists of (src, dst) numpy edge pairs)
-    into per-step StepGraphs.
+    into per-step StepGraphs for the given conv ('gcn', 'gat', 'sage').
 
     Identical (src, dst) step lists return the SAME StepGraph object: the
     reference's metapath tables reuse one edge list across several channels
     (ML-small: 7 of 9 second steps ride the item->user graph), and object
     identity is the hybrid plan's grouping key."""
-    if conv != "gat":
+    if conv not in _BUILDERS:
         raise NotImplementedError(
-            f"conv {conv!r}: only GAT graphs are ported (ROADMAP Queue 1 item 3)"
+            f"conv {conv!r}: only GCN, GAT and SAGE graphs are ported (NGCF and "
+            "the KG graphs come with the baselines, ROADMAP Queue 1 item 9)"
         )
-    build = functools.partial(build_gat_graph, analytic_loops=analytic_gat_loops)
+    build = _BUILDERS[conv]
+    if conv == "gat":
+        build = functools.partial(build_gat_graph, analytic_loops=analytic_gat_loops)
 
     cache = {}
 
@@ -194,4 +244,25 @@ def fuse_step_graphs(step_graphs, num_nodes, pad_to=PAD_TO) -> StepGraph:
         np.concatenate(rels),
         num_nodes * len(step_graphs),
         pad_to,
+    )
+
+
+def build_fused_metapath_graphs(
+    metapath_steps, num_nodes, conv: str, pad_to=PAD_TO
+) -> Tuple[StepGraph, ...]:
+    """Fused variant of build_metapath_graphs: every metapath must have the
+    same number of steps (true for all reference configs: 2 steps per
+    metapath).  Returns one union StepGraph per step position
+    (fuse_step_graphs)."""
+    per_channel = build_metapath_graphs(metapath_steps, num_nodes, conv, pad_to)
+    n_steps = {len(ch) for ch in per_channel}
+    if len(n_steps) != 1:
+        raise ValueError(
+            "fused metapath graphs require every metapath to have the same "
+            f"number of steps; got step counts {sorted(n_steps)} (the "
+            "per-channel path for mixed depths is not ported)"
+        )
+    return tuple(
+        fuse_step_graphs([ch[k] for ch in per_channel], num_nodes, pad_to)
+        for k in range(n_steps.pop())
     )

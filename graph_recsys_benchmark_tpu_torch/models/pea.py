@@ -1,24 +1,34 @@
-"""PEAGAT (metapath- and entity-aware GAT recommender): forward and loss.
+"""PEA (metapath- and entity-aware GNN recommenders): PEAGCN, PEAGAT and
+PEASage, forward and loss.
 
-Port of the JAX package's ``models/pea.py`` for the hybrid GAT plan, which
-replicates the reference model family (models/base.py:129-214 +
-models/peagat.py):
+Port of the JAX package's ``models/pea.py``, which replicates the reference
+model family (models/base.py:129-214 + models/peagcn.py / peagat.py /
+peasage.py):
 
   * one learned embedding row per HIN node, glorot-initialized over the
     whole table (base.py:156,183),
-  * one GAT channel per metapath — a stack of `num_steps` convs with ReLU
+  * one channel per metapath — a stack of `num_steps` convs with ReLU
     between steps and none after the last (base.py:134-140),
   * channel fusion: 'att' (learned per-channel attention, base.py:201-203),
     'mean', or 'concat', and a multiplicative channel mask for the
     metapath-ablation eval,
   * pair scorer: 2-layer MLP over [u_repr, i_repr] (base.py:208-214).
 
-Per step, the hybrid plan batches channels sharing one edge list through
-``ops/batch_gat`` and runs the rest as one union graph through
-``ops/flash_gat``; both are differentiable (their backwards are kernels
-too).  ``pea_loss`` is BPR plus the entity-aware regularizer
-(base.py:43-80).  Attention dropout and the other conv types come in later
-slices (ROADMAP Queue 1).
+``pea_forward`` dispatches on the graph object, as the JAX package does:
+
+  * a ``HybridGATPlan`` (GAT): per step, channels sharing one edge list run
+    batched through ``ops/batch_gat`` and the rest as one union graph
+    through ``ops/flash_gat``;
+  * a tuple of union ``StepGraph``s, one per step
+    (graph.build_fused_metapath_graphs): every channel advances together,
+    one row gather (``ops/gather``, K7 forward / K6 backward) and one
+    segment-sum (``nn/conv._aggregate``, K5 forward / K7 backward) a step.
+    This is PEAGCN's and PEASage's path; GAT runs its union flash pass.
+
+Every op on the way is differentiable and its backward a kernel too.
+``pea_loss`` is BPR plus the entity-aware regularizer (base.py:43-80).
+GAT attention dropout and the per-channel path for mixed depths come in
+later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -32,23 +42,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import StepGraph, fuse_step_graphs
-from ..nn.conv import gat_init
+from ..nn.conv import _aggregate, gat_init, gcn_init, sage_init
 from ..nn.init import glorot, linear, torch_linear_params, uniform
 from ..ops.batch_gat import MAX_CHANNELS, MAX_KZ, batch_gat_attention
-from ..ops.flash_gat import flash_gat_attention_rows
+from ..ops.flash_gat import flash_gat_attention_rows, msg_cast
+from ..ops.gather import gather_src
 
 
 @dataclasses.dataclass(frozen=True)
 class PEAConfig:
-    conv: str  # 'gat' in this slice
+    conv: str  # 'gcn' | 'gat' | 'sage'
     num_nodes: int
     meta_path_steps: Tuple[int, ...]
     emb_dim: int = 64
     hidden_size: int = 64
     repr_dim: int = 16
-    num_heads: int = 1
+    num_heads: int = 1  # GAT only
     channel_aggr: str = "att"  # 'att' | 'mean' | 'concat'
-    dropout: float = 0.0  # attention dropout; > 0 in training is not ported
+    dropout: float = 0.0  # GAT attention dropout; > 0 in training is not ported
     entity_aware: bool = False
     entity_aware_coff: float = 0.1
 
@@ -64,11 +75,11 @@ class PEAConfig:
 
 
 def _channel_layer_dims(cfg: PEAConfig, num_steps: int):
-    """Per-step (in, out, heads) mirroring peagat.py:14-21; heads always
-    concatenate."""
+    """Per-step (in, out, heads) mirroring peagcn/peagat/peasage.py:14-21;
+    heads (GAT only) always concatenate."""
     if num_steps == 1:
         return [(cfg.emb_dim, cfg.repr_dim, 1)]
-    h = cfg.num_heads
+    h = cfg.num_heads if cfg.conv == "gat" else 1
     dims = [(cfg.emb_dim, cfg.hidden_size, h)]
     for _ in range(num_steps - 2):
         dims.append((cfg.hidden_size * h, cfg.hidden_size, h))
@@ -78,9 +89,11 @@ def _channel_layer_dims(cfg: PEAConfig, num_steps: int):
 
 class PEA(nn.Module):
     """PEA parameters in the JAX package's layout and names:
-    ``x [emb_rows, emb]``, ``channels[c][k].{w [din, H*dout],
-    att [1, H, 2*dout], b [H*dout]}``, ``att [1, C, R]`` (channel_aggr
-    'att' only), ``fc1/fc2.{w [in, out], b [out]}``."""
+    ``x [emb_rows, emb]``; ``channels[c][k]``, one conv layer a step:
+    GAT ``{w [din, H*dout], att [1, H, 2*dout], b [H*dout]}``, GCN
+    ``{w [din, dout], b [dout]}``, SAGE ``{w_rel [din, dout], b_rel [dout],
+    w_root [din, dout]}``; ``att [1, C, R]`` (channel_aggr 'att' only);
+    ``fc1/fc2.{w [in, out], b [out]}``."""
 
     def __init__(self, x, channels, fc1, fc2, att=None):
         super().__init__()
@@ -97,19 +110,27 @@ class PEA(nn.Module):
         self.fc2 = pdict(fc2)
 
 
+_INITS = {"gcn": gcn_init, "gat": gat_init, "sage": sage_init}
+
+
 def pea_init(generator: torch.Generator, cfg: PEAConfig) -> PEA:
     """Random PEA parameters from `generator` (CPU tensors; move with
     ``.to(device)``), the distributions of the JAX ``pea_init``."""
+    if cfg.conv not in _INITS:
+        raise ValueError(f"conv {cfg.conv!r}: expected one of {sorted(_INITS)}")
     # glorot bound from the TRUE node count (base.py:156,183); rows are
     # padded to emb_rows for the layout only
     bound = math.sqrt(6.0 / (cfg.num_nodes + cfg.emb_dim))
     x = uniform(generator, (cfg.emb_rows, cfg.emb_dim), bound)
     channels = []
     for num_steps in cfg.meta_path_steps:
-        channels.append([
-            gat_init(generator, din, dout, heads=heads)
-            for din, dout, heads in _channel_layer_dims(cfg, num_steps)
-        ])
+        layers = []
+        for din, dout, heads in _channel_layer_dims(cfg, num_steps):
+            if cfg.conv == "gat":
+                layers.append(gat_init(generator, din, dout, heads=heads))
+            else:
+                layers.append(_INITS[cfg.conv](generator, din, dout))
+        channels.append(layers)
     att = None
     if cfg.channel_aggr == "att":
         att = glorot(generator, (1, cfg.num_channels, cfg.repr_dim))
@@ -119,10 +140,44 @@ def pea_init(generator: torch.Generator, cfg: PEAConfig) -> PEA:
     return PEA(x, channels, fc1, fc2, att=att)
 
 
-def _stacked_subset_params(model: PEA, step_idx, chans):
-    """Stack the step-k conv params of `chans` along a leading C axis."""
+def _stacked_step_params(model: PEA, step_idx, chans=None):
+    """Stack the step-k conv params of `chans` (default: every channel)
+    along a leading C axis."""
+    if chans is None:
+        chans = range(len(model.channels))
     layers = [model.channels[c][step_idx] for c in chans]
-    return {k: torch.stack([lp[k] for lp in layers]) for k in ("w", "att", "b")}
+    return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+
+
+def _fused_gcn_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
+    """One GCN step of every channel over their union graph `g` (virtual
+    node space C*N).  h: [N', din] (shared input, step 0) or [C, N, din] ->
+    [C, N, dout].  Under bf16 the message is the bf16 product of bf16 w and
+    bf16 z_src, summed in f32."""
+    if h.dim() == 2:
+        z = torch.einsum("nd,cde->cne", h[:num_nodes], sp["w"])
+    else:
+        z = torch.einsum("cnd,cde->cne", h, sp["w"])
+    z = z.reshape(num_channels * num_nodes, -1)
+    z, w = msg_cast(z, g.w, transport=transport)
+    msgs = w[:, None] * gather_src(z, g, transport)
+    out = _aggregate(msgs, g, transport)
+    return out.reshape(num_channels, num_nodes, -1) + sp["b"][:, None, :]
+
+
+def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
+    """One SAGE step: the mean of the (transport-rounded) source rows, then
+    w_rel and b_rel, plus the root term from the un-rounded input."""
+    if h.dim() == 2:
+        hc = h[None, :num_nodes].expand((num_channels,) + h[:num_nodes].shape)
+    else:
+        hc = h
+    flat = hc.reshape(num_channels * num_nodes, -1)
+    flat, w = msg_cast(flat, g.w, transport=transport)
+    mean_agg = _aggregate(w[:, None] * gather_src(flat, g, transport), g, transport)
+    mean_agg = mean_agg.reshape(num_channels, num_nodes, -1)
+    out = torch.einsum("cnd,cde->cne", mean_agg, sp["w_rel"]) + sp["b_rel"][:, None, :]
+    return out + torch.einsum("cnd,cde->cne", hc, sp["w_root"])
 
 
 def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
@@ -188,8 +243,9 @@ def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
     so that both packages build the same plan."""
     if cfg.conv != "gat" or len(set(cfg.meta_path_steps)) != 1:
         raise NotImplementedError(
-            "the hybrid plan needs GAT channels of one depth (other paths: "
-            "ROADMAP Queue 1 item 3)"
+            "the hybrid plan needs GAT channels of one depth (GCN and SAGE "
+            "take graph.build_fused_metapath_graphs; mixed depths are ROADMAP "
+            "Queue 1 item 3b)"
         )
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -231,7 +287,7 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
         batched, union, rest = plan.steps[k]
         new_hs: list = [None] * n_chan
         for g, chans in batched:
-            sp = _stacked_subset_params(model, k, chans)
+            sp = _stacked_step_params(model, k, chans)
             att = sp["att"][:, 0, 0]  # [Cg, 2*dout] (one head)
             if k == 0:
                 z = torch.einsum("nd,cde->cne", model.x[:n], sp["w"])
@@ -245,7 +301,7 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
             for i, c in enumerate(chans):
                 new_hs[c] = outb[i]
         if union is not None:
-            sp = _stacked_subset_params(model, k, rest)
+            sp = _stacked_step_params(model, k, rest)
             h_in = model.x if k == 0 else torch.stack([hs[c] for c in rest])
             out_u = _fused_gat_step(sp, h_in, union, len(rest), n, heads, transport)
             for i, c in enumerate(rest):
@@ -256,15 +312,46 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
     return torch.stack(hs, dim=1)  # [N, C, R]
 
 
-def pea_forward(model: PEA, plan, cfg: PEAConfig,
+def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32"):
+    """All channels advance together over one union graph a step
+    (graph.build_fused_metapath_graphs): per step one batched einsum and one
+    union aggregation -> [N, C, R]."""
+    n = cfg.num_nodes
+    num_steps = cfg.meta_path_steps[0]
+    dims = _channel_layer_dims(cfg, num_steps)
+    h = model.x
+    for k in range(num_steps):
+        sp = _stacked_step_params(model, k)
+        g = fused_graphs[k]
+        if cfg.conv == "gcn":
+            h = _fused_gcn_step(sp, h, g, cfg.num_channels, n, transport)
+        elif cfg.conv == "sage":
+            h = _fused_sage_step(sp, h, g, cfg.num_channels, n, transport)
+        elif cfg.conv == "gat":
+            h = _fused_gat_step(sp, h, g, cfg.num_channels, n, dims[k][2], transport)
+        else:
+            raise ValueError(cfg.conv)
+        if k < num_steps - 1:
+            h = torch.relu(h)
+    return h.permute(1, 0, 2)  # [N, C, R]
+
+
+def pea_forward(model: PEA, graphs, cfg: PEAConfig,
                 channel_mask: Optional[torch.Tensor] = None, transport="f32"):
-    """Full-graph forward -> cached representation [num_nodes, repr-like]."""
-    if not isinstance(plan, HybridGATPlan):
+    """Full-graph forward -> cached representation [num_nodes, repr-like].
+
+    graphs: a HybridGATPlan (the hybrid GAT forward) or a tuple of union
+    StepGraphs, one per step (the fused forward)."""
+    if isinstance(graphs, HybridGATPlan):
+        h = pea_forward_hybrid(model, graphs, cfg, transport)
+    elif len(graphs) > 0 and isinstance(graphs[0], StepGraph):
+        h = pea_forward_fused(model, graphs, cfg, transport)
+    else:
         raise NotImplementedError(
-            "only the hybrid GAT plan is ported; the fused, grouped-stream "
-            "and per-channel forwards are ROADMAP Queue 1 items 3 and 8"
+            "per-channel graphs (mixed metapath depths, GAT attention "
+            "dropout) and the grouped-stream forward are not ported: ROADMAP "
+            "Queue 1 items 3a, 3b and 8"
         )
-    h = pea_forward_hybrid(model, plan, cfg, transport)
     if channel_mask is not None:
         h = h * channel_mask[None, :, None]
     if cfg.channel_aggr == "concat":
@@ -308,7 +395,7 @@ def entity_reg_loss(x_table, batch, row_mask):
     return torch.sum((item_term + user_term) * row_mask)
 
 
-def pea_loss(model: PEA, plan, cfg: PEAConfig, batch, row_mask=None,
+def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
              transport="f32"):
     """Training loss: BPR with the optional entity-aware regularizer
     (base.py:43-80).
@@ -316,14 +403,14 @@ def pea_loss(model: PEA, plan, cfg: PEAConfig, batch, row_mask=None,
     batch: int64[B, 3] or [B, 9] (entity-aware columns, see
     entity_reg_loss); row_mask: float[B], 0 for the padding rows of an
     epoch's last batch."""
-    if cfg.dropout > 0.0:
+    if cfg.conv == "gat" and cfg.dropout > 0.0:
         raise NotImplementedError(
             "attention dropout in training runs the per-channel path in the "
-            "JAX package, which is not ported (ROADMAP Queue 1 item 3)"
+            "JAX package, which is not ported (ROADMAP Queue 1 item 3a)"
         )
     if row_mask is None:
         row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)
-    cached = pea_forward(model, plan, cfg, transport=transport)
+    cached = pea_forward(model, graphs, cfg, transport=transport)
     pos = pea_predict(model, cached, batch[:, 0], batch[:, 1])
     neg = pea_predict(model, cached, batch[:, 0], batch[:, 2])
     cf_loss = torch.sum(-_log_sigmoid(pos - neg) * row_mask)

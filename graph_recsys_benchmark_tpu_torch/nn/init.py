@@ -28,17 +28,28 @@ def glorot(generator, shape):
     return uniform(generator, shape, math.sqrt(6.0 / (shape[-2] + shape[-1])))
 
 
+def torch_linear_weight(generator, in_dim, out_dim):
+    """torch.nn.Linear default weight init (kaiming_uniform with
+    a=sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in))), stored transposed
+    to [in, out] for `x @ w`."""
+    return uniform(generator, (in_dim, out_dim), math.sqrt(1.0 / in_dim))
+
+
+def torch_linear_bias(generator, in_dim, out_dim):
+    """torch.nn.Linear default bias init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    return uniform(generator, (out_dim,), math.sqrt(1.0 / in_dim))
+
+
 def torch_linear_params(generator, in_dim, out_dim, glorot_weight=False):
     """Linear layer params {w: [in, out], b: [out]} (JAX layout: x @ w).
 
     glorot_weight=True re-initializes the weight with PyG glorot and keeps
     the torch-default bias, the reference's fc1/fc2 pattern."""
-    bound = math.sqrt(1.0 / in_dim)
     if glorot_weight:
         w = glorot(generator, (in_dim, out_dim))
     else:
-        w = uniform(generator, (in_dim, out_dim), bound)
-    return {"w": w, "b": uniform(generator, (out_dim,), bound)}
+        w = torch_linear_weight(generator, in_dim, out_dim)
+    return {"w": w, "b": torch_linear_bias(generator, in_dim, out_dim)}
 
 
 def linear(params, x):

@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each ``csrc/<name>.cu`` compiles on its own (one nvcc process per source,
-all started together) for ``sm_90a`` into ``_build/lib<name>-<hash>.so``,
+Each ``csrc/<source>.cu`` compiles on its own (one nvcc process per source,
+all started together) for ``sm_90a`` into ``_build/lib<source>-<hash>.so``,
 where the hash covers the source and the flags, so a stale library is never
-loaded.  Sources expose a plain C entry of the same name that launches on
-the stream it is given and returns ``cudaGetLastError()``.
+loaded.  Sources expose plain C entries (``_SIGNATURES``) that launch on the
+stream they are given and return ``cudaGetLastError()``.
 
 Nothing here runs at import: the build happens when a CUDA tensor first
 reaches a kernel wrapper (or when ``build_all`` is called), so the package
@@ -33,19 +33,27 @@ BUILD_TIMEOUT_S = 600
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry -> (source in csrc/, ctypes argtypes)
 _SIGNATURES = {
     # device, table, bf16, round_p_first, adst, mhat, src, dst, acc,
     # num_edges, num_rows, kz, n_ch, slope, stream
-    "gat_fwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P,
-                ctypes.c_longlong, _I, _I, _I, ctypes.c_float, _P],
+    "gat_fwd": ("gat_fwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P,
+                            _L, _I, _I, _I, ctypes.c_float, _P]),
     # device, table, bf16, round_att_first, gtab, logden, adst, src, dst,
     # dpk, dadst, num_edges, num_rows, kz, n_ch, slope, stream
-    "gat_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                ctypes.c_longlong, _I, _I, _I, ctypes.c_float, _P],
+    "gat_bwd": ("gat_bwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, rows, bf16, idx, out, num_edges, num_rows, d, stream
+    "scatter_add": ("segment", [_I, _P, _I, _P, _P, _L, _I, _I, _P]),
+    # device, v, idx, out, num_edges, num_rows, row_bytes, stream
+    "row_gather": ("segment", [_I, _P, _P, _P, _L, _I, _I, _P]),
 }
+_SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 
 _lock = threading.Lock()
-_libs: dict = {}
+_libs: dict = {}  # source -> CDLL, kept alive for its functions
+_fns: dict = {}
 
 
 def _nvcc():
@@ -73,7 +81,7 @@ def build_all():
     nvcc = _nvcc()
     procs = {}
     try:
-        for name in _SIGNATURES:
+        for name in _SOURCES:
             out = _lib_path(name)
             if os.path.isfile(out):
                 continue
@@ -105,19 +113,22 @@ def build_all():
 
 
 def load(name):
-    """The ctypes library exposing C entry `name`, built on first use."""
+    """The ctypes function of C entry `name`, its library built on first use."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = _lib_path(name)
+        fn = _fns.get(name)
+        if fn is None:
+            source, argtypes = _SIGNATURES[name]
+            path = _lib_path(source)
             if not os.path.isfile(path):
                 build_all()
-            lib = ctypes.CDLL(path)
+            lib = _libs.get(source)
+            if lib is None:
+                lib = _libs[source] = ctypes.CDLL(path)
             fn = getattr(lib, name)
-            fn.argtypes = _SIGNATURES[name]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+            _fns[name] = fn
+        return fn
 
 
 def require(t, name, dtype, shape, device):
@@ -135,7 +146,7 @@ def require(t, name, dtype, shape, device):
 def launch(name, device, *args):
     """Call C entry `name` on `device` and PyTorch's current stream there;
     raise if it reports a CUDA error."""
-    fn = getattr(load(name), name)
+    fn = load(name)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(device.index, *args, stream)
     if rc != 0:

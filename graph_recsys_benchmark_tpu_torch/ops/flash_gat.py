@@ -57,6 +57,17 @@ def t_dtype_of(transport):
     raise ValueError(f"transport {transport!r}: expected 'f32' or 'bf16'")
 
 
+def msg_cast(*arrays, transport):
+    """Message operands in the transport dtype (the JAX package's
+    ``ops/config.msg_cast`` with the transport passed explicitly): bf16
+    rounds each once, f32 leaves them as they are."""
+    if transport == "bf16":
+        arrays = tuple(a.to(torch.bfloat16) for a in arrays)
+    else:
+        t_dtype_of(transport)  # validate
+    return arrays if len(arrays) != 1 else arrays[0]
+
+
 def _layout(num_rows, kz):
     k = kz + 1
     k_pad = max(8, _cdiv(k, 8) * 8)

@@ -1,0 +1,53 @@
+"""Edge gathers with a row-gather forward and a scatter-add backward.
+
+Port of the JAX package's ``ops/gather.py`` (``gather_rows``, ``gather_src``).
+``x[idx]`` is the other half of message passing: ``GatherRows`` runs K7
+(``ops/segment_kernels.sorted_broadcast``) forward and K6
+(``localized_scatter_add``) backward, both by ``idx``, with no E->E
+permutation.  The JAX package's gates around them (65,536 edges,
+``GATHER_SPAN_MAX``, ``scatter_fits_vmem``, k <= 128) and its ``ct[perm]``
+-> sorted segment-sum fallback are TPU choices and are not copied: on a
+CUDA tensor both directions always launch their kernels.
+
+Padding edges (src 0, w 0) carry zero cotangent, so their src placement
+adds nothing.  The gradient is cast to the primal's dtype, as
+``_bwd`` (:82-83) does: bf16 under the bf16 message transport.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .segment_kernels import localized_scatter_add, sorted_broadcast
+
+
+class GatherRows(torch.autograd.Function):
+    """forward(x [N, ...], idx int32[E], transport) -> x[idx] [E, ...]:
+    K7 on x flattened to [N, K]; backward: K6 of the cotangent (reshaped to
+    [E, K], rounded to the transport dtype) by idx, f32, cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, idx, transport):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype, ctx.transport = x.shape, x.dtype, transport
+        n = x.shape[0]
+        out = sorted_broadcast(x.reshape(n, -1), idx, n)
+        return out.reshape((idx.shape[0],) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        n = ctx.shape[0]
+        ct2 = ct.reshape(ct.shape[0], -1).contiguous()
+        gx = localized_scatter_add(ct2, idx, n, ctx.transport)
+        return gx.reshape(ctx.shape).to(ctx.dtype), None, None
+
+
+def gather_rows(x, idx, transport="f32"):
+    """x[idx] with the K7 forward and the K6 scatter-add backward."""
+    return GatherRows.apply(x.contiguous(), idx, transport)
+
+
+def gather_src(x, g, transport="f32"):
+    """Per-edge source rows x[g.src] of StepGraph `g`."""
+    return gather_rows(x, g.src, transport)

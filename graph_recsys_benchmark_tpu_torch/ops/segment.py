@@ -16,13 +16,15 @@ import torch
 
 
 def segment_sum(data, segment_ids, num_segments):
-    """Sum `data` rows into `num_segments` buckets keyed by `segment_ids`."""
-    keep = segment_ids < num_segments
+    """Sum `data` rows into `num_segments` buckets keyed by `segment_ids`.
+    Dropped ids land in one extra row that is cut off, so no boolean mask
+    (and no host sync on a card) is needed."""
     out = torch.zeros(
-        (num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
+        (num_segments + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
         device=data.device,
     )
-    return out.index_add_(0, segment_ids[keep].long(), data[keep])
+    ids = torch.clamp(segment_ids.long(), max=num_segments)
+    return out.index_add_(0, ids, data)[:num_segments]
 
 
 def segment_max(data, segment_ids, num_segments):

@@ -1,0 +1,197 @@
+"""Segment-sum, row gather and scatter-add over edge lists: the edge
+pipeline of every summing conv (GCN, SAGE, and the later NGCF/KG families).
+
+Port of the JAX package's ``ops/pallas_segment.py`` kernels other than the
+softmax stats:
+
+  * ``sorted_segment_sum`` (K5, ``sorted_segment_sum_pallas``):
+    ``out[d] = Σ_{dst[e]=d} msgs[e]``, f32 accumulation of f32 or bf16
+    messages.  The JAX contract is a block-monotone ``dst`` (graph.py's
+    edge order); the port's kernel and plain version take any order.
+    Differentiable: its backward is ``sorted_broadcast`` of the output
+    gradient by ``dst``, cast to the messages' dtype, as ``_bwd``
+    (:228-238) does.
+  * ``sorted_broadcast`` (K7, ``sorted_broadcast_pallas``): ``out[e] =
+    v[idx[e]]``, an exact row copy in v's dtype; the padding sentinel gives
+    zeros.  Its own VJP (``_bc_bwd``) comes with the composed GAT slice, so
+    it refuses inputs that need a gradient.
+  * ``localized_scatter_add`` (K6, ``localized_scatter_add_pallas``):
+    ``out[i] = Σ_{idx[e]=i} ct[e]`` for ``idx`` in any order, ``ct`` rounded
+    to the transport dtype first (:701-707), f32 accumulation.  Used as a
+    backward only (``ops/gather.GatherRows``), so it too refuses inputs that
+    need a gradient.
+
+Kernels: csrc/segment.cu.  K5 and K6 both launch its ``scatter_add`` (f32
+atomics by id, so K5 needs no order on the card; the source says why a
+dst-block design lost), K7 its ``row_gather``.  A CUDA tensor launches the
+kernel, counted in the wrapper's ``launches``, or raises; a CPU tensor
+takes the ``*_plain`` version in this module.  The JAX package's dispatch
+gates (65,536 edges, ``GATHER_SPAN_MAX``, ``scatter_fits_vmem``, k <= 128)
+are TPU facts and are not copied: every call on a CUDA tensor reaches its
+kernel.  Columns: at most ``MAX_COLS``.  Ids are int32 and non-negative,
+as the port's graphs hold them; ids >= num_rows are the padding sentinel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .flash_gat import t_dtype_of
+from .segment import segment_sum
+
+# the kernels' column limit (a row is at most 256 threads' work)
+MAX_COLS = 256
+
+
+def _as_2d(name, x):
+    """[E] -> [E, 1]; [E, D] as is; D checked against MAX_COLS."""
+    x2 = x[:, None] if x.dim() == 1 else x
+    if x2.dim() != 2 or not 1 <= x2.shape[1] <= MAX_COLS:
+        raise ValueError(f"{name}: need [E] or [E, D] with 1 <= D <= {MAX_COLS}, "
+                         f"got {tuple(x.shape)}")
+    return x2.contiguous()
+
+
+def _check_launch(name, data, ids, num_ids):
+    """(device, bf16 flag) of a kernel's inputs, validated: `data` a
+    contiguous f32 or bf16 CUDA tensor; `ids` int32[num_ids] on the same
+    card."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {data.dtype}, expected f32 or bf16")
+    _cuda.require(ids, f"{name} ids", torch.int32, (num_ids,), dev)
+    return dev, int(data.dtype == torch.bfloat16)
+
+
+def _sum_by_id(counter, rows, ids, num_rows):
+    """f32 ``[num_rows, D]`` sums of ``rows`` (a CUDA tensor already in the
+    transport dtype) by int32 ``ids``: csrc/segment.cu's scatter_add, which
+    serves K5 and K6.  A launch is counted in ``counter.launches`` (the
+    calling wrapper)."""
+    e, d = rows.shape
+    dev, bf16 = _check_launch(counter.__name__, rows, ids, e)
+    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
+    if e > 0 and num_rows > 0:
+        _cuda.launch("scatter_add", dev, rows.data_ptr(), bf16, ids.data_ptr(),
+                     out.data_ptr(), e, num_rows, d)
+        counter.launches += 1
+    return out
+
+
+def _refuse_grad(name, t):
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise NotImplementedError(
+            f"{name} has no backward in the port yet (the composed GAT slice "
+            "adds it): call it on tensors that need no gradient"
+        )
+
+
+# ---------------------------------------------------------------- K5
+
+
+def sorted_segment_sum_plain(msgs, dst, num_rows, transport="f32"):
+    """Plain PyTorch version of sorted_segment_sum's forward: the messages
+    rounded to the transport dtype, summed in f32; ids >= num_rows dropped."""
+    msgs = msgs.to(t_dtype_of(transport))
+    return segment_sum(msgs.float(), dst, num_rows)
+
+
+class SegmentSum(torch.autograd.Function):
+    """K5 forward on the messages rounded to the transport dtype; K7
+    backward: d msgs[e] = g[dst[e]] (zeros for the padding sentinel), cast
+    to the messages' own dtype, as the JAX VJP's ``astype`` does."""
+
+    @staticmethod
+    def forward(ctx, msgs, dst, num_rows, transport):
+        ctx.save_for_backward(dst)
+        ctx.num_rows = num_rows
+        ctx.msg_dtype = msgs.dtype
+        if msgs.device.type == "cpu":
+            return sorted_segment_sum_plain(msgs, dst, num_rows, transport)
+        return _sum_by_id(sorted_segment_sum, msgs.to(t_dtype_of(transport)).contiguous(),
+                          dst, num_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        gm = sorted_broadcast(g.float().contiguous(), dst, ctx.num_rows)
+        return gm.to(ctx.msg_dtype), None, None, None
+
+
+def sorted_segment_sum(msgs, dst, num_rows, transport="f32"):
+    """Segment-sum ``msgs`` ([E] or [E, D], f32 or bf16) by ``dst`` (int32[E]
+    in graph.py's block order or any other, padding sentinel ``dst ==
+    num_rows`` dropped) into f32 ``[num_rows]`` / ``[num_rows, D]``; the
+    messages are rounded to the transport dtype first.  Differentiable in
+    msgs (SegmentSum).  Kernel launches counted in
+    ``sorted_segment_sum.launches``."""
+    out = SegmentSum.apply(_as_2d("sorted_segment_sum", msgs), dst, num_rows, transport)
+    return out[:, 0] if msgs.dim() == 1 else out
+
+
+sorted_segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------- K7
+
+
+def sorted_broadcast_plain(v, idx, num_rows):
+    """Plain PyTorch version of sorted_broadcast: v[idx] in v's dtype, zero
+    rows for ids >= num_rows."""
+    pad = torch.cat([v, v.new_zeros((1,) + tuple(v.shape[1:]))])
+    return pad[torch.clamp(idx.long(), max=num_rows)]
+
+
+def sorted_broadcast(v, idx, num_rows):
+    """``out[e] = v[idx[e]]`` for v ``[num_rows]`` or ``[num_rows, K]`` (f32
+    or bf16) and int32 idx in any order (block order is the speed contract,
+    never the correctness one); ids >= num_rows give zeros.
+    An exact copy in v's dtype.  Kernel launches counted in
+    ``sorted_broadcast.launches``."""
+    _refuse_grad("sorted_broadcast", v)
+    if v.shape[0] != num_rows:
+        raise ValueError(f"sorted_broadcast: v has {v.shape[0]} rows, expected {num_rows}")
+    if v.device.type == "cpu":
+        return sorted_broadcast_plain(v, idx, num_rows)
+    v2 = _as_2d("sorted_broadcast", v)
+    e, k = idx.shape[0], v2.shape[1]
+    dev, _ = _check_launch("sorted_broadcast", v2, idx, e)
+    out = torch.empty((e, k), dtype=v2.dtype, device=dev)
+    if e > 0:
+        _cuda.launch("row_gather", dev, v2.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                     e, num_rows, k * v2.element_size())
+        sorted_broadcast.launches += 1
+    return out[:, 0] if v.dim() == 1 else out
+
+
+sorted_broadcast.launches = 0
+
+
+# ---------------------------------------------------------------- K6
+
+
+def localized_scatter_add_plain(ct, idx, num_rows, transport="f32"):
+    """Plain PyTorch version of localized_scatter_add: ct rounded to the
+    transport dtype, summed in f32 by idx; ids >= num_rows dropped."""
+    return sorted_segment_sum_plain(ct, idx, num_rows, transport)
+
+
+def localized_scatter_add(ct, idx, num_rows, transport="f32"):
+    """``out[i] = Σ_{idx[e]=i} ct[e]`` for ct ``[E]`` or ``[E, K]`` (f32 or
+    bf16, rounded to the transport dtype first) and int32 idx in any order;
+    ids >= num_rows are dropped.  Returns f32 ``[num_rows]`` /
+    ``[num_rows, K]``.  Kernel launches counted in
+    ``localized_scatter_add.launches``."""
+    _refuse_grad("localized_scatter_add", ct)
+    ct2 = _as_2d("localized_scatter_add", ct.to(t_dtype_of(transport)))
+    if ct2.device.type == "cpu":
+        out = localized_scatter_add_plain(ct2, idx, num_rows, transport)
+    else:
+        out = _sum_by_id(localized_scatter_add, ct2, idx, num_rows)
+    return out[:, 0] if ct.dim() == 1 else out
+
+
+localized_scatter_add.launches = 0

@@ -1,8 +1,11 @@
 """PEA trainer: the JAX package's ``PEATrainer`` on the port's
 ``GraphEpochEngine`` (train/pea_trainer.py, train/engine.py).
 
-The constructor builds the metapath channel graphs, the hybrid GAT plan and
-the sampling tables once on the host and moves them to `device`.
+The constructor builds the metapath channel graphs once on the host, as
+the JAX trainer does (its train/pea_trainer.py:48-80): GAT channels of one
+depth go into the hybrid plan, GCN and SAGE channels of one depth into one
+union graph a step (the fused path); mixed depths need the per-channel
+path, which is not ported.  Graphs and sampling tables move to `device`.
 ``run_epoch`` trains one BPR epoch (``pea_loss``: BPR + the entity-aware
 regularizer, reference models/base.py:43-80) with the optimizer from
 ``optimizer(params)``; ``evaluate`` makes one forward pass that caches every
@@ -21,7 +24,7 @@ from ..data.hin import HINData
 from ..data.movielens import mlsmall_metapath_edges
 from ..device import resolve_device
 from ..eval.ranking import evaluate_ranking
-from ..graph import build_metapath_graphs
+from ..graph import build_fused_metapath_graphs, build_metapath_graphs
 from ..models.pea import (
     PEA,
     PEAConfig,
@@ -53,9 +56,9 @@ class TrainConfig:
 
 
 class PEATrainer(GraphEpochEngine):
-    """PEAGAT on the hybrid plan.  `device` None = the card (raises without
-    one); `transport` 'f32' | 'bf16' is the message transport dtype of the
-    GAT kernels."""
+    """PEAGCN, PEAGAT or PEASage (`cfg.conv`).  `device` None = the card
+    (raises without one); `transport` 'f32' | 'bf16' is the message
+    transport dtype of the edge kernels."""
 
     def __init__(self, hin: HINData, cfg: PEAConfig, tcfg: TrainConfig,
                  device=None, transport="f32"):
@@ -66,12 +69,25 @@ class PEATrainer(GraphEpochEngine):
         metapath_edges = mlsmall_metapath_edges(hin)
         if len(metapath_edges) != cfg.num_channels:
             raise ValueError("one metapath per channel expected")
-        # analytic_gat_loops=None: the JAX trainer's auto rule, which picks
-        # the (unported) streaming layout only past its edge threshold
-        per_channel = build_metapath_graphs(
-            metapath_edges, hin.num_nodes, cfg.conv, analytic_gat_loops=None
-        )
-        self.graphs = build_hybrid_gat_plan(per_channel, hin.num_nodes, cfg).to(self.device)
+        if len(set(cfg.meta_path_steps)) != 1:
+            raise NotImplementedError(
+                "metapaths of mixed depth run the per-channel path, which is "
+                "not ported (ROADMAP Queue 1 item 3b)"
+            )
+        if cfg.conv == "gat":
+            # analytic_gat_loops=None: the JAX trainer's auto rule, which
+            # picks the (unported) streaming layout only past its edge
+            # threshold
+            per_channel = build_metapath_graphs(
+                metapath_edges, hin.num_nodes, cfg.conv, analytic_gat_loops=None
+            )
+            self.graphs = build_hybrid_gat_plan(per_channel, hin.num_nodes,
+                                                cfg).to(self.device)
+        else:
+            self.graphs = tuple(
+                g.to(self.device) for g in
+                build_fused_metapath_graphs(metapath_edges, hin.num_nodes, cfg.conv)
+            )
         super().__init__(build_device_tables(hin, self.device), tcfg,
                          batch_loss=self.batch_loss, entity_aware=cfg.entity_aware)
         self._make_optimizer = make_optimizer(tcfg.opt, tcfg.lr, tcfg.weight_decay)

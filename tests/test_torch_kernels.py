@@ -18,6 +18,16 @@ and bf16 2e-2 (chip_smoke.py's forward tolerances: a last-bit difference
 in a step-1 output can move a bf16 rounding of step 2's input), every
 gradient 5e-2 (a flipped ReLU input, chip_smoke.py KINK_TOL).
 
+The edge kernels of csrc/segment.cu (sorted_segment_sum K5,
+sorted_broadcast K7, localized_scatter_add K6) run at the flagship's
+PEAGCN/PEASage union-graph shapes (15,210 rows; 169,472 or 647,680 padded
+edges; D 64 and 16) with padding sentinels and an empty dst block; K6 gets
+an unordered idx.  K5 and K6 sum in f32 in another order than the plain
+version, so each is held to the same sums taken in float64, at 1e-6 of
+the largest value (two f32 orders can differ by more than either differs
+from the exact sum: 1.04e-6 measured at PEASage step 2); K7 is a copy and
+equals the plain version bitwise.
+
 Run on a machine with the card and nvcc (this file needs neither JAX nor
 the repo's conftest):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
@@ -33,6 +43,8 @@ from graph_recsys_benchmark_tpu_torch.data import build_mlsmall_hin, synthetic_m
 from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
 from graph_recsys_benchmark_tpu_torch.ops import batch_gat as tbg
 from graph_recsys_benchmark_tpu_torch.ops import flash_gat as tfg
+from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as tsk
+from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
 from graph_recsys_benchmark_tpu_torch.train import sampling as tsamp
 from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
 
@@ -286,3 +298,103 @@ def test_eval_negatives_draw_on_the_card(cuda):
     assert bool(((negs >= cand[:, 1:2]) & (negs <= cand[:, 5:6])).all())
     with pytest.raises(ValueError):
         tsamp.sample_eval_negatives(torch.Generator().manual_seed(0), tables, 7)
+
+
+SEG_TOL = 1e-6
+
+
+def _exact(rows, ids, n, transport):
+    """The sums in float64 of the rows rounded to the transport dtype."""
+    return segment_sum(rows.to(TDT[transport]).double(), ids, n)
+# (rows, real edges, padded edges, D): GCN step 1 and step 2, SAGE step 2
+SEG_SHAPES = [(15210, 169155, 169472, 64), (15210, 662499, 662528, 16),
+              (15210, 647289, 647680, 64)]
+
+
+def _seg_inputs(rng, n, e_real, e_pad, d, dev, empty_block=3):
+    """Block-ordered edges (no dst in 128-row block `empty_block`), padding
+    sentinels, and random f32 rows per edge."""
+    src, dst = _edges(rng, n, e_real, e_pad, torch.device("cpu"))
+    dst[dst // 128 == empty_block] -= 128  # into the block before, then re-sorted
+    order = torch.from_numpy(np.lexsort((dst.numpy(), src.numpy(), dst.numpy() // 128)))
+    src, dst = src[order].to(dev), dst[order].to(dev)
+    rows = torch.from_numpy(rng.standard_normal((e_pad, d), dtype=np.float32)).to(dev)
+    return src, dst, rows
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+@pytest.mark.parametrize("n,e_real,e_pad,d", SEG_SHAPES)
+def test_segment_kernels_match_plain(cuda, transport, n, e_real, e_pad, d):
+    rng = np.random.default_rng(5)
+    src, dst, rows = _seg_inputs(rng, n, e_real, e_pad, d, cuda)
+    t_dtype = TDT[transport]
+    before = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
+              tsk.localized_scatter_add.launches)
+    # K5 (messages rounded to the transport dtype inside)
+    got = tsk.sorted_segment_sum(rows, dst, n, transport)
+    want = tsk.sorted_segment_sum_plain(rows, dst, n, transport)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel_err(got.double(), _exact(rows, dst, n, transport)) <= SEG_TOL
+    assert not got[3 * 128:4 * 128].any()  # the empty block (3)
+    # K7 by src (the gather) and by dst (K5's backward), in the table's dtype
+    table = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda).to(t_dtype)
+    for idx in (src, dst):
+        got = tsk.sorted_broadcast(table, idx, n)
+        assert got.dtype == t_dtype
+        assert torch.equal(got, tsk.sorted_broadcast_plain(table, idx, n))
+    assert not got[dst == n].any()
+    # K6 by an unordered idx
+    perm = torch.from_numpy(rng.permutation(e_pad)).to(cuda)
+    idx, ct = src[perm].contiguous(), rows[perm].to(t_dtype)
+    got = tsk.localized_scatter_add(ct, idx, n, transport)
+    want = tsk.localized_scatter_add_plain(ct, idx, n, transport)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel_err(got.double(), _exact(ct, idx, n, transport)) <= SEG_TOL
+    after = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
+             tsk.localized_scatter_add.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 1]
+
+
+@pytest.mark.parametrize("k", [1, 3, 17, 256])
+def test_segment_kernels_odd_widths(cuda, k):
+    """The kernels' scalar paths: widths that no 16-byte vector divides,
+    [E] vectors, and a table view that is not 16-byte aligned."""
+    rng = np.random.default_rng(6)
+    n = 300
+    src, dst, rows = _seg_inputs(rng, n, 2900, 3072, k, cuda, empty_block=1)
+    for transport in ("f32", "bf16"):
+        assert _rel_err(tsk.sorted_segment_sum(rows, dst, n, transport).double(),
+                        _exact(rows, dst, n, transport)) <= SEG_TOL
+        assert _rel_err(tsk.localized_scatter_add(rows, src, n, transport).double(),
+                        _exact(rows, src, n, transport)) <= SEG_TOL
+        table = rows[: n + 1].to(TDT[transport])[1:]  # offset by one row
+        assert torch.equal(tsk.sorted_broadcast(table, src, n),
+                           tsk.sorted_broadcast_plain(table, src, n))
+        vec = table[:, 0].contiguous()
+        assert torch.equal(tsk.sorted_broadcast(vec, src, n),
+                           tsk.sorted_broadcast_plain(vec, src, n))
+
+
+def test_segment_kernels_reject_bad_inputs(cuda):
+    ids = torch.zeros(16, dtype=torch.int32, device=cuda)
+    rows = torch.zeros((16, 8), device=cuda)
+    before = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
+              tsk.localized_scatter_add.launches)
+    with pytest.raises(ValueError):  # int64 ids
+        tsk.sorted_segment_sum(rows, ids.long(), 10)
+    with pytest.raises(ValueError):  # ids on the CPU
+        tsk.localized_scatter_add(rows, ids.cpu(), 10)
+    with pytest.raises(ValueError):  # f16 table
+        tsk.sorted_broadcast(rows[:10].half(), ids, 10)
+    with pytest.raises(ValueError):  # too wide
+        tsk.localized_scatter_add(torch.zeros((16, tsk.MAX_COLS + 1), device=cuda), ids, 10)
+    with pytest.raises(ValueError):  # one id short
+        tsk.sorted_segment_sum(rows, ids[:15], 10)
+    after = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
+             tsk.localized_scatter_add.launches)
+    assert after == before
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    out = tsk.sorted_segment_sum(rows[:0], empty, 10)  # no edges: zeros
+    assert out.shape == (10, 8) and not out.any()
