@@ -13,10 +13,14 @@ training: ``trainer = train.pea_trainer.PEATrainer(hin, cfg, tcfg)``, then
 regularizer, Adam) and ``trainer.evaluate(params, generator)``.  PEAGAT
 runs the hybrid GAT plan: the step-1 union graph through
 ``ops/flash_gat`` and the step-2 shared-edge groups through
-``ops/batch_gat``.  PEAGCN and PEASage run one union graph a step: a row
-gather (``ops/gather``) and a segment-sum (``ops/segment_kernels``).  The
-forwards and backwards of all of them are CUDA kernels in ``csrc/`` (built
-with nvcc at first use, ``ops/_cuda.py``).  Entry points run on ``cuda``
+``ops/batch_gat``; at the ML-25M scale (``metapath_edges=
+data.movielens.ml25m_metapath_edges(hin)``) the grouped per-channel
+forward: the large graphs' implicit self-loops through ``ops/stream_gat``
+and the rest through the composed ``nn/conv.gat_apply``.  PEAGCN and
+PEASage run one union graph a step: a row gather (``ops/gather``) and a
+segment-sum (``ops/segment_kernels``).  The forwards and backwards of all
+of them are CUDA kernels in ``csrc/`` (built with nvcc at first use,
+``ops/_cuda.py``).  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the plain PyTorch versions of
 the kernels serve CPU tensors only.
 """

@@ -53,22 +53,12 @@
 // A later PR can replace the atomics by a segmented reduction over a
 // src-sorted edge order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gat_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ float round_t(float v);
-template <>
-__device__ __forceinline__ float round_t<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using gat::round_t;
+using gat::to_f32;
 
 template <typename T, bool RoundAttFirst>
 __global__ void __launch_bounds__(256) gat_bwd_kernel(
@@ -162,10 +152,8 @@ extern "C" int gat_bwd(int device, const void* table, int bf16, int round_att_fi
   if (err != cudaSuccess) return (int)err;
   if (n_ch < 1 || n_ch > 8 || kz < 1) return (int)cudaErrorInvalidValue;
   if (num_edges > 0) {
-    long long blocks = (num_edges * 32 + 255) / 256;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride past this
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned b = (unsigned)blocks;
+    const unsigned b = gat::warp_edge_blocks(num_edges);
     if (bf16 && round_att_first)
       launch<__nv_bfloat16, true>(b, s, table, gtab, logden, adst, src, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, slope);
     else if (bf16)

@@ -41,22 +41,9 @@
 // A later PR can replace the atomics by a segmented warp reduction over the
 // block-monotone dst order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gat_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ float round_t(float v);
-template <>
-__device__ __forceinline__ float round_t<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <typename T, bool RoundPFirst>
 __global__ void __launch_bounds__(256) gat_fwd_kernel(
@@ -64,38 +51,8 @@ __global__ void __launch_bounds__(256) gat_fwd_kernel(
     const float* __restrict__ mhat, const int* __restrict__ src,
     const int* __restrict__ dst, float* __restrict__ acc, long long num_edges,
     int num_rows, int kz, int n_ch, float slope) {
-  const int lane = threadIdx.x & 31;
-  const long long first = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
-  const int bz = kz + 1;
-  const int width = n_ch * bz;
-  // this lane's (channel, column) in the first 32-wide pass over a row;
-  // each later pass steps it by 32 columns without a division
-  const int c0 = lane / bz, f0 = lane - c0 * bz;
-  for (long long e = first; e < num_edges; e += step) {
-    const int d = dst[e];
-    if (d >= num_rows) continue;  // padding sentinel: skip before any load
-    const T* row = table + (long long)src[e] * width;
-    float p_mine = 0.f;
-    if (lane < n_ch) {
-      const long long cd = (long long)lane * num_rows + d;
-      const float pre = adst[cd] + to_f32(row[lane * bz + kz]);
-      // _rn intrinsics keep nvcc from contracting into an FMA, so the logit
-      // rounds exactly as the plain version's separate multiply and subtract
-      const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
-      p_mine = expf(fminf(__fsub_rn(act, mhat[cd]), 60.f));
-      if (RoundPFirst) p_mine = round_t<T>(p_mine);
-    }
-    float* out = acc + (long long)d * width;
-    // warp-uniform trip count: every lane reaches the shuffle
-    int c = c0, f = f0;
-    for (int j = lane; j - lane < width; j += 32) {
-      const float p = __shfl_sync(0xffffffffu, p_mine, min(c, n_ch - 1));
-      if (j < width)
-        atomicAdd(out + j, round_t<T>(f < kz ? __fmul_rn(to_f32(row[j]), p) : p));
-      for (f += 32; f >= bz; f -= bz) ++c;
-    }
-  }
+  gat::fwd_edges<T, RoundPFirst>(table, adst, mhat, src, dst, acc, num_edges,
+                                 num_rows, kz, n_ch, slope);
 }
 
 template <typename T, bool RoundPFirst>
@@ -124,10 +81,8 @@ extern "C" int gat_fwd(int device, const void* table, int bf16, int round_p_firs
   if (err != cudaSuccess) return (int)err;
   if (n_ch < 1 || n_ch > 8 || kz < 1) return (int)cudaErrorInvalidValue;
   if (num_edges > 0) {
-    long long blocks = (num_edges * 32 + 255) / 256;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride past this
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned b = (unsigned)blocks;
+    const unsigned b = gat::warp_edge_blocks(num_edges);
     if (bf16 && round_p_first)
       launch<__nv_bfloat16, true>(b, s, table, adst, mhat, src, dst, acc, num_edges, num_rows, kz, n_ch, slope);
     else if (bf16)

@@ -4,8 +4,10 @@
 //   _make_segsum_kernel (K5)    -> scatter_add by dst:  out[d] = Σ_{dst[e]=d} msgs[e]
 //   _make_scatter_kernel (K6)   -> scatter_add by src:  out[i] = Σ_{idx[e]=i} ct[e]
 //   _make_broadcast_kernel (K7) -> row_gather:          out[e] = v[idx[e]]
+//   _softmax_stats_kernel (K8)  -> softmax_stats:       out[d] = [max_e a_e |
+//                                  Σ_e exp(a_e - max)] over dst[e] = d
 // launched by ops/segment_kernels.sorted_segment_sum (K5),
-// localized_scatter_add (K6) and sorted_broadcast (K7).  On the TPU, K5
+// localized_scatter_add (K6), sorted_broadcast (K7) and softmax_stats (K8).  On the TPU, K5
 // and K6 are two kernels because the MXU wants a sorted dst for the
 // segment-sum and a VMEM-resident table for the unordered scatter; both
 // compute a sum by id, and on the H100 one kernel does.  The TPU kernels
@@ -36,6 +38,14 @@
 //     so the loads of a row and all stores are coalesced.  idx outside
 //     [0, num_rows) -- the padding sentinel -- writes zeros and reads
 //     nothing.
+//   * softmax_stats (K8).  The TPU kernel keeps a running max and rescales
+//     its sum as it walks a dst block's edge chunks, which is how it fits
+//     one pass into VMEM; the function is the per-dst max and sum-exp.
+//     Here an edge grid makes two passes of f32 atomics (the logits, 4 B
+//     an edge, and the [N, 2] table stay in L2 between them): atomicMax of
+//     the max through the order-preserving int image of a float, then
+//     atomicAdd of exp(a - max); two row passes set the table up and turn
+//     the ints back into floats.  A row with no edges keeps max -inf.
 // Sums are f32 whatever the input type (bf16 inputs are widened exactly),
 // in an order that changes from run to run.  Columns: d <= 256, rows of at
 // most 4 KB for row_gather; the wrappers check.
@@ -109,6 +119,50 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     W val{};
     if ((unsigned)r < (unsigned)num_rows) val = __ldg(v + (long long)r * words + w);
     out[e * words + w] = val;
+  }
+}
+
+// A float's order-preserving int image (and back): ints compare as the
+// floats do, -0 below +0, so atomicMax on the image is a float max.
+__device__ __forceinline__ int ordered(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// stats: [num_rows, 2] rows [max | sum]; column 0 holds the int image of
+// the max between softmax_rows(true) and softmax_rows(false).
+__global__ void __launch_bounds__(kThreads) softmax_rows_kernel(float* __restrict__ stats,
+                                                                int num_rows, bool init) {
+  int* key = reinterpret_cast<int*>(stats);
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < num_rows;
+       r += gridDim.x * blockDim.x) {
+    if (init) {
+      key[2 * r] = ordered(__int_as_float(static_cast<int>(0xff800000u)));  // -inf
+      stats[2 * r + 1] = 0.f;
+    } else {
+      stats[2 * r] = unordered(key[2 * r]);
+    }
+  }
+}
+
+template <bool Sum>
+__global__ void __launch_bounds__(kThreads) softmax_edges_kernel(
+    const float* __restrict__ alpha, const int* __restrict__ dst,
+    float* __restrict__ stats, long long num_edges, int num_rows) {
+  int* key = reinterpret_cast<int*>(stats);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < num_edges;
+       e += step) {
+    const int d = dst[e];
+    if ((unsigned)d >= (unsigned)num_rows) continue;  // padding sentinel
+    const float a = alpha[e];
+    if (Sum)
+      atomicAdd(stats + 2 * (long long)d + 1, expf(__fsub_rn(a, unordered(key[2 * (long long)d]))));
+    else
+      atomicMax(key + 2 * (long long)d, ordered(a));
   }
 }
 
@@ -189,5 +243,30 @@ extern "C" int row_gather(int device, const void* v, const void* idx, void* out,
     launch_row_gather<unsigned>(s, v, idx, out, num_edges, num_rows, row_bytes);
   else
     launch_row_gather<unsigned short>(s, v, idx, out, num_edges, num_rows, row_bytes);
+  return (int)cudaGetLastError();
+}
+
+// alpha: f32[num_edges] logits; dst: int32[num_edges], any order, ids
+// outside [0, num_rows) dropped; stats: f32[num_rows, 2], written whole
+// (rows [max | sum of exp(alpha - max)], max -inf for a row with no edge).
+// Four launches on `stream`: set up, max pass, sum pass, decode.
+extern "C" int softmax_stats(int device, const void* alpha, const void* dst, void* stats,
+                             long long num_edges, int num_rows, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (num_edges < 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
+  if (num_rows == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
+  const auto* a = static_cast<const float*>(alpha);
+  const auto* d = static_cast<const int*>(dst);
+  const unsigned rb = edge_blocks(num_rows, kThreads);
+  softmax_rows_kernel<<<rb, kThreads, 0, s>>>(st, num_rows, true);
+  if (num_edges > 0) {
+    const unsigned eb = edge_blocks(num_edges, kThreads);
+    softmax_edges_kernel<false><<<eb, kThreads, 0, s>>>(a, d, st, num_edges, num_rows);
+    softmax_edges_kernel<true><<<eb, kThreads, 0, s>>>(a, d, st, num_edges, num_rows);
+  }
+  softmax_rows_kernel<<<rb, kThreads, 0, s>>>(st, num_rows, false);
   return (int)cudaGetLastError();
 }

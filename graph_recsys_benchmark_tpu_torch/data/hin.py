@@ -1,11 +1,13 @@
 """Heterogeneous information network container with static padded tables.
 
-A copy of the JAX package's ``data/hin.py`` (numpy only), restricted to the
-dense candidate mode this slice uses:
+A copy of the JAX package's ``data/hin.py`` (numpy only):
 
   * `CandidateTables`: per-user padded unseen-item tables.  Column 0 is the
     held-out test item; columns 1.. are the user's never-interacted items.
     Evaluation draws from columns [1, 1+count) (reference solvers.py:28-29).
+  * `RejectionCandidates`: the large-scale alternative (ML-25M): per-user
+    padded SEEN lists, from which train/sampling.py draws unseen items
+    exactly uniformly over the complement.
   * `EntityFeatureTables`: per-item / per-user padded entity-feature node
     ids + counts, plus per-node type ranges [ent_lo, ent_hi).
 """
@@ -48,6 +50,27 @@ class CandidateTables:
 
 
 @dataclasses.dataclass
+class RejectionCandidates:
+    """Large-scale alternative to CandidateTables: each user's SEEN items
+    (test item in column 0, then the train history); unseen items are drawn
+    exactly uniformly over the complement, with seen lists bounded (e.g.
+    ML-25M's user-count band < 30*num_core, movielens.py:690-695) while the
+    complement is the whole catalog."""
+
+    test_users: np.ndarray  # int32[U]
+    seen: np.ndarray  # int32[U, 1+K]; col 0 = test item nid
+    seen_counts: np.ndarray  # int32[U] — valid entries incl. col 0
+
+    @property
+    def num_users(self):
+        return self.test_users.shape[0]
+
+    @property
+    def test_items(self):
+        return self.seen[:, 0]
+
+
+@dataclasses.dataclass
 class EntityFeatureTables:
     item_feat: np.ndarray  # int32[num_items, Kf] entity nids
     item_feat_counts: np.ndarray  # int32[num_items]
@@ -70,7 +93,7 @@ class HINData:
     edge_type_dict: Dict[str, int]
     train_pos: np.ndarray  # int64[Ei, 2] (u_nid, i_nid) training interactions
     ratings: np.ndarray  # float32[Ei] aligned with train_pos
-    candidates: CandidateTables
+    candidates: "CandidateTables | RejectionCandidates"
     entity_feats: EntityFeatureTables | None = None
 
     @property

@@ -16,8 +16,10 @@ filtering and discretization rule of the reference pipeline
   * leave-one-out: per user, the latest-timestamp interaction is the test
     positive; the rest become user2item train edges
 
-Only the dense candidate mode is here; the rejection mode (ML-25M scale)
-comes with the scale slice (ROADMAP Queue 1, item 8).
+It also holds ``ml25m_metapath_edges``, the 13 ML-25M metapaths over the
+relations of ``data/synthetic.synthetic_ml25m_hin``.  The ML-25M raw-frame
+pipeline (``build_ml25m_hin``) is not ported: the scale path builds its HIN
+straight from numpy.
 """
 
 from __future__ import annotations
@@ -291,6 +293,36 @@ def build_mlsmall_hin(
         ent_hi=hi,
     )
     return hin
+
+
+def ml25m_metapath_edges(hin: HINData):
+    """The 13 hard-coded ml-25m metapaths (utils/general_utils.py:335-356)."""
+    e = hin.edge_index
+
+    def fwd(name):
+        return (e[name][0], e[name][1])
+
+    def rev(name):
+        return (e[name][1], e[name][0])
+
+    u2i, i2u = fwd("user2item"), rev("user2item")
+    t2u, u2t = fwd("tag2user"), rev("tag2user")
+    t2i, i2t = fwd("tag2item"), rev("tag2item")
+    return [
+        [u2i, i2u],
+        [fwd("year2item"), i2u],
+        [fwd("actor2item"), i2u],
+        [fwd("writer2item"), i2u],
+        [fwd("director2item"), i2u],
+        [fwd("genre2item"), i2u],
+        [fwd("genome_tag2item"), i2u],
+        [u2t, t2u],
+        [i2t, t2u],
+        [i2u, u2i],
+        [t2u, u2i],
+        [i2t, t2i],
+        [u2t, t2i],
+    ]
 
 
 def mlsmall_metapath_edges(hin: HINData):

@@ -16,7 +16,10 @@ bitwise-equal edge lists (``w`` too: f64 math rounded once to f32):
       GCN  — PyG 1.5 ``add_remaining_self_loops`` (only missing loops are
              added), deg over the source row, w = deg^-1/2[src] deg^-1/2[dst];
       GAT  — remove existing loops, add one per node, w = 1 (attention
-             replaces it at run time);
+             replaces it at run time); past STREAM_MIN_EDGES (auto mode)
+             the loops stay implicit instead (``gat_loops``: a loop-free
+             list, padded to a multiple of 2048, whose consumers add the
+             loop term analytically, ops/stream_gat.py);
       SAGE — mean aggregation, w = 1/indeg(dst), no loops,
   * arrays are padded to a multiple of ``pad_to`` with destination sentinel
     ``dst == num_nodes`` (src 0, w 0); every consumer drops such edges.
@@ -35,11 +38,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .ops.stream_gat import STREAM_MIN_EDGES
+
 PAD_TO = 512
 BLOCK = 128
-# Per-channel GAT edge count past which the JAX package switches to implicit
-# (analytic) self-loops and its streaming kernels; that path is not ported.
-STREAM_MIN_EDGES = 262144
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -50,10 +52,13 @@ class StepGraph:
              dst == num_nodes, src = 0.
     w:       float32[E_pad] per-edge coefficient; 0 on padding edges.
     rel:     int32[E_pad] signed relation ids (0 when unused).
-    src_perm/src_sorted: the stable sort of `src`, kept for parity with
-             the JAX package (whose gather backward can fall back to a
-             sorted segment-sum); the port's scatter-add needs no order.
-    Equality is identity: the hybrid plan groups channels by object.
+    src_perm/src_sorted: the stable sort of `src`; the streaming GAT's
+             src-side backward (K11) walks the edges in this order.
+    gat_loops: True = PyG's GAT self-loops are implicit (not in the list);
+             only nn/conv.gat_apply and the grouped forward understand it,
+             and fuse_step_graphs refuses such graphs.
+    Equality is identity: the hybrid plan and the grouped forward group
+    channels by object.
     """
 
     src: torch.Tensor
@@ -65,6 +70,7 @@ class StepGraph:
     num_nodes: int
     num_edges: int  # valid (non-padding) edges
     src_span: float = 0.0  # mean 128-row src windows per 512-edge chunk
+    gat_loops: bool = False
 
     def to(self, device) -> "StepGraph":
         move = {
@@ -74,7 +80,7 @@ class StepGraph:
         return dataclasses.replace(self, **move)
 
 
-def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO):
+def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     order = np.lexsort((dst, src, dst // BLOCK))
@@ -101,6 +107,7 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO):
         num_nodes=int(num_nodes),
         num_edges=int(e),
         src_span=_mean_src_span(src, dst, num_nodes),
+        gat_loops=bool(gat_loops),
     )
 
 
@@ -148,9 +155,11 @@ def build_gat_graph(src, dst, num_nodes, pad_to=PAD_TO,
     """PyG 1.5 GATConv: remove self-loops, add one per node; w=1 (attention
     replaces it at run time).
 
-    analytic_loops: None = auto (implicit loops past STREAM_MIN_EDGES, as
-    the JAX package decides); True / auto-true raise until the streaming
-    slice ports that path."""
+    analytic_loops: True keeps the list loop-free and flags the graph
+    `gat_loops` (its consumers add the per-node loop term analytically,
+    ops/stream_gat.py), padded to a multiple of max(pad_to, 2048) as the
+    JAX package aligns it to its streaming chunk; None = auto, analytic
+    from STREAM_MIN_EDGES loop-free edges on."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     keep = src != dst
@@ -158,10 +167,9 @@ def build_gat_graph(src, dst, num_nodes, pad_to=PAD_TO,
     if analytic_loops is None:
         analytic_loops = src.shape[0] >= STREAM_MIN_EDGES
     if analytic_loops:
-        raise NotImplementedError(
-            "implicit GAT self-loops (the streaming ML-25M/Yelp path) are "
-            "not ported yet: ROADMAP Queue 1 item 8, kernels K9-K11"
-        )
+        w = np.ones(src.shape[0], dtype=np.float32)
+        return _sort_pad(src, dst, w, np.zeros_like(src), num_nodes,
+                         max(pad_to, 2048), gat_loops=True)
     loops = np.arange(num_nodes, dtype=np.int64)
     src2 = np.concatenate([src, loops])
     dst2 = np.concatenate([dst, loops])
@@ -196,8 +204,12 @@ def build_metapath_graphs(
 
     Identical (src, dst) step lists return the SAME StepGraph object: the
     reference's metapath tables reuse one edge list across several channels
-    (ML-small: 7 of 9 second steps ride the item->user graph), and object
-    identity is the hybrid plan's grouping key."""
+    (ML-small: 7 of 9 second steps ride the item->user graph, ML-25M 7 of
+    13), and object identity is the hybrid plan's and the grouped forward's
+    grouping key.
+
+    analytic_gat_loops (GAT only): see build_gat_graph; must stay False
+    for graphs that will be fused into union graphs."""
     if conv not in _BUILDERS:
         raise NotImplementedError(
             f"conv {conv!r}: only GCN, GAT and SAGE graphs are ported (NGCF and "
@@ -229,9 +241,16 @@ def build_metapath_graphs(
 def fuse_step_graphs(step_graphs, num_nodes, pad_to=PAD_TO) -> StepGraph:
     """Union the same-position step of several metapath channels into ONE
     graph over a virtual node space of C*num_nodes (channel c's node n maps
-    to c*num_nodes + n), so one kernel pass serves all C channels."""
+    to c*num_nodes + n), so one kernel pass serves all C channels.
+    `gat_loops` graphs (implicit self-loops) cannot be fused."""
     srcs, dsts, ws, rels = [], [], [], []
     for c, g in enumerate(step_graphs):
+        if g.gat_loops:
+            raise ValueError(
+                "cannot fuse gat_loops (implicit self-loop) graphs: build the "
+                "per-channel graphs with analytic_gat_loops=False for the "
+                "fused path"
+            )
         e = g.num_edges
         srcs.append(g.src[:e].cpu().numpy().astype(np.int64) + c * num_nodes)
         dsts.append(g.dst[:e].cpu().numpy().astype(np.int64) + c * num_nodes)
@@ -266,3 +285,17 @@ def build_fused_metapath_graphs(
         fuse_step_graphs([ch[k] for ch in per_channel], num_nodes, pad_to)
         for k in range(n_steps.pop())
     )
+
+
+def graphs_to(per_channel, device):
+    """Per-channel graphs (tuple[channel] of tuple[step] of StepGraph) on
+    `device`, each distinct graph moved once, so channels that shared a
+    graph object still share one."""
+    moved = {}
+
+    def move(g):
+        if id(g) not in moved:
+            moved[id(g)] = g.to(device)
+        return moved[id(g)]
+
+    return tuple(tuple(move(g) for g in ch) for ch in per_channel)

@@ -23,7 +23,12 @@ peasage.py):
     (graph.build_fused_metapath_graphs): every channel advances together,
     one row gather (``ops/gather``, K7 forward / K6 backward) and one
     segment-sum (``nn/conv._aggregate``, K5 forward / K7 backward) a step.
-    This is PEAGCN's and PEASage's path; GAT runs its union flash pass.
+    This is PEAGCN's and PEASage's path; GAT runs its union flash pass;
+  * per-channel graphs (tuple[channel] of tuple[step]; GAT channels of
+    one depth): the grouped forward (``_grouped_gat_forward``), which the
+    trainer picks when a graph carries implicit self-loops (ML-25M scale).
+    Channels sharing a `gat_loops` graph run batched through
+    ``ops/stream_gat``; every other conv runs ``nn/conv.gat_apply``.
 
 Every op on the way is differentiable and its backward a kernel too.
 ``pea_loss`` is BPR plus the entity-aware regularizer (base.py:43-80).
@@ -42,11 +47,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import StepGraph, fuse_step_graphs
-from ..nn.conv import _aggregate, gat_init, gcn_init, sage_init
+from ..nn.conv import _aggregate, gat_apply, gat_init, gcn_init, sage_init
 from ..nn.init import glorot, linear, torch_linear_params, uniform
 from ..ops.batch_gat import MAX_CHANNELS, MAX_KZ, batch_gat_attention
 from ..ops.flash_gat import flash_gat_attention_rows, msg_cast
 from ..ops.gather import gather_src
+from ..ops.stream_gat import stream_gat_attention_batched, stream_gat_enabled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,21 +342,71 @@ def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32")
     return h.permute(1, 0, 2)  # [N, C, R]
 
 
+def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
+    """Per-channel GAT forward (models/pea.py:323-411) that batches the
+    channels sharing one `gat_loops` step graph (graph.build_metapath_graphs
+    dedupes identical lists, so object identity is the key) through one
+    streaming pass, in chunks of at most 8; every other conv runs
+    nn/conv.gat_apply on its channel's graph -> [N, C, R]."""
+    n = cfg.num_nodes
+    num_steps = cfg.meta_path_steps[0]
+    dims = _channel_layer_dims(cfg, num_steps)
+    n_chan = cfg.num_channels
+    hs = [model.x] * n_chan
+    for k in range(num_steps):
+        _, dout, heads = dims[k]
+        groups: dict = {}
+        for c in range(n_chan):
+            groups.setdefault(id(graphs[c][k]), []).append(c)
+        new_hs: list = [None] * n_chan
+        for shared in groups.values():
+            for i in range(0, len(shared), MAX_CHANNELS):
+                chans = shared[i : i + MAX_CHANNELS]
+                g = graphs[chans[0]][k]
+                batchable = (len(chans) > 1 and heads == 1 and g.gat_loops
+                             and stream_gat_enabled(kz=dout, n_ch=len(chans)))
+                if not batchable:
+                    for c in chans:
+                        new_hs[c] = gat_apply(model.channels[c][k], hs[c], g, heads=heads,
+                                              concat=True, transport=transport)
+                    continue
+                sp = _stacked_step_params(model, k, chans)
+                att = sp["att"][:, 0, 0]  # [Cg, 2*dout] (one head)
+                z = torch.einsum("cnd,cde->cne", torch.stack([hs[c][:n] for c in chans]),
+                                 sp["w"])
+                a_dst = torch.einsum("cne,ce->cn", z, att[:, :dout])
+                a_src = torch.einsum("cne,ce->cn", z, att[:, dout:])
+                outb = stream_gat_attention_batched(z, a_src, a_dst, g.src, g.dst,
+                                                    g.src_perm, g.src_sorted, n, True, 0.2,
+                                                    transport)
+                outb = outb + sp["b"][:, None, :]
+                for j, c in enumerate(chans):
+                    new_hs[c] = outb[j]
+        if k < num_steps - 1:
+            new_hs = [torch.relu(h) for h in new_hs]
+        hs = new_hs
+    return torch.stack(hs, dim=1)  # [N, C, R]
+
+
 def pea_forward(model: PEA, graphs, cfg: PEAConfig,
                 channel_mask: Optional[torch.Tensor] = None, transport="f32"):
     """Full-graph forward -> cached representation [num_nodes, repr-like].
 
-    graphs: a HybridGATPlan (the hybrid GAT forward) or a tuple of union
-    StepGraphs, one per step (the fused forward)."""
+    graphs: a HybridGATPlan (the hybrid GAT forward), a tuple of union
+    StepGraphs, one per step (the fused forward), or per-channel graphs
+    (tuple[channel] of tuple[step]) for GAT channels of one depth (the
+    grouped forward)."""
     if isinstance(graphs, HybridGATPlan):
         h = pea_forward_hybrid(model, graphs, cfg, transport)
     elif len(graphs) > 0 and isinstance(graphs[0], StepGraph):
         h = pea_forward_fused(model, graphs, cfg, transport)
+    elif cfg.conv == "gat" and len(set(cfg.meta_path_steps)) == 1:
+        h = _grouped_gat_forward(model, graphs, cfg, transport)
     else:
         raise NotImplementedError(
-            "per-channel graphs (mixed metapath depths, GAT attention "
-            "dropout) and the grouped-stream forward are not ported: ROADMAP "
-            "Queue 1 items 3a, 3b and 8"
+            "per-channel graphs of mixed metapath depth, or of GCN and SAGE, "
+            "run the ungrouped per-channel forward, which is not ported: "
+            "ROADMAP Queue 1 item 3b"
         )
     if channel_mask is not None:
         h = h * channel_mask[None, :, None]
@@ -405,8 +461,8 @@ def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
     epoch's last batch."""
     if cfg.conv == "gat" and cfg.dropout > 0.0:
         raise NotImplementedError(
-            "attention dropout in training runs the per-channel path in the "
-            "JAX package, which is not ported (ROADMAP Queue 1 item 3a)"
+            "GAT attention dropout in training is not ported: ROADMAP Queue 1 "
+            "item 3a (its RNG)"
         )
     if row_mask is None:
         row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)

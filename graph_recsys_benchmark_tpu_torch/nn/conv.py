@@ -1,10 +1,11 @@
 """Graph conv layers: initializers and the edge aggregation.
 
-Ported: GATConv's, GCNConv's and SAGEConv's initializers, and
-``_aggregate`` (the segment-sum of edge messages into destination rows,
-ops/segment_kernels K5).  The fused forwards that use them live in
-models/pea.py; the per-channel ``gat_apply`` (attention dropout),
-``gcn_apply`` and ``sage_apply`` are still to port (ROADMAP Queue 1).
+Ported: GATConv's, GCNConv's and SAGEConv's initializers, ``_aggregate``
+(the segment-sum of edge messages into destination rows,
+ops/segment_kernels K5) and the per-channel ``gat_apply`` (the grouped GAT
+forward's conv, models/pea.py), without attention dropout.  The fused
+forwards live in models/pea.py; ``gcn_apply`` and ``sage_apply`` are still
+to port (ROADMAP Queue 1).
 
 Semantics (PyG 1.5.0, the reference's pin), with the degree and self-loop
 work precomputed into StepGraph.w (graph.py):
@@ -17,8 +18,12 @@ work precomputed into StepGraph.w (graph.py):
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..ops.segment_kernels import sorted_segment_sum
+from ..ops.flash_gat import msg_cast
+from ..ops.gather import gather_dst, gather_src
+from ..ops.segment_kernels import segment_softmax, sorted_segment_sum
+from ..ops.stream_gat import stream_gat_attention
 from .init import glorot, torch_linear_bias, torch_linear_weight
 
 
@@ -40,6 +45,51 @@ def gat_init(generator, in_dim, out_dim, heads=1):
         "att": glorot(generator, (1, heads, 2 * out_dim)),
         "b": torch.zeros(heads * out_dim, dtype=torch.float32),
     }
+
+
+def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.0,
+              transport="f32"):
+    """GATConv over StepGraph `g` (nn/conv.py:76-162): x [>= g.num_nodes,
+    din] (rows past num_nodes are layout padding that no edge reads) ->
+    [num_nodes, heads*C] (concat) or [num_nodes, C].
+
+    A `gat_loops` graph runs the streaming GAT per head
+    (ops/stream_gat.stream_gat_attention: K9 forward, K10 and K11
+    backward, the self-loop analytic).  A graph with its loops as edges
+    runs the composed pipeline: the source rows ``[h | a_src]`` gathered in
+    the transport dtype (gather_src: K7, backward K6), a_dst gathered by dst
+    (gather_dst: K7, backward K5), leaky ReLU, the per-dst softmax
+    (segment_softmax: K8 stats), the messages in the transport dtype and
+    their segment-sum (_aggregate: K5).  Attention dropout is not ported:
+    ROADMAP Queue 1 item 3a."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "GAT attention dropout is not ported: ROADMAP Queue 1 item 3a (its RNG)")
+    n = g.num_nodes
+    h = (x[:n] @ params["w"]).reshape(n, heads, -1)  # [N, H, C]
+    att = params["att"][0]  # [H, 2C]: x_i (target) first, then x_j
+    c = att.shape[-1] // 2
+    alpha_dst = torch.sum(h * att[None, :, :c], dim=-1)  # [N, H]
+    alpha_src = torch.sum(h * att[None, :, c:], dim=-1)
+    if g.gat_loops:
+        head_outs = [
+            stream_gat_attention(h[:, hh], alpha_src[:, hh], alpha_dst[:, hh], g.src, g.dst,
+                                 g.src_perm, g.src_sorted, n, True, negative_slope,
+                                 transport)
+            for hh in range(heads)
+        ]
+        out = torch.stack(head_outs, dim=1)  # [N, H, C]
+    else:
+        packed = msg_cast(torch.cat([h.reshape(n, heads * c), alpha_src], dim=1),
+                          transport=transport)
+        packed_e = gather_src(packed, g, transport)  # [E, H*C + H]
+        h_e = packed_e[:, : heads * c].reshape(-1, heads, c)
+        alpha = gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float()
+        alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport)
+        msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
+        out = _aggregate(msgs.reshape(-1, heads * c), g, transport).reshape(n, heads, c)
+    out = out.reshape(n, heads * c) if concat else out.mean(dim=1)
+    return out + params["b"]
 
 
 def sage_init(generator, in_dim, out_dim):

@@ -2,9 +2,10 @@
 
 Each ``csrc/<source>.cu`` compiles on its own (one nvcc process per source,
 all started together) for ``sm_90a`` into ``_build/lib<source>-<hash>.so``,
-where the hash covers the source and the flags, so a stale library is never
-loaded.  Sources expose plain C entries (``_SIGNATURES``) that launch on the
-stream they are given and return ``cudaGetLastError()``.
+where the hash covers the source, the shared headers and the flags, so a
+stale library is never loaded.  Sources expose plain C entries
+(``_SIGNATURES``) that launch on the stream they are given and return
+``cudaGetLastError()``.
 
 Nothing here runs at import: the build happens when a CUDA tensor first
 reaches a kernel wrapper (or when ``build_all`` is called), so the package
@@ -48,6 +49,20 @@ _SIGNATURES = {
     "scatter_add": ("segment", [_I, _P, _I, _P, _P, _L, _I, _I, _P]),
     # device, v, idx, out, num_edges, num_rows, row_bytes, stream
     "row_gather": ("segment", [_I, _P, _P, _P, _L, _I, _I, _P]),
+    # device, alpha, dst, stats, num_edges, num_rows, stream
+    "softmax_stats": ("segment", [_I, _P, _P, _P, _L, _I, _P]),
+    # device, table, bf16, adst, mhat, src, dst, acc, num_edges, num_rows,
+    # kz, n_ch, slope, stream
+    "stream_gat_fwd": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
+                                      _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, table, bf16, stat, src, dst, dadst, num_edges, num_rows, kz,
+    # n_ch, slope, stream
+    "stream_gat_bwd_dst": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P,
+                                          _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, table, bf16, stat, perm, src_sorted, dst, dpk, num_edges,
+    # num_rows, kz, n_ch, slope, stream
+    "stream_gat_bwd_src": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
+                                          _L, _I, _I, _I, ctypes.c_float, _P]),
 }
 _SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 
@@ -67,8 +82,13 @@ def _nvcc():
 
 
 def _lib_path(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, hashed over its source, every header in csrc/
+    (the sources share gat_common.cuh) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -99,11 +99,12 @@ def bound_shift(a_dst, a_src_t, negative_slope, t_dtype):
 
 
 def gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, round_p_first,
-                  negative_slope=0.2):
+                  negative_slope=0.2, acc_dtype=torch.float32):
     """Plain PyTorch version of csrc/gat_fwd.cu, same inputs and rounding
     points: acc[num_rows, n_ch*(kz+1)] f32, band c = Σ_e [round_T(z_c·q_c) |
     round_T(p_c)] by dst, with q_c = round_T(p_c) if `round_p_first` (K3)
-    else p_c (K1/K12)."""
+    else p_c (K1/K12).  `acc_dtype` float64 gives the exact sums of the
+    same terms (the card check's reference for atomic sums)."""
     t_dtype = table.dtype
     n_ch = adst_r.shape[0]
     real = dst < num_rows
@@ -115,7 +116,7 @@ def gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, round_p_first,
     q = p.to(t_dtype).float() if round_p_first else p
     msg = torch.cat([(rows[:, :, :kz] * q[:, :, None]).to(t_dtype).float(),
                      p.to(t_dtype).float()[:, :, None]], dim=2)
-    return segment_sum(msg.reshape(-1, n_ch * (kz + 1)), d, num_rows)
+    return segment_sum(msg.reshape(-1, n_ch * (kz + 1)).to(acc_dtype), d, num_rows)
 
 
 def _check_table(name, table, n_ch, kz):

@@ -1,6 +1,8 @@
-"""Edge gathers with a row-gather forward and a scatter-add backward.
+"""Edge gathers with a row-gather forward and a scatter-add or segment-sum
+backward.
 
-Port of the JAX package's ``ops/gather.py`` (``gather_rows``, ``gather_src``).
+Port of the JAX package's ``ops/gather.py`` (``gather_rows``, ``gather_src``,
+``gather_dst``).
 ``x[idx]`` is the other half of message passing: ``GatherRows`` runs K7
 (``ops/segment_kernels.sorted_broadcast``) forward and K6
 (``localized_scatter_add``) backward, both by ``idx``, with no E->E
@@ -8,6 +10,11 @@ permutation.  The JAX package's gates around them (65,536 edges,
 ``GATHER_SPAN_MAX``, ``scatter_fits_vmem``, k <= 128) and its ``ct[perm]``
 -> sorted segment-sum fallback are TPU choices and are not copied: on a
 CUDA tensor both directions always launch their kernels.
+
+``gather_dst`` is the JAX package's narrow-table branch
+(ops/gather.py:104-118): K7 (``sorted_broadcast``) forward and, as its VJP
+``_bc_bwd`` (ops/pallas_segment.py:609-619), the K5 segment-sum of the
+cotangent by dst, cast to the table's dtype.
 
 Padding edges (src 0, w 0) carry zero cotangent, so their src placement
 adds nothing.  The gradient is cast to the primal's dtype, as
@@ -51,3 +58,10 @@ def gather_rows(x, idx, transport="f32"):
 def gather_src(x, g, transport="f32"):
     """Per-edge source rows x[g.src] of StepGraph `g`."""
     return gather_rows(x, g.src, transport)
+
+
+def gather_dst(x, g, transport="f32"):
+    """Per-edge destination rows x[g.dst] of StepGraph `g` (x: [g.num_nodes]
+    or [g.num_nodes, K]; padding edges read zeros), differentiable in x
+    through a dst segment-sum (ops/segment_kernels.Broadcast)."""
+    return sorted_broadcast(x.contiguous(), g.dst, g.num_nodes, transport)

@@ -1,8 +1,8 @@
-"""Segment-sum, row gather and scatter-add over edge lists: the edge
-pipeline of every summing conv (GCN, SAGE, and the later NGCF/KG families).
+"""Segment-sum, row gather, scatter-add and segment softmax over edge lists:
+the edge pipeline of every summing conv (GCN, SAGE, and the later NGCF/KG
+families) and of the composed GAT (nn/conv.gat_apply on loop-edge graphs).
 
-Port of the JAX package's ``ops/pallas_segment.py`` kernels other than the
-softmax stats:
+Port of the JAX package's ``ops/pallas_segment.py`` kernels:
 
   * ``sorted_segment_sum`` (K5, ``sorted_segment_sum_pallas``):
     ``out[d] = Σ_{dst[e]=d} msgs[e]``, f32 accumulation of f32 or bf16
@@ -13,23 +13,31 @@ softmax stats:
     (:228-238) does.
   * ``sorted_broadcast`` (K7, ``sorted_broadcast_pallas``): ``out[e] =
     v[idx[e]]``, an exact row copy in v's dtype; the padding sentinel gives
-    zeros.  Its own VJP (``_bc_bwd``) comes with the composed GAT slice, so
-    it refuses inputs that need a gradient.
+    zeros.  Differentiable (``Broadcast``): its backward is ``_bc_bwd``
+    (:609-619), the K5 segment-sum of the output gradient by ``idx`` in the
+    transport dtype, cast to v's dtype.
   * ``localized_scatter_add`` (K6, ``localized_scatter_add_pallas``):
     ``out[i] = Σ_{idx[e]=i} ct[e]`` for ``idx`` in any order, ``ct`` rounded
     to the transport dtype first (:701-707), f32 accumulation.  Used as a
-    backward only (``ops/gather.GatherRows``), so it too refuses inputs that
+    backward only (``ops/gather.GatherRows``), so it refuses inputs that
     need a gradient.
+  * ``softmax_stats`` (K8, ``_softmax_stats_kernel``): per dst row the max
+    and the sum of exp(alpha - max) of f32 edge logits, max -inf for a row
+    with no edge.  ``segment_softmax`` (``segment_softmax_pallas``,
+    :346-398) builds the softmax on it: stats gathered per edge by K7, the
+    +1e-16 guard, padding edges forced to 0; its backward (``_softmax_bwd``,
+    :376-391) is a K5 segment-sum of att·g by dst and a K7 gather back.
 
 Kernels: csrc/segment.cu.  K5 and K6 both launch its ``scatter_add`` (f32
 atomics by id, so K5 needs no order on the card; the source says why a
-dst-block design lost), K7 its ``row_gather``.  A CUDA tensor launches the
-kernel, counted in the wrapper's ``launches``, or raises; a CPU tensor
-takes the ``*_plain`` version in this module.  The JAX package's dispatch
-gates (65,536 edges, ``GATHER_SPAN_MAX``, ``scatter_fits_vmem``, k <= 128)
-are TPU facts and are not copied: every call on a CUDA tensor reaches its
-kernel.  Columns: at most ``MAX_COLS``.  Ids are int32 and non-negative,
-as the port's graphs hold them; ids >= num_rows are the padding sentinel.
+dst-block design lost), K7 its ``row_gather``, K8 its ``softmax_stats``.  A
+CUDA tensor launches the kernel, counted in the wrapper's ``launches``, or
+raises; a CPU tensor takes the ``*_plain`` version in this module.  The
+JAX package's dispatch gates (65,536 edges, ``GATHER_SPAN_MAX``,
+``scatter_fits_vmem``, k <= 128) are TPU facts and are not copied: every
+call on a CUDA tensor reaches its kernel.  Columns: at most ``MAX_COLS``.
+Ids are int32 and non-negative, as the port's graphs hold them; ids >=
+num_rows are the padding sentinel.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 
 from . import _cuda
 from .flash_gat import t_dtype_of
-from .segment import segment_sum
+from .segment import segment_max, segment_sum
 
 # the kernels' column limit (a row is at most 256 threads' work)
 MAX_COLS = 256
@@ -84,8 +92,8 @@ def _sum_by_id(counter, rows, ids, num_rows):
 def _refuse_grad(name, t):
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(
-            f"{name} has no backward in the port yet (the composed GAT slice "
-            "adds it): call it on tensors that need no gradient"
+            f"{name} is a backward only and has no backward of its own: call "
+            "it on tensors that need no gradient"
         )
 
 
@@ -145,15 +153,8 @@ def sorted_broadcast_plain(v, idx, num_rows):
     return pad[torch.clamp(idx.long(), max=num_rows)]
 
 
-def sorted_broadcast(v, idx, num_rows):
-    """``out[e] = v[idx[e]]`` for v ``[num_rows]`` or ``[num_rows, K]`` (f32
-    or bf16) and int32 idx in any order (block order is the speed contract,
-    never the correctness one); ids >= num_rows give zeros.
-    An exact copy in v's dtype.  Kernel launches counted in
-    ``sorted_broadcast.launches``."""
-    _refuse_grad("sorted_broadcast", v)
-    if v.shape[0] != num_rows:
-        raise ValueError(f"sorted_broadcast: v has {v.shape[0]} rows, expected {num_rows}")
+def _gather(v, idx, num_rows):
+    """K7's forward: the plain version for a CPU tensor, else the kernel."""
     if v.device.type == "cpu":
         return sorted_broadcast_plain(v, idx, num_rows)
     v2 = _as_2d("sorted_broadcast", v)
@@ -165,6 +166,37 @@ def sorted_broadcast(v, idx, num_rows):
                      e, num_rows, k * v2.element_size())
         sorted_broadcast.launches += 1
     return out[:, 0] if v.dim() == 1 else out
+
+
+class Broadcast(torch.autograd.Function):
+    """K7 forward; backward ``_bc_bwd``: d v = the K5 segment-sum of the
+    output gradient by idx (in the transport dtype, f32 sums), cast to v's
+    dtype; padding ids drop out."""
+
+    @staticmethod
+    def forward(ctx, v, idx, num_rows, transport):
+        ctx.save_for_backward(idx)
+        ctx.num_rows, ctx.dtype, ctx.transport = num_rows, v.dtype, transport
+        return _gather(v, idx, num_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        gv = sorted_segment_sum(g.contiguous(), idx, ctx.num_rows, ctx.transport)
+        return gv.to(ctx.dtype), None, None, None
+
+
+def sorted_broadcast(v, idx, num_rows, transport="f32"):
+    """``out[e] = v[idx[e]]`` for v ``[num_rows]`` or ``[num_rows, K]`` (f32
+    or bf16) and int32 idx in any order (block order is the speed contract,
+    never the correctness one); ids >= num_rows give zeros.
+    An exact copy in v's dtype, differentiable in v (Broadcast; `transport`
+    is its backward's).  Kernel launches counted in
+    ``sorted_broadcast.launches``."""
+    if v.shape[0] != num_rows:
+        raise ValueError(f"sorted_broadcast: v has {v.shape[0]} rows, expected {num_rows}")
+    t_dtype_of(transport)  # validate
+    return Broadcast.apply(v, idx, num_rows, transport)
 
 
 sorted_broadcast.launches = 0
@@ -195,3 +227,82 @@ def localized_scatter_add(ct, idx, num_rows, transport="f32"):
 
 
 localized_scatter_add.launches = 0
+
+
+# ---------------------------------------------------------------- K8
+
+
+def softmax_stats_plain(alpha, dst, num_rows):
+    """Plain PyTorch version of softmax_stats: f32 ``[num_rows, 2]`` rows
+    ``[max | Σ exp(alpha - max)]`` by dst; max -inf (sum 0) for a row with
+    no edge; ids >= num_rows dropped."""
+    m = segment_max(alpha, dst, num_rows)
+    shift = torch.cat([torch.where(torch.isfinite(m), m, torch.zeros_like(m)),
+                       m.new_zeros(1)])
+    ex = torch.exp(alpha - shift[torch.clamp(dst.long(), max=num_rows)])
+    return torch.stack([m, segment_sum(ex, dst, num_rows)], dim=1)
+
+
+def softmax_stats(alpha, dst, num_rows):
+    """Per-dst softmax statistics of f32 edge logits ``alpha`` [E] by int32
+    ``dst`` [E] (any order, padding ``dst >= num_rows`` dropped): f32
+    ``[num_rows, 2]`` rows ``[max | Σ exp(alpha - max)]``, max -inf for a
+    row with no edge.  The max is exact; the sums are f32 in the kernel's
+    atomic order.  Kernel launches counted in ``softmax_stats.launches``."""
+    _refuse_grad("softmax_stats", alpha)
+    if alpha.device.type == "cpu":
+        return softmax_stats_plain(alpha, dst, num_rows)
+    dev, e = alpha.device, dst.shape[0]
+    _cuda.require(alpha, "softmax_stats alpha", torch.float32, (e,), dev)
+    _cuda.require(dst, "softmax_stats dst", torch.int32, (e,), dev)
+    out = torch.empty((num_rows, 2), dtype=torch.float32, device=dev)
+    if num_rows > 0:
+        _cuda.launch("softmax_stats", dev, alpha.data_ptr(), dst.data_ptr(), out.data_ptr(),
+                     e, num_rows)
+        softmax_stats.launches += 1
+    return out
+
+
+softmax_stats.launches = 0
+
+
+class SegmentSoftmax(torch.autograd.Function):
+    """``segment_softmax_pallas`` for one head: K8 stats, a K7 gather of
+    ``[max | sum]`` per edge (an empty row's -inf max becomes 0,
+    ops/pallas_segment.py:359), att = exp(alpha - max) / (sum + 1e-16),
+    padding edges forced to 0 (:367).  Backward (:376-391): dalpha =
+    att·(g - s[dst]) with s the K5 segment-sum of att·g by dst in the
+    transport dtype and s[dst] a K7 gather."""
+
+    @staticmethod
+    def forward(ctx, alpha, dst, num_rows, transport):
+        stats = softmax_stats(alpha, dst, num_rows)
+        stats = torch.where(torch.isfinite(stats), stats, torch.zeros_like(stats))
+        stats_e = sorted_broadcast(stats, dst, num_rows)
+        att = torch.exp(alpha - stats_e[:, 0]) / (stats_e[:, 1] + 1e-16)
+        att = torch.where(dst < num_rows, att, torch.zeros_like(att))
+        ctx.save_for_backward(att, dst)
+        ctx.num_rows, ctx.transport = num_rows, transport
+        return att
+
+    @staticmethod
+    def backward(ctx, g):
+        att, dst = ctx.saved_tensors
+        s = sorted_segment_sum((att * g)[:, None], dst, ctx.num_rows, ctx.transport)
+        s_e = sorted_broadcast(s[:, 0].contiguous(), dst, ctx.num_rows)
+        return att * (g - s_e), None, None, None
+
+
+def segment_softmax(alpha, dst, num_rows, transport="f32"):
+    """Per-dst softmax of f32 edge logits ``alpha`` [E] or [E, H] (one K8
+    pass per head, as ``segment_softmax_auto`` loops heads) with PyG's
+    +1e-16 guard; padding edges (``dst >= num_rows``) get 0.  Differentiable
+    in alpha (SegmentSoftmax; `transport` is its backward's segment-sum
+    transport)."""
+    t_dtype_of(transport)  # validate
+    alpha = alpha.float()
+    if alpha.dim() == 1:
+        return SegmentSoftmax.apply(alpha.contiguous(), dst, num_rows, transport)
+    return torch.stack([SegmentSoftmax.apply(alpha[:, h].contiguous(), dst, num_rows,
+                                             transport) for h in range(alpha.shape[1])],
+                       dim=1)

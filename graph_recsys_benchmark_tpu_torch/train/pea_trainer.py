@@ -2,10 +2,15 @@
 ``GraphEpochEngine`` (train/pea_trainer.py, train/engine.py).
 
 The constructor builds the metapath channel graphs once on the host, as
-the JAX trainer does (its train/pea_trainer.py:48-80): GAT channels of one
-depth go into the hybrid plan, GCN and SAGE channels of one depth into one
-union graph a step (the fused path); mixed depths need the per-channel
-path, which is not ported.  Graphs and sampling tables move to `device`.
+the JAX trainer does (its train/pea_trainer.py:38-80), from
+`metapath_edges` (default: the ml-latest-small table of the HIN):
+GAT channels of one depth get per-channel graphs with implicit
+self-loops past the streaming threshold (``_analytic_gat_loops``); if any
+graph carries them the grouped forward runs the per-channel graphs
+(ML-25M), else the channels go into the hybrid plan.  GCN and SAGE
+channels of one depth go into one union graph a step (the fused path);
+mixed depths need the per-channel path, which is not ported.  Graphs and
+sampling tables move to `device`.
 ``run_epoch`` trains one BPR epoch (``pea_loss``: BPR + the entity-aware
 regularizer, reference models/base.py:43-80) with the optimizer from
 ``optimizer(params)``; ``evaluate`` makes one forward pass that caches every
@@ -24,7 +29,7 @@ from ..data.hin import HINData
 from ..data.movielens import mlsmall_metapath_edges
 from ..device import resolve_device
 from ..eval.ranking import evaluate_ranking
-from ..graph import build_fused_metapath_graphs, build_metapath_graphs
+from ..graph import build_fused_metapath_graphs, build_metapath_graphs, graphs_to
 from ..models.pea import (
     PEA,
     PEAConfig,
@@ -56,17 +61,25 @@ class TrainConfig:
 
 
 class PEATrainer(GraphEpochEngine):
-    """PEAGCN, PEAGAT or PEASage (`cfg.conv`).  `device` None = the card
-    (raises without one); `transport` 'f32' | 'bf16' is the message
+    """PEAGCN, PEAGAT or PEASage (`cfg.conv`).  `metapath_edges`: one list
+    of (src, dst) step edges per channel, None = mlsmall_metapath_edges(hin)
+    (ML-25M: data.movielens.ml25m_metapath_edges).  `device` None = the
+    card (raises without one); `transport` 'f32' | 'bf16' is the message
     transport dtype of the edge kernels."""
 
+    # Per-channel GAT graphs: None = implicit self-loops past the streaming
+    # threshold (graph.build_gat_graph's auto rule); True forces them on
+    # every graph, False off.
+    _analytic_gat_loops = None
+
     def __init__(self, hin: HINData, cfg: PEAConfig, tcfg: TrainConfig,
-                 device=None, transport="f32"):
+                 metapath_edges=None, device=None, transport="f32"):
         t_dtype_of(transport)  # validate
         self.device = resolve_device(device)
         self.hin, self.cfg, self.tcfg = hin, cfg, tcfg
         self.transport = transport
-        metapath_edges = mlsmall_metapath_edges(hin)
+        if metapath_edges is None:
+            metapath_edges = mlsmall_metapath_edges(hin)
         if len(metapath_edges) != cfg.num_channels:
             raise ValueError("one metapath per channel expected")
         if len(set(cfg.meta_path_steps)) != 1:
@@ -75,14 +88,15 @@ class PEATrainer(GraphEpochEngine):
                 "not ported (ROADMAP Queue 1 item 3b)"
             )
         if cfg.conv == "gat":
-            # analytic_gat_loops=None: the JAX trainer's auto rule, which
-            # picks the (unported) streaming layout only past its edge
-            # threshold
             per_channel = build_metapath_graphs(
-                metapath_edges, hin.num_nodes, cfg.conv, analytic_gat_loops=None
+                metapath_edges, hin.num_nodes, cfg.conv,
+                analytic_gat_loops=self._analytic_gat_loops,
             )
-            self.graphs = build_hybrid_gat_plan(per_channel, hin.num_nodes,
-                                                cfg).to(self.device)
+            if any(g.gat_loops for ch in per_channel for g in ch):
+                self.graphs = graphs_to(per_channel, self.device)  # grouped forward
+            else:
+                self.graphs = build_hybrid_gat_plan(per_channel, hin.num_nodes,
+                                                    cfg).to(self.device)
         else:
             self.graphs = tuple(
                 g.to(self.device) for g in

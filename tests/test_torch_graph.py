@@ -117,5 +117,11 @@ def test_hybrid_plan_equal(step_graphs, hins):
 
 
 def test_analytic_loops_not_ported():
-    with pytest.raises(NotImplementedError):
-        tgraph.build_gat_graph(np.array([0, 1]), np.array([1, 0]), 2, analytic_loops=True)
+    """Implicit self-loops are ported (the streaming GAT); what stays out
+    is fusing such graphs into union graphs, which the JAX package refuses
+    too."""
+    g = tgraph.build_gat_graph(np.array([0, 1, 1]), np.array([1, 0, 1]), 2,
+                               analytic_loops=True)
+    assert g.gat_loops and g.num_edges == 2 and g.dst.shape[0] == 2048
+    with pytest.raises(ValueError):
+        tgraph.fuse_step_graphs([g], 2)

@@ -18,6 +18,19 @@ and bf16 2e-2 (chip_smoke.py's forward tolerances: a last-bit difference
 in a step-1 output can move a bf16 rounding of step 2's input), every
 gradient 5e-2 (a flipped ReLU input, chip_smoke.py KINK_TOL).
 
+The streaming GAT kernels of csrc/stream_gat.cu (stream_gat_fwd K9,
+stream_gat_bwd_dst K10, stream_gat_bwd_src K11) run at the ML-25M shapes'
+widths ((n_ch, kz) = (1, 64), (7, 16), (2, 16), and (8, 125), the widest
+layout) over 68,830 rows and a loop-free graph of 400,000 skewed edges
+(row 0 with real out-edges; its src-sorted run also holds the padding):
+each is held to the same sums taken in float64 at 1e-5 of the largest
+value in both transports (they round at the plain version's points; f32
+atomics in another order over in-degrees in the thousands).
+StreamGAT on the card is held to the CPU's at the whole-op tolerances
+above.  softmax_stats (K8) gets the composed GAT's shape (68,830 rows,
+197,000 edges) with an empty block and padding: its max equals the plain
+version's bitwise, its sums the float64 sums at 1e-6.
+
 The edge kernels of csrc/segment.cu (sorted_segment_sum K5,
 sorted_broadcast K7, localized_scatter_add K6) run at the flagship's
 PEAGCN/PEASage union-graph shapes (15,210 rows; 169,472 or 647,680 padded
@@ -43,7 +56,9 @@ from graph_recsys_benchmark_tpu_torch.data import build_mlsmall_hin, synthetic_m
 from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
 from graph_recsys_benchmark_tpu_torch.ops import batch_gat as tbg
 from graph_recsys_benchmark_tpu_torch.ops import flash_gat as tfg
+from graph_recsys_benchmark_tpu_torch import graph as tgraph
 from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as tsk
+from graph_recsys_benchmark_tpu_torch.ops import stream_gat as tsg
 from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
 from graph_recsys_benchmark_tpu_torch.train import sampling as tsamp
 from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
@@ -289,8 +304,9 @@ def test_eval_negatives_draw_on_the_card(cuda):
     ids = torch.zeros(2, dtype=torch.int32, device=cuda)
     z = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     tables = tsamp.DeviceTables(
-        train_pos=z, test_users=ids, test_items=cand[:, 0], cand=cand,
-        neg_counts=torch.full((2,), 5, dtype=torch.int32, device=cuda), item_lo=0,
+        train_pos=z, test_users=ids, test_items=cand[:, 0], mode="dense", cand=cand,
+        neg_counts=torch.full((2,), 5, dtype=torch.int32, device=cuda), seen_all=z,
+        seen_train=z, cnt_all=z[0], cnt_train=z[0], item_lo=0,
         num_items=12, user_lo=0, item_feat=z, item_feat_counts=z[0], user_feat=z,
         user_feat_counts=z[0], ent_lo=z[0], ent_hi=z[0])
     negs = tsamp.sample_eval_negatives(torch.Generator(device="cuda").manual_seed(0), tables, 7)
@@ -398,3 +414,155 @@ def test_segment_kernels_reject_bad_inputs(cuda):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     out = tsk.sorted_segment_sum(rows[:0], empty, 10)  # no edges: zeros
     assert out.shape == (10, 8) and not out.any()
+
+
+STREAM_ROWS = 68830
+
+
+@pytest.fixture(scope="module")
+def stream_graph(cuda):
+    """A loop-free graph over the ML-25M node count with zipf-skewed
+    sources (tens of thousands of out-edges on the top rows) and real
+    out-edges on row 0."""
+    rng = np.random.default_rng(11)
+    e = 400_000
+    pop = 1.0 / np.arange(1, STREAM_ROWS + 1) ** 0.8
+    src = rng.choice(STREAM_ROWS, size=e, p=pop / pop.sum())
+    dst = rng.integers(0, STREAM_ROWS, e)
+    src[:50] = 0
+    return tgraph.build_gat_graph(src, dst, STREAM_ROWS, analytic_loops=True).to(cuda)
+
+
+def _stream_tables(rng, n_ch, kz, t_dtype, dev):
+    """The kernels' inputs as StreamGAT builds them, from random z, a_src,
+    a_dst, an output cotangent and the forward kernel's own stats."""
+    n = STREAM_ROWS
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    band = torch.cat([(0.5 * randn(n_ch, n, kz)).to(t_dtype),
+                      randn(n_ch, n, 1).to(t_dtype)], dim=2)
+    table = band.permute(1, 0, 2).reshape(n, -1).contiguous()
+    adst_r, mhat = tfg.bound_shift(randn(n_ch, n), band[:, :, kz], 0.2, t_dtype)
+    return table, adst_r, mhat, randn(n_ch, n, kz)
+
+
+def _stat_table(acc, mhat, adst_r, g, n_ch, kz, t_dtype):
+    n = acc.shape[0]
+    acc_b = acc.view(n, n_ch, kz + 1)
+    s = acc_b[:, :, kz].t()
+    out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
+    logden = mhat + torch.log(s + 1e-16)
+    gband = torch.cat([g, (g * out).sum(2, keepdim=True), logden[:, :, None],
+                       adst_r[:, :, None]], dim=2)
+    return gband.permute(1, 0, 2).reshape(n, -1).to(t_dtype).contiguous()
+
+
+@pytest.mark.parametrize("n_ch,kz", [(1, 64), (7, 16), (2, 16), (8, 125)])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_stream_kernels_match_plain(cuda, stream_graph, transport, n_ch, kz):
+    g, n = stream_graph, STREAM_ROWS
+    t_dtype = TDT[transport]
+    rng = np.random.default_rng(n_ch * 1000 + kz)
+    table, adst_r, mhat, gz = _stream_tables(rng, n_ch, kz, t_dtype, cuda)
+    fargs = (table, adst_r, mhat, g.src, g.dst, n, kz)
+    before = tuple(f.launches for f in (tsg.stream_gat_fwd, tsg.stream_gat_bwd_dst,
+                                        tsg.stream_gat_bwd_src))
+    acc = tsg.stream_gat_fwd(*fargs)
+    exact = tsg.stream_gat_fwd_plain(*fargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all() and _rel_err(acc.double(), exact) <= KERNEL_TOL
+    stat = _stat_table(acc, mhat, adst_r, gz, n_ch, kz, t_dtype)
+    dargs = (table, stat, g.src, g.dst, n, kz)
+    da = tsg.stream_gat_bwd_dst(*dargs)
+    exact = tsg.stream_gat_bwd_dst_plain(*dargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert da.shape == (n_ch, n) and _rel_err(da.double(), exact) <= KERNEL_TOL
+    sargs = (table, stat, g.src_perm, g.src_sorted, g.dst, n, kz)
+    dpk = tsg.stream_gat_bwd_src(*sargs)
+    exact = tsg.stream_gat_bwd_src_plain(*sargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert dpk.shape == (n, n_ch * (kz + 1)) and torch.isfinite(dpk).all()
+    assert _rel_err(dpk.double(), exact) <= KERNEL_TOL
+    after = tuple(f.launches for f in (tsg.stream_gat_fwd, tsg.stream_gat_bwd_dst,
+                                       tsg.stream_gat_bwd_src))
+    assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_stream_gat_on_card_matches_cpu(cuda, transport):
+    rng = np.random.default_rng(4)
+    n, e = 3000, 40_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    src[:30] = 0
+    g = tgraph.build_gat_graph(src, dst, n, analytic_loops=True)
+    z = (0.5 * rng.standard_normal((7, n, 16))).astype(np.float32)
+    a = rng.standard_normal((2, 7, n)).astype(np.float32)
+    ct = rng.standard_normal((7, n, 16)).astype(np.float32)
+    outs = []
+    for dev, gg in (("cuda", g.to(cuda)), ("cpu", g)):
+        ins = [torch.from_numpy(x).to(dev).requires_grad_() for x in (z, a[0], a[1])]
+        out = tsg.stream_gat_attention_batched(*ins, gg.src, gg.dst, gg.src_perm,
+                                               gg.src_sorted, n, True, 0.2, transport)
+        out.backward(torch.from_numpy(ct).to(dev))
+        outs.append([out.detach().cpu()] + [t.grad.cpu() for t in ins])
+    for got, want in zip(*outs):
+        assert _rel_err(got, want) <= TOL[transport]
+
+
+def test_softmax_kernels_match_plain(cuda):
+    rng = np.random.default_rng(8)
+    n, e = STREAM_ROWS, 197_000
+    dst = rng.integers(0, n, e)
+    dst = np.where(dst // 128 == 3, dst + 128, dst)  # block 3 empty
+    src = rng.integers(0, n, e)
+    dst = dst[np.lexsort((dst, src, dst // 128))]
+    dst = torch.from_numpy(np.concatenate([dst, np.full(1000, n)]).astype(np.int32)).to(cuda)
+    alpha = torch.from_numpy((3.0 * rng.standard_normal(e + 1000)).astype(np.float32)).to(cuda)
+    alpha[e:] = 90.0  # padding: large logits that must drop out
+    before = tsk.softmax_stats.launches
+    stats = tsk.softmax_stats(alpha, dst, n)
+    plain = tsk.softmax_stats_plain(alpha, dst, n)
+    exact = tsk.softmax_stats_plain(alpha.double(), dst, n)
+    torch.cuda.synchronize()
+    assert tsk.softmax_stats.launches == before + 1
+    assert torch.equal(stats[:, 0], plain[:, 0])
+    assert bool(torch.isinf(stats[384:512, 0]).all()) and not stats[384:512, 1].any()
+    assert _rel_err(stats[:, 1].double(), exact[:, 1]) <= SEG_TOL
+    # the softmax and its gradient on the card against the CPU
+    g = torch.from_numpy(rng.standard_normal(e + 1000).astype(np.float32))
+    res = []
+    for dev in ("cuda", "cpu"):
+        a = alpha.detach().to(dev).requires_grad_()
+        att = tsk.segment_softmax(a, dst.to(dev), n)
+        att.backward(g.to(dev))
+        res.append((att.detach().cpu(), a.grad.cpu()))
+    for got, want in zip(*res):
+        assert _rel_err(got, want) <= SEG_TOL
+    assert not res[0][0][e:].any()
+
+
+def test_stream_wrappers_reject_bad_inputs(cuda):
+    n, kz = 300, 8
+    ids = torch.zeros(16, dtype=torch.int32, device=cuda)
+    table = torch.zeros((n, kz + 1), device=cuda)
+    stat = torch.zeros((n, kz + 3), device=cuda)
+    v = torch.zeros((1, n), device=cuda)
+    before = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
+              tsg.stream_gat_bwd_src.launches, tsk.softmax_stats.launches)
+    with pytest.raises(ValueError):  # int64 ids
+        tsg.stream_gat_fwd(table, v, v, ids.long(), ids, n, kz)
+    with pytest.raises(ValueError):  # kz past the layout limit
+        tsg.stream_gat_fwd(torch.zeros((n, 127), device=cuda), v, v, ids, ids, n, 126)
+    with pytest.raises(ValueError):  # stat table in another dtype than the table
+        tsg.stream_gat_bwd_dst(table, stat.bfloat16(), ids, ids, n, kz)
+    with pytest.raises(ValueError):  # stat table of the wrong width
+        tsg.stream_gat_bwd_src(table, stat[:, :kz].contiguous(), ids, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # ids on the CPU
+        tsg.stream_gat_bwd_src(table, stat, ids, ids.cpu(), ids, n, kz)
+    with pytest.raises(ValueError):  # bf16 logits
+        tsk.softmax_stats(torch.zeros(16, device=cuda, dtype=torch.bfloat16), ids, n)
+    after = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
+             tsg.stream_gat_bwd_src.launches, tsk.softmax_stats.launches)
+    assert after == before

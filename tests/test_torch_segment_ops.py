@@ -172,8 +172,9 @@ def test_gather_rows_vjp_matches_jax(transport, shape):
 def test_wrappers_refuse_what_they_cannot_do():
     v = torch.zeros((5, 3), requires_grad=True)
     ids = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):  # K7's own VJP is not ported
-        tsk.sorted_broadcast(v, ids, 5)
+    # K7 has its own VJP (_bc_bwd: the K5 sum by idx): four rows of id 0
+    tsk.sorted_broadcast(v, ids, 5).sum().backward()
+    np.testing.assert_array_equal(v.grad.numpy()[:, 0], [4.0, 0.0, 0.0, 0.0, 0.0])
     with pytest.raises(NotImplementedError):  # K6 is a backward only
         tsk.localized_scatter_add(v[:4], ids, 5)
     with pytest.raises(ValueError):  # wider than the kernels take
