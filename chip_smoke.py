@@ -54,7 +54,28 @@
    gradients against a CPU copy; epochs with the counts read over the last
    (1,124 / 562 / 562), the loss falling over two epochs and HR@10 after
    them above the untrained 0.10; eval wall; a profiled step and eval.
-9. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
+9. Flash-GAT variant routes (ops/config.FlashGATMode), the last flagship
+   phases.
+   a. mode_kernel_phase, per transport at the step-1 union graph's shapes
+      (15,210 rows, 169,155 edges, kz 64): gat_rowmax (K12-online pass 1,
+      its m bitwise the plain version's), flash_gat_fwd_online (pass 2,
+      the walk, <= KERNEL_TOL), flash_gat_bwd_glue (K13: each stored
+      cotangent element within one unit of the transport's last place of
+      the plain version's, padding rows exact zeros, da_dst <= KERNEL_TOL),
+      localized_scatter_add (K6) on K13's rows (sum_bound of the float64
+      sums of the same rows), flash_gat_bwd_onepass (K14, <= KERNEL_TOL;
+      also timed at other piece sizes); device, plain, library ms and the
+      bound of each.
+   b. mode_slice_phase, per transport and non-default mode (online-fused,
+      bound-glue, bound-onepass): a PEATrainer(..., flash_mode=...) against
+      the default mode's on the same weights and batches: one batch's loss
+      and gradients (FORWARD_TOL, the median leaf, KINK_TOL), 20 steps from
+      init(2020) with the counts read over them (online: 1 gat_rowmax + 1
+      flash_gat_fwd_online a forward; glue: 1 flash_gat_bwd_glue + 1 K6 a
+      backward; onepass: 1 flash_gat_bwd_onepass), every step's loss and
+      the forward after them (FORWARD_TOL), one eval's launches; step ms,
+      train examples/s, a profiled step.
+10. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
    configuration: synthetic_ml25m_hin() (seed 0: 68,830 nodes, 2.13 M
    train interactions, 40,000 test users, rejection candidates), 13
    two-step channels (ml25m_metapath_edges), 64 -> 64 -> 16, entity-aware,
@@ -83,10 +104,11 @@
    d. One evaluation per transport: 40,000 users x (1 + 99) candidates in
       rejection mode, its launches (the forward's), its forward against
       the plain versions on the card, wall ms, HR@10, NDCG@10, AUC.
-10. Prints the kernels' JSON line (a GAT forward's launches are the
+11. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
-   timed epoch of its path, K8-K11's the 8 timed ML-25M steps), then
-   {"ok": true, "device": {...}} last.
+   timed epoch of its path, K8-K11's the 8 timed ML-25M steps, a variant
+   route's forward its mode's eval and its backward its mode's 20 steps),
+   then {"ok": true, "device": {...}} last.
 
 Any failed check raises: the exit code is then nonzero and no result line
 is printed.  Imports nothing of JAX.
@@ -171,6 +193,22 @@ def check_sum(name, got, exact, bound):
           f"{name}: an f32 sum is off the float64 sum by more than its rounding bound "
           f"(largest share {share:.3f})")
     return share
+
+
+def leaf_errors(label, params, ref):
+    """Every gradient leaf of `params` against the same leaf of `ref` (a
+    model of the same layout, on any device), relative to the ref leaf's
+    largest value, sorted; every gradient present and finite, and exact
+    zeros where ref's are (fc2's bias cancels in pos - neg)."""
+    errs = []
+    for (name, p), r in zip(params.named_parameters(), ref.parameters()):
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"{label} grad {name}: missing or not finite")
+        if r.grad.any():
+            errs.append((rel_err(p.grad.to(r.grad.device), r.grad)[1], name))
+        else:
+            check(not p.grad.any(), f"{label} grad {name}: expected exact zeros")
+    return sorted(errs)
 
 
 def device_ms(fn, reps=30, batches=2):
@@ -374,6 +412,9 @@ def _counters():
 
     return {"flash_fwd": fg.flash_gat_fwd, "batch_fwd": bg.batch_gat_fwd,
             "flash_bwd": fg.flash_gat_bwd, "batch_bwd": bg.batch_gat_bwd,
+            "rowmax": fg.gat_rowmax, "flash_fwd_online": fg.flash_gat_fwd_online,
+            "flash_bwd_glue": fg.flash_gat_bwd_glue,
+            "flash_bwd_onepass": fg.flash_gat_bwd_onepass,
             "segsum": sk.sorted_segment_sum, "gather": sk.sorted_broadcast,
             "scatter": sk.localized_scatter_add, "softmax": sk.softmax_stats,
             "stream_fwd": sg.stream_gat_fwd, "stream_bwd_dst": sg.stream_gat_bwd_dst,
@@ -532,15 +573,7 @@ def train_phase(hin, cfg, trainers):
         tol = FORWARD_TOL[transport]
         _, rel = rel_err(loss.detach().cpu(), cpu_loss.detach())
         check(rel <= tol, f"{transport} step loss vs CPU: relative error {rel} > {tol}")
-        errs = []
-        for (name, p), cp in zip(params.named_parameters(), cpu_params.parameters()):
-            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-                  f"{transport} grad {name}: missing or not finite")
-            if cp.grad.any():
-                errs.append((rel_err(p.grad.cpu(), cp.grad)[1], name))
-            else:  # fc2's bias cancels in pos - neg, on both devices
-                check(not p.grad.any(), f"{transport} grad {name}: expected exact zeros")
-        errs.sort()
+        errs = leaf_errors(transport, params, cpu_params)
         median, worst = errs[len(errs) // 2], errs[-1]
         check(median[0] <= tol and worst[0] <= KINK_TOL,
               f"{transport} grads vs CPU: median {median} > {tol} or worst {worst} > {KINK_TOL}")
@@ -752,15 +785,7 @@ def fused_phase(hin, trainers, epochs):
         tol = FORWARD_TOL[transport]
         _, rel = rel_err(loss.detach().cpu(), cpu_loss.detach())
         check(rel <= tol, f"{label} step loss vs CPU: relative error {rel} > {tol}")
-        errs = []
-        for (name, p), cp in zip(params.named_parameters(), cpu_params.parameters()):
-            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-                  f"{label} grad {name}: missing or not finite")
-            if cp.grad.any():
-                errs.append((rel_err(p.grad.cpu(), cp.grad)[1], name))
-            else:  # fc2's bias cancels in pos - neg, on both devices
-                check(not p.grad.any(), f"{label} grad {name}: expected exact zeros")
-        errs.sort()
+        errs = leaf_errors(label, params, cpu_params)
         median, worst = errs[len(errs) // 2], errs[-1]
         check(median[0] <= tol and worst[0] <= KINK_TOL,
               f"{label} grads vs CPU: median {median} > {tol} or worst {worst} > {KINK_TOL}")
@@ -813,6 +838,295 @@ def fused_phase(hin, trainers, epochs):
         device_breakdown(lambda: trainer.evaluate(
             params, torch.Generator(device="cuda").manual_seed(99)), f"eval {label}", wall)
         out[transport] = dict(launches=launches, eval_launches=eval_launches)
+    return out
+
+
+# ---------------------------------------------------------------- flash-GAT
+# variant routes (ops/config.FlashGATMode)
+
+# the modes other than the default, and each one's extra launches per eval
+# (forward) and per step (forward and backward) in place of K1/K12 and K2
+MODES = {"online-fused": dict(fwd=dict(rowmax=1, flash_fwd_online=1),
+                              bwd=dict(flash_bwd=1)),
+         "bound-glue": dict(fwd=dict(flash_fwd=1), bwd=dict(flash_bwd_glue=1, scatter=1)),
+         "bound-onepass": dict(fwd=dict(flash_fwd=1), bwd=dict(flash_bwd_onepass=1))}
+MODE_STEPS = 20
+ONEPASS_PIECES = (64, 128, 256, 512, 1024, 1 << 30)
+
+
+def ulp(x, t_dtype):
+    """One unit in the last place of |x| in `t_dtype` (f32 24 bits, bf16 8)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x.float()), e - (24 if t_dtype == torch.float32 else 8))
+
+
+def mode_kernel_phase(plan, num_nodes):
+    """K12-online (gat_rowmax, flash_gat_fwd_online), K13
+    (flash_gat_bwd_glue, then K6 localized_scatter_add on its rows) and K14
+    (flash_gat_bwd_onepass) at the step-1 union graph's shapes (kz 64), per
+    transport, on random tables from a numpy seed and the stats of the
+    forward on them: each against its plain version on the card
+    (gat_rowmax's m bitwise; the walk, K13's da_dst and K14 within
+    KERNEL_TOL, as K1 and K2, whose arithmetic they share; K13's stored
+    rows each within one unit of the transport's last place of the plain
+    version's, since datt sums in another order, and its padding rows exact
+    zeros; K6 on them within sum_bound of the float64 sums of the same
+    rows), device ms, plain ms, the bound, and the library call where one
+    computes the function (scatter_reduce_ amax of the edge logits for the
+    row max; index_add_ for K6).  K14 is also timed at other piece sizes."""
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+    from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    (_, union, rest), _ = plan.steps
+    n_v, kz = len(rest) * num_nodes, 64
+    e, src, dst, bounds = union.num_edges, union.src, union.dst, union.block_bounds
+    real = dst < n_v
+    results = {}
+    for transport, t_dtype in TDT.items():
+        it = torch.finfo(t_dtype).bits // 8
+        table = randn(n_v, kz + 1).to(t_dtype)
+        adst_r = randn(n_v).to(t_dtype).float()
+
+        def record(key, fn, plain, nbytes, flops, err, lib=None, what=""):
+            b_ms, b_by = bound_ms(nbytes, flops)
+            r = dict(max_abs_err=err, ms=device_ms(fn), plain_ms=device_ms(plain, reps=10),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None if lib is None else device_ms(lib))
+            results[(key, transport)] = r
+            print(f"{key} {transport}: rows {n_v} kz {kz} edges {e} max_abs_err {err:.3e} "
+                  f"ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} library_ms "
+                  f"{r['library_ms']} bound_ms {b_ms:.5f} ({b_by}; {nbytes} bytes){what}",
+                  flush=True)
+
+        # ---- K12-online: the row max, then the walk with m as the shift
+        rargs = (table, adst_r, src, dst, n_v, kz)
+        m = fg.gat_rowmax(*rargs)
+        m_plain = fg.gat_rowmax_plain(*rargs)
+        torch.cuda.synchronize()
+        check(torch.equal(m, m_plain), f"gat_rowmax {transport}: m not bitwise the plain "
+              f"version's (max abs {rel_err(m, m_plain)[0]})")
+        pre = adst_r[dst[real].long()] + table[src[real].long(), kz].float()
+        act = torch.where(pre > 0, pre, 0.2 * pre)
+        d_real = dst[real].long()
+        record("rowmax", lambda: fg.gat_rowmax(*rargs), lambda: fg.gat_rowmax_plain(*rargs),
+               # a_src column, a_dst, the real edges' ids, m
+               n_v * it + n_v * 4 + e * 8 + n_v * 4, e * 4, 0.0,
+               lib=lambda: torch.full((n_v,), float("-inf"), device=dev)
+               .scatter_reduce_(0, d_real, act, "amax"),
+               what=" (library: scatter_reduce_ amax of precomputed edge logits)")
+        wargs = (table, adst_r, m, src, dst, n_v, kz)
+        acc = fg.flash_gat_fwd_online(*wargs)
+        err, _ = check_kernel("flash_gat_fwd_online", transport, [acc],
+                              [fg.flash_gat_fwd_plain(*wargs)])
+        record("flash_fwd_online", lambda: fg.flash_gat_fwd_online(*wargs),
+               lambda: fg.flash_gat_fwd_plain(*wargs),
+               n_v * (kz + 1) * it + 2 * n_v * 4 + e * 8 + n_v * (kz + 1) * 4,
+               e * (2 * (kz + 1) + 6), err)
+
+        # ---- K13, then K6 on its rows
+        g = randn(n_v, kz)
+        gtab, logden = bwd_stats(acc, m, 1, kz, t_dtype, g[:, None])
+        gargs = (table, gtab, logden[0], adst_r, src, dst, n_v, kz)
+        ct, da = fg.flash_gat_bwd_glue(*gargs)
+        ct_p, da_p = fg.flash_gat_bwd_glue_plain(*gargs)
+        torch.cuda.synchronize()
+        check(ct.dtype == t_dtype and not ct[~real].any(),
+              f"flash_gat_bwd_glue {transport}: dtype {ct.dtype} or nonzero padding rows")
+        diff = (ct.float() - ct_p.float()).abs()
+        check(bool((diff <= torch.maximum(ulp(ct, t_dtype), ulp(ct_p, t_dtype))).all()),
+              f"flash_gat_bwd_glue {transport}: a stored row off the plain version's by more "
+              f"than one unit in the last place")
+        n_apart = int((diff > 0).sum())
+        err, _ = check_kernel("flash_gat_bwd_glue da_dst", transport, [da], [da_p])
+        err = max(err, float(diff.max()))
+        record("flash_bwd_glue", lambda: fg.flash_gat_bwd_glue(*gargs),
+               lambda: fg.flash_gat_bwd_glue_plain(*gargs),
+               # [z | a_src], [g | gout], logden, a_dst, ids; ct, da_dst
+               n_v * (kz + 1) * (it + 4) + 2 * n_v * 4 + e * 8 + e * (kz + 1) * it + n_v * 4,
+               e * (4 * kz + 14), err,
+               what=f" (ct elements not bitwise the plain version's: {n_apart})")
+        dpk = sk.localized_scatter_add(ct, src, n_v, transport)
+        exact = segment_sum(ct.double(), src, n_v)
+        share = check_sum(f"localized_scatter_add of K13's rows {transport}", dpk, exact,
+                          sum_bound(ct.double(), src, n_v))
+        src64 = src.long()
+        record("scatter_glue", lambda: sk.localized_scatter_add(ct, src, n_v, transport),
+               lambda: sk.localized_scatter_add_plain(ct, src, n_v, transport),
+               # every edge's id and row (padding rows are zeros it cannot skip), dpk
+               ct.shape[0] * 4 + ct.numel() * it + n_v * (kz + 1) * 4, ct.numel(),
+               rel_err(dpk.double(), exact)[0],
+               lib=lambda: torch.zeros(n_v, kz + 1, dtype=t_dtype, device=dev)
+               .index_add_(0, src64, ct),
+               what=f" ({share:.3f} of the rounding bound)")
+
+        # ---- K14: g unrounded in its stat table
+        stat = torch.cat([g, gtab[:, kz:], logden[0][:, None], adst_r[:, None]], dim=1)
+        oargs = (table, stat, src, dst, bounds, n_v, kz)
+        err, _ = check_kernel("flash_gat_bwd_onepass", transport,
+                              fg.flash_gat_bwd_onepass(*oargs),
+                              fg.flash_gat_bwd_onepass_plain(*oargs))
+        record("flash_bwd_onepass", lambda: fg.flash_gat_bwd_onepass(*oargs),
+               lambda: fg.flash_gat_bwd_onepass_plain(*oargs),
+               # [z | a_src], the stat rows, ids, block bounds; dpk, da_dst
+               n_v * (kz + 1) * it + n_v * (kz + 3) * 4 + e * 8 + bounds.numel() * 4
+               + n_v * (kz + 1) * 4 + n_v * 4, e * (4 * kz + 14), err,
+               what=f" (pieces of {fg.ONEPASS_PIECE_EDGES} edges: "
+                    f"{int(fg.onepass_pieces(bounds, fg.ONEPASS_PIECE_EDGES)[-1])} CTAs)")
+        sweep = []
+        for piece in ONEPASS_PIECES:
+            got = fg.flash_gat_bwd_onepass(*oargs, piece_edges=piece)
+            check_kernel(f"flash_gat_bwd_onepass pieces of {piece}", transport, got,
+                         fg.flash_gat_bwd_onepass_plain(*oargs, piece_edges=piece))
+            sweep.append((piece, int(fg.onepass_pieces(bounds, piece)[-1]),
+                          round(device_ms(lambda: fg.flash_gat_bwd_onepass(
+                              *oargs, piece_edges=piece)), 5)))
+        print(f"flash_gat_bwd_onepass {transport}: (piece edges, CTAs, ms) {sweep}; "
+              f"busiest block {int((bounds[1:] - bounds[:-1]).max())} edges, mean "
+              f"{e / (bounds.numel() - 1):.1f}", flush=True)
+    return results
+
+
+def _one_batch(trainer, probe, batch, rmask):
+    """One batch's loss and gradients on a copy of `probe`: (loss, model)."""
+    params = copy.deepcopy(probe)
+    loss = trainer.batch_loss(params, batch, rmask)
+    loss.backward()
+    return loss.detach(), params
+
+
+def _batch_errors(label, got, ref):
+    """(loss rel, median leaf, worst leaf) of one _one_batch against another."""
+    errs = leaf_errors(label, got[1], ref[1])
+    return rel_err(got[0], ref[0])[1], errs[len(errs) // 2], errs[-1]
+
+
+def mode_slice_phase(hin, cfg, trainers):
+    """The PEAGAT trainer in each non-default mode (MODES), per transport,
+    built from the user's entry point PEATrainer(..., flash_mode=...),
+    against the default mode's trainer on the same weights and batches.
+    One batch's loss and every gradient on weights off the init regime,
+    (a) against the same mode with every kernel's plain version on the
+    card (plain_on_card: the loss and the median leaf at FORWARD_TOL, every
+    leaf at KINK_TOL), and (b) against the default mode, held alike but
+    for the online forward's gradients in bf16, which are printed: the two
+    shifts round p·z to bf16 apart, and the attention backward's
+    near-cancellation datt - gout amplifies that (on the CPU's plain
+    versions of this slice at small widths: median leaf 4e-3 at init, 6e-2
+    off it).  Then MODE_STEPS steps from init(2020) on the same batches as the default
+    mode, every step's loss at FORWARD_TOL and the counts read over them;
+    then one eval, its launches, and its forward against the default
+    mode's forward of the same trained weights (FORWARD_TOL).  The two
+    runs' weights drift apart as the f32 atomics add in another order
+    (a ReLU input at 0 flips, Adam's normalized step amplifies a near-zero
+    gradient's noise), so their forwards after the steps are printed, not
+    held.  Step ms, train examples/s and the card's busy share of one
+    profiled step."""
+    from graph_recsys_benchmark_tpu_torch.ops.config import FlashGATMode
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer
+
+    out = {}
+    for transport, default in trainers.items():
+        bs = default.tcfg.batch_size
+        tol = FORWARD_TOL[transport]
+        mask = torch.ones(bs, device="cuda")
+        windows = torch.randperm(default.n_rows, generator=torch.Generator().manual_seed(5))
+        windows = [windows[i * bs:(i + 1) * bs].cuda() for i in range(MODE_STEPS)]
+        probe = default.init(2020)
+        with torch.no_grad():  # off the init regime (train_phase)
+            probe.x.mul_(10.0)
+            probe.fc1["b"].mul_(0.1)
+        pgen = torch.Generator(device="cuda").manual_seed(11)
+        batch = default._build_batch(windows[0], pgen)
+        rmask = (torch.arange(bs, device="cuda") < bs - 100).float()
+
+        def run(trainer):
+            """MODE_STEPS steps from init(2020) on the fixed batches, the
+            counts over them, the wall, and the forward after them."""
+            params = trainer.init(2020)
+            opt = trainer.optimizer(params)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            losses = [trainer.train_step(params, opt, w, mask, gen) for w in windows]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+            with torch.no_grad():
+                rep = trainer.eval_forward(params)
+            return params, opt, torch.stack(losses), secs, launches, rep
+
+        _, _, d_losses, d_secs, _, d_rep = run(default)
+        d_step = _one_batch(default, probe, batch, rmask)
+        print(f"modes {transport}: default mode {MODE_STEPS} steps {d_secs:.3f} s "
+              f"({MODE_STEPS * bs / d_secs:.1f} train examples/s)", flush=True)
+        for name, counts in MODES.items():
+            label = f"mode {name} {transport}"
+            t0 = time.perf_counter()
+            trainer = PEATrainer(hin, cfg, default.tcfg, device="cuda", transport=transport,
+                                 flash_mode=FlashGATMode(*name.split("-")))
+            build_s = time.perf_counter() - t0
+            fwd = dict(counts["fwd"], batch_fwd=2)
+            per_step = dict(fwd, batch_bwd=2, **counts["bwd"])
+            # ---- one batch's loss and gradients: against the plain versions
+            # on the card, and against the default mode
+            step = _one_batch(trainer, probe, batch, rmask)
+            with plain_on_card():
+                plain = _one_batch(trainer, probe, batch, rmask)
+            prel, pmed, pworst = _batch_errors(label, step, plain)
+            check(prel <= tol and pmed[0] <= tol and pworst[0] <= KINK_TOL,
+                  f"{label} vs its plain versions on the card: loss {prel}, median {pmed}, "
+                  f"worst {pworst}")
+            rel, median, worst = _batch_errors(label, step, d_step)
+            check(rel <= tol, f"{label}: loss vs the default mode, relative error {rel} > {tol}")
+            held = not (name.startswith("online") and transport == "bf16")
+            check(not held or (median[0] <= tol and worst[0] <= KINK_TOL),
+                  f"{label} grads vs the default mode: median {median} or worst {worst}")
+            # ---- the steps, then one eval
+            params, opt, losses, secs, launches, rep = run(trainer)
+            check(launches == expected(**{k: MODE_STEPS * v for k, v in per_step.items()}),
+                  f"{label}: launches over {MODE_STEPS} steps {launches}, expected {per_step} "
+                  "each")
+            _, lrel = rel_err(losses, d_losses)
+            check(bool(torch.isfinite(losses).all()) and lrel <= tol,
+                  f"{label}: step losses vs the default mode's, relative error {lrel}")
+            drift = rel_err(rep, d_rep)[1]
+            with torch.no_grad():
+                _, frel = rel_err(rep, default.eval_forward(params))
+            check(frel <= tol, f"{label}: forward vs the default mode's on the same weights, "
+                  f"relative error {frel} > {tol}")
+            reset_launches()
+            res = trainer.evaluate(params, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            eval_launches = read_launches()
+            check(eval_launches == expected(**fwd),
+                  f"{label} eval: launches {eval_launches}, expected {fwd}")
+            for k in ("HR", "NDCG", "AUC", "eval_loss"):
+                check(bool(torch.isfinite(res[k]).all()), f"{label} eval: {k} not finite")
+            step_ms = secs / MODE_STEPS * 1e3
+            print(f"train {label}: trainer built in {build_s:.2f} s; one batch vs its plain "
+                  f"versions on the card: loss rel {prel:.3e}, gradients median {pmed[1]} rel "
+                  f"{pmed[0]:.3e}, worst {pworst[1]} rel {pworst[0]:.3e}; vs the default mode"
+                  f"{'' if held else ' (gradients not held)'}: loss rel {rel:.3e}, gradients "
+                  f"median {median[1]} rel {median[0]:.3e}, worst {worst[1]} rel "
+                  f"{worst[0]:.3e}; {MODE_STEPS} steps: losses rel {lrel:.3e}, "
+                  f"forward after them vs the default mode's on the same weights rel "
+                  f"{frel:.3e} (vs the default mode's own run {drift:.3e}), step ms "
+                  f"{step_ms:.4f}, train examples/s "
+                  f"{MODE_STEPS * bs / secs:.1f}, launches {launches}; eval launches "
+                  f"{eval_launches} HR@10 {float(res['HR'][5]):.4f}", flush=True)
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            device_breakdown(lambda: trainer.train_step(params, opt, windows[0], mask, gen),
+                             f"train step {label}", step_ms)
+            out[(name, transport)] = dict(launches=launches, eval_launches=eval_launches)
+            del trainer, params, opt
     return out
 
 
@@ -1034,14 +1348,25 @@ def ml25m_kernel_phase(trainer, stream, composed):
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Every kernel of the ML-25M path replaced by its plain PyTorch version
-    for CUDA tensors too, for this script's oracle runs only: the wrappers'
-    own rule (a CUDA tensor launches the kernel or raises) is untouched
-    outside the block.  Plain versions count no launches."""
+    """Every kernel of the ML-25M path and of the flagship's GAT routes
+    replaced by its plain PyTorch version for CUDA tensors too, for this
+    script's oracle runs only: the wrappers' own rule (a CUDA tensor
+    launches the kernel or raises) is untouched outside the block.  Plain
+    versions count no launches."""
+    from graph_recsys_benchmark_tpu_torch.ops import batch_gat as bg
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
     from graph_recsys_benchmark_tpu_torch.ops import stream_gat as sg
 
     swaps = [
+        (fg, "flash_gat_fwd", fg.flash_gat_fwd_plain),  # K1, K12
+        (fg, "gat_rowmax", fg.gat_rowmax_plain),  # K12-online
+        (fg, "flash_gat_fwd_online", fg.flash_gat_fwd_plain),
+        (fg, "flash_gat_bwd", fg.flash_gat_bwd_plain),  # K2
+        (fg, "flash_gat_bwd_glue", fg.flash_gat_bwd_glue_plain),  # K13
+        (fg, "flash_gat_bwd_onepass", fg.flash_gat_bwd_onepass_plain),  # K14
+        (bg, "batch_gat_fwd", bg.batch_gat_fwd_plain),  # K3
+        (bg, "batch_gat_bwd", bg.batch_gat_bwd_plain),  # K4
         (sk, "_gather", lambda v, idx, n: sk.sorted_broadcast_plain(v, idx, n)),  # K7
         (sk, "_sum_by_id", lambda counter, rows, ids, n:  # K5, K6
          sk.sorted_segment_sum_plain(rows, ids, n, "f32")),
@@ -1109,15 +1434,7 @@ def ml25m_phase(trainer, stream, composed):
     check(bool(torch.isfinite(loss)), f"{label}: loss {float(loss)} not finite")
     _, rel = rel_err(loss.detach(), plain_loss.detach())
     check(rel <= tol, f"{label} step loss vs plain: relative error {rel} > {tol}")
-    errs = []
-    for (name, p), pp in zip(params.named_parameters(), plain_params.parameters()):
-        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-              f"{label} grad {name}: missing or not finite")
-        if pp.grad.any():
-            errs.append((rel_err(p.grad, pp.grad)[1], name))
-        else:  # fc2's bias cancels in pos - neg
-            check(not p.grad.any(), f"{label} grad {name}: expected exact zeros")
-    errs.sort()
+    errs = leaf_errors(label, params, plain_params)
     median, worst = errs[len(errs) // 2], errs[-1]
     check(median[0] <= tol and worst[0] <= KINK_TOL,
           f"{label} grads vs plain: median {median} > {tol} or worst {worst} > {KINK_TOL}")
@@ -1243,6 +1560,10 @@ def main():
     tres = train_phase(hin, cfg, trainers)
     fres = {"gcn": fused_phase(hin, all_trainers["gcn"], epochs=2),
             "sage": fused_phase(hin, all_trainers["sage"], epochs=1)}
+    t_modes = time.perf_counter()
+    mkres_modes = mode_kernel_phase(plan, hin.num_nodes)
+    mres_modes = mode_slice_phase(hin, cfg, trainers)
+    print(f"flash-GAT mode phases {time.perf_counter() - t_modes:.1f} s", flush=True)
     del hin, all_trainers, trainers, plan, union
     torch.cuda.empty_cache()
 
@@ -1311,6 +1632,30 @@ def main():
             launches=mres[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # the variant routes: a forward's launches are its mode's eval's, a
+    # backward's the mode's MODE_STEPS steps'
+    modes = {"rowmax": ("online-fused", "eval_launches", "gat_fwd.cu", "129",
+                        "gat_rowmax (K12-online pass 1, the row max"),
+             "flash_fwd_online": ("online-fused", "eval_launches", "gat_fwd.cu", "129",
+                                  "flash_gat_fwd_online (K12-online pass 2, the walk"),
+             "flash_bwd_glue": ("bound-glue", "launches", "gat_bwd.cu", "829",
+                                "flash_gat_bwd_glue (K13"),
+             "scatter_glue": ("bound-glue", "launches", "segment.cu", None,
+                              "localized_scatter_add (K6 on K13's rows"),
+             "flash_bwd_onepass": ("bound-onepass", "launches", "gat_bwd_onepass.cu", "1079",
+                                   "flash_gat_bwd_onepass (K14")}
+    for (kind, transport), r in mkres_modes.items():
+        mode, runs, src_file, line, name = modes[kind]
+        counter = "scatter" if kind == "scatter_glue" else kind
+        replaces = (f"{repo}/ops/pallas_segment.py:636" if line is None
+                    else f"{repo}/ops/flash_gat.py:{line}")
+        kernels.append(dict(
+            name=f"{name}; {transport}; union kz 64, mode {mode})", route="cuda",
+            source=f"{csrc}/{src_file}", replaces=replaces,
+            launches=mres_modes[(mode, transport)][runs][counter],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,5 @@
-// gat_bwd: backward of the single-head bound-shift GAT attention
-// (csrc/gat_fwd.cu) for n_ch <= 8 channels that share one edge list, for
-// Hopper (sm_90a).
+// gat_bwd: backward of the single-head GAT attention (csrc/gat_fwd.cu)
+// for n_ch <= 8 channels that share one edge list, for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernels
 //   ops/flash_gat.py:_make_bwd_glue_kernel(fused_scatter=True) (K2):
@@ -52,6 +51,20 @@
 //   * padding edges (dst >= num_rows) are skipped before any other load.
 // A later PR can replace the atomics by a segmented reduction over a
 // src-sorted edge order.
+//
+// K13, ops/flash_gat.py:_make_bwd_glue_kernel(fused_scatter=False) (the JAX
+// route when the fused tables exceed 13 MiB, flash_gat.py:1444-1479): K2's
+// per-edge math, with the StoreCt template flag.  Instead of the atomics
+// by src, each edge STORES its cotangent row [round_T(g * att) |
+// round_T(dpre)] into ct[e, :] in the transport type T (half the bytes in
+// bf16); da_dst keeps its atomics by dst, as the TPU kernel reduces da_dst
+// in-kernel (flash_gat.py:968-979).  A padding edge's row is written as
+// exact zeros (the TPU contract, flash_gat.py:852-855): ct comes from
+// torch.empty, and the scatter that follows (segment.cu's scatter_add, the
+// port's K6, by src) adds every row.  Launched by
+// ops/flash_gat.flash_gat_bwd_glue (one channel, K2's rounding points).
+// Extra bytes over K2: the ct write, E * (kz+1) * sizeof(T), and K6 reads
+// it back.
 
 #include "gat_common.cuh"
 
@@ -60,13 +73,13 @@ namespace {
 using gat::round_t;
 using gat::to_f32;
 
-template <typename T, bool RoundAttFirst>
+template <typename T, bool RoundAttFirst, bool StoreCt>
 __global__ void __launch_bounds__(256) gat_bwd_kernel(
     const T* __restrict__ table, const float* __restrict__ gtab,
     const float* __restrict__ logden, const float* __restrict__ adst,
     const int* __restrict__ src, const int* __restrict__ dst,
-    float* __restrict__ dpk, float* __restrict__ dadst, long long num_edges,
-    int num_rows, int kz, int n_ch, float slope) {
+    float* __restrict__ dpk, T* __restrict__ ct, float* __restrict__ dadst,
+    long long num_edges, int num_rows, int kz, int n_ch, float slope) {
   const int lane = threadIdx.x & 31;
   const long long first = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -75,7 +88,11 @@ __global__ void __launch_bounds__(256) gat_bwd_kernel(
   const int c0 = lane / bz, f0 = lane - c0 * bz;
   for (long long e = first; e < num_edges; e += step) {
     const int d = dst[e];
-    if (d >= num_rows) continue;  // padding sentinel: skip before any load
+    if (d >= num_rows) {  // padding sentinel: skip before any load
+      if (StoreCt)  // ... but its cotangent row is exact zeros
+        for (int j = lane; j < width; j += 32) ct[e * width + j] = gat::from_f32<T>(0.f);
+      continue;
+    }
     const long long s = src[e];
     const T* row = table + s * width;
     const float* grow = gtab + (long long)d * width;
@@ -108,31 +125,36 @@ __global__ void __launch_bounds__(256) gat_bwd_kernel(
       att_mine = RoundAttFirst ? round_t<T>(att) : att;
       dpre_mine = dpre_t;
     }
-    float* out = dpk + s * width;
     // warp-uniform trip count: every lane reaches the shuffles
     int c = c0, f = f0;
     for (int j = lane; j - lane < width; j += 32) {
       const int src_lane = min(c, n_ch - 1);
       const float att = __shfl_sync(0xffffffffu, att_mine, src_lane);
       const float dpre = __shfl_sync(0xffffffffu, dpre_mine, src_lane);
-      if (j < width)
-        atomicAdd(out + j, f < kz ? round_t<T>(__fmul_rn(grow[j], att)) : dpre);
+      if (j < width) {
+        const float v = f < kz ? round_t<T>(__fmul_rn(grow[j], att)) : dpre;
+        if (StoreCt)
+          ct[e * width + j] = gat::from_f32<T>(v);  // exact: v is T-valued
+        else
+          atomicAdd(dpk + s * width + j, v);
+      }
       for (f += 32; f >= bz; f -= bz) ++c;
     }
   }
 }
 
-template <typename T, bool RoundAttFirst>
+// dpk (atomics) or ct (StoreCt) is the output; the other pointer is unused.
+template <typename T, bool RoundAttFirst, bool StoreCt = false>
 void launch(unsigned blocks, cudaStream_t s, const void* table, const void* gtab,
             const void* logden, const void* adst, const void* src, const void* dst,
             void* dpk, void* dadst, long long num_edges, int num_rows, int kz,
             int n_ch, float slope) {
-  gat_bwd_kernel<T, RoundAttFirst><<<blocks, 256, 0, s>>>(
+  gat_bwd_kernel<T, RoundAttFirst, StoreCt><<<blocks, 256, 0, s>>>(
       static_cast<const T*>(table), static_cast<const float*>(gtab),
       static_cast<const float*>(logden), static_cast<const float*>(adst),
       static_cast<const int*>(src), static_cast<const int*>(dst),
-      static_cast<float*>(dpk), static_cast<float*>(dadst), num_edges, num_rows,
-      kz, n_ch, slope);
+      StoreCt ? nullptr : static_cast<float*>(dpk), StoreCt ? static_cast<T*>(dpk) : nullptr,
+      static_cast<float*>(dadst), num_edges, num_rows, kz, n_ch, slope);
 }
 
 }  // namespace
@@ -162,6 +184,28 @@ extern "C" int gat_bwd(int device, const void* table, int bf16, int round_att_fi
       launch<float, true>(b, s, table, gtab, logden, adst, src, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, slope);
     else
       launch<float, false>(b, s, table, gtab, logden, adst, src, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, slope);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K13.  As gat_bwd for one channel at K2's rounding points, but ct:
+// [num_edges, kz+1] T (bf16 when `bf16` else f32), written whole (zeros
+// for a padding edge), takes the cotangent rows in place of dpk; dadst:
+// f32[num_rows], zeroed by the caller.
+extern "C" int gat_bwd_glue(int device, const void* table, int bf16, const void* gtab,
+                            const void* logden, const void* adst, const void* src,
+                            const void* dst, void* ct, void* dadst, long long num_edges,
+                            int num_rows, int kz, float slope, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (kz < 1) return (int)cudaErrorInvalidValue;
+  if (num_edges > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned b = gat::warp_edge_blocks(num_edges);
+    if (bf16)
+      launch<__nv_bfloat16, false, true>(b, s, table, gtab, logden, adst, src, dst, ct, dadst, num_edges, num_rows, kz, 1, slope);
+    else
+      launch<float, false, true>(b, s, table, gtab, logden, adst, src, dst, ct, dadst, num_edges, num_rows, kz, 1, slope);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // gat_common: device helpers shared by the GAT kernels (gat_fwd.cu,
-// gat_bwd.cu, stream_gat.cu), and the forward edge walk that the flash /
+// gat_bwd.cu, gat_bwd_onepass.cu, stream_gat.cu; segment.cu takes the
+// ordered-int image), and the forward edge walk that the flash /
 // batched forward (K1, K12, K3) and the streaming forward (K9) all run.
 #pragma once
 
@@ -19,6 +20,28 @@ __device__ __forceinline__ float round_t<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// f32 -> T: identity for f32, round-to-nearest-even to bf16 (exact for a
+// value already rounded through T).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// A float's order-preserving int image (and back): ints compare as the
+// floats do, -0 below +0, so atomicMax on the image is a float max
+// (segment.cu's K8, gat_fwd.cu's row max).
+__device__ __forceinline__ int ordered(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
 // The softmax weight of one (edge, channel): exp(min(leaky(pre) - shift,

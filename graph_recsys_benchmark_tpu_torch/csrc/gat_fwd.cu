@@ -1,5 +1,6 @@
 // gat_fwd: single-head GAT forward with the bound-shift softmax for n_ch <= 8
-// channels that share one edge list, for Hopper (sm_90a).
+// channels that share one edge list, and the online-max forward of one
+// channel (K12-online, below), for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernels
 //   ops/flash_gat.py:_make_flash_fwd_chunk_kernel (K1, chunk-major grid) and
@@ -40,6 +41,28 @@
 //     the sentinel src is never dereferenced.
 // A later PR can replace the atomics by a segmented warp reduction over the
 // block-monotone dst order.
+//
+// K12-online, ops/flash_gat.py:_make_flash_kernel(bound_shift=False): the
+// same forward with the exact row max m in place of m-hat, exact for any
+// logit spread.  The TPU kernel keeps a running max per 128-row dst block
+// and rescales its accumulator when the max grows; rounding the max to T at
+// each step is monotone, so its final m is round_T of the exact row max.
+// Here two passes compute the same function:
+//   1. gat_rowmax: a thread per edge forms the edge's logit act =
+//      leaky(round_T(a_dst[d]) + a_src[s]) and takes an atomicMax of its
+//      ordered-int image into m[d] (as segment.cu's K8 does); a row pass
+//      turns the images back, rounds to T and writes 0 for a row without
+//      an edge (JAX flash_gat.py:474).  Bound: the ids and one a_src value
+//      an edge, ~E * 10 bytes.
+//   2. gat_fwd_online: the edge walk above (fwd_edges<T, false>) with m as
+//      the shift, under its own __global__ so that it is counted and timed
+//      apart from K1/K12.  p = exp(act - m) <= ~1, so the +60 clamp is
+//      inert.
+// The TPU kernel rounds p * z at the running shift and rescales the
+// rounded sums by exp(m_old - m_new) in f32 (flash_gat.py:455-470); this one
+// rounds p * z at the final m, so out and s agree with it at rounding level
+// while m agrees bitwise.  A per-block online rescale would need
+// cross-warp synchronisation: block-ordered edges interleave rows.
 
 #include "gat_common.cuh"
 
@@ -53,6 +76,86 @@ __global__ void __launch_bounds__(256) gat_fwd_kernel(
     int num_rows, int kz, int n_ch, float slope) {
   gat::fwd_edges<T, RoundPFirst>(table, adst, mhat, src, dst, acc, num_edges,
                                  num_rows, kz, n_ch, slope);
+}
+
+// K12-online's walk: K1/K12's edge walk with the row max as the shift.
+template <typename T>
+__global__ void __launch_bounds__(256) gat_fwd_online_kernel(
+    const T* __restrict__ table, const float* __restrict__ adst,
+    const float* __restrict__ m, const int* __restrict__ src,
+    const int* __restrict__ dst, float* __restrict__ acc, long long num_edges,
+    int num_rows, int kz, float slope) {
+  gat::fwd_edges<T, false>(table, adst, m, src, dst, acc, num_edges, num_rows, kz,
+                           1, slope);
+}
+
+// K12-online's row max, edge pass: key[d] = max ordered(act) over the real
+// edges of row d (key starts at the image of -inf).
+template <typename T>
+__global__ void __launch_bounds__(256) gat_rowmax_kernel(
+    const T* __restrict__ table, const float* __restrict__ adst,
+    const int* __restrict__ src, const int* __restrict__ dst, int* __restrict__ key,
+    long long num_edges, int num_rows, int kz, float slope) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < num_edges;
+       e += step) {
+    const int d = dst[e];
+    if ((unsigned)d >= (unsigned)num_rows) continue;  // padding sentinel
+    const float pre = adst[d] + gat::to_f32(table[(long long)src[e] * (kz + 1) + kz]);
+    // the walk's own logit (edge_weight), so that in f32 act - m is
+    // exactly 0 at the row's best edge
+    const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
+    atomicMax(key + d, gat::ordered(act));
+  }
+}
+
+// K12-online's row max, row passes: set every key to the image of -inf
+// (init), or turn the keys into m = round_T(max), 0 for an empty row.
+template <typename T>
+__global__ void __launch_bounds__(256) gat_rowmax_rows_kernel(float* __restrict__ m,
+                                                              int num_rows, bool init) {
+  int* key = reinterpret_cast<int*>(m);
+  const int neg_inf = gat::ordered(__int_as_float(static_cast<int>(0xff800000u)));
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < num_rows;
+       r += gridDim.x * blockDim.x) {
+    if (init) {
+      key[r] = neg_inf;
+    } else {
+      const int k = key[r];
+      m[r] = k == neg_inf ? 0.f : gat::round_t<T>(gat::unordered(k));
+    }
+  }
+}
+
+unsigned thread_blocks(long long n) {
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride past this
+  return (unsigned)(blocks > 0 ? blocks : 1);
+}
+
+template <typename T>
+void launch_rowmax(cudaStream_t s, const void* table, const void* adst, const void* src,
+                   const void* dst, void* m, long long num_edges, int num_rows, int kz,
+                   float slope) {
+  float* mf = static_cast<float*>(m);
+  const unsigned rb = thread_blocks(num_rows);
+  gat_rowmax_rows_kernel<T><<<rb, 256, 0, s>>>(mf, num_rows, true);
+  gat_rowmax_kernel<T><<<thread_blocks(num_edges), 256, 0, s>>>(
+      static_cast<const T*>(table), static_cast<const float*>(adst),
+      static_cast<const int*>(src), static_cast<const int*>(dst), reinterpret_cast<int*>(mf),
+      num_edges, num_rows, kz, slope);
+  gat_rowmax_rows_kernel<T><<<rb, 256, 0, s>>>(mf, num_rows, false);
+}
+
+template <typename T>
+void launch_online(unsigned blocks, cudaStream_t s, const void* table, const void* adst,
+                   const void* m, const void* src, const void* dst, void* acc,
+                   long long num_edges, int num_rows, int kz, float slope) {
+  gat_fwd_online_kernel<T><<<blocks, 256, 0, s>>>(
+      static_cast<const T*>(table), static_cast<const float*>(adst),
+      static_cast<const float*>(m), static_cast<const int*>(src),
+      static_cast<const int*>(dst), static_cast<float*>(acc), num_edges, num_rows, kz,
+      slope);
 }
 
 template <typename T, bool RoundPFirst>
@@ -91,6 +194,45 @@ extern "C" int gat_fwd(int device, const void* table, int bf16, int round_p_firs
       launch<float, true>(b, s, table, adst, mhat, src, dst, acc, num_edges, num_rows, kz, n_ch, slope);
     else
       launch<float, false>(b, s, table, adst, mhat, src, dst, acc, num_edges, num_rows, kz, n_ch, slope);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K12-online, pass 1.  table: [n, kz+1] T row-major [z | a_src]; adst:
+// f32[num_rows] = round_T(a_dst); src/dst: int32[num_edges]; m:
+// f32[num_rows], written whole.  Three launches on `stream` (set up, edges,
+// decode); returns cudaGetLastError().
+extern "C" int gat_rowmax(int device, const void* table, int bf16, const void* adst,
+                          const void* src, const void* dst, void* m, long long num_edges,
+                          int num_rows, int kz, float slope, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (kz < 1 || num_rows < 0 || num_edges < 0) return (int)cudaErrorInvalidValue;
+  if (num_rows == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    launch_rowmax<__nv_bfloat16>(s, table, adst, src, dst, m, num_edges, num_rows, kz, slope);
+  else
+    launch_rowmax<float>(s, table, adst, src, dst, m, num_edges, num_rows, kz, slope);
+  return (int)cudaGetLastError();
+}
+
+// K12-online, pass 2: gat_fwd for one channel at K1's rounding points with
+// m as the shift.  acc: f32[num_rows, kz+1], zeroed by the caller.
+extern "C" int gat_fwd_online(int device, const void* table, int bf16, const void* adst,
+                              const void* m, const void* src, const void* dst, void* acc,
+                              long long num_edges, int num_rows, int kz, float slope,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (kz < 1) return (int)cudaErrorInvalidValue;
+  if (num_edges > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned b = gat::warp_edge_blocks(num_edges);
+    if (bf16)
+      launch_online<__nv_bfloat16>(b, s, table, adst, m, src, dst, acc, num_edges, num_rows, kz, slope);
+    else
+      launch_online<float>(b, s, table, adst, m, src, dst, acc, num_edges, num_rows, kz, slope);
   }
   return (int)cudaGetLastError();
 }

@@ -50,9 +50,9 @@
 // in an order that changes from run to run.  Columns: d <= 256, rows of at
 // most 4 KB for row_gather; the wrappers check.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gat_common.cuh"
 
 namespace {
 
@@ -122,15 +122,8 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   }
 }
 
-// A float's order-preserving int image (and back): ints compare as the
-// floats do, -0 below +0, so atomicMax on the image is a float max.
-__device__ __forceinline__ int ordered(float v) {
-  const int i = __float_as_int(v);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ __forceinline__ float unordered(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
+using gat::ordered;
+using gat::unordered;
 
 // stats: [num_rows, 2] rows [max | sum]; column 0 holds the int image of
 // the max between softmax_rows(true) and softmax_rows(false).

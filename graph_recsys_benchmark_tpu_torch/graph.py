@@ -38,6 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .ops.flash_gat import dst_block_bounds
 from .ops.stream_gat import STREAM_MIN_EDGES
 
 PAD_TO = 512
@@ -57,6 +58,11 @@ class StepGraph:
     gat_loops: True = PyG's GAT self-loops are implicit (not in the list);
              only nn/conv.gat_apply and the grouped forward understand it,
              and fuse_step_graphs refuses such graphs.
+    block_bounds: int32[ceil(num_nodes / 128) + 1]: the 128-row dst block
+             b's edges are [block_bounds[b], block_bounds[b+1]) (the
+             padding in the last block's range), the one-pass flash-GAT
+             backward's work split (ops/flash_gat.dst_block_bounds; JAX
+             ``_block_chunk_bounds``).
     Equality is identity: the hybrid plan and the grouped forward group
     channels by object.
     """
@@ -69,13 +75,14 @@ class StepGraph:
     src_sorted: torch.Tensor
     num_nodes: int
     num_edges: int  # valid (non-padding) edges
+    block_bounds: torch.Tensor
     src_span: float = 0.0  # mean 128-row src windows per 512-edge chunk
     gat_loops: bool = False
 
     def to(self, device) -> "StepGraph":
         move = {
             f: getattr(self, f).to(device)
-            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted")
+            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted", "block_bounds")
         }
         return dataclasses.replace(self, **move)
 
@@ -97,9 +104,11 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
+    dst_t = i32(dst)
     return StepGraph(
         src=i32(src),
-        dst=i32(dst),
+        dst=dst_t,
+        block_bounds=dst_block_bounds(dst_t, int(num_nodes)),
         w=torch.from_numpy(w.astype(np.float32)),
         rel=i32(rel),
         src_perm=i32(src_perm),

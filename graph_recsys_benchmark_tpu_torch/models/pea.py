@@ -50,6 +50,7 @@ from ..graph import StepGraph, fuse_step_graphs
 from ..nn.conv import _aggregate, gat_apply, gat_init, gcn_init, sage_init
 from ..nn.init import glorot, linear, torch_linear_params, uniform
 from ..ops.batch_gat import MAX_CHANNELS, MAX_KZ, batch_gat_attention
+from ..ops.config import FlashGATMode
 from ..ops.flash_gat import flash_gat_attention_rows, msg_cast
 from ..ops.gather import gather_src
 from ..ops.stream_gat import stream_gat_attention_batched, stream_gat_enabled
@@ -187,11 +188,11 @@ def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
 
 
 def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
-                    transport):
+                    transport, flash_mode=FlashGATMode()):
     """One GAT step of `num_channels` channels over their union graph `g`
     (virtual node space C*N).  h: [N', din] (shared input, step 0) or
     [C, N, din] -> [C, N, H*dout], heads concatenated.  One flash pass per
-    head."""
+    head, on the routes of `flash_mode`."""
     n_virtual = num_channels * num_nodes
     c_dim = sp["w"].shape[-1] // heads
     head_outs = []
@@ -207,7 +208,8 @@ def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
         # the kernel's row-major [z | a_src] table, built directly
         table = torch.cat([z3.reshape(n_virtual, c_dim), a_src[:, None]], dim=1)
         out_h = flash_gat_attention_rows(
-            table, a_dst, g.src, g.dst, n_virtual, c_dim, 0.2, transport,
+            table, a_dst, g.src, g.dst, n_virtual, c_dim, 0.2, transport, flash_mode,
+            g.block_bounds,
         )
         head_outs.append(out_h.reshape(num_channels, num_nodes, c_dim))
     out = head_outs[0] if heads == 1 else torch.cat(head_outs, dim=-1)
@@ -280,9 +282,9 @@ def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
 
 
 def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
-                       transport="f32"):
+                       transport="f32", flash_mode=FlashGATMode()):
     """Batched shared-edge passes for grouped channels, one union flash pass
-    for the rest -> [N, C, R]."""
+    (on the routes of `flash_mode`) for the rest -> [N, C, R]."""
     n = cfg.num_nodes
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -309,7 +311,8 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
         if union is not None:
             sp = _stacked_step_params(model, k, rest)
             h_in = model.x if k == 0 else torch.stack([hs[c] for c in rest])
-            out_u = _fused_gat_step(sp, h_in, union, len(rest), n, heads, transport)
+            out_u = _fused_gat_step(sp, h_in, union, len(rest), n, heads, transport,
+                                    flash_mode)
             for i, c in enumerate(rest):
                 new_hs[c] = out_u[i]
         if k < num_steps - 1:
@@ -318,7 +321,8 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
     return torch.stack(hs, dim=1)  # [N, C, R]
 
 
-def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32"):
+def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
+                      flash_mode=FlashGATMode()):
     """All channels advance together over one union graph a step
     (graph.build_fused_metapath_graphs): per step one batched einsum and one
     union aggregation -> [N, C, R]."""
@@ -334,7 +338,8 @@ def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32")
         elif cfg.conv == "sage":
             h = _fused_sage_step(sp, h, g, cfg.num_channels, n, transport)
         elif cfg.conv == "gat":
-            h = _fused_gat_step(sp, h, g, cfg.num_channels, n, dims[k][2], transport)
+            h = _fused_gat_step(sp, h, g, cfg.num_channels, n, dims[k][2], transport,
+                                flash_mode)
         else:
             raise ValueError(cfg.conv)
         if k < num_steps - 1:
@@ -389,17 +394,20 @@ def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
 
 
 def pea_forward(model: PEA, graphs, cfg: PEAConfig,
-                channel_mask: Optional[torch.Tensor] = None, transport="f32"):
+                channel_mask: Optional[torch.Tensor] = None, transport="f32",
+                flash_mode=FlashGATMode()):
     """Full-graph forward -> cached representation [num_nodes, repr-like].
 
     graphs: a HybridGATPlan (the hybrid GAT forward), a tuple of union
     StepGraphs, one per step (the fused forward), or per-channel graphs
     (tuple[channel] of tuple[step]) for GAT channels of one depth (the
-    grouped forward)."""
+    grouped forward).  flash_mode: the routes of the union flash-GAT passes
+    (ops/config.FlashGATMode); the batched and streaming GATs ignore it, as
+    the JAX switches leave them alone."""
     if isinstance(graphs, HybridGATPlan):
-        h = pea_forward_hybrid(model, graphs, cfg, transport)
+        h = pea_forward_hybrid(model, graphs, cfg, transport, flash_mode)
     elif len(graphs) > 0 and isinstance(graphs[0], StepGraph):
-        h = pea_forward_fused(model, graphs, cfg, transport)
+        h = pea_forward_fused(model, graphs, cfg, transport, flash_mode)
     elif cfg.conv == "gat" and len(set(cfg.meta_path_steps)) == 1:
         h = _grouped_gat_forward(model, graphs, cfg, transport)
     else:
@@ -452,7 +460,7 @@ def entity_reg_loss(x_table, batch, row_mask):
 
 
 def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
-             transport="f32"):
+             transport="f32", flash_mode=FlashGATMode()):
     """Training loss: BPR with the optional entity-aware regularizer
     (base.py:43-80).
 
@@ -466,7 +474,7 @@ def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
         )
     if row_mask is None:
         row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)
-    cached = pea_forward(model, graphs, cfg, transport=transport)
+    cached = pea_forward(model, graphs, cfg, transport=transport, flash_mode=flash_mode)
     pos = pea_predict(model, cached, batch[:, 0], batch[:, 1])
     neg = pea_predict(model, cached, batch[:, 0], batch[:, 2])
     cf_loss = torch.sum(-_log_sigmoid(pos - neg) * row_mask)

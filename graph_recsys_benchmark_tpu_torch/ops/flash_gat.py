@@ -22,11 +22,24 @@ case at K2's rounding points (the fused glue kernel, ``_flash_bwd``'s
 choice at ops/flash_gat.py:1443-1450).  A CUDA tensor takes the kernel, a
 CPU tensor the plain version in this module.
 
-Autograd: ``FlashGAT`` (a ``torch.autograd.Function``) saves m̂, s and out
-as ``_flash_fwd`` does and builds K2's stat table in its backward.  It takes
-the table already in the transport dtype and returns the table's gradient
-in that dtype, as the JAX VJP returns ``dpk.astype(packed_t.dtype)``: under
-bf16 transport the gradient of z is rounded to bf16 there.
+The variant routes, picked by ``ops/config.FlashGATMode`` (the JAX
+package's FLASH_SOFTMAX_SHIFT, FLASH_BWD_GLUE and FLASH_BWD_MEGA):
+  * ``softmax_shift='online'`` (K12-online): ``online_shift`` takes the
+    exact row max m with ``gat_rowmax`` (csrc/gat_fwd.cu), then
+    ``flash_gat_fwd_online`` walks the edges with m as the shift;
+  * ``bwd='glue'`` (K13): ``flash_gat_bwd_glue`` (csrc/gat_bwd.cu's StoreCt
+    mode) stores each edge's cotangent row and sums da_dst, then
+    ``segment_kernels.localized_scatter_add`` (K6) scatters the rows by src;
+  * ``bwd='onepass'`` (K14): ``flash_gat_bwd_onepass``
+    (csrc/gat_bwd_onepass.cu) walks each 128-row dst block's edge range in
+    pieces, with g unrounded in its stat table.
+
+Autograd: ``FlashGAT`` (a ``torch.autograd.Function``) saves the shift (m̂
+or m), s and out as ``_flash_fwd`` does and builds the route's stat table
+in its backward.  It takes the table already in the transport dtype and
+returns the table's gradient in that dtype, as the JAX VJP returns
+``dpk.astype(packed_t.dtype)``: under bf16 transport the gradient of z is
+rounded to bf16 there.
 
 Layout: the kernels read a row-major ``[n, kz+1]`` table so that an edge's
 source row is contiguous.  The model builds that table directly and calls
@@ -40,9 +53,15 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .segment import segment_softmax, segment_sum
+from .config import FlashGATMode
+from .segment import segment_max, segment_softmax, segment_sum
 
 _BR = 128
+# K14's largest edge range for one CTA: a dst block with more edges is cut
+# into pieces of at most this many.  At the flagship's union graph (H100,
+# chip_smoke.py; PERF.md, PR 6) 256 took 0.096 ms, 1,024 0.168 ms and one
+# CTA a block 2.16 ms: its busiest block holds 12.6x the mean's edges.
+ONEPASS_PIECE_EDGES = 256
 
 
 def _cdiv(a, b):
@@ -191,6 +210,87 @@ def flash_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
 flash_gat_fwd.launches = 0
 
 
+def gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
+    """Plain PyTorch version of gat_rowmax: m[d] = round_T(max_e leaky(adst_r[d]
+    + a_src[src_e])) over the real edges of row d, 0 for a row without one."""
+    real = dst < num_rows
+    s, d = src[real].long(), dst[real].long()
+    pre = adst_r[d] + table[s, kz].float()
+    act = torch.where(pre > 0, pre, negative_slope * pre)
+    m = segment_max(act, d, num_rows)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return m.to(table.dtype).float()
+
+
+def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
+    """K12-online's shift f32[num_rows]: the exact row max of the logits,
+    rounded to the transport dtype, 0 for a row without an edge (the JAX
+    online kernel's m, flash_gat.py:442-446, 474).
+
+    table: [n, kz+1] row-major ``[z | a_src]`` rows in the transport dtype;
+    adst_r: f32[num_rows] = round_T(a_dst); src, dst: int32[E] with padding
+    ``dst >= num_rows``.  CPU tensors take the plain version; CUDA tensors
+    launch csrc/gat_fwd.cu's row max, counted in ``gat_rowmax.launches``,
+    or raise."""
+    if table.device.type == "cpu":
+        return gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope)
+    dev, _ = _check_table("gat_rowmax", table, 1, kz)
+    e = dst.shape[0]
+    _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
+    _cuda.require(src, "src", torch.int32, (e,), dev)
+    _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    if e == 0:
+        return torch.zeros(num_rows, dtype=torch.float32, device=dev)
+    m = torch.empty(num_rows, dtype=torch.float32, device=dev)
+    _cuda.launch(
+        "gat_rowmax", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+        adst_r.data_ptr(), src.data_ptr(), dst.data_ptr(), m.data_ptr(), e, num_rows, kz,
+        float(negative_slope),
+    )
+    gat_rowmax.launches += 1
+    return m
+
+
+gat_rowmax.launches = 0
+
+
+def online_shift(table, a_dst, src, dst, num_rows, kz, negative_slope=0.2):
+    """(a_dst, m) rounded through the transport dtype, as the online kernel
+    gathers them: m = gat_rowmax (the exact row max, rounded; 0 for an
+    empty row).  The counterpart of bound_shift for
+    ``FlashGATMode(softmax_shift='online')``."""
+    adst_r = a_dst.to(table.dtype).float().contiguous()
+    return adst_r, gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope)
+
+
+def flash_gat_fwd_online(table, adst_r, m, src, dst, num_rows, kz, negative_slope=0.2):
+    """K12-online's edge walk: flash_gat_fwd with the row max m as the
+    shift, under a kernel of its own (csrc/gat_fwd.cu gat_fwd_online), so
+    that it is counted in ``flash_gat_fwd_online.launches`` and timed apart.
+    Its plain version is flash_gat_fwd_plain."""
+    if table.device.type == "cpu":
+        return flash_gat_fwd_plain(table, adst_r, m, src, dst, num_rows, kz, negative_slope)
+    dev, width = _check_table("flash_gat_fwd_online", table, 1, kz)
+    e = dst.shape[0]
+    _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
+    _cuda.require(m, "m", torch.float32, (num_rows,), dev)
+    _cuda.require(src, "src", torch.int32, (e,), dev)
+    _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    acc = torch.zeros((num_rows, width), dtype=torch.float32, device=dev)
+    if e == 0:
+        return acc
+    _cuda.launch(
+        "gat_fwd_online", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+        adst_r.data_ptr(), m.data_ptr(), src.data_ptr(), dst.data_ptr(), acc.data_ptr(), e,
+        num_rows, kz, float(negative_slope),
+    )
+    flash_gat_fwd_online.launches += 1
+    return acc
+
+
+flash_gat_fwd_online.launches = 0
+
+
 def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                   round_att_first, negative_slope=0.2):
     """Plain PyTorch version of csrc/gat_bwd.cu, same inputs and rounding
@@ -201,6 +301,24 @@ def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     (`round_att_first`) rounds g·z before the sum, uses a = round_T(att)
     and sums round_T(dpre) into da_dst; K2 uses a = att and sums the
     unrounded g·z and dpre."""
+    real = dst < num_rows
+    s, d = src[real].long(), dst[real].long()
+    ct, dpre = _bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
+                               negative_slope)
+    dpk = torch.zeros((table.shape[0], ct.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    dpk.index_add_(0, s, ct)
+    if round_att_first:
+        dpre = dpre.to(table.dtype).float()
+    return dpk, segment_sum(dpre, d, num_rows).t().contiguous()
+
+
+def _bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
+                    negative_slope):
+    """gat_bwd_plain's per-edge terms for the real edges (s, d) (int64):
+    (ct f32[e, n_ch*(kz+1)], the cotangent rows [round_T(g·a) |
+    round_T(dpre)] holding transport-dtype values; dpre f32[e, n_ch],
+    unrounded)."""
     t_dtype = table.dtype
     n_ch = adst_r.shape[0]
     bz = kz + 1
@@ -208,8 +326,6 @@ def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     def rt(x):
         return x.to(t_dtype).float()
 
-    real = dst < num_rows
-    s, d = src[real].long(), dst[real].long()
     rows = table[s].float().view(-1, n_ch, bz)
     g = gtab[d].view(-1, n_ch, bz)
     pre = adst_r[:, d].t() + rows[:, :, kz]
@@ -221,11 +337,7 @@ def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     dpre = torch.where(pre > 0, dalpha, dalpha * negative_slope)
     a = rt(att) if round_att_first else att
     ct = torch.cat([rt(g[:, :, :kz] * a[:, :, None]), rt(dpre)[:, :, None]], dim=2)
-    dpk = torch.zeros((table.shape[0], n_ch * bz), dtype=torch.float32,
-                      device=table.device)
-    dpk.index_add_(0, s, ct.reshape(-1, n_ch * bz))
-    da_dst = segment_sum(rt(dpre) if round_att_first else dpre, d, num_rows)
-    return dpk, da_dst.t().contiguous()
+    return ct.reshape(-1, n_ch * bz), dpre
 
 
 def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
@@ -291,63 +403,249 @@ def flash_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows, kz,
 flash_gat_bwd.launches = 0
 
 
+def flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                             negative_slope=0.2):
+    """Plain PyTorch version of flash_gat_bwd_glue, same inputs and rounding
+    points (K2's): (ct [E, kz+1] in the table's dtype, exact zeros on the
+    padding edges' rows; da_dst f32[num_rows], the unrounded dpre summed by
+    dst)."""
+    real = dst < num_rows
+    s, d = src[real].long(), dst[real].long()
+    ct_real, dpre = _bwd_edge_terms(table, gtab, logden[None], adst_r[None], s, d, kz,
+                                    False, negative_slope)
+    ct = torch.zeros((dst.shape[0], kz + 1), dtype=table.dtype, device=table.device)
+    ct[real] = ct_real.to(table.dtype)
+    return ct, segment_sum(dpre[:, 0], d, num_rows)
+
+
+def flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                       negative_slope=0.2):
+    """K13 (``bwd='glue'``): (ct [E, kz+1] in the table's dtype, da_dst
+    f32[num_rows]).  Edge e's row is its cotangent ``[round_T(g·att) |
+    round_T(dpre)]`` (exact zeros for a padding edge) and da_dst sums dpre by
+    dst, from K2's stat inputs (see flash_gat_bwd); the caller scatters ct
+    by src with segment_kernels.localized_scatter_add (K6), as the JAX
+    route does (flash_gat.py:1444-1479).  Launches of csrc/gat_bwd.cu's
+    StoreCt mode counted in ``flash_gat_bwd_glue.launches``."""
+    if table.device.type == "cpu":
+        return flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
+                                        negative_slope)
+    dev, width = _check_table("flash_gat_bwd_glue", table, 1, kz)
+    e = dst.shape[0]
+    _cuda.require(gtab, "gtab", torch.float32, (num_rows, width), dev)
+    _cuda.require(logden, "logden", torch.float32, (num_rows,), dev)
+    _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
+    _cuda.require(src, "src", torch.int32, (e,), dev)
+    _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    ct = torch.empty((e, width), dtype=table.dtype, device=dev)  # written whole
+    da_dst = torch.zeros(num_rows, dtype=torch.float32, device=dev)
+    if e == 0:
+        return ct, da_dst
+    _cuda.launch(
+        "gat_bwd_glue", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+        gtab.data_ptr(), logden.data_ptr(), adst_r.data_ptr(), src.data_ptr(), dst.data_ptr(),
+        ct.data_ptr(), da_dst.data_ptr(), e, num_rows, kz, float(negative_slope),
+    )
+    flash_gat_bwd_glue.launches += 1
+    return ct, da_dst
+
+
+flash_gat_bwd_glue.launches = 0
+
+
+def dst_block_bounds(dst, num_rows):
+    """int32[n_blocks+1] for the 128-row dst blocks: block b's edges are
+    ``[bounds[b], bounds[b+1])`` of a block-monotone edge list (graph.py's
+    order), the counterpart of the JAX ``_block_chunk_bounds``.  The first
+    bound is 0 and the last E, so the ranges cover every edge (the padding
+    lands in the last block's range) whatever the order."""
+    n_blocks = max(1, _cdiv(num_rows, _BR))
+    blocks = torch.arange(n_blocks + 1, dtype=torch.int32, device=dst.device)
+    bounds = torch.searchsorted((dst // _BR).to(torch.int32).contiguous(), blocks,
+                                out_int32=True)
+    bounds[0] = 0
+    bounds[-1] = dst.shape[0]
+    return bounds
+
+
+def onepass_pieces(block_bounds, piece_edges):
+    """int32[n_blocks]: the inclusive prefix sum of each dst block's pieces
+    of at most `piece_edges` edges (K14's CTAs, in order)."""
+    lengths = block_bounds[1:] - block_bounds[:-1]
+    return torch.cumsum((lengths + piece_edges - 1) // piece_edges, 0).to(torch.int32)
+
+
+def flash_gat_bwd_onepass_plain(table, stat, src, dst, block_bounds, num_rows, kz,
+                                negative_slope=0.2, piece_edges=None):
+    """Plain PyTorch version of flash_gat_bwd_onepass, same inputs, rounding
+    points and edge pieces: each piece's edges, as the kernel's CTAs take
+    them, give dpk's rows by src; each piece sums its dpre by row and the
+    pieces add by row, as the kernel flushes its shared da_dst."""
+    piece_edges = piece_edges or ONEPASS_PIECE_EDGES
+    dev = table.device
+    piece_end = onepass_pieces(block_bounds, piece_edges).long()
+    counts = torch.diff(piece_end, prepend=piece_end.new_zeros(1))
+    n_pieces = int(piece_end[-1])
+    blk = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
+    k = torch.arange(n_pieces, device=dev) - (piece_end[blk] - counts[blk])
+    bb = block_bounds.long()
+    lo = bb[blk] + k * piece_edges
+    sizes = torch.minimum(lo + piece_edges, bb[blk + 1]) - lo
+    first = torch.cumsum(sizes, 0) - sizes
+    edge = (torch.repeat_interleave(lo - first, sizes)
+            + torch.arange(int(sizes.sum()), device=dev))
+    piece = torch.repeat_interleave(torch.arange(n_pieces, device=dev), sizes)
+    real = dst[edge] < num_rows
+    edge, piece = edge[real], piece[real]
+    s, d = src[edge].long(), dst[edge].long()
+    ct, dpre = _bwd_edge_terms(table, stat[:, : kz + 1], stat[None, :, kz + 1],
+                               stat[None, :, kz + 2], s, d, kz, False, negative_slope)
+    dpk = torch.zeros((table.shape[0], kz + 1), dtype=torch.float32, device=dev)
+    dpk.index_add_(0, s, ct)
+    part = segment_sum(dpre[:, 0], piece * num_rows + d, n_pieces * num_rows)
+    return dpk, part.view(n_pieces, num_rows).sum(dim=0)
+
+
+def flash_gat_bwd_onepass(table, stat, src, dst, block_bounds, num_rows, kz,
+                          negative_slope=0.2, piece_edges=None):
+    """K14 (``bwd='onepass'``): (dpk f32[n, kz+1], da_dst f32[num_rows]),
+    the one-pass dst-block backward.
+
+    table: the forward's [n, kz+1] ``[z | a_src]`` rows in the transport
+    dtype; stat: f32[num_rows, kz+3] rows ``[g | gout | logden | a_dst]``
+    with g NOT rounded to the transport (JAX flash_gat.py:1365-1373);
+    src, dst: int32[E] with padding ``dst >= num_rows``; block_bounds:
+    int32[n_blocks+1] (dst_block_bounds, StepGraph.block_bounds);
+    piece_edges: the most edges one CTA takes (default
+    ONEPASS_PIECE_EDGES).  CPU tensors take the plain version; CUDA tensors
+    launch csrc/gat_bwd_onepass.cu, counted in
+    ``flash_gat_bwd_onepass.launches``, or raise."""
+    if table.device.type == "cpu":
+        return flash_gat_bwd_onepass_plain(table, stat, src, dst, block_bounds, num_rows, kz,
+                                           negative_slope, piece_edges)
+    piece_edges = piece_edges or ONEPASS_PIECE_EDGES
+    dev, width = _check_table("flash_gat_bwd_onepass", table, 1, kz)
+    if kz > 125:
+        raise ValueError(f"flash_gat_bwd_onepass: kz {kz} > 125 (its stat rows in "
+                         "shared memory)")
+    e = dst.shape[0]
+    n_blocks = max(1, _cdiv(num_rows, _BR))
+    _cuda.require(stat, "stat", torch.float32, (num_rows, kz + 3), dev)
+    _cuda.require(src, "src", torch.int32, (e,), dev)
+    _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    _cuda.require(block_bounds, "block_bounds", torch.int32, (n_blocks + 1,), dev)
+    dpk = torch.zeros((table.shape[0], width), dtype=torch.float32, device=dev)
+    da_dst = torch.zeros(num_rows, dtype=torch.float32, device=dev)
+    if e == 0:
+        return dpk, da_dst
+    piece_end = onepass_pieces(block_bounds, piece_edges)
+    # at most one more piece a block than E / piece_edges: no count is read
+    grid = n_blocks + _cdiv(e, piece_edges)
+    _cuda.launch(
+        "gat_bwd_onepass", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+        stat.data_ptr(), src.data_ptr(), dst.data_ptr(), block_bounds.data_ptr(),
+        piece_end.data_ptr(), dpk.data_ptr(), da_dst.data_ptr(), grid, n_blocks, num_rows,
+        kz, piece_edges, float(negative_slope),
+    )
+    flash_gat_bwd_onepass.launches += 1
+    return dpk, da_dst
+
+
+flash_gat_bwd_onepass.launches = 0
+
+
 class FlashGAT(torch.autograd.Function):
-    """flash_gat_fwd + normalization, differentiable in the table and a_dst.
+    """The flash pass + normalization, differentiable in the table and
+    a_dst, on the routes of `mode` (ops/config.FlashGATMode).
 
     forward(table [n, kz+1] in the transport dtype, a_dst f32[num_rows],
-    src, dst int32[E], num_rows, kz, negative_slope) -> out f32[num_rows,
-    kz].  The backward builds K2's stat table as ``_flash_bwd`` does
-    (ops/flash_gat.py:1423-1433): g rounded once through the transport,
-    gout = Σ g·out from the unrounded g, logden = m̂ + log(s + 1e-16),
-    a_dst rounded through the transport; it returns the table's gradient in
-    the table's dtype and a_dst's in f32.  m̂ is a residual with no
-    gradient.  A graph without edges gives exact zeros both ways."""
+    src, dst int32[E], block_bounds (int32[n_blocks+1], read by the one-pass
+    backward only), num_rows, kz, negative_slope, mode) -> out f32[num_rows,
+    kz].  The shift is m̂ (bound_shift, K1/K12) or the row max m
+    (online_shift, K12-online); it is a residual with no gradient, and
+    logden = shift + log(s + 1e-16).  The backward builds the route's stat
+    table as ``_flash_bwd`` does (ops/flash_gat.py:1360-1479): K2 and K13
+    take ``[round_T(g) | gout]`` (g rounded once through the transport,
+    gout = Σ g·out from the unrounded g), logden and round_T(a_dst); K14
+    takes ``[g | gout | logden | round_T(a_dst)]`` with g unrounded.  It
+    returns the table's gradient in the table's dtype and a_dst's in f32.
+    A graph without edges gives exact zeros both ways."""
 
     @staticmethod
-    def forward(ctx, table, a_dst, src, dst, num_rows, kz, negative_slope):
-        adst_r, mhat = bound_shift(a_dst, table[:num_rows, kz], negative_slope,
-                                   table.dtype)
-        acc = flash_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
-                            negative_slope)
+    def forward(ctx, table, a_dst, src, dst, block_bounds, num_rows, kz, negative_slope,
+                mode):
+        if mode.softmax_shift == "online":
+            adst_r, shift = online_shift(table, a_dst, src, dst, num_rows, kz,
+                                         negative_slope)
+            acc = flash_gat_fwd_online(table, adst_r, shift, src, dst, num_rows, kz,
+                                       negative_slope)
+        else:
+            adst_r, shift = bound_shift(a_dst, table[:num_rows, kz], negative_slope,
+                                        table.dtype)
+            acc = flash_gat_fwd(table, adst_r, shift, src, dst, num_rows, kz,
+                                negative_slope)
         s = acc[:, kz]
         out = acc[:, :kz] / (s[:, None] + 1e-16)
-        ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst)
-        ctx.consts = (num_rows, kz, negative_slope)
+        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, block_bounds)
+        ctx.consts = (num_rows, kz, negative_slope, mode)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        table, adst_r, mhat, s, out, src, dst = ctx.saved_tensors
-        num_rows, kz, negative_slope = ctx.consts
+        table, adst_r, shift, s, out, src, dst, block_bounds = ctx.saved_tensors
+        num_rows, kz, negative_slope, mode = ctx.consts
+        if dst.shape[0] == 0:  # JAX flash_gat.py:1354-1356
+            return (torch.zeros_like(table), torch.zeros_like(adst_r), None, None, None,
+                    None, None, None, None)
         g = g.float()
-        gtab = torch.cat([g.to(table.dtype).float(), (g * out).sum(dim=1, keepdim=True)],
-                         dim=1)
-        logden = mhat + torch.log(s + 1e-16)
-        dpk, da_dst = flash_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows,
-                                    kz, negative_slope)
-        return dpk.to(table.dtype), da_dst, None, None, None, None, None
+        gout = (g * out).sum(dim=1, keepdim=True)
+        logden = shift + torch.log(s + 1e-16)
+        if mode.bwd == "onepass":
+            stat = torch.cat([g, gout, logden[:, None], adst_r[:, None]], dim=1)
+            dpk, da_dst = flash_gat_bwd_onepass(table, stat, src, dst, block_bounds,
+                                                num_rows, kz, negative_slope)
+        else:
+            gtab = torch.cat([g.to(table.dtype).float(), gout], dim=1)
+            if mode.bwd == "glue":
+                from .segment_kernels import localized_scatter_add  # imports this module
+
+                ct, da_dst = flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst,
+                                                num_rows, kz, negative_slope)
+                dpk = localized_scatter_add(
+                    ct, src, table.shape[0], "bf16" if table.dtype == torch.bfloat16 else "f32")
+            else:
+                dpk, da_dst = flash_gat_bwd(table, gtab, logden, adst_r, src, dst,
+                                            num_rows, kz, negative_slope)
+        return dpk.to(table.dtype), da_dst, None, None, None, None, None, None, None
 
 
 def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
-                             negative_slope=0.2, transport="f32"):
+                             negative_slope=0.2, transport="f32", mode=FlashGATMode(),
+                             block_bounds=None):
     """out[i] = Σ_e softmax_dst(leaky_relu(a_dst[i] + a_src[j]))_e · z[j]
     for single-head GAT, from the row-major table the kernel reads.
 
     table: [n, kz+1] ``[z | a_src]`` rows (n >= num_rows, n > max real src);
     a_dst: [num_rows] f32; src/dst: int32[E] with padding sentinel
-    ``dst == num_rows``.  Returns [num_rows, kz] f32, differentiable in
-    table and a_dst (FlashGAT).  The cast to the transport dtype stays
-    outside the Function, so the table's gradient is rounded to it as the
-    JAX VJP's is."""
+    ``dst == num_rows``; mode: the routes (ops/config.FlashGATMode);
+    block_bounds: the StepGraph's, for the one-pass backward (None =
+    dst_block_bounds of `dst`).  Returns [num_rows, kz] f32,
+    differentiable in table and a_dst (FlashGAT).  The cast to the
+    transport dtype stays outside the Function, so the table's gradient is
+    rounded to it as the JAX VJP's is."""
     table = table.to(t_dtype_of(transport)).contiguous()
+    dst = dst.to(torch.int32).contiguous()
+    if mode.bwd == "onepass" and block_bounds is None:
+        block_bounds = dst_block_bounds(dst, num_rows)
     return FlashGAT.apply(
-        table, a_dst.float().contiguous(), src.to(torch.int32).contiguous(),
-        dst.to(torch.int32).contiguous(), num_rows, kz, negative_slope,
+        table, a_dst.float().contiguous(), src.to(torch.int32).contiguous(), dst,
+        block_bounds, num_rows, kz, negative_slope, mode,
     )
 
 
 def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
-                        num_rows, kz, negative_slope=0.2, transport="f32"):
+                        num_rows, kz, negative_slope=0.2, transport="f32",
+                        mode=FlashGATMode(), block_bounds=None):
     """flash_gat_attention_rows with the JAX signature.
 
     packed_t: [k_pad, n_src_pad] column-major ``[z | a_src]`` table
@@ -361,7 +659,8 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
             f"packed_t: shape {tuple(packed_t.shape)}, expected {(k_pad, n_src_pad)}"
         )
     return flash_gat_attention_rows(packed_t[: kz + 1].t(), a_dst, src, dst,
-                                    num_rows, kz, negative_slope, transport)
+                                    num_rows, kz, negative_slope, transport, mode,
+                                    block_bounds)
 
 
 def flash_gat_reference(packed_t, a_dst, src, dst, num_rows, kz,

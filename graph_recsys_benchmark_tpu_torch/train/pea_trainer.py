@@ -39,6 +39,7 @@ from ..models.pea import (
     pea_loss,
     pea_predict,
 )
+from ..ops.config import FlashGATMode
 from ..ops.flash_gat import t_dtype_of
 from .engine import GraphEpochEngine
 from .optim import make_optimizer
@@ -65,7 +66,10 @@ class PEATrainer(GraphEpochEngine):
     of (src, dst) step edges per channel, None = mlsmall_metapath_edges(hin)
     (ML-25M: data.movielens.ml25m_metapath_edges).  `device` None = the
     card (raises without one); `transport` 'f32' | 'bf16' is the message
-    transport dtype of the edge kernels."""
+    transport dtype of the edge kernels; `flash_mode` picks the routes of
+    the union flash-GAT passes (ops/config.FlashGATMode: the online-max
+    forward, the glue or one-pass backward; the default is the JAX
+    package's default route)."""
 
     # Per-channel GAT graphs: None = implicit self-loops past the streaming
     # threshold (graph.build_gat_graph's auto rule); True forces them on
@@ -73,11 +77,15 @@ class PEATrainer(GraphEpochEngine):
     _analytic_gat_loops = None
 
     def __init__(self, hin: HINData, cfg: PEAConfig, tcfg: TrainConfig,
-                 metapath_edges=None, device=None, transport="f32"):
+                 metapath_edges=None, device=None, transport="f32",
+                 flash_mode=FlashGATMode()):
         t_dtype_of(transport)  # validate
+        if not isinstance(flash_mode, FlashGATMode):
+            raise TypeError(f"flash_mode: expected a FlashGATMode, got {flash_mode!r}")
         self.device = resolve_device(device)
         self.hin, self.cfg, self.tcfg = hin, cfg, tcfg
         self.transport = transport
+        self.flash_mode = flash_mode
         if metapath_edges is None:
             metapath_edges = mlsmall_metapath_edges(hin)
         if len(metapath_edges) != cfg.num_channels:
@@ -120,12 +128,12 @@ class PEATrainer(GraphEpochEngine):
         """Summed BPR (+ entity) loss of one batch over the full-graph
         forward (train/pea_trainer.py:84-88)."""
         return pea_loss(params, self.graphs, self.cfg, batch, row_mask=row_mask,
-                        transport=self.transport)
+                        transport=self.transport, flash_mode=self.flash_mode)
 
     def eval_forward(self, params: PEA, channel_mask=None):
         """Cached representation of every node [num_nodes, R]."""
         return pea_forward(params, self.graphs, self.cfg, channel_mask=channel_mask,
-                           transport=self.transport)
+                           transport=self.transport, flash_mode=self.flash_mode)
 
     @torch.no_grad()
     def evaluate(self, params: PEA, generator: torch.Generator,

@@ -41,6 +41,19 @@ the largest value (two f32 orders can differ by more than either differs
 from the exact sum: 1.04e-6 measured at PEASage step 2); K7 is a copy and
 equals the plain version bitwise.
 
+The flash-GAT variant routes (ops/config.FlashGATMode) run at the step-1
+union shape: gat_rowmax (K12-online's row max) equals its plain version
+bitwise and flash_gat_fwd_online (its walk) within KERNEL_TOL;
+flash_gat_bwd_glue's stored cotangent rows (K13) are each within one unit
+of the transport's last place of the plain version's (datt sums in
+another order, which can move dpre's last bit), its padding rows exact
+zeros, its da_dst within KERNEL_TOL, and K6 on them within 1e-6 of the
+float64 sums; flash_gat_bwd_onepass (K14) on a skewed graph (one dst
+block with 12x the mean's edges), with the default and with 64-edge
+pieces and with the edges out of block order, within KERNEL_TOL.
+FlashGAT in every mode on the card is held to the CPU's at the whole-op
+tolerances.
+
 Run on a machine with the card and nvcc (this file needs neither JAX nor
 the repo's conftest):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
@@ -565,4 +578,187 @@ def test_stream_wrappers_reject_bad_inputs(cuda):
         tsk.softmax_stats(torch.zeros(16, device=cuda, dtype=torch.bfloat16), ids, n)
     after = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
              tsg.stream_gat_bwd_src.launches, tsk.softmax_stats.launches)
+    assert after == before
+
+
+# ---------------------------------------------------------------- the
+# flash-GAT variant routes (ops/config.FlashGATMode): K12-online
+# (gat_rowmax + flash_gat_fwd_online), K13 (flash_gat_bwd_glue, then K6) and
+# K14 (flash_gat_bwd_onepass), at the flagship's step-1 union shape
+
+
+def _ulp(x, t_dtype):
+    """One unit in the last place of |x| in `t_dtype` (f32 24 bits, bf16 8)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x.float()), e - (24 if t_dtype == torch.float32 else 8))
+
+
+def _flagship_union(rng, cuda, t_dtype, skew=False):
+    """The step-1 union shape with random block-ordered edges; `skew` puts
+    12x the mean block's edges into dst block 3 (the flagship's busiest
+    block holds 12.6x)."""
+    n, kz = 15210, 64
+    src, dst = _edges(rng, n, 169155, 169472, torch.device("cpu"))
+    if skew:
+        real = dst < n
+        heavy = torch.from_numpy(rng.random(dst.shape[0]) < 0.1) & real
+        dst = torch.where(heavy, 384 + dst % 128, dst)
+        order = torch.from_numpy(np.lexsort((dst.numpy(), src.numpy(), dst.numpy() // 128)))
+        src, dst = src[order], dst[order]
+    table = torch.from_numpy(rng.standard_normal((n, kz + 1), dtype=np.float32)).to(t_dtype)
+    a_dst = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
+    return n, kz, src.to(cuda), dst.to(cuda), table.to(cuda), a_dst.to(cuda)
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_online_kernels_match_plain(cuda, transport):
+    """gat_rowmax's m equals the plain version's bitwise (one max, rounded
+    once); the walk's sums within KERNEL_TOL, as K1/K12's."""
+    rng = np.random.default_rng(10)
+    t_dtype = TDT[transport]
+    n, kz, src, dst, table, a_dst = _flagship_union(rng, cuda, t_dtype)
+    adst_r = a_dst.to(t_dtype).float()
+    before = (tfg.gat_rowmax.launches, tfg.flash_gat_fwd_online.launches)
+    m = tfg.gat_rowmax(table, adst_r, src, dst, n, kz)
+    acc = tfg.flash_gat_fwd_online(table, adst_r, m, src, dst, n, kz)
+    torch.cuda.synchronize()
+    assert (tfg.gat_rowmax.launches, tfg.flash_gat_fwd_online.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(m, tfg.gat_rowmax_plain(table, adst_r, src, dst, n, kz))
+    want = tfg.flash_gat_fwd_plain(table, adst_r, m, src, dst, n, kz)
+    assert torch.isfinite(acc).all() and _rel_err(acc, want) <= KERNEL_TOL
+    empty = dst.new_zeros(0)
+    assert not tfg.gat_rowmax(table, adst_r, empty, empty, n, kz).any()
+    assert tfg.gat_rowmax.launches == before[0] + 1
+
+
+def _mode_bwd_inputs(rng, n, kz, src, dst, table, a_dst, t_dtype):
+    """K2/K13's stat inputs (g rounded) and K14's stat table (g unrounded)
+    from the plain forward on the same inputs and a random cotangent."""
+    adst_r, mhat = tfg.bound_shift(a_dst, table[:, kz], 0.2, t_dtype)
+    acc = tfg.flash_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
+    s = acc[:, kz]
+    out = acc[:, :kz] / (s[:, None] + 1e-16)
+    g = torch.from_numpy(rng.standard_normal((n, kz), dtype=np.float32)).to(table.device)
+    gout = (g * out).sum(dim=1, keepdim=True)
+    logden = mhat + torch.log(s + 1e-16)
+    gtab = torch.cat([g.to(t_dtype).float(), gout], dim=1)
+    stat = torch.cat([g, gout, logden[:, None], adst_r[:, None]], dim=1)
+    return adst_r, gtab, logden, stat
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_glue_kernel_matches_plain(cuda, transport):
+    """K13's stored cotangent rows: each element within one unit of the
+    transport's last place of the plain version's (the stores round the
+    same values; datt sums in another order, which can move dpre's last
+    bit), the padding rows exact zeros though ct starts as torch.empty;
+    da_dst within KERNEL_TOL; K6 on them against the float64 sums of the
+    same rows at 1e-6."""
+    rng = np.random.default_rng(11)
+    t_dtype = TDT[transport]
+    n, kz, src, dst, table, a_dst = _flagship_union(rng, cuda, t_dtype)
+    adst_r, gtab, logden, _ = _mode_bwd_inputs(rng, n, kz, src, dst, table, a_dst, t_dtype)
+    args = (table, gtab, logden, adst_r, src, dst, n, kz)
+    before = tfg.flash_gat_bwd_glue.launches
+    # leave NaNs where ct's torch.empty will land: every row must be written
+    torch.full((dst.numel(), kz + 1), float("nan"), dtype=t_dtype, device=cuda)
+    ct, da = tfg.flash_gat_bwd_glue(*args)
+    torch.cuda.synchronize()
+    assert tfg.flash_gat_bwd_glue.launches == before + 1
+    want_ct, want_da = tfg.flash_gat_bwd_glue_plain(*args)
+    assert ct.dtype == t_dtype and ct.shape == want_ct.shape
+    assert not ct[dst >= n].any()
+    diff = (ct.float() - want_ct.float()).abs()
+    assert (diff <= torch.maximum(_ulp(ct, t_dtype), _ulp(want_ct, t_dtype))).all()
+    assert _rel_err(da, want_da) <= KERNEL_TOL
+    dpk = tsk.localized_scatter_add(ct, src, n, transport)
+    exact = segment_sum(ct.double(), src, n)
+    assert _rel_err(dpk.double(), exact) <= 1e-6
+
+
+@pytest.mark.parametrize("piece_edges", [None, 64])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_onepass_kernel_matches_plain(cuda, transport, piece_edges):
+    """K14 on a skewed union graph (one block with 12x the mean's edges),
+    with the default pieces and with 64-edge pieces (~25 a mean block),
+    against its plain version at KERNEL_TOL; and on the same edges out of
+    block order (its global fallback)."""
+    rng = np.random.default_rng(12)
+    t_dtype = TDT[transport]
+    n, kz, src, dst, table, a_dst = _flagship_union(rng, cuda, t_dtype, skew=True)
+    _, _, _, stat = _mode_bwd_inputs(rng, n, kz, src, dst, table, a_dst, t_dtype)
+    bounds = tfg.dst_block_bounds(dst, n)
+    before = tfg.flash_gat_bwd_onepass.launches
+    got = tfg.flash_gat_bwd_onepass(table, stat, src, dst, bounds, n, kz,
+                                    piece_edges=piece_edges)
+    torch.cuda.synchronize()
+    assert tfg.flash_gat_bwd_onepass.launches == before + 1
+    want = tfg.flash_gat_bwd_onepass_plain(table, stat, src, dst, bounds, n, kz,
+                                           piece_edges=piece_edges)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel_err(a, b) <= KERNEL_TOL
+    perm = torch.from_numpy(rng.permutation(dst.numel())).to(cuda)
+    shuffled = tfg.flash_gat_bwd_onepass(table, stat, src[perm].contiguous(),
+                                         dst[perm].contiguous(), bounds, n, kz,
+                                         piece_edges=piece_edges)
+    for a, b in zip(shuffled, want):
+        assert _rel_err(a, b) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("bwd", ["fused", "glue", "onepass"])
+@pytest.mark.parametrize("shift", ["bound", "online"])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_flash_modes_on_card_match_cpu(cuda, transport, shift, bwd):
+    """FlashGAT's output and gradients in every mode: the card (kernels)
+    against the CPU (plain versions), at the whole-op tolerances."""
+    from graph_recsys_benchmark_tpu_torch.ops.config import FlashGATMode
+
+    mode = FlashGATMode(shift, bwd)
+    rng = np.random.default_rng(13)
+    n, kz = 700, 16
+    src, dst = _edges(rng, n, 6000, 6144, torch.device("cpu"))
+    packed = tfg.pack_gat_table(torch.from_numpy(rng.standard_normal((kz, n), dtype=np.float32)),
+                                torch.from_numpy(rng.standard_normal(n, dtype=np.float32)), n,
+                                TDT[transport])
+    a_dst = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, kz), dtype=np.float32))
+    res = {}
+    for d in ("cuda", "cpu"):
+        p = packed.to(d).requires_grad_()
+        a = a_dst.to(d).requires_grad_()
+        out = tfg.flash_gat_attention(p, a, src.to(d), dst.to(d), None, None, n, kz, 0.2,
+                                      transport, mode=mode)
+        res[d] = (out.detach(),) + torch.autograd.grad(out, (p, a), g.to(d))
+    torch.cuda.synchronize()
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert _rel_err(got.float().cpu(), want.float()) <= TOL[transport]
+
+
+def test_mode_wrappers_reject_bad_inputs(cuda):
+    n, kz = 300, 8
+    table = torch.zeros((n + 1, kz + 1), device=cuda)
+    vec = torch.zeros(n, device=cuda)
+    ids = torch.zeros(16, dtype=torch.int32, device=cuda)
+    gtab = torch.zeros((n, kz + 1), device=cuda)
+    stat = torch.zeros((n, kz + 3), device=cuda)
+    bounds = tfg.dst_block_bounds(ids, n)
+    before = [c.launches for c in (tfg.gat_rowmax, tfg.flash_gat_fwd_online,
+                                   tfg.flash_gat_bwd_glue, tfg.flash_gat_bwd_onepass)]
+    with pytest.raises(ValueError):  # int64 ids
+        tfg.gat_rowmax(table, vec, ids.long(), ids, n, kz)
+    with pytest.raises(ValueError):  # m of the wrong length
+        tfg.flash_gat_fwd_online(table, vec, vec[:-1], ids, ids, n, kz)
+    with pytest.raises(ValueError):  # bf16 stat table
+        tfg.flash_gat_bwd_glue(table, gtab.bfloat16(), vec, vec, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # K2's stat table for K14
+        tfg.flash_gat_bwd_onepass(table, gtab, ids, ids, bounds, n, kz)
+    with pytest.raises(ValueError):  # int64 block bounds
+        tfg.flash_gat_bwd_onepass(table, stat, ids, ids, bounds.long(), n, kz)
+    with pytest.raises(ValueError):  # past its shared-memory layout
+        tfg.flash_gat_bwd_onepass(torch.zeros((n, 127), device=cuda),
+                                  torch.zeros((n, 129), device=cuda), ids, ids, bounds, n, 126)
+    after = [c.launches for c in (tfg.gat_rowmax, tfg.flash_gat_fwd_online,
+                                  tfg.flash_gat_bwd_glue, tfg.flash_gat_bwd_onepass)]
     assert after == before

@@ -25,7 +25,11 @@ Off the TPU the JAX package runs ``stream_gat_reference`` (exact max, f32)
 and the XLA composed path; the port runs the kernels' plain versions
 (bound-shift softmax).  f32: loss 1e-6 and every gradient 2e-5 of its
 largest value (the shifts differ, so the exps round apart; measured
-1.1e-7 and 2.4e-6).  A few training steps and one evaluation run on the CPU
+1.1e-7 and 2.4e-6).  A third layout, "composed" (every graph with its
+self-loops as edges, so every conv runs the composed GAT), is held in
+bf16 transport at the GCN/SAGE slice's bf16 bar (loss 1e-3, the median
+gradient leaf 1e-3, every leaf 5e-2; measured: loss equal, 5.0e-4 and
+1.6e-2).  A few training steps and one evaluation run on the CPU
 through the trainer.
 """
 
@@ -39,6 +43,7 @@ from graph_recsys_benchmark_tpu import graph as jgraph
 from graph_recsys_benchmark_tpu.data import movielens as jml
 from graph_recsys_benchmark_tpu.data import synthetic as jsyn
 from graph_recsys_benchmark_tpu.models import pea as jpea
+from graph_recsys_benchmark_tpu.ops import config as jconfig
 from graph_recsys_benchmark_tpu.ops import stream_gat as jstream
 from graph_recsys_benchmark_tpu.train import sampling as jsamp
 from graph_recsys_benchmark_tpu_torch import graph as tgraph
@@ -106,9 +111,10 @@ def test_hin_and_tables_equal_jax(world):
 
 def _per_channel(world, layout, monkeypatch):
     """Both packages' per-channel GAT graphs for `layout` 'stream' (every
-    graph loop-free) or 'mixed' (the auto rule at MIXED_THRESHOLD)."""
+    graph loop-free), 'mixed' (the auto rule at MIXED_THRESHOLD) or
+    'composed' (every graph with its self-loops as edges)."""
     jh, th = world
-    analytic = True if layout == "stream" else None
+    analytic = {"stream": True, "mixed": None, "composed": False}[layout]
     if layout == "mixed":
         monkeypatch.setattr(jstream, "STREAM_MIN_EDGES", MIXED_THRESHOLD)
         monkeypatch.setattr(tgraph, "STREAM_MIN_EDGES", MIXED_THRESHOLD)
@@ -208,9 +214,19 @@ def _grad_tree(m):
             "fc1": g(m.fc1), "fc2": g(m.fc2)}
 
 
-@pytest.mark.parametrize("layout", ["stream", "mixed"])
+@pytest.mark.parametrize("layout", ["stream", "mixed", "composed"])
 def test_loss_and_grads_match_jax(world, monkeypatch, layout):
+    """'composed' runs bf16 transport: every conv composed (K8 softmax,
+    gather_src, gather_dst, K5), against JAX under SEGSUM_TRANSPORT 'bf16'
+    compiled with xla_allow_excess_precision off (test_torch_gcn_sage_slice.py:
+    XLA's CPU jit otherwise skips bf16 roundings), at that file's bf16 bar
+    (loss 1e-3, the median leaf 1e-3, every leaf 5e-2).  A streaming
+    layout cannot be held in bf16 here: off the TPU the JAX package
+    streams through stream_gat_reference, which is f32 whatever the
+    transport."""
     jh, th = world
+    transport = "bf16" if layout == "composed" else "f32"
+    monkeypatch.setattr(jconfig, "SEGSUM_TRANSPORT", transport)  # read at trace time
     jg, tg = _per_channel(world, layout, monkeypatch)
     n = jh.num_nodes
     jcfg = jpea.PEAConfig(conv="gat", num_nodes=n, **SMALL)
@@ -222,21 +238,29 @@ def test_loss_and_grads_match_jax(world, monkeypatch, layout):
     batch, mask = _batch(th)
 
     loss_grads = jax.jit(jax.value_and_grad(
-        lambda q: jpea.pea_loss(q, jg, jcfg, jnp.asarray(batch), row_mask=jnp.asarray(mask))))
+        lambda q: jpea.pea_loss(q, jg, jcfg, jnp.asarray(batch), row_mask=jnp.asarray(mask))),
+        compiler_options={"xla_allow_excess_precision": False} if transport == "bf16" else None)
     jloss, jgrads = jax.tree_util.tree_map(np.asarray, loss_grads(params))
     model = tparams.from_jax_numpy(jax.tree_util.tree_map(np.asarray, params))
     loss = tpea.pea_loss(model, tg, tcfg, torch.from_numpy(batch),
-                         row_mask=torch.from_numpy(mask))
+                         row_mask=torch.from_numpy(mask), transport=transport)
     loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-6)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-6 if transport == "f32" else 1e-3)
     tgrads = _grad_tree(model)
     assert jax.tree_util.tree_structure(tgrads) == jax.tree_util.tree_structure(jgrads)
+    errs = []
     for t, j in zip(jax.tree_util.tree_leaves(tgrads), jax.tree_util.tree_leaves(jgrads)):
         assert t.shape == j.shape and np.isfinite(t).all()
         if not j.any():  # fc2's bias cancels in pos - neg
             assert not t.any()
             continue
-        assert np.abs(t - j).max() <= 2e-5 * np.abs(j).max()
+        errs.append(float(np.abs(t - j).max() / np.abs(j).max()))
+    errs.sort()
+    if transport == "f32":
+        assert errs[-1] <= 2e-5, errs
+    else:
+        assert errs[len(errs) // 2] <= 1e-3 and errs[-1] <= 5e-2, errs
 
 
 class _StreamTrainer(PEATrainer):
