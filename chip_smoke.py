@@ -81,7 +81,9 @@
    two-step channels (ml25m_metapath_edges), 64 -> 64 -> 16, entity-aware,
    batch 4,096, 'random' negatives, Adam; one PEATrainer per transport.
    a. Build: host seconds (out of every timed window), each distinct step
-      graph's rows, edges and padded edges, the channel groups per step.
+      graph's rows, edges and padded edges (for the streaming graphs also
+      the busiest 128-row block by dst and by src and the largest
+      degrees), the channel groups per step.
    b. Kernel checks at the path's own shapes, per transport: softmax_stats
       (K8) on each composed (loop-edge) graph, its max bitwise and each
       row's sum within sum_bound of the float64 sum (with each term's
@@ -92,7 +94,9 @@
       version's terms (<= 1e-5 of the largest value); device ms, plain ms,
       the byte or operation bound and, for K8, the library composition
       scatter_reduce_(amax) + index_add_(exp) (K9-K11 have none). Each a
-      sum over one forward's calls.
+      sum over one forward's calls.  K10 and K11 are also timed, and
+      checked, at pieces of 512 to 8,192 edges (STREAM_PIECES), and the
+      build prints ptxas's registers and spills of both (ptxas_summary).
    c. Training, per transport: one step's launch counts (K9 4, K8 15,
       K10 4, K11 4, K7 75, K5 45, K6 15, as the graphs' grouping predicts);
       one step's loss and every gradient against the same step with every
@@ -149,6 +153,12 @@ FORWARD_TOL = {"f32": 1e-4, "bf16": 2e-2}
 # at the flagship).  The median leaf is held to FORWARD_TOL, every leaf to
 # this.
 KINK_TOL = 5e-2
+# The pair scorer's ReLU (pea_predict's fc1) is such a kink in every batch
+# row: one row flipped there moves every leaf by that row's share of the
+# batch, not by a rounding (PEAGCN f32 on the card: median leaf 1.47e-3 in
+# one batch of 1,024).  kink_rows drops such rows from both sides of a
+# comparison; more than this share of a batch fails.
+KINK_ROW_SHARE = 0.01
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -209,6 +219,30 @@ def leaf_errors(label, params, ref):
         else:
             check(not p.grad.any(), f"{label} grad {name}: expected exact zeros")
     return sorted(errs)
+
+
+def kink_rows(label, batch, *runs):
+    """bool[B] on the CPU: the rows of `batch` whose pair-scorer ReLU input
+    (fc1 of pea_predict, for the positive and the negative item) lies,
+    in either of two runs, within twice the runs' own difference of 0, a
+    flip of sign included.  runs: two (model, forward), forward(model) ->
+    the cached representation, on any device.  Fails if more than
+    KINK_ROW_SHARE of the rows are such: the forwards then disagree."""
+    from graph_recsys_benchmark_tpu_torch.nn.init import linear
+
+    pres = []
+    with torch.no_grad():
+        for model, forward in runs:
+            rep, b = forward(model), batch.to(model.x.device)
+            pres.append(torch.stack([
+                linear(model.fc1, torch.cat([rep[b[:, 0]], rep[b[:, c]]], dim=-1))
+                for c in (1, 2)]).double().cpu())
+    margin = 2.0 * (pres[0] - pres[1]).abs()
+    rows = ((pres[0].abs() <= margin) | (pres[1].abs() <= margin)).any(-1).any(0)
+    n = int(rows.sum())
+    check(n <= KINK_ROW_SHARE * batch.shape[0],
+          f"{label}: {n} of {batch.shape[0]} batch rows at the scorer's ReLU kink")
+    return rows
 
 
 def device_ms(fn, reps=30, batches=2):
@@ -564,7 +598,9 @@ def train_phase(hin, cfg, trainers):
         cpu = PEATrainer(hin, cfg, trainer.tcfg, device="cpu", transport=transport)
         cgen = torch.Generator().manual_seed(1)
         batch = cpu._build_batch(torch.randperm(cpu.n_rows, generator=cgen)[:bs], cgen)
-        rmask = (torch.arange(bs) < bs - 100).float()  # a partial batch
+        kinks = kink_rows(transport, batch, (params, trainer.eval_forward),
+                          (cpu_params, cpu.eval_forward))
+        rmask = ((torch.arange(bs) < bs - 100) & ~kinks).float()  # a partial batch
         loss = trainer.batch_loss(params, batch.cuda(), rmask.cuda())
         loss.backward()
         cpu_loss = cpu.batch_loss(cpu_params, batch, rmask)
@@ -581,7 +617,7 @@ def train_phase(hin, cfg, trainers):
               f"{float(loss.detach()):.6f} vs CPU {float(cpu_loss.detach()):.6f} (rel "
               f"{rel:.3e}); gradients vs CPU: median {median[1]} rel {median[0]:.3e}, worst "
               f"{worst[1]} rel {worst[0]:.3e}, {sum(e > tol for e, _ in errs)} of {len(errs)} "
-              f"over {tol}", flush=True)
+              f"over {tol}; {int(kinks.sum())} kink row(s) left out", flush=True)
 
         # ---- a warm-up epoch, then a timed epoch
         params = trainer.init(2020)
@@ -723,7 +759,7 @@ def fused_phase(hin, trainers, epochs):
     cached representation against a CPU copy; one step's launch counts (K7
     4, K5 2, K6 2) and its loss and every gradient against a CPU copy
     (median leaf at FORWARD_TOL, every leaf at KINK_TOL; weights off the
-    init regime); `epochs` epochs with the counts read over the last, its
+    init regime; a seeded batch without its kink_rows); `epochs` epochs with the counts read over the last, its
     loss finite (falling, for two), HR@10 after; eval wall and a profiled
     eval and step."""
     from graph_recsys_benchmark_tpu_torch.models.pea import pea_forward, pea_loss
@@ -774,8 +810,12 @@ def fused_phase(hin, trainers, epochs):
             params.x.mul_(10.0)
             params.fc1["b"].mul_(0.1)
         cpu_params = copy.deepcopy(params).cpu()
-        batch = trainer._build_batch(torch.randperm(trainer.n_rows, device="cuda")[:bs], gen)
-        rmask = (torch.arange(bs) < bs - 100).float()  # a partial batch
+        picked = torch.randperm(trainer.n_rows, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(3))[:bs]
+        batch = trainer._build_batch(picked, gen)
+        kinks = kink_rows(label, batch, (params, trainer.eval_forward), (
+            cpu_params, lambda m: pea_forward(m, cpu_graphs, cfg, transport=transport)))
+        rmask = ((torch.arange(bs) < bs - 100) & ~kinks).float()  # a partial batch
         loss = trainer.batch_loss(params, batch, rmask.cuda())
         loss.backward()
         cpu_loss = pea_loss(cpu_params, cpu_graphs, cfg, batch.cpu(), row_mask=rmask,
@@ -793,7 +833,7 @@ def fused_phase(hin, trainers, epochs):
               f"{float(loss.detach()):.6f} vs CPU {float(cpu_loss.detach()):.6f} (rel "
               f"{rel:.3e}); gradients vs CPU: median {median[1]} rel {median[0]:.3e}, worst "
               f"{worst[1]} rel {worst[0]:.3e}, {sum(e > tol for e, _ in errs)} of {len(errs)} "
-              f"over {tol}", flush=True)
+              f"over {tol}; {int(kinks.sum())} kink row(s) left out", flush=True)
 
         # ---- epochs, the counts read over the last
         params = trainer.init(2020)
@@ -1199,9 +1239,22 @@ def ml25m_describe(hin, trainer):
     for c, ch in enumerate(graphs):
         for k, g in enumerate(ch):
             seen.setdefault(id(g), [g, ML25M_STEPS[c][k], []])[2].append((c, k + 1))
+
+    def skew(g):
+        """The streaming graphs' skew, which K10's and K11's pieces meet:
+        the busiest 128-row block by dst and by src, the largest degrees."""
+        if not g.gat_loops:
+            return ""
+        real = g.dst < g.num_nodes
+        deg = [int(torch.bincount(ids[real].long(), minlength=g.num_nodes).max())
+               for ids in (g.dst, g.src)]
+        return (f"; busiest 128-row block {int(torch.diff(g.block_bounds).max())} edges by dst, "
+                f"{int(torch.diff(g.src_block_bounds).max())} by src; largest in-degree "
+                f"{deg[0]}, out-degree {deg[1]}")
+
     rows = [f"{name} rows {g.num_nodes} edges {g.num_edges} padded {g.dst.numel()} "
             f"{'implicit loops' if g.gat_loops else 'loop edges'} (channel, step) {uses}"
-            for g, name, uses in seen.values()]
+            f"{skew(g)}" for g, name, uses in seen.values()]
     print(f"ml25m: {hin.num_nodes} nodes, {hin.train_pos.shape[0]} train interactions, "
           f"{hin.candidates.seen.shape[0]} test users (seen lists {hin.candidates.seen.shape}); "
           f"{len(seen)} distinct step graphs:\n  " + "\n  ".join(rows), flush=True)
@@ -1214,6 +1267,28 @@ def ml25m_describe(hin, trainer):
           f"ml25m: {len(stream)} streaming calls and {len(composed)} composed convs, "
           "expected 4 and 15")
     return stream, composed
+
+
+# K10's and K11's piece-size sweep (edges a CTA) at the four streaming calls
+STREAM_PIECES = (512, 1024, 2048, 4096, 8192)
+
+
+def ptxas_summary(logs):
+    """ptxas's registers, shared memory and spills of each kernel of the
+    streaming GAT's backwards (K10, K11), one line each."""
+    cur, out = None, {}
+    for line in logs.get("stream_gat", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            cur = next((k for k in ("stream_gat_bwd_dst_kernel", "stream_gat_bwd_src_kernel")
+                        if k in name), None)
+            if cur:
+                cur += "<bf16>" if "bfloat16" in name else "<f32>"
+                out[cur] = []
+        elif cur and ("Used" in line or "spill" in line):
+            out[cur].append(line.split("info    :")[-1].strip())
+    for name, lines in out.items():
+        print(f"ptxas {name}: {'; '.join(lines)}", flush=True)
 
 
 def ml25m_kernel_phase(trainer, stream, composed):
@@ -1287,6 +1362,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
         aggs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0,
                         flops=0, library_ms=None)
                 for k in ("stream_fwd", "stream_bwd_dst", "stream_bwd_src")}
+        sweeps = {"stream_bwd_dst": {}, "stream_bwd_src": {}}
         for _, g, chans, kz in stream:
             n_ch, n, e = len(chans), g.num_nodes, g.num_edges
             width, swidth = n_ch * (kz + 1), n_ch * (kz + 3)
@@ -1300,25 +1376,29 @@ def ml25m_kernel_phase(trainer, stream, composed):
             s = acc_b[:, :, kz].t()
             out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
             gz = randn(n_ch, n, kz)
-            gband = torch.cat([gz, (gz * out).sum(2, keepdim=True),
-                               (mhat + torch.log(s + 1e-16))[:, :, None], adst_r[:, :, None]],
-                              dim=2)
-            stat = gband.permute(1, 0, 2).reshape(n, swidth).to(t_dtype).contiguous()
+            stat = sg.stat_table(gz, (gz * out).sum(2), mhat + torch.log(s + 1e-16), adst_r,
+                                 t_dtype)
             dargs = (table, stat, g.src, g.dst, n, kz)
             sargs = (table, stat, g.src_perm, g.src_sorted, g.dst, n, kz)
+            # bytes: the stat bands' n_ch*(kz+3) values a row (not the
+            # row padding), the ids, the outputs
             cases = (
-                ("stream_fwd", sg.stream_gat_fwd, sg.stream_gat_fwd_plain, fargs,
+                ("stream_fwd", sg.stream_gat_fwd, sg.stream_gat_fwd_plain, fargs, {},
                  n * width * (it + 4) + 2 * n_ch * n * 4 + 8 * e,
                  e * n_ch * (2 * (kz + 1) + 6)),
                 ("stream_bwd_dst", sg.stream_gat_bwd_dst, sg.stream_gat_bwd_dst_plain, dargs,
+                 dict(block_bounds=g.block_bounds),
                  n * (width + swidth) * it + 8 * e + n_ch * n * 4,
                  e * n_ch * (2 * kz + 14)),
                 ("stream_bwd_src", sg.stream_gat_bwd_src, sg.stream_gat_bwd_src_plain, sargs,
+                 dict(src_block_bounds=g.src_block_bounds),
                  n * (width + swidth) * it + 12 * e + n * width * 4,
                  e * n_ch * (4 * kz + 14)),
             )
-            for key, fn, plain, a, nbytes, flops in cases:
-                got = fn(*a)
+            # the kernels take the graph's block bounds (kw); the plain
+            # versions sum every real edge and read none
+            for key, fn, plain, a, kw, nbytes, flops in cases:
+                got = fn(*a, **kw)
                 exact = plain(*a, acc_dtype=torch.float64)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(got).all()), f"{key} {transport}: non-finite output")
@@ -1326,7 +1406,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
                 _, rel_plain = rel_err(got, plain(*a))
                 check(rel <= KERNEL_TOL, f"{key} {transport} (n_ch {n_ch}, kz {kz}): "
                       f"relative error vs float64 {rel} > {KERNEL_TOL}")
-                ms = device_ms(lambda: fn(*a))
+                ms = device_ms(lambda: fn(*a, **kw))
                 plain_ms = device_ms(lambda: plain(*a), reps=5)
                 b_ms, b_by = bound_ms(nbytes, flops)
                 print(f"{key} {transport}: n_ch {n_ch} kz {kz} rows {n} edges {e} (padded "
@@ -1338,10 +1418,25 @@ def ml25m_kernel_phase(trainer, stream, composed):
                 for k2, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                                 ("nbytes", nbytes), ("flops", flops)):
                     agg[k2] += val
+                if key in sweeps:
+                    # the piece-size sweep: each size held to the float64 sums too
+                    for piece in STREAM_PIECES:
+                        got = fn(*a, piece_edges=piece, **kw)
+                        _, rel = rel_err(got.double(), exact)
+                        check(rel <= KERNEL_TOL, f"{key} {transport} pieces of {piece}: "
+                              f"relative error vs float64 {rel} > {KERNEL_TOL}")
+                        sweeps[key][piece] = sweeps[key].get(piece, 0.0) + device_ms(
+                            lambda: fn(*a, piece_edges=piece, **kw))
             del acc, stat, table, out, exact, got
         for key, agg in aggs.items():
             agg["bound_by"] = bound_ms(agg.pop("nbytes"), agg.pop("flops"))[1]
             results[(key, transport)] = agg
+        defaults = {"stream_bwd_dst": sg.STREAM_DST_PIECE_EDGES,
+                    "stream_bwd_src": sg.STREAM_SRC_PIECE_EDGES}
+        for key, sweep in sweeps.items():
+            print(f"{key} {transport}: (piece edges, ms of the 4 calls) "
+                  f"{[(p, round(ms, 5)) for p, ms in sweep.items()]}; default "
+                  f"{defaults[key]}", flush=True)
         torch.cuda.empty_cache()
     return results
 
@@ -1372,8 +1467,10 @@ def plain_on_card():
          sk.sorted_segment_sum_plain(rows, ids, n, "f32")),
         (sk, "softmax_stats", sk.softmax_stats_plain),  # K8
         (sg, "stream_gat_fwd", sg.stream_gat_fwd_plain),  # K9
-        (sg, "stream_gat_bwd_dst", sg.stream_gat_bwd_dst_plain),  # K10
-        (sg, "stream_gat_bwd_src", sg.stream_gat_bwd_src_plain),  # K11
+        # K10, K11: the plain versions read no block bounds
+        (sg, "stream_gat_bwd_dst", lambda *a, block_bounds: sg.stream_gat_bwd_dst_plain(*a)),
+        (sg, "stream_gat_bwd_src",
+         lambda *a, src_block_bounds: sg.stream_gat_bwd_src_plain(*a)),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -1535,6 +1632,7 @@ def main():
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print(f"--- nvcc -Xptxas -v: {name}\n{log.strip()}", flush=True)
+    ptxas_summary(logs)
 
     t0 = time.perf_counter()
     hin, all_trainers = build_flagship()

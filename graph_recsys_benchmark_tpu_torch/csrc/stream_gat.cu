@@ -25,35 +25,68 @@
 //        over the src-sorted order                        (:426-444)
 // round_T rounds through the transport type T (identity for f32,
 // round-to-nearest-even for bf16).  Sums are f32, in an order that changes
-// from run to run.
+// from run to run.  The stat table's row stride is padded to a multiple
+// of 8 values (16 bytes in bf16, 32 in f32), so every stat row and every
+// 128-row block of it starts 16-byte aligned.
 //
-// What bounds them on the H100: bytes and atomics.  Per (edge, channel)
-// they read a (kz+1)-wide source band (and the backwards a (kz+3)-wide
-// stat band) and do ~2-4 kz flops; no tensor-core work exists.  The TPU
-// kernels stream an XLA-gathered [E, n_ch*band] edge array and touch node
-// tables only through 128-row one-hot windows; none of that is carried
-// over.  The designs:
-//   * rows are gathered inside the kernels, one warp per edge over
-//     row-major tables ([n, n_ch*(kz+1)] bands [z_c | a_src_c], [num_rows,
-//     n_ch*(kz+3)] stat bands), so no [E, n_ch*band] stream exists: at kz
-//     125 and 8 channels it would be 2.13 M x 1,024 values, past 2^31.  Row
-//     offsets are 64-bit;
-//   * K9 and K10 walk the edges in the graph's block order and add with
-//     f32 atomics into L2-resident accumulators (68,830 x 119 f32 = 32.8
-//     MB at the widest ML-25M share, 7 channels at kz 16);
-//   * K11 walks the src-sorted order (StepGraph.src_perm / src_sorted) and
-//     reads dst[src_perm[e]] itself.  Edges sharing a src are contiguous
-//     there, so a warp takes kRun consecutive edges and sums each src run
-//     in registers, one atomic per column per run: the i2u graph's most
-//     popular item has tens of thousands of out-edges, which per-edge
-//     atomics would serialize on one row;
-//   * padding edges (dst >= num_rows) are skipped before any other load.
-//     In the src-sorted order they sit inside row 0's run (src 0; the
-//     stable sort puts them after row 0's real edges), so K11 must drop
-//     them, not count on zero stats.
-// datt is a shuffle reduction per channel (lanes over the kz columns);
-// lanes 0..n_ch-1 then form their channel's att and dpre, which the other
-// lanes take by shuffle while the warp walks the row in 32-wide passes.
+// What bounds them on the H100.  Per (edge, channel) they read a
+// (kz+1)-wide source band and a (kz+3)-wide stat band and do ~2-4 kz
+// flops; there is no tensor-core work.  The one-warp-per-edge design they
+// replace ran 30-40x the bytes it must move (K10 2.78 ms, K11 4.18
+// ms an ML-25M step on one H100, f32; bf16 no faster): the limit was
+// instructions and per-edge latency.  One warp an edge left half its lanes
+// idle at kz 16 and took a 5-level butterfly per channel (35 shuffles an
+// edge at 7 channels); K11 walked 32 src-sorted edges one after another
+// through three dependent loads each (perm, dst, the stat row); K10 added
+// 7 global f32 atomics an edge.  What bounds the designs below is latency
+// and occupancy: each SM needs many edges' gathered rows in flight, so
+// every byte of shared memory a CTA holds costs resident warps (K11
+// staging its src block's table rows and a [128, width] f32 accumulator
+// ran slower on one H100 than without them, in trial builds).  The TPU kernels
+// reduce per 128-row block with the block resident in VMEM; here:
+//   * pieces.  A CTA takes one chunk of `piece_edges` consecutive edges of
+//     the walk's order (the graph's block order for K10, the src-sorted
+//     order for K11) and works it block by block: each nonempty
+//     intersection of the chunk with a 128-row block's edge range
+//     (StepGraph.block_bounds by dst, StepGraph.src_block_bounds by src)
+//     is one piece.  So every CTA takes at most piece_edges edges whatever
+//     the skew (the busiest 128-item block of u2i holds 411,933 of 2.13 M
+//     edges), the grid is ceil(E / piece_edges) without reading any count,
+//     and no CTA stages a block for nothing;
+//   * lanes over (edge, channel, column group).  A group of G lanes (G the
+//     least power of two with 8 G >= kz: 2 at kz 16, 8 at kz 64, 16 at kz
+//     125) takes one (edge, channel) unit, each lane <= 8 of its columns; a
+//     CTA pass takes floor(threads / G / n_ch) edges.  datt reduces over
+//     the group in log2(G) shuffles, every channel of every edge of the
+//     pass at once, and every lane of the group then holds it;
+//   * K10 stages its dst block's 128 stat rows in shared memory with
+//     cp.async (16-byte copies; 69.6 KB in f32 at (7, 16)), gathers only
+//     each edge's source row from global memory (edges of a block are
+//     sorted by src, so the units of one pass that share a source read the
+//     same addresses in one transaction), loads each pass's ids a pass
+//     ahead, sums round_T(dpre) into a shared da_dst[n_ch][128] and flushes
+//     it with one global atomic a (channel, row) a piece;
+//   * K11 loads its chunk's dst[perm[e]] and src ids with every thread
+//     first (one round trip a chunk) and keeps the next kStages - 1 passes'
+//     stat rows (gathered by dst) in flight through a cp.async ring in
+//     shared memory while the current pass computes.  Each edge slot of a
+//     CTA walks a contiguous slice of its piece, so a thread meets one
+//     source's edges one after another: it keeps the source's z and a_src
+//     in registers (the next pass's row loaded a pass ahead when the
+//     source changes), sums the run in registers and adds it into dpk with
+//     one atomic a column when the source changes (a hot source's run
+//     spans many passes);
+//   * layouts past shared memory ((8, 125): a 128-row f32 stat block is
+//     524 KB) run K10 unstaged: the block's stat rows are read from global
+//     memory;
+//   * padding edges (dst >= num_rows) are skipped by dst before any other
+//     load.  In the src-sorted order they sit inside row 0's run (src 0;
+//     the stable sort puts them after row 0's real edges).  An edge whose
+//     dst lies outside its K10 piece's block (an order that is not
+//     block-monotone) reads and adds through global memory, so any order
+//     gives the right sums.
+
+#include <cstdint>
 
 #include "gat_common.cuh"
 
@@ -62,7 +95,13 @@ namespace {
 using gat::round_t;
 using gat::to_f32;
 
-constexpr int kRun = 32;  // src-sorted edges per warp task in K11
+constexpr int kRows = 128;            // rows of a dst (K10) or src (K11) block
+constexpr int kDstThreads = 256;      // K10's CTA
+constexpr int kSrcThreads = 256;      // K11's CTA
+constexpr int kStages = 4;            // K11's ring of gathered stat rows
+constexpr int kMaxCols = 8;           // columns a lane takes of a unit
+constexpr int kSmemLimit = 232448;    // dynamic shared memory a CTA may use (227 KB)
+constexpr int kMaxSrcPiece = 8192;    // K11's chunk ids in shared memory, 8 bytes an edge
 
 template <typename T>
 __global__ void __launch_bounds__(256) stream_gat_fwd_kernel(
@@ -74,134 +113,303 @@ __global__ void __launch_bounds__(256) stream_gat_fwd_kernel(
                           kz, n_ch, slope);
 }
 
-// att and dpre of one real edge for lane c < n_ch (channel c), 0 on the
-// other lanes; every lane of the warp must call it.  row: the source's
-// [z_c | a_src_c] bands; srow: the destination's [g_c | gout_c | logden_c |
-// a_dst_c] stat bands, both in T.
-template <typename T>
-__device__ __forceinline__ void edge_grads(const T* __restrict__ row,
-                                           const T* __restrict__ srow, int lane,
-                                           int kz, int n_ch, float slope,
-                                           float& att_out, float& dpre_out) {
-  const int bz = kz + 1, sz = kz + 3;
-  float datt_mine = 0.f;
-  for (int c = 0; c < n_ch; ++c) {
-    float part = 0.f;
-    for (int f = lane; f < kz; f += 32)
-      part = __fadd_rn(part, round_t<T>(__fmul_rn(to_f32(srow[c * sz + f]),
-                                                  to_f32(row[c * bz + f]))));
-    for (int o = 16; o > 0; o >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-    if (lane == c) datt_mine = part;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* sdst, const void* gsrc) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(sdst)),
+               "l"(gsrc)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16: whole stat rows, whose stride
+// bad_stride keeps at 16-byte multiples) from 16-byte aligned global memory
+// into 16-byte aligned shared memory with every thread of the CTA, 16-byte
+// cp.async copies in one committed group.  The caller waits for the group
+// and syncs before reading.
+__device__ __forceinline__ void stage_bytes(void* sdst, const void* gsrc, long long bytes) {
+  char* d = static_cast<char*>(sdst);
+  const char* s = static_cast<const char*>(gsrc);
+  for (long long i = threadIdx.x; i < (bytes >> 4); i += blockDim.x)
+    cp_async16(d + 16 * i, s + 16 * i);
+  cp_async_commit();
+}
+
+// The block of edge position x: the last b < n_blocks with bounds[b] <= x
+// (bounds[0] = 0, so one exists; empty blocks are passed over).
+__device__ __forceinline__ int block_of(const int* __restrict__ bounds, int n_blocks,
+                                        long long x) {
+  int lo = 0, hi = n_blocks - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (bounds[mid] <= x) lo = mid; else hi = mid - 1;
   }
-  att_out = 0.f;
-  dpre_out = 0.f;
-  if (lane < n_ch) {
-    const T* st = srow + lane * sz;
-    const float pre = to_f32(st[kz + 2]) + to_f32(row[lane * bz + kz]);
-    const float att = gat::edge_weight(pre, to_f32(st[kz + 1]), slope);
-    const float dalpha = __fmul_rn(att, __fsub_rn(datt_mine, to_f32(st[kz])));
-    att_out = att;
-    dpre_out = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
+  return lo;
+}
+
+// datt of one (edge, channel) unit, summed over the lanes of its group of
+// `group` lanes (aligned, a power of two) in log2(group) shuffle levels;
+// every lane of the group ends with the same sum.  All 32 lanes of the
+// warp must call it.
+__device__ __forceinline__ float group_sum(float part, int group) {
+  for (int o = group >> 1; o > 0; o >>= 1)
+    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+  return part;
+}
+
+// att and dpre of one unit from its stat band srow ([g_c | gout_c |
+// logden_c | a_dst_c] in T), its source's a_src_c and its datt.  The _rn
+// intrinsics keep nvcc from contracting into FMAs, so every product and
+// difference rounds as the plain version's does.
+template <typename T>
+__device__ __forceinline__ void unit_grads(const T* srow, float asrc, float datt, int kz,
+                                           float slope, float& att, float& dpre) {
+  const float pre = to_f32(srow[kz + 2]) + asrc;
+  att = gat::edge_weight(pre, to_f32(srow[kz + 1]), slope);
+  const float dalpha = __fmul_rn(att, __fsub_rn(datt, to_f32(srow[kz])));
+  dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
+}
+
+// K10.  Shared memory: da[n_ch][128] f32, then (staged) the block's stat
+// rows [nr][sstride] T.  Each thread takes one unit a pass; the pass's
+// ids are loaded a pass ahead.
+template <typename T>
+__global__ void __launch_bounds__(kDstThreads) stream_gat_bwd_dst_kernel(
+    const T* __restrict__ table, const T* __restrict__ stat, const int* __restrict__ src,
+    const int* __restrict__ dst, const int* __restrict__ bounds, float* __restrict__ dadst,
+    int n_blocks, int num_rows, int kz, int n_ch, int sstride, int group, int staged,
+    int piece_edges, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* da = reinterpret_cast<float*>(smem);
+  T* st = reinterpret_cast<T*>(smem + (size_t)n_ch * kRows * sizeof(float));
+  const int bz = kz + 1, sz = kz + 3, width = n_ch * bz;
+  const int u = threadIdx.x / group, gl = threadIdx.x - u * group;
+  const int per = blockDim.x / group / n_ch;  // edges a pass
+  const int j = u / n_ch, c = u - j * n_ch;
+  const bool active = j < per;
+  const long long chunk_lo = (long long)blockIdx.x * piece_edges;
+  const long long chunk_hi = min(chunk_lo + piece_edges, (long long)bounds[n_blocks]);
+  for (int b = block_of(bounds, n_blocks, chunk_lo); b < n_blocks && bounds[b] < chunk_hi;
+       ++b) {
+    const long long lo = max(chunk_lo, (long long)bounds[b]);
+    const long long hi = min(chunk_hi, (long long)bounds[b + 1]);
+    if (lo >= hi) continue;  // uniform: an empty block
+    const int row0 = b * kRows, nr = min(kRows, num_rows - row0);
+    __syncthreads();  // the previous piece's flush has read da and st
+    if (staged)
+      stage_bytes(st, stat + (long long)row0 * sstride, (long long)nr * sstride * sizeof(T));
+    for (int i = threadIdx.x; i < n_ch * kRows; i += blockDim.x) da[i] = 0.f;
+    cp_async_wait<0>();
+    __syncthreads();
+    const T* sblock = staged ? st : stat + (long long)row0 * sstride;
+    long long e = lo + j;
+    int d_next = active && e < hi ? dst[e] : num_rows;
+    int s_next = d_next < num_rows ? src[e] : 0;  // padding: no other load
+    for (long long base = lo; base < hi; base += per, e += per) {
+      const int d = d_next, s = s_next;
+      d_next = active && e + per < hi ? dst[e + per] : num_rows;
+      s_next = d_next < num_rows ? src[e + per] : 0;
+      const bool real = d < num_rows;
+      const int r = d - row0;
+      const bool local = (unsigned)r < (unsigned)nr;
+      const T* srow =
+          (local ? sblock + (long long)r * sstride : stat + (long long)d * sstride) + c * sz;
+      const T* zrow = table + (long long)s * width + c * bz;
+      float part = 0.f;
+      if (real) {
+#pragma unroll
+        for (int t = 0; t < kMaxCols; ++t) {
+          const int f = gl + t * group;
+          if (f < kz)
+            part = __fadd_rn(part, round_t<T>(__fmul_rn(to_f32(srow[f]), to_f32(zrow[f]))));
+        }
+      }
+      part = group_sum(part, group);
+      if (real && gl == 0) {
+        float att, dpre;
+        unit_grads<T>(srow, to_f32(zrow[kz]), part, kz, slope, att, dpre);
+        const float v = round_t<T>(dpre);
+        if (local) atomicAdd(da + c * kRows + r, v);
+        else atomicAdd(dadst + (long long)c * num_rows + d, v);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_ch * nr; i += blockDim.x) {
+      const int cc = i / nr, r = i - cc * nr;
+      const float v = da[cc * kRows + r];
+      if (v != 0.f) atomicAdd(dadst + (long long)cc * num_rows + row0 + r, v);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256) stream_gat_bwd_dst_kernel(
-    const T* __restrict__ table, const T* __restrict__ stat,
-    const int* __restrict__ src, const int* __restrict__ dst,
-    float* __restrict__ dadst, long long num_edges, int num_rows, int kz,
-    int n_ch, float slope) {
-  const int lane = threadIdx.x & 31;
-  const long long first = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
-  const int width = n_ch * (kz + 1), swidth = n_ch * (kz + 3);
-  for (long long e = first; e < num_edges; e += step) {
-    const int d = dst[e];
-    if (d >= num_rows) continue;  // padding sentinel: skip before any load
-    float att, dpre;
-    edge_grads<T>(table + (long long)src[e] * width, stat + (long long)d * swidth,
-                  lane, kz, n_ch, slope, att, dpre);
-    if (lane < n_ch) atomicAdd(dadst + (long long)lane * num_rows + d, round_t<T>(dpre));
+// Add a thread's open run (its columns of one source's band c) into `out`.
+__device__ __forceinline__ void add_run(float* out, float (&run)[kMaxCols], float& run_dpre,
+                                        int gl, int group, int kz) {
+#pragma unroll
+  for (int t = 0; t < kMaxCols; ++t) {
+    const int f = gl + t * group;
+    if (f < kz) atomicAdd(out + f, run[t]);
+    run[t] = 0.f;
   }
+  if (gl == 0) atomicAdd(out + kz, run_dpre);
+  run_dpre = 0.f;
 }
 
-// kPasses: 32-column passes over an output row of `width` <= 32 * kPasses
-// columns; the run sums live in registers (the loops unroll).
-template <typename T, int kPasses>
-__global__ void __launch_bounds__(256) stream_gat_bwd_src_kernel(
-    const T* __restrict__ table, const T* __restrict__ stat,
-    const int* __restrict__ perm, const int* __restrict__ src_sorted,
-    const int* __restrict__ dst, float* __restrict__ dpk, long long num_edges,
-    int num_rows, int kz, int n_ch, float slope) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  const int bz = kz + 1, sz = kz + 3;
-  const int width = n_ch * bz, swidth = n_ch * sz;
-  const int c0 = lane / bz, f0 = lane - c0 * bz;
-  for (long long base = warp * kRun; base < num_edges; base += warps * kRun) {
-    const long long end = base + kRun < num_edges ? base + kRun : num_edges;
-    float run[kPasses];
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) run[p] = 0.f;
-    int cur = -1;
-    for (long long e = base; e < end; ++e) {
-      const int d = dst[perm[e]];
-      if (d >= num_rows) continue;  // padding: in row 0's run, src 0
-      const int s = src_sorted[e];
-      if (s != cur) {
-        if (cur >= 0) {
-          float* out = dpk + (long long)cur * width;
-#pragma unroll
-          for (int p = 0; p < kPasses; ++p) {
-            const int j = lane + 32 * p;
-            if (j < width) atomicAdd(out + j, run[p]);
-            run[p] = 0.f;
+// K11.  Shared memory: the chunk's dst ids and src ids int[piece_edges]
+// each, then the ring [kStages][per][sstride] T.  Each of a piece's `per`
+// edge slots walks a contiguous slice of the piece, one edge a pass, so a
+// thread's consecutive edges are consecutive in src order: its run sums
+// and its source's z and a_src stay in registers until the source changes
+// (the next pass's source row is loaded a pass ahead), and a run adds into
+// dpk once.
+template <typename T>
+__global__ void __launch_bounds__(kSrcThreads) stream_gat_bwd_src_kernel(
+    const T* __restrict__ table, const T* __restrict__ stat, const int* __restrict__ perm,
+    const int* __restrict__ src_sorted, const int* __restrict__ dst,
+    const int* __restrict__ bounds, float* __restrict__ dpk, int n_blocks, int num_rows,
+    int kz, int n_ch, int sstride, int group, int piece_edges, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bz = kz + 1, sz = kz + 3, width = n_ch * bz;
+  const int per = blockDim.x / group / n_ch;  // edge slots
+  const size_t stage_elems = (size_t)per * sstride;
+  int* sd = reinterpret_cast<int*>(smem);
+  int* ss = sd + piece_edges;
+  T* ring = reinterpret_cast<T*>(smem + (((size_t)piece_edges * 8 + 15) & ~(size_t)15));
+
+  const long long chunk_lo = (long long)blockIdx.x * piece_edges;
+  const long long chunk_hi = min(chunk_lo + piece_edges, (long long)bounds[n_blocks]);
+  // every id of the chunk first: dst[perm[e]], then src_sorted[e]
+  for (long long i = threadIdx.x; i < chunk_hi - chunk_lo; i += blockDim.x) {
+    sd[i] = dst[perm[chunk_lo + i]];
+    ss[i] = src_sorted[chunk_lo + i];
+  }
+  const int u = threadIdx.x / group, gl = threadIdx.x - u * group;
+  const int j = u / n_ch, c = u - j * n_ch;
+  const bool active = j < per;
+  const int cpr = sstride * (int)sizeof(T) / 16;  // 16-byte copies a stat row
+
+  for (int b = block_of(bounds, n_blocks, chunk_lo); b < n_blocks && bounds[b] < chunk_hi;
+       ++b) {
+    const long long lo = max(chunk_lo, (long long)bounds[b]);
+    const long long hi = min(chunk_hi, (long long)bounds[b + 1]);
+    if (lo >= hi) continue;  // uniform: an empty block
+    const int off = (int)(lo - chunk_lo), n_e = (int)(hi - lo);
+    const int len = (n_e + per - 1) / per;  // passes: slot jr takes [jr*len, (jr+1)*len)
+    __syncthreads();  // the ids are written; the last piece's ring is read
+    // pass q's stat rows into ring slot q % kStages, one committed group a
+    // pass (empty past the last)
+    auto issue = [&](int q) {
+      if (q < len) {
+        T* slot = ring + (size_t)(q % kStages) * stage_elems;
+        for (int i = threadIdx.x; i < per * cpr; i += blockDim.x) {
+          const int jr = i / cpr, part = i - jr * cpr;
+          const int k = jr * len + q;
+          if (k < n_e) {
+            const int d = sd[off + k];
+            if (d < num_rows)  // padding: no load
+              cp_async16(slot + (size_t)jr * sstride + part * (16 / sizeof(T)),
+                         stat + (long long)d * sstride + part * (16 / sizeof(T)));
           }
         }
-        cur = s;
       }
-      const T* srow = stat + (long long)d * swidth;
-      float att_mine, dpre_mine;
-      edge_grads<T>(table + (long long)s * width, srow, lane, kz, n_ch, slope,
-                    att_mine, dpre_mine);
-      att_mine = round_t<T>(att_mine);
-      dpre_mine = round_t<T>(dpre_mine);
-      int c = c0, f = f0;
+      cp_async_commit();
+    };
+    for (int q = 0; q < kStages - 1; ++q) issue(q);
+    int s_next = -1;  // the source whose row z_next holds
+    float z_next[kMaxCols], asrc_next = 0.f;
+    auto load_next = [&](int q) {
+      const int k = j * len + q;
+      if (!active || q >= len || k >= n_e || sd[off + k] >= num_rows) return;
+      const int s = ss[off + k];
+      if (s == s_next) return;
+      s_next = s;
+      const T* zrow = table + (long long)s * width + c * bz;
+      asrc_next = to_f32(zrow[kz]);
 #pragma unroll
-      for (int p = 0; p < kPasses; ++p) {
-        if (32 * p < width) {  // warp-uniform: every lane reaches the shuffles
-          const int j = lane + 32 * p;
-          const int from = min(c, n_ch - 1);
-          const float att = __shfl_sync(0xffffffffu, att_mine, from);
-          const float dpre = __shfl_sync(0xffffffffu, dpre_mine, from);
-          if (j < width)
-            run[p] = __fadd_rn(run[p], f < kz ? round_t<T>(__fmul_rn(
-                                                    to_f32(srow[c * sz + f]), att))
-                                              : dpre);
-          for (f += 32; f >= bz; f -= bz) ++c;
+      for (int t = 0; t < kMaxCols; ++t) {
+        const int f = gl + t * group;
+        z_next[t] = f < kz ? to_f32(zrow[f]) : 0.f;
+      }
+    };
+    load_next(0);
+    int cur = -1;  // the source of this thread's open run
+    float run[kMaxCols], run_dpre = 0.f, zc[kMaxCols], asrc = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxCols; ++t) run[t] = zc[t] = 0.f;
+    for (int q = 0; q < len; ++q) {
+      issue(q + kStages - 1);
+      cp_async_wait<kStages - 1>();  // this thread's copies of pass q landed
+      __syncthreads();               // and everyone's
+      const int k = j * len + q;
+      const int d = active && k < n_e ? sd[off + k] : num_rows;
+      const bool real = d < num_rows;  // padding: skipped before any other load
+      if (real && ss[off + k] != cur) {
+        if (cur >= 0) add_run(dpk + (long long)cur * width + c * bz, run, run_dpre, gl, group, kz);
+        cur = s_next;  // == ss[off + k], loaded a pass ahead
+        asrc = asrc_next;
+#pragma unroll
+        for (int t = 0; t < kMaxCols; ++t) zc[t] = z_next[t];
+      }
+      load_next(q + 1);
+      const T* srow = ring + (size_t)(q % kStages) * stage_elems + (size_t)j * sstride + c * sz;
+      float part = 0.f;
+      if (real) {
+#pragma unroll
+        for (int t = 0; t < kMaxCols; ++t) {
+          const int f = gl + t * group;
+          if (f < kz) part = __fadd_rn(part, round_t<T>(__fmul_rn(to_f32(srow[f]), zc[t])));
         }
       }
-    }
-    if (cur >= 0) {
-      float* out = dpk + (long long)cur * width;
+      part = group_sum(part, group);
+      if (real) {
+        float att, dpre;
+        unit_grads<T>(srow, asrc, part, kz, slope, att, dpre);
+        const float att_r = round_t<T>(att);
 #pragma unroll
-      for (int p = 0; p < kPasses; ++p) {
-        const int j = lane + 32 * p;
-        if (j < width) atomicAdd(out + j, run[p]);
+        for (int t = 0; t < kMaxCols; ++t) {
+          const int f = gl + t * group;
+          if (f < kz) run[t] = __fadd_rn(run[t], round_t<T>(__fmul_rn(to_f32(srow[f]), att_r)));
+        }
+        run_dpre = __fadd_rn(run_dpre, round_t<T>(dpre));
       }
+      __syncthreads();  // slot q % kStages is read before it is refilled
     }
+    if (cur >= 0) add_run(dpk + (long long)cur * width + c * bz, run, run_dpre, gl, group, kz);
+    cp_async_wait<0>();
   }
 }
 
-unsigned run_blocks(long long num_edges) {
-  long long blocks = ((num_edges + kRun - 1) / kRun * 32 + 255) / 256;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride past this
-  return (unsigned)(blocks > 0 ? blocks : 1);
+// Lanes an (edge, channel) unit: the least power of two G with kMaxCols G >= kz,
+// at most 32 (kz <= 125 keeps each lane at <= kMaxCols columns).
+int group_lanes(int kz) {
+  int g = 1;
+  while (kMaxCols * g < kz && g < 32) g <<= 1;
+  return g;
 }
 
 bool bad_layout(int kz, int n_ch) { return n_ch < 1 || n_ch > 8 || kz < 1 || kz > 125; }
+
+// A stat stride the backwards take: the band's n_ch * (kz+3) values padded
+// to a multiple of 8 (16-byte rows in either type).
+bool bad_stride(int sstride, int kz, int n_ch) {
+  return sstride < n_ch * (kz + 3) || sstride % 8 != 0;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 }  // namespace
 
@@ -209,8 +417,9 @@ bool bad_layout(int kz, int n_ch) { return n_ch < 1 || n_ch > 8 || kz < 1 || kz 
 // cudaGetLastError() (or cudaErrorInvalidValue for a layout it refuses:
 // 1 <= n_ch <= 8, 1 <= kz <= 125).  T = bf16 when `bf16` else f32.
 // table: [n, n_ch*(kz+1)] T row-major bands [z_c | a_src_c]; stat:
-// [num_rows, n_ch*(kz+3)] T bands [g_c | gout_c | logden_c | a_dst_c];
-// ids int32[num_edges], padding dst >= num_rows.
+// [num_rows, sstride] T bands [g_c | gout_c | logden_c | a_dst_c] in its
+// first n_ch*(kz+3) columns, sstride a multiple of 8; both 16-byte
+// aligned; ids int32[num_edges], padding dst >= num_rows.
 
 // adst/mhat: f32[n_ch, num_rows]; acc: f32[num_rows, n_ch*(kz+1)], zeroed
 // by the caller.
@@ -237,65 +446,98 @@ extern "C" int stream_gat_fwd(int device, const void* table, int bf16, const voi
   return (int)cudaGetLastError();
 }
 
-// src/dst: the graph's block order; dadst: f32[n_ch, num_rows], zeroed by
-// the caller.
+template <typename T>
+cudaError_t launch_dst(const void* table, const void* stat, const void* src, const void* dst,
+                       const void* bounds, void* dadst, long long num_edges, int n_blocks,
+                       int num_rows, int kz, int n_ch, int sstride, int piece_edges,
+                       float slope, cudaStream_t s) {
+  const int group = group_lanes(kz);
+  const size_t da_bytes = (size_t)n_ch * kRows * sizeof(float);
+  const size_t st_bytes = (size_t)kRows * sstride * sizeof(T);
+  const int staged = da_bytes + st_bytes <= (size_t)kSmemLimit;
+  const size_t smem = da_bytes + (staged ? st_bytes : 0);
+  cudaError_t err = allow_smem(stream_gat_bwd_dst_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((num_edges + piece_edges - 1) / piece_edges);
+  stream_gat_bwd_dst_kernel<T><<<grid, kDstThreads, smem, s>>>(
+      static_cast<const T*>(table), static_cast<const T*>(stat), static_cast<const int*>(src),
+      static_cast<const int*>(dst), static_cast<const int*>(bounds),
+      static_cast<float*>(dadst), n_blocks, num_rows, kz, n_ch, sstride, group, staged,
+      piece_edges, slope);
+  return cudaSuccess;
+}
+
+// src/dst: the graph's block order; bounds: int32[n_blocks+1], the 128-row
+// dst blocks' edge ranges (bounds[0] = 0, bounds[n_blocks] = num_edges,
+// as ops/flash_gat.dst_block_bounds builds them; n_blocks = ceil(num_rows
+// / 128)); dadst: f32[n_ch, num_rows], zeroed by
+// the caller.  One CTA a chunk of piece_edges >= 1 edges.
 extern "C" int stream_gat_bwd_dst(int device, const void* table, int bf16, const void* stat,
-                                  const void* src, const void* dst, void* dadst,
-                                  long long num_edges, int num_rows, int kz, int n_ch,
-                                  float slope, void* stream) {
+                                  const void* src, const void* dst, const void* bounds,
+                                  void* dadst, long long num_edges, int n_blocks,
+                                  int num_rows, int kz, int n_ch, int sstride,
+                                  int piece_edges, float slope, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_layout(kz, n_ch) || num_edges < 0) return (int)cudaErrorInvalidValue;
+  if (bad_layout(kz, n_ch) || bad_stride(sstride, kz, n_ch) || num_edges < 0 ||
+      piece_edges < 1 || n_blocks != (num_rows + kRows - 1) / kRows)
+    return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned b = gat::warp_edge_blocks(num_edges);
-#define ARGS                                                                   \
-  static_cast<const int*>(src), static_cast<const int*>(dst),                  \
-      static_cast<float*>(dadst), num_edges, num_rows, kz, n_ch, slope
-  if (bf16)
-    stream_gat_bwd_dst_kernel<__nv_bfloat16><<<b, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(table),
-        static_cast<const __nv_bfloat16*>(stat), ARGS);
-  else
-    stream_gat_bwd_dst_kernel<float><<<b, 256, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const float*>(stat), ARGS);
-#undef ARGS
+  err = bf16 ? launch_dst<__nv_bfloat16>(table, stat, src, dst, bounds, dadst, num_edges,
+                                         n_blocks, num_rows, kz, n_ch, sstride, piece_edges,
+                                         slope, s)
+             : launch_dst<float>(table, stat, src, dst, bounds, dadst, num_edges, n_blocks,
+                                 num_rows, kz, n_ch, sstride, piece_edges, slope, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_src(const void* table, const void* stat, const void* perm,
+                       const void* src_sorted, const void* dst, const void* bounds, void* dpk,
+                       long long num_edges, int n_blocks, int num_rows, int kz, int n_ch,
+                       int sstride, int piece_edges, float slope, cudaStream_t s) {
+  const int group = group_lanes(kz);
+  const int per = kSrcThreads / group / n_ch;
+  const size_t smem = (((size_t)piece_edges * 8 + 15) & ~(size_t)15) +
+                      (size_t)kStages * per * sstride * sizeof(T);
+  cudaError_t err = allow_smem(stream_gat_bwd_src_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((num_edges + piece_edges - 1) / piece_edges);
+  stream_gat_bwd_src_kernel<T><<<grid, kSrcThreads, smem, s>>>(
+      static_cast<const T*>(table), static_cast<const T*>(stat), static_cast<const int*>(perm),
+      static_cast<const int*>(src_sorted), static_cast<const int*>(dst),
+      static_cast<const int*>(bounds), static_cast<float*>(dpk), n_blocks, num_rows, kz, n_ch,
+      sstride, group, piece_edges, slope);
+  return cudaSuccess;
+}
+
 // perm/src_sorted: the graph's stable src sort (src_sorted[e] ==
-// src[perm[e]]); dst: the block-ordered dst, read as dst[perm[e]]; dpk:
-// f32[n, n_ch*(kz+1)] bands [dz_c | da_src_c], zeroed by the caller.
+// src[perm[e]]); dst: the block-ordered dst, read as dst[perm[e]]; bounds:
+// int32[n_blocks+1], the 128-row src blocks' ranges of the src-sorted
+// order (bounds[0] = 0, bounds[n_blocks] = num_edges; n_blocks =
+// ceil(n_src / 128), n_src the table's rows); dpk:
+// f32[n_src, n_ch*(kz+1)] bands [dz_c | da_src_c], zeroed by the caller.
+// One CTA a chunk of 1 <= piece_edges <= 8192 edges.
 extern "C" int stream_gat_bwd_src(int device, const void* table, int bf16, const void* stat,
                                   const void* perm, const void* src_sorted, const void* dst,
-                                  void* dpk, long long num_edges, int num_rows, int kz,
-                                  int n_ch, float slope, void* stream) {
+                                  const void* bounds, void* dpk, long long num_edges,
+                                  int n_blocks, int n_src, int num_rows, int kz, int n_ch,
+                                  int sstride, int piece_edges, float slope, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_layout(kz, n_ch) || num_edges < 0) return (int)cudaErrorInvalidValue;
+  if (bad_layout(kz, n_ch) || bad_stride(sstride, kz, n_ch) || num_edges < 0 ||
+      piece_edges < 1 || piece_edges > kMaxSrcPiece ||
+      n_blocks != (n_src + kRows - 1) / kRows)
+    return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned b = run_blocks(num_edges);
-  const bool narrow = n_ch * (kz + 1) <= 128;
-#define ARGS                                                                   \
-  static_cast<const int*>(perm), static_cast<const int*>(src_sorted),          \
-      static_cast<const int*>(dst), static_cast<float*>(dpk), num_edges,       \
-      num_rows, kz, n_ch, slope
-  if (bf16) {
-    const auto* t = static_cast<const __nv_bfloat16*>(table);
-    const auto* st = static_cast<const __nv_bfloat16*>(stat);
-    if (narrow)
-      stream_gat_bwd_src_kernel<__nv_bfloat16, 4><<<b, 256, 0, s>>>(t, st, ARGS);
-    else
-      stream_gat_bwd_src_kernel<__nv_bfloat16, 32><<<b, 256, 0, s>>>(t, st, ARGS);
-  } else {
-    const auto* t = static_cast<const float*>(table);
-    const auto* st = static_cast<const float*>(stat);
-    if (narrow)
-      stream_gat_bwd_src_kernel<float, 4><<<b, 256, 0, s>>>(t, st, ARGS);
-    else
-      stream_gat_bwd_src_kernel<float, 32><<<b, 256, 0, s>>>(t, st, ARGS);
-  }
-#undef ARGS
+  err = bf16 ? launch_src<__nv_bfloat16>(table, stat, perm, src_sorted, dst, bounds, dpk,
+                                         num_edges, n_blocks, num_rows, kz, n_ch, sstride,
+                                         piece_edges, slope, s)
+             : launch_src<float>(table, stat, perm, src_sorted, dst, bounds, dpk, num_edges,
+                                 n_blocks, num_rows, kz, n_ch, sstride, piece_edges, slope, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,12 @@ class StepGraph:
              b's edges are [block_bounds[b], block_bounds[b+1]) (the
              padding in the last block's range), the one-pass flash-GAT
              backward's work split (ops/flash_gat.dst_block_bounds; JAX
-             ``_block_chunk_bounds``).
+             ``_block_chunk_bounds``), and the streaming GAT's dst-side
+             backward's (K10).
+    src_block_bounds: int32[ceil(num_nodes / 128) + 1]: the 128-row src
+             block b's edges are [src_block_bounds[b], src_block_bounds[b+1])
+             of the src-sorted order (the padding, src 0, in block 0's
+             range), K11's work split; built once here, never per step.
     Equality is identity: the hybrid plan and the grouped forward group
     channels by object.
     """
@@ -76,13 +81,15 @@ class StepGraph:
     num_nodes: int
     num_edges: int  # valid (non-padding) edges
     block_bounds: torch.Tensor
+    src_block_bounds: torch.Tensor
     src_span: float = 0.0  # mean 128-row src windows per 512-edge chunk
     gat_loops: bool = False
 
     def to(self, device) -> "StepGraph":
         move = {
             f: getattr(self, f).to(device)
-            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted", "block_bounds")
+            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted", "block_bounds",
+                      "src_block_bounds")
         }
         return dataclasses.replace(self, **move)
 
@@ -105,6 +112,7 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
     dst_t = i32(dst)
+    src_sorted = i32(src[src_perm])
     return StepGraph(
         src=i32(src),
         dst=dst_t,
@@ -112,7 +120,9 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
         w=torch.from_numpy(w.astype(np.float32)),
         rel=i32(rel),
         src_perm=i32(src_perm),
-        src_sorted=i32(src[src_perm]),
+        src_sorted=src_sorted,
+        # the same 128-row searchsorted, over the src-sorted ids
+        src_block_bounds=dst_block_bounds(src_sorted, int(num_nodes)),
         num_nodes=int(num_nodes),
         num_edges=int(e),
         src_span=_mean_src_span(src, dst, num_nodes),

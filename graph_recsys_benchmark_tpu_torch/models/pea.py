@@ -383,7 +383,8 @@ def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
                 a_src = torch.einsum("cne,ce->cn", z, att[:, dout:])
                 outb = stream_gat_attention_batched(z, a_src, a_dst, g.src, g.dst,
                                                     g.src_perm, g.src_sorted, n, True, 0.2,
-                                                    transport)
+                                                    transport, g.block_bounds,
+                                                    g.src_block_bounds)
                 outb = outb + sp["b"][:, None, :]
                 for j, c in enumerate(chans):
                     new_hs[c] = outb[j]

@@ -75,7 +75,7 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
         head_outs = [
             stream_gat_attention(h[:, hh], alpha_src[:, hh], alpha_dst[:, hh], g.src, g.dst,
                                  g.src_perm, g.src_sorted, n, True, negative_slope,
-                                 transport)
+                                 transport, g.block_bounds, g.src_block_bounds)
             for hh in range(heads)
         ]
         out = torch.stack(head_outs, dim=1)  # [N, H, C]

@@ -72,14 +72,17 @@ _SIGNATURES = {
     # kz, n_ch, slope, stream
     "stream_gat_fwd": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
                                       _L, _I, _I, _I, ctypes.c_float, _P]),
-    # device, table, bf16, stat, src, dst, dadst, num_edges, num_rows, kz,
-    # n_ch, slope, stream
-    "stream_gat_bwd_dst": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P,
-                                          _L, _I, _I, _I, ctypes.c_float, _P]),
-    # device, table, bf16, stat, perm, src_sorted, dst, dpk, num_edges,
-    # num_rows, kz, n_ch, slope, stream
-    "stream_gat_bwd_src": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
-                                          _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, table, bf16, stat, src, dst, bounds, dadst, num_edges,
+    # n_blocks, num_rows, kz, n_ch, sstride, piece_edges, slope, stream
+    "stream_gat_bwd_dst": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
+                                          _L, _I, _I, _I, _I, _I, _I,
+                                          ctypes.c_float, _P]),
+    # device, table, bf16, stat, perm, src_sorted, dst, bounds, dpk,
+    # num_edges, n_blocks, n_src, num_rows, kz, n_ch, sstride, piece_edges,
+    # slope, stream
+    "stream_gat_bwd_src": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                          _L, _I, _I, _I, _I, _I, _I, _I,
+                                          ctypes.c_float, _P]),
 }
 _SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 

@@ -19,9 +19,16 @@ accumulates ``[round_T(z·round_T(p)) | round_T(p)]`` per dst;
 ``stream_gat_bwd_src`` (K11, ``_make_bwd_src_kernel``) scatters ``[att·g |
 dpre]`` by src over the src-sorted order, both recomputing att and dpre per
 edge from the stat table ``[g | gout | logden | a_dst]`` rounded to the
-transport dtype (ops/stream_gat.py:311, 760).  A CUDA tensor launches the
-kernel, counted in the wrapper's ``launches``, or raises; a CPU tensor
-takes the ``*_plain`` version in this module.  ``StreamGAT`` (a
+transport dtype (ops/stream_gat.py:311, 760; ``stat_table``, its rows
+padded to ``stat_width``, a multiple of 8 values).  K10 and K11 give each
+CTA a chunk of STREAM_DST_PIECE_EDGES / STREAM_SRC_PIECE_EDGES edges of
+their walk, cut at the 128-row blocks' bounds (StepGraph.block_bounds,
+StepGraph.src_block_bounds) into pieces: K10 stages its piece's 128 dst
+rows of stats in shared memory, K11 streams the gathered stat rows through
+a shared-memory ring and sums each source's run in registers.  A CUDA
+tensor launches the kernel, counted in the wrapper's ``launches``, or
+raises; a CPU tensor takes the ``*_plain`` version in this module, which
+sums every real edge whatever the work split.  ``StreamGAT`` (a
 ``torch.autograd.Function``) builds the tables, adds the loop term and
 normalizes, as ``_fwd_common`` / ``_stream_bwd`` do; the edge-parallel
 ``psum_axis`` contract waits for the parallel port (ROADMAP Queue 1 item
@@ -31,9 +38,10 @@ normalizes, as ``_fwd_common`` / ``_stream_bwd`` do; the edge-parallel
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
-from .flash_gat import _check_table, bound_shift, gat_fwd_plain, t_dtype_of
+from .flash_gat import _check_table, bound_shift, dst_block_bounds, gat_fwd_plain, t_dtype_of
 from .segment import segment_max, segment_sum
 
 # Per-channel GAT edge count from which graph.build_gat_graph (auto mode)
@@ -50,8 +58,9 @@ MAX_KZ = 125
 
 def _band_for(kz):
     """Width of one channel's stat band ``[g (kz) | gout | logden | a_dst]``.
-    The JAX package pads it to a multiple of 8 for the TPU's lane tiles; the
-    kernels here read rows of any width, so it is unpadded."""
+    The JAX package pads each band to a multiple of 8 for the TPU's lane
+    tiles; here the bands are packed and only the row is padded
+    (stat_width)."""
     return kz + 3
 
 
@@ -111,6 +120,33 @@ stream_gat_fwd.launches = 0
 
 # ---------------------------------------------------------------- K10, K11
 
+# Edges a CTA takes (one chunk of the walk's order, cut at the 128-row
+# blocks' bounds into pieces) in K10 (stream_gat_bwd_dst) and K11
+# (stream_gat_bwd_src), the fastest of chip_smoke.py's sweep on one H100
+# (PERF.md).  K11 keeps a chunk's ids in shared memory, so its chunk
+# is at most MAX_SRC_PIECE_EDGES.
+STREAM_DST_PIECE_EDGES = 2048
+STREAM_SRC_PIECE_EDGES = 1024
+MAX_SRC_PIECE_EDGES = 8192
+
+
+def stat_width(n_ch, kz):
+    """Row stride of the backwards' stat table: the n_ch bands of kz+3
+    values padded to a multiple of 8, so that every row (and every 128-row
+    block) is 16 bytes aligned in f32 and bf16 and the kernels copy it in
+    16-byte pieces.  The padding columns are zero and never read."""
+    return -(-n_ch * _band_for(kz) // 8) * 8
+
+
+def stat_table(g, gout, logden, adst_r, t_dtype):
+    """The stat table [num_rows, stat_width] in `t_dtype`: band c =
+    ``[g_c | gout_c | logden_c | a_dst_c]`` (g [n_ch, N, kz]; the rest
+    [n_ch, N]), zero-padded and rounded once."""
+    n_ch, n, kz = g.shape
+    rows = torch.cat([g.permute(1, 0, 2), gout.t()[:, :, None], logden.t()[:, :, None],
+                      adst_r.t()[:, :, None]], dim=2).view(n, n_ch * _band_for(kz))
+    return F.pad(rows, (0, stat_width(n_ch, kz) - n_ch * _band_for(kz))).to(t_dtype)
+
 
 def _edge_grads(table, stat, s, d, kz, n_ch, negative_slope):
     """Per real edge (s, d) and channel, what K10 and K11 recompute: (stat
@@ -118,7 +154,7 @@ def _edge_grads(table, stat, s, d, kz, n_ch, negative_slope):
     transport-rounded products g·z in f32."""
     t_dtype = table.dtype
     rows = table[s].float().view(-1, n_ch, kz + 1)
-    st = stat[d].float().view(-1, n_ch, _band_for(kz))
+    st = stat[d, : n_ch * _band_for(kz)].float().view(-1, n_ch, _band_for(kz))
     pre = st[:, :, kz + 2] + rows[:, :, kz]
     att = torch.exp(torch.clamp(_leaky(pre, negative_slope) - st[:, :, kz + 1], max=60.0))
     datt = (st[:, :, :kz] * rows[:, :, :kz]).to(t_dtype).float().sum(dim=2)
@@ -127,21 +163,34 @@ def _edge_grads(table, stat, s, d, kz, n_ch, negative_slope):
     return st, att, dpre
 
 
-def _check_bwd(name, table, stat, num_rows, n_ch, kz, ids):
+def _check_bwd(name, table, stat, num_rows, n_rows, n_ch, kz, ids, bounds, piece_edges,
+               max_piece):
+    """(device, width, E, n_blocks) of a backward's inputs, validated;
+    n_rows: the rows its blocks cover (num_rows by dst, the table's by src)."""
     _check_layout(name, n_ch, kz)
     dev, width = _check_table(name, table, n_ch, kz)
-    _cuda.require(stat, "stat", table.dtype, (num_rows, n_ch * _band_for(kz)), dev)
+    _cuda.require(stat, "stat", table.dtype, (num_rows, stat_width(n_ch, kz)), dev)
     e = ids[0].shape[0]
     for i, t in enumerate(ids):
         _cuda.require(t, f"{name} ids {i}", torch.int32, (e,), dev)
-    return dev, width, e
+    n_blocks = max(1, -(-n_rows // 128))
+    if bounds is None:
+        raise ValueError(f"{name}: the kernel needs the graph's block bounds (StepGraph)")
+    _cuda.require(bounds, f"{name} block bounds", torch.int32, (n_blocks + 1,), dev)
+    if not 1 <= piece_edges <= max_piece:
+        raise ValueError(f"{name}: piece_edges {piece_edges} outside 1..{max_piece}")
+    for t, what in ((table, "table"), (stat, "stat")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+    return dev, width, e, n_blocks
 
 
 def stream_gat_bwd_dst_plain(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
                              acc_dtype=torch.float32):
     """Plain PyTorch version of stream_gat_bwd_dst, same inputs and rounding
-    points: da_dst f32[n_ch, num_rows] = Σ round_T(dpre) by dst."""
-    n_ch = stat.shape[1] // _band_for(kz)
+    points: da_dst f32[n_ch, num_rows] = Σ round_T(dpre) by dst over every
+    real edge (no block bounds, no pieces)."""
+    n_ch = table.shape[1] // (kz + 1)
     real = dst < num_rows
     s, d = src[real].long(), dst[real].long()
     _, _, dpre = _edge_grads(table, stat, s, d, kz, n_ch, negative_slope)
@@ -149,26 +198,32 @@ def stream_gat_bwd_dst_plain(table, stat, src, dst, num_rows, kz, negative_slope
     return segment_sum(dpre, d, num_rows).t().contiguous()
 
 
-def stream_gat_bwd_dst(table, stat, src, dst, num_rows, kz, negative_slope=0.2):
+def stream_gat_bwd_dst(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
+                       block_bounds=None, piece_edges=None):
     """da_dst f32[n_ch, num_rows]: Σ round_T(dpre) by dst over the block
     order.
 
     table: the forward's bands in the transport dtype; stat: [num_rows,
-    n_ch*(kz+3)] bands ``[g_c | gout_c | logden_c | a_dst_c]`` in the
-    transport dtype; src, dst: int32[E] with padding ``dst >= num_rows``.
-    Launches counted in ``stream_gat_bwd_dst.launches``."""
-    n_ch = stat.shape[1] // _band_for(kz)
+    stat_width(n_ch, kz)] bands ``[g_c | gout_c | logden_c | a_dst_c]`` in
+    the transport dtype (stat_table); src, dst: int32[E] with padding
+    ``dst >= num_rows``; block_bounds: int32[ceil(num_rows/128)+1], the
+    128-row dst blocks' edge ranges from 0 to E (StepGraph.block_bounds,
+    flash_gat.dst_block_bounds), which the kernel needs and the plain
+    version does not read; piece_edges: edges a
+    CTA takes (default STREAM_DST_PIECE_EDGES).  Launches counted in
+    ``stream_gat_bwd_dst.launches``."""
+    n_ch = table.shape[1] // (kz + 1)
     if table.device.type == "cpu":
-        return stream_gat_bwd_dst_plain(table, stat, src, dst, num_rows, kz,
-                                        negative_slope)
-    dev, _, e = _check_bwd("stream_gat_bwd_dst", table, stat, num_rows, n_ch, kz,
-                           (src, dst))
+        return stream_gat_bwd_dst_plain(table, stat, src, dst, num_rows, kz, negative_slope)
+    piece_edges = piece_edges or STREAM_DST_PIECE_EDGES
+    dev, _, e, n_blocks = _check_bwd("stream_gat_bwd_dst", table, stat, num_rows, num_rows,
+                                     n_ch, kz, (src, dst), block_bounds, piece_edges, 2 ** 30)
     da_dst = torch.zeros((n_ch, num_rows), dtype=torch.float32, device=dev)
     if e > 0:
         _cuda.launch("stream_gat_bwd_dst", dev, table.data_ptr(),
                      int(table.dtype == torch.bfloat16), stat.data_ptr(), src.data_ptr(),
-                     dst.data_ptr(), da_dst.data_ptr(), e, num_rows, kz, n_ch,
-                     float(negative_slope))
+                     dst.data_ptr(), block_bounds.data_ptr(), da_dst.data_ptr(), e, n_blocks,
+                     num_rows, kz, n_ch, stat.shape[1], piece_edges, float(negative_slope))
         stream_gat_bwd_dst.launches += 1
     return da_dst
 
@@ -180,8 +235,9 @@ def stream_gat_bwd_src_plain(table, stat, src_perm, src_sorted, dst, num_rows, k
                              negative_slope=0.2, acc_dtype=torch.float32):
     """Plain PyTorch version of stream_gat_bwd_src, same inputs and rounding
     points: dpk f32[n, n_ch*(kz+1)], band c = Σ [round_T(g_c·round_T(att)) |
-    round_T(dpre)] by src."""
-    n_ch = stat.shape[1] // _band_for(kz)
+    round_T(dpre)] by src over every real edge (no block bounds, no
+    pieces)."""
+    n_ch = table.shape[1] // (kz + 1)
     d_e = dst[src_perm.long()]
     real = d_e < num_rows
     s, d = src_sorted[real].long(), d_e[real].long()
@@ -196,27 +252,35 @@ def stream_gat_bwd_src_plain(table, stat, src_perm, src_sorted, dst, num_rows, k
 
 
 def stream_gat_bwd_src(table, stat, src_perm, src_sorted, dst, num_rows, kz,
-                       negative_slope=0.2):
+                       negative_slope=0.2, src_block_bounds=None, piece_edges=None):
     """dpk f32[n, n_ch*(kz+1)], band c = ``[dz_c | da_src_c]``: Σ
     [round_T(g_c·round_T(att)) | round_T(dpre)] by src, walked in the
     src-sorted order.
 
     table, stat: as stream_gat_bwd_dst; src_perm, src_sorted: int32[E], the
     graph's stable src sort; dst: int32[E] in block order (the kernel reads
-    dst[src_perm[e]]), padding ``dst >= num_rows``.  Launches counted in
-    ``stream_gat_bwd_src.launches``."""
-    n_ch = stat.shape[1] // _band_for(kz)
+    dst[src_perm[e]]), padding ``dst >= num_rows``; src_block_bounds:
+    int32[ceil(n/128)+1], the 128-row src blocks' ranges of the src-sorted
+    order from 0 to E (StepGraph.src_block_bounds), which the kernel needs
+    and the plain version does not read; piece_edges: edges a CTA takes,
+    1..MAX_SRC_PIECE_EDGES (default STREAM_SRC_PIECE_EDGES).  Launches
+    counted in ``stream_gat_bwd_src.launches``."""
+    n_ch = table.shape[1] // (kz + 1)
     if table.device.type == "cpu":
-        return stream_gat_bwd_src_plain(table, stat, src_perm, src_sorted, dst,
-                                        num_rows, kz, negative_slope)
-    dev, width, e = _check_bwd("stream_gat_bwd_src", table, stat, num_rows, n_ch, kz,
-                               (src_perm, src_sorted, dst))
-    dpk = torch.zeros((table.shape[0], width), dtype=torch.float32, device=dev)
+        return stream_gat_bwd_src_plain(table, stat, src_perm, src_sorted, dst, num_rows, kz,
+                                        negative_slope)
+    n_src = table.shape[0]
+    piece_edges = piece_edges or STREAM_SRC_PIECE_EDGES
+    dev, width, e, n_blocks = _check_bwd(
+        "stream_gat_bwd_src", table, stat, num_rows, n_src, n_ch, kz,
+        (src_perm, src_sorted, dst), src_block_bounds, piece_edges, MAX_SRC_PIECE_EDGES)
+    dpk = torch.zeros((n_src, width), dtype=torch.float32, device=dev)
     if e > 0:
         _cuda.launch("stream_gat_bwd_src", dev, table.data_ptr(),
                      int(table.dtype == torch.bfloat16), stat.data_ptr(),
                      src_perm.data_ptr(), src_sorted.data_ptr(), dst.data_ptr(),
-                     dpk.data_ptr(), e, num_rows, kz, n_ch, float(negative_slope))
+                     src_block_bounds.data_ptr(), dpk.data_ptr(), e, n_blocks, n_src,
+                     num_rows, kz, n_ch, stat.shape[1], piece_edges, float(negative_slope))
         stream_gat_bwd_src.launches += 1
     return dpk
 
@@ -263,39 +327,41 @@ class StreamGAT(torch.autograd.Function):
     """Batched streaming GAT, differentiable in z, a_src and a_dst.
 
     forward(z f32[n_ch, N, kz], a_src, a_dst f32[n_ch, N], src, dst,
-    src_perm, src_sorted int32[E], num_rows, self_loops, negative_slope,
-    transport) -> out f32[n_ch, N, kz].  The backward builds the stat table
-    as ``_stream_bwd`` does (ops/stream_gat.py:707-720: g, gout = Σ g·out,
-    logden = m̂ + log(s + 1e-16), a_dst, rounded to the transport dtype for
-    the kernels), runs K10 and K11, and adds the loop term's gradient from
+    src_perm, src_sorted int32[E], block_bounds, src_block_bounds
+    (int32[ceil(N/128)+1], read by the backward), num_rows, self_loops,
+    negative_slope, transport) -> out f32[n_ch, N, kz].  The backward builds
+    the stat table as ``_stream_bwd`` does (ops/stream_gat.py:707-720: g,
+    gout = Σ g·out, logden = m̂ + log(s + 1e-16), a_dst, rounded to the
+    transport dtype for the kernels; stat_table), runs K10 and K11, and
+    adds the loop term's gradient from
     the unrounded f32 stats; dz, da_src, da_dst come back in f32."""
 
     @staticmethod
-    def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, num_rows,
-                self_loops, negative_slope, transport):
+    def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, block_bounds,
+                src_block_bounds, num_rows, self_loops, negative_slope, transport):
         t_dtype = t_dtype_of(transport)
         out, table, adst_r, mhat, s = _fwd_common(z, a_src, a_dst, src, dst, num_rows,
                                                   self_loops, negative_slope, t_dtype)
-        ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted)
+        ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted,
+                              block_bounds, src_block_bounds)
         ctx.consts = (num_rows, self_loops, negative_slope)
         ctx.dtypes = (z.dtype, a_src.dtype, a_dst.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted = ctx.saved_tensors
+        (table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted, block_bounds,
+         src_block_bounds) = ctx.saved_tensors
         num_rows, self_loops, negative_slope = ctx.consts
         n_ch, _, kz = out.shape
         g = g.float()
         logden = mhat + torch.log(s + 1e-16)
         gout = (g * out).sum(dim=2)
-        gband = torch.cat([g, gout[:, :, None], logden[:, :, None], adst_r[:, :, None]],
-                          dim=2)
-        stat = gband.permute(1, 0, 2).reshape(num_rows, n_ch * _band_for(kz))
-        stat = stat.to(table.dtype).contiguous()
-        da_dst = stream_gat_bwd_dst(table, stat, src, dst, num_rows, kz, negative_slope)
+        stat = stat_table(g, gout, logden, adst_r, table.dtype)
+        da_dst = stream_gat_bwd_dst(table, stat, src, dst, num_rows, kz, negative_slope,
+                                    block_bounds=block_bounds)
         dpk = stream_gat_bwd_src(table, stat, src_perm, src_sorted, dst, num_rows, kz,
-                                 negative_slope)
+                                 negative_slope, src_block_bounds=src_block_bounds)
         dpk_b = dpk.view(-1, n_ch, kz + 1)[:num_rows]
         dz = dpk_b[:, :, :kz].permute(1, 0, 2)
         da_src = dpk_b[:, :, kz].t()
@@ -310,33 +376,40 @@ class StreamGAT(torch.autograd.Function):
             dz = dz + att_l[:, :, None] * g
         z_dt, as_dt, ad_dt = ctx.dtypes
         return (dz.to(z_dt), da_src.to(as_dt), da_dst.to(ad_dt),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 def stream_gat_attention_batched(z, a_src, a_dst, src, dst, src_perm, src_sorted,
                                  num_rows, self_loops=True, negative_slope=0.2,
-                                 transport="f32"):
+                                 transport="f32", block_bounds=None, src_block_bounds=None):
     """Batched single-head GAT attention for n_ch <= 8 channels sharing ONE
     loop-free, block-ordered edge list, with PyG's self-loop added
     analytically per channel when `self_loops`.
 
     z: [n_ch, num_rows, kz] (kz <= 125); a_src/a_dst: [n_ch, num_rows];
     src/dst: int32[E] (padding sentinel dst == num_rows); src_perm /
-    src_sorted: the StepGraph's stable src sort.  Returns [n_ch, num_rows,
-    kz] f32, differentiable in z, a_src and a_dst (StreamGAT)."""
+    src_sorted: the StepGraph's stable src sort; block_bounds /
+    src_block_bounds: the StepGraph's 128-row block ranges by dst and in
+    the src-sorted order (computed here when None).  Returns [n_ch,
+    num_rows, kz] f32, differentiable in z, a_src and a_dst (StreamGAT)."""
     _check_layout("stream_gat_attention_batched", z.shape[0], z.shape[2])
     i32 = [t.to(torch.int32).contiguous() for t in (src, dst, src_perm, src_sorted)]
-    return StreamGAT.apply(z.float(), a_src.float(), a_dst.float(), *i32, num_rows,
-                           self_loops, negative_slope, transport)
+    if block_bounds is None:
+        block_bounds = dst_block_bounds(i32[1], num_rows)
+    if src_block_bounds is None:
+        src_block_bounds = dst_block_bounds(i32[3], num_rows)
+    return StreamGAT.apply(z.float(), a_src.float(), a_dst.float(), *i32, block_bounds,
+                           src_block_bounds, num_rows, self_loops, negative_slope, transport)
 
 
 def stream_gat_attention(z, a_src, a_dst, src, dst, src_perm, src_sorted, num_rows,
-                         self_loops=True, negative_slope=0.2, transport="f32"):
+                         self_loops=True, negative_slope=0.2, transport="f32",
+                         block_bounds=None, src_block_bounds=None):
     """One channel of stream_gat_attention_batched: z [num_rows, kz];
     a_src/a_dst: [num_rows]."""
     return stream_gat_attention_batched(
         z[None], a_src[None], a_dst[None], src, dst, src_perm, src_sorted, num_rows,
-        self_loops, negative_slope, transport)[0]
+        self_loops, negative_slope, transport, block_bounds, src_block_bounds)[0]
 
 
 def stream_gat_reference(z, a_src, a_dst, src, dst, num_rows, self_loops=True,

@@ -16,16 +16,23 @@ differ from the card's in a last bit, which can move one bf16 rounding);
 one training step's loss and median gradient against the CPU's, f32 1e-4
 and bf16 2e-2 (chip_smoke.py's forward tolerances: a last-bit difference
 in a step-1 output can move a bf16 rounding of step 2's input), every
-gradient 5e-2 (a flipped ReLU input, chip_smoke.py KINK_TOL).
+gradient 5e-2 (a flipped ReLU input, chip_smoke.py KINK_TOL); PEAGCN's and
+PEASage's step at the flagship's width over 25 batches, the rows at the
+scorer's ReLU kink left out (chip_smoke.kink_rows).
 
 The streaming GAT kernels of csrc/stream_gat.cu (stream_gat_fwd K9,
 stream_gat_bwd_dst K10, stream_gat_bwd_src K11) run at the ML-25M shapes'
 widths ((n_ch, kz) = (1, 64), (7, 16), (2, 16), and (8, 125), the widest
-layout) over 68,830 rows and a loop-free graph of 400,000 skewed edges
-(row 0 with real out-edges; its src-sorted run also holds the padding):
-each is held to the same sums taken in float64 at 1e-5 of the largest
-value in both transports (they round at the plain version's points; f32
-atomics in another order over in-degrees in the thousands).
+layout, which K10 and K11 run unstaged) over 68,830 rows and two
+loop-free graphs: 400,000 zipf-skewed edges (row 0 with real out-edges;
+its src-sorted run also holds the padding), held to the same sums taken
+in float64 at 1e-5 of the largest value in both transports (they round at
+the plain version's points; f32 atomics in another order over in-degrees
+in the thousands); and 300,000 edges with one dst block of 60,000 and one
+source of 40,000 (both across many of K10's and K11's pieces, also at
+pieces of 300 edges), an empty block and padding, held row by row to the
+rounding bound of an f32 sum in any order (_sum_bound, chip_smoke.py's
+gamma_(k-1) * sum |t| rule with each term's own error).
 StreamGAT on the card is held to the CPU's at the whole-op tolerances
 above.  softmax_stats (K8) gets the composed GAT's shape (68,830 rows,
 197,000 edges) with an empty block and padding: its max equals the plain
@@ -36,10 +43,11 @@ sorted_broadcast K7, localized_scatter_add K6) run at the flagship's
 PEAGCN/PEASage union-graph shapes (15,210 rows; 169,472 or 647,680 padded
 edges; D 64 and 16) with padding sentinels and an empty dst block; K6 gets
 an unordered idx.  K5 and K6 sum in f32 in another order than the plain
-version, so each is held to the same sums taken in float64, at 1e-6 of
-the largest value (two f32 orders can differ by more than either differs
-from the exact sum: 1.04e-6 measured at PEASage step 2); K7 is a copy and
-equals the plain version bitwise.
+version, so each is held to the same sums taken in float64, row by row
+within the rounding bound of an f32 sum in any order (_sum_bound; 1e-6
+of the largest value, the bound before, refused a right K6 at 1.047e-6
+at PEASage step 2's shape); K7 is a copy and equals the plain version
+bitwise.
 
 The flash-GAT variant routes (ops/config.FlashGATMode) run at the step-1
 union shape: gat_rowmax (K12-online's row max) equals its plain version
@@ -268,6 +276,51 @@ def test_training_step_on_card_matches_cpu(cuda, transport):
     assert errs[len(errs) // 2] <= tol and errs[-1] <= KINK_TOL, errs
 
 
+@pytest.fixture(scope="module")
+def flagship(cuda):
+    """chip_smoke.py's flagship HIN and trainers (PEAGCN and PEASage on the
+    fused path, full width and depth)."""
+    import chip_smoke
+
+    return chip_smoke.build_flagship()[1]
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+@pytest.mark.parametrize("conv", ["gcn", "sage"])
+def test_fused_step_grads_match_cpu_over_batches(flagship, conv, transport):
+    """chip_smoke.py's PEAGCN / PEASage step check (the median leaf at
+    STEP_TOL, every leaf at KINK_TOL, weights off the init regime, a
+    partial batch) over 25 seeded batches, with the rows that
+    chip_smoke.kink_rows finds at the scorer's ReLU kink left out of both
+    sides: no batch may fail, whichever rows it draws."""
+    import chip_smoke
+    from graph_recsys_benchmark_tpu_torch.models.pea import pea_forward, pea_loss
+
+    tr = flagship[conv][transport]
+    cfg, bs = tr.cfg, tr.tcfg.batch_size
+    cpu_graphs = tuple(g.to("cpu") for g in tr.graphs)
+    base = tr.init(2020)
+    with torch.no_grad():
+        base.x.mul_(10.0)
+        base.fc1["b"].mul_(0.1)
+    cpu_base = copy.deepcopy(base).cpu()
+    tol = STEP_TOL[transport]
+    for seed in range(25):
+        rows = torch.randperm(tr.n_rows, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(1000 + seed))
+        batch = tr._build_batch(rows[:bs], torch.Generator(device="cuda").manual_seed(seed))
+        kinks = chip_smoke.kink_rows(f"{conv} {transport} batch {seed}", batch,
+                                     (base, tr.eval_forward), (cpu_base, lambda m: pea_forward(
+                                         m, cpu_graphs, cfg, transport=transport)))
+        mask = ((torch.arange(bs) < bs - 100) & ~kinks).float()
+        card, cpu = copy.deepcopy(base), copy.deepcopy(cpu_base)
+        tr.batch_loss(card, batch, mask.cuda()).backward()
+        pea_loss(cpu, cpu_graphs, cfg, batch.cpu(), row_mask=mask, transport=transport).backward()
+        torch.cuda.synchronize()
+        errs = chip_smoke.leaf_errors(f"{conv} {transport}", card, cpu)
+        assert errs[len(errs) // 2][0] <= tol and errs[-1][0] <= KINK_TOL, (seed, errs)
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     n, kz = 300, 8
     table = torch.zeros((n + 1, kz + 1), device=cuda)
@@ -364,7 +417,9 @@ def test_segment_kernels_match_plain(cuda, transport, n, e_real, e_pad, d):
     want = tsk.sorted_segment_sum_plain(rows, dst, n, transport)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
-    assert _rel_err(got.double(), _exact(rows, dst, n, transport)) <= SEG_TOL
+    terms = rows.to(t_dtype).double()
+    assert ((got.double() - _exact(rows, dst, n, transport)).abs()
+            <= _sum_bound(terms, dst, n)).all()
     assert not got[3 * 128:4 * 128].any()  # the empty block (3)
     # K7 by src (the gather) and by dst (K5's backward), in the table's dtype
     table = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda).to(t_dtype)
@@ -380,7 +435,8 @@ def test_segment_kernels_match_plain(cuda, transport, n, e_real, e_pad, d):
     want = tsk.localized_scatter_add_plain(ct, idx, n, transport)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
-    assert _rel_err(got.double(), _exact(ct, idx, n, transport)) <= SEG_TOL
+    assert ((got.double() - _exact(ct, idx, n, transport)).abs()
+            <= _sum_bound(ct.double(), idx, n)).all()
     after = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
              tsk.localized_scatter_add.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 2, 1]
@@ -430,6 +486,11 @@ def test_segment_kernels_reject_bad_inputs(cuda):
 
 
 STREAM_ROWS = 68830
+# f32 sums against float64 (sum_bound, as chip_smoke.py's): one f32
+# addition's unit roundoff plus the float64 reference's, a flushed
+# subnormal per addition
+U_SUM = 2.0 ** -24 + 2.0 ** -53
+F32_TINY = 2.0 ** -126
 
 
 @pytest.fixture(scope="module")
@@ -444,6 +505,25 @@ def stream_graph(cuda):
     dst = rng.integers(0, STREAM_ROWS, e)
     src[:50] = 0
     return tgraph.build_gat_graph(src, dst, STREAM_ROWS, analytic_loops=True).to(cuda)
+
+
+@pytest.fixture(scope="module")
+def skewed_graph(cuda):
+    """A loop-free graph whose dst block 5 holds 60,000 of 300,000 edges and
+    whose source 777 has 40,000 out-edges, so that both span many pieces of
+    K10 and K11; dst block 3 and src block 3 are empty; row 0 has real
+    out-edges and its src run holds the padding."""
+    rng = np.random.default_rng(12)
+    e = 300_000
+    src, dst = rng.integers(0, STREAM_ROWS, e), rng.integers(0, STREAM_ROWS, e)
+    dst[:60_000] = rng.integers(640, 768, 60_000)
+    src[60_000:100_000] = 777
+    src[:50] = 0
+    src = np.where(src // 128 == 3, src + 128, src)
+    dst = np.where(dst // 128 == 3, dst + 128, dst)
+    g = tgraph.build_gat_graph(src, dst, STREAM_ROWS, analytic_loops=True)
+    assert g.dst.shape[0] > g.num_edges  # padding present
+    return g.to(cuda)
 
 
 def _stream_tables(rng, n_ch, kz, t_dtype, dev):
@@ -466,16 +546,62 @@ def _stat_table(acc, mhat, adst_r, g, n_ch, kz, t_dtype):
     acc_b = acc.view(n, n_ch, kz + 1)
     s = acc_b[:, :, kz].t()
     out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
-    logden = mhat + torch.log(s + 1e-16)
-    gband = torch.cat([g, (g * out).sum(2, keepdim=True), logden[:, :, None],
-                       adst_r[:, :, None]], dim=2)
-    return gband.permute(1, 0, 2).reshape(n, -1).to(t_dtype).contiguous()
+    return tsg.stat_table(g, (g * out).sum(2), mhat + torch.log(s + 1e-16), adst_r, t_dtype)
+
+
+def _sum_bound(terms, ids, n, term_err=None):
+    """Per-row bound on |f32 sum - exact sum| of float64 `terms` [E, k] by
+    `ids` (ids >= n dropped) in any order: gamma_(k-1) * sum |t| (Higham,
+    eq. 4.4), a flushed subnormal per addition, and each term's own error
+    where given."""
+    absum = segment_sum(terms.abs(), ids, n)
+    k = torch.bincount(ids.long().clamp(max=n), minlength=n + 1)[:n].double()[:, None]
+    gamma = (k - 1).clamp(min=0) * U_SUM
+    gamma = gamma / (1 - gamma)
+    bound = gamma * absum + k * F32_TINY
+    if term_err is not None:
+        bound = bound + segment_sum(term_err, ids, n) * (1 + gamma)
+    return bound
+
+
+def _bwd_terms(table, stat, s, d, kz, t_dtype):
+    """The float64 terms K10 and K11 add for real edges (s, d), computed
+    as the plain versions compute them: round_T(dpre) [E, n_ch] and K11's
+    rows [E, n_ch*(kz+1)], with a bound on each round_T(dpre)'s own error.
+    The kernel's datt sums kz rounded products in another order than
+    torch's: each is within gamma_(kz-1) * sum |p| of the exact sum, so they
+    differ by at most twice that, which att and leaky' scale; the three
+    roundings after it add 6 units of |dpre|, and bf16's rounding of a
+    moved dpre one more unit of bf16 (2^-7 of it).  att itself is the same
+    f32 computation in both (the same expf), so K11's dz terms are exact."""
+    n_ch = table.shape[1] // (kz + 1)
+    st, att, dpre = tsg._edge_grads(table, stat, s, d, kz, n_ch, 0.2)
+    rows = table[s].float().view(-1, n_ch, kz + 1)
+    pre = st[:, :, kz + 2] + rows[:, :, kz]
+    prod = (st[:, :, :kz] * rows[:, :, :kz]).to(t_dtype).float().abs().sum(2).double()
+    gam = (kz - 1) * U_SUM / (1 - (kz - 1) * U_SUM)
+    sigma = torch.where(pre > 0, 1.0, 0.2).double()
+    err = 2 * gam * prod * att.double() * sigma * (1 + 4 * U_SUM) + 6 * U_SUM * dpre.abs().double()
+    if t_dtype == torch.bfloat16:
+        err = err + 2.0 ** -7 * (dpre.abs().double() + err)
+    dpre_t = dpre.to(t_dtype).double()
+    att_t = att.to(t_dtype).float()
+    ct = torch.cat([(st[:, :, :kz] * att_t[:, :, None]).to(t_dtype).double(),
+                    dpre_t[:, :, None]], dim=2)
+    ct_err = torch.cat([torch.zeros_like(ct[:, :, :kz]), err[:, :, None]], dim=2)
+    return dpre_t, err, ct.reshape(len(s), -1), ct_err.reshape(len(s), -1)
 
 
 @pytest.mark.parametrize("n_ch,kz", [(1, 64), (7, 16), (2, 16), (8, 125)])
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
-def test_stream_kernels_match_plain(cuda, stream_graph, transport, n_ch, kz):
-    g, n = stream_graph, STREAM_ROWS
+@pytest.mark.parametrize("graph", ["popular", "skewed"])
+def test_stream_kernels_match_plain(cuda, stream_graph, skewed_graph, graph, transport, n_ch,
+                                    kz):
+    """K9-K11 against the float64 sums of their plain versions' terms:
+    on the zipf graph at 1e-5 of the largest value; on the skewed graph
+    each row within _sum_bound, at the default pieces and at pieces of 300
+    edges (a block and a source across many CTAs)."""
+    g, n = (stream_graph if graph == "popular" else skewed_graph), STREAM_ROWS
     t_dtype = TDT[transport]
     rng = np.random.default_rng(n_ch * 1000 + kz)
     table, adst_r, mhat, gz = _stream_tables(rng, n_ch, kz, t_dtype, cuda)
@@ -487,20 +613,65 @@ def test_stream_kernels_match_plain(cuda, stream_graph, transport, n_ch, kz):
     torch.cuda.synchronize()
     assert torch.isfinite(acc).all() and _rel_err(acc.double(), exact) <= KERNEL_TOL
     stat = _stat_table(acc, mhat, adst_r, gz, n_ch, kz, t_dtype)
+    assert stat.shape == (n, tsg.stat_width(n_ch, kz)) and stat.shape[1] % 8 == 0
     dargs = (table, stat, g.src, g.dst, n, kz)
-    da = tsg.stream_gat_bwd_dst(*dargs)
-    exact = tsg.stream_gat_bwd_dst_plain(*dargs, acc_dtype=torch.float64)
-    torch.cuda.synchronize()
-    assert da.shape == (n_ch, n) and _rel_err(da.double(), exact) <= KERNEL_TOL
     sargs = (table, stat, g.src_perm, g.src_sorted, g.dst, n, kz)
-    dpk = tsg.stream_gat_bwd_src(*sargs)
-    exact = tsg.stream_gat_bwd_src_plain(*sargs, acc_dtype=torch.float64)
-    torch.cuda.synchronize()
-    assert dpk.shape == (n, n_ch * (kz + 1)) and torch.isfinite(dpk).all()
-    assert _rel_err(dpk.double(), exact) <= KERNEL_TOL
+    dkw, skw = dict(block_bounds=g.block_bounds), dict(src_block_bounds=g.src_block_bounds)
+    exact_d = tsg.stream_gat_bwd_dst_plain(*dargs, acc_dtype=torch.float64)
+    exact_s = tsg.stream_gat_bwd_src_plain(*sargs, acc_dtype=torch.float64)
+    pieces = [None] if graph == "popular" else [None, 300]
+    if graph == "skewed":
+        real = g.dst < n
+        s, d = g.src[real].long(), g.dst[real].long()
+        dpre_t, err, ct, ct_err = _bwd_terms(table, stat, s, d, kz, t_dtype)
+        bound_d = _sum_bound(dpre_t, d, n, err).t()
+        bound_s = _sum_bound(ct, s, n, ct_err)
+    for piece in pieces:
+        da = tsg.stream_gat_bwd_dst(*dargs, piece_edges=piece, **dkw)
+        dpk = tsg.stream_gat_bwd_src(*sargs, piece_edges=piece, **skw)
+        torch.cuda.synchronize()
+        assert da.shape == (n_ch, n) and dpk.shape == (n, n_ch * (kz + 1))
+        assert torch.isfinite(da).all() and torch.isfinite(dpk).all()
+        if graph == "popular":
+            assert _rel_err(da.double(), exact_d) <= KERNEL_TOL
+            assert _rel_err(dpk.double(), exact_s) <= KERNEL_TOL
+        else:
+            assert bool(((da.double() - exact_d).abs() <= bound_d).all())
+            assert bool(((dpk.double() - exact_s).abs() <= bound_s).all())
     after = tuple(f.launches for f in (tsg.stream_gat_fwd, tsg.stream_gat_bwd_dst,
                                        tsg.stream_gat_bwd_src))
-    assert after == tuple(b + 1 for b in before)
+    assert after == (before[0] + 1, before[1] + len(pieces), before[2] + len(pieces))
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_stream_backwards_take_any_order(cuda, skewed_graph, transport):
+    """K10 on edges out of block order (an edge's dst may lie outside its
+    piece's block: its stats and da_dst go through global memory) and K11
+    on a src order that is not sorted (its runs break at every change),
+    each with block bounds that cut the edges evenly, against the float64
+    sums of every real edge (the plain versions read no bounds) at 1e-5 of
+    the largest value."""
+    g, n, n_ch, kz = skewed_graph, STREAM_ROWS, 2, 16
+    t_dtype = TDT[transport]
+    rng = np.random.default_rng(13)
+    table, adst_r, mhat, gz = _stream_tables(rng, n_ch, kz, t_dtype, cuda)
+    acc = tsg.stream_gat_fwd(table, adst_r, mhat, g.src, g.dst, n, kz)
+    stat = _stat_table(acc, mhat, adst_r, gz, n_ch, kz, t_dtype)
+    e = g.dst.numel()
+    order = torch.from_numpy(rng.permutation(e).astype(np.int32)).to(cuda)
+    n_blocks = -(-n // 128)
+    bounds = torch.linspace(0, e, n_blocks + 1, device=cuda).round().to(torch.int32)
+    dargs = (table, stat, g.src[order.long()].contiguous(), g.dst[order.long()].contiguous(),
+             n, kz)
+    da = tsg.stream_gat_bwd_dst(*dargs, block_bounds=bounds)
+    exact = tsg.stream_gat_bwd_dst_plain(*dargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert _rel_err(da.double(), exact) <= KERNEL_TOL
+    sargs = (table, stat, order, g.src[order.long()].contiguous(), g.dst, n, kz)
+    dpk = tsg.stream_gat_bwd_src(*sargs, src_block_bounds=bounds)
+    exact = tsg.stream_gat_bwd_src_plain(*sargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert _rel_err(dpk.double(), exact) <= KERNEL_TOL
 
 
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
@@ -560,8 +731,10 @@ def test_stream_wrappers_reject_bad_inputs(cuda):
     n, kz = 300, 8
     ids = torch.zeros(16, dtype=torch.int32, device=cuda)
     table = torch.zeros((n, kz + 1), device=cuda)
-    stat = torch.zeros((n, kz + 3), device=cuda)
+    stat = torch.zeros((n, tsg.stat_width(1, kz)), device=cuda)
     v = torch.zeros((1, n), device=cuda)
+    bb = torch.tensor([0, 16, 16, 16], dtype=torch.int32, device=cuda)  # 3 blocks
+    dkw, skw = dict(block_bounds=bb), dict(src_block_bounds=bb)
     before = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
               tsg.stream_gat_bwd_src.launches, tsk.softmax_stats.launches)
     with pytest.raises(ValueError):  # int64 ids
@@ -569,11 +742,20 @@ def test_stream_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):  # kz past the layout limit
         tsg.stream_gat_fwd(torch.zeros((n, 127), device=cuda), v, v, ids, ids, n, 126)
     with pytest.raises(ValueError):  # stat table in another dtype than the table
-        tsg.stream_gat_bwd_dst(table, stat.bfloat16(), ids, ids, n, kz)
+        tsg.stream_gat_bwd_dst(table, stat.bfloat16(), ids, ids, n, kz, **dkw)
     with pytest.raises(ValueError):  # stat table of the wrong width
-        tsg.stream_gat_bwd_src(table, stat[:, :kz].contiguous(), ids, ids, ids, n, kz)
+        tsg.stream_gat_bwd_src(table, stat[:, :kz].contiguous(), ids, ids, ids, n, kz, **skw)
+    with pytest.raises(ValueError):  # stat table with unpadded rows
+        tsg.stream_gat_bwd_dst(table, stat[:, :kz + 3].contiguous(), ids, ids, n, kz, **dkw)
     with pytest.raises(ValueError):  # ids on the CPU
-        tsg.stream_gat_bwd_src(table, stat, ids, ids.cpu(), ids, n, kz)
+        tsg.stream_gat_bwd_src(table, stat, ids, ids.cpu(), ids, n, kz, **skw)
+    with pytest.raises(ValueError):  # block bounds of the wrong length
+        tsg.stream_gat_bwd_dst(table, stat, ids, ids, n, kz, block_bounds=ids[:2])
+    with pytest.raises(ValueError):  # no block bounds: the kernels need the graph's
+        tsg.stream_gat_bwd_src(table, stat, ids, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # a chunk past K11's shared-memory ids
+        tsg.stream_gat_bwd_src(table, stat, ids, ids, ids, n, kz,
+                               piece_edges=tsg.MAX_SRC_PIECE_EDGES + 1, **skw)
     with pytest.raises(ValueError):  # bf16 logits
         tsk.softmax_stats(torch.zeros(16, device=cuda, dtype=torch.bfloat16), ids, n)
     after = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
