@@ -85,18 +85,28 @@
       the busiest 128-row block by dst and by src and the largest
       degrees), the channel groups per step.
    b. Kernel checks at the path's own shapes, per transport: softmax_stats
-      (K8) on each composed (loop-edge) graph, its max bitwise and each
-      row's sum within sum_bound of the float64 sum (with each term's
-      subtraction and expf error); stream_gat_fwd / _bwd_dst /
-      _bwd_src (K9, K10, K11) at the four streaming calls of a forward
-      ((n_ch, kz) = (1, 64) on u2i and i2u, (7, 16) on i2u, (2, 16) on u2i)
-      on random tables, each against the float64 sums of its plain
-      version's terms (<= 1e-5 of the largest value); device ms, plain ms,
-      the byte or operation bound and, for K8, the library composition
-      scatter_reduce_(amax) + index_add_(exp) (K9-K11 have none). Each a
-      sum over one forward's calls.  K10 and K11 are also timed, and
-      checked, at pieces of 512 to 8,192 edges (STREAM_PIECES), and the
-      build prints ptxas's registers and spills of both (ptxas_summary).
+      (K8) on each composed (loop-edge) graph with its block bounds, its
+      max bitwise and each row's sum within sum_bound of the float64 sum
+      (with each term's subtraction and expf error), its launches a call
+      (1), and the busiest 128-row block alone (every other block's range
+      empty: the time of the CTA that sets the call's); stream_gat_fwd /
+      _bwd_dst / _bwd_src (K9, K10, K11) at the four streaming calls of a
+      forward ((n_ch, kz) = (1, 64) on u2i and i2u, (7, 16) on i2u, (2,
+      16) on u2i) on random tables, each against the float64 sums of its
+      plain version's terms (<= 1e-5 of the largest value); device ms,
+      plain ms, the byte or operation bound and, for K8, the library
+      composition scatter_reduce_(amax) + index_add_(exp) (K9-K11 have
+      none). Each a sum over one forward's calls.  K9, K10 and K11 are
+      also timed, and checked, at pieces of 512 to 8,192 edges
+      (STREAM_PIECES), and the build prints ptxas's registers and spills
+      of the three and of K8 (ptxas_summary).
+   b'. K7, K5 and K6 at the ML-25M step's own shapes, per transport
+      (ml25m_edge_kernel_phase): one training step's calls of the three
+      wrappers recorded (75, 45 and 15: the 15 composed convs' gathers,
+      sums and backwards), each replayed against its plain version (K7
+      bitwise, K5 and K6 within sum_bound of the float64 sums), and timed
+      back to back as a step's sum beside the plain versions, the library
+      calls (index_select, index_add_) and the byte bound.
    c. Training, per transport: one step's launch counts (K9 4, K8 15,
       K10 4, K11 4, K7 75, K5 45, K6 15, as the graphs' grouping predicts);
       one step's loss and every gradient against the same step with every
@@ -110,8 +120,9 @@
       the plain versions on the card, wall ms, HR@10, NDCG@10, AUC.
 11. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
-   timed epoch of its path, K8-K11's the 8 timed ML-25M steps, a variant
-   route's forward its mode's eval and its backward its mode's 20 steps),
+   timed epoch of its path, K8-K11's and the ML-25M entries of K5-K7 the
+   8 timed ML-25M steps, a variant route's forward its mode's eval and its
+   backward its mode's 20 steps),
    then {"ok": true, "device": {...}} last.
 
 Any failed check raises: the exit code is then nonzero and no result line
@@ -1269,24 +1280,31 @@ def ml25m_describe(hin, trainer):
     return stream, composed
 
 
-# K10's and K11's piece-size sweep (edges a CTA) at the four streaming calls
+# K9's, K10's and K11's piece-size sweep (edges a CTA) at the four streaming
+# calls
 STREAM_PIECES = (512, 1024, 2048, 4096, 8192)
+# the kernels whose registers, shared memory and spills ptxas_summary prints
+PTXAS_KERNELS = {"stream_gat": ("stream_gat_fwd_kernel", "stream_gat_bwd_dst_kernel",
+                                "stream_gat_bwd_src_kernel"),
+                 "segment": ("softmax_block_kernel",)}
 
 
 def ptxas_summary(logs):
     """ptxas's registers, shared memory and spills of each kernel of the
-    streaming GAT's backwards (K10, K11), one line each."""
-    cur, out = None, {}
-    for line in logs.get("stream_gat", "").splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
-            cur = next((k for k in ("stream_gat_bwd_dst_kernel", "stream_gat_bwd_src_kernel")
-                        if k in name), None)
-            if cur:
-                cur += "<bf16>" if "bfloat16" in name else "<f32>"
-                out[cur] = []
-        elif cur and ("Used" in line or "spill" in line):
-            out[cur].append(line.split("info    :")[-1].strip())
+    streaming GAT (K9, K10, K11) and of K8, one line each."""
+    out = {}
+    for source, kernels in PTXAS_KERNELS.items():
+        cur = None
+        for line in logs.get(source, "").splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "'" in line else line
+                cur = next((k for k in kernels if k in name), None)
+                if cur:  # the transport type of a template kernel
+                    cur += ("<bf16>" if "bfloat16" in name else
+                            "<f32>" if f"{cur}If" in name else "")
+                    out[cur] = []
+            elif cur and ("Used" in line or "spill" in line):
+                out[cur].append(line.split("info    :")[-1].strip())
     for name, lines in out.items():
         print(f"ptxas {name}: {'; '.join(lines)}", flush=True)
 
@@ -1318,7 +1336,10 @@ def ml25m_kernel_phase(trainer, stream, composed):
             n, e_pad, e = g.num_nodes, g.dst.numel(), g.num_edges
             alpha = 3.0 * randn(e_pad)
             dst64 = torch.clamp(g.dst.long(), max=n)
-            got = sk.softmax_stats(alpha, g.dst, n)
+            bb = g.block_bounds
+            before = sk.softmax_stats.launches
+            got = sk.softmax_stats(alpha, g.dst, n, bb)
+            launches = sk.softmax_stats.launches - before
             plain = sk.softmax_stats_plain(alpha, g.dst, n)
             exact = sk.softmax_stats_plain(alpha.double(), g.dst, n)
             torch.cuda.synchronize()
@@ -1331,8 +1352,23 @@ def ml25m_kernel_phase(trainer, stream, composed):
             d = a64 - shift[dst64]
             t = torch.exp(d)
             t_err = t * (torch.expm1(U_SUM * d.abs()) * (1 + EXPF_REL) + EXPF_REL)
+            bound = sum_bound(t, g.dst, n, t_err)
             share = check_sum(f"softmax_stats {transport} ({e} edges)", got[:, 1], exact[:, 1],
-                              sum_bound(t, g.dst, n, t_err))
+                              bound)
+            # the busiest 128-row block alone (every other block's range
+            # empty): the time of the CTA that sets the call's
+            hot = int(torch.argmax(torch.diff(bb)))
+            hot_edges = int(bb[hot + 1] - bb[hot])
+            only = torch.where(torch.arange(bb.numel(), device=dev) <= hot, bb[hot],
+                               bb[hot + 1]).to(torch.int32)
+            rows = slice(128 * hot, min(n, 128 * hot + 128))
+            alone = sk.softmax_stats(alpha, g.dst, n, only)
+            torch.cuda.synchronize()
+            check(torch.equal(alone[rows, 0], plain[rows, 0]),
+                  f"softmax_stats {transport}: the busiest block alone, max differs")
+            check_sum(f"softmax_stats {transport} (busiest block alone)", alone[rows, 1],
+                      exact[rows, 1], bound[rows])
+            hot_ms = device_ms(lambda: sk.softmax_stats(alpha, g.dst, n, only))
 
             def lib():
                 mx = torch.full((n + 1,), float("-inf"), device=dev).scatter_reduce_(
@@ -1340,7 +1376,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
                 return torch.zeros(n + 1, device=dev).index_add_(
                     0, dst64, torch.exp(alpha - mx[dst64]))
 
-            ms = device_ms(lambda: sk.softmax_stats(alpha, g.dst, n))
+            ms = device_ms(lambda: sk.softmax_stats(alpha, g.dst, n, bb))
             plain_ms = device_ms(lambda: sk.softmax_stats_plain(alpha, g.dst, n), reps=10)
             lib_ms = device_ms(lib)
             # every logit and id read once, the [N, 2] table written once;
@@ -1348,9 +1384,11 @@ def ml25m_kernel_phase(trainer, stream, composed):
             nbytes, flops = 8 * e_pad + 8 * n, 4 * e
             b_ms, _ = bound_ms(nbytes, flops)
             print(f"softmax_stats {transport}: rows {n} edges {e} (padded {e_pad}) x{m} a "
-                  f"forward; sums vs float64 {rel:.3e} ({share:.3f} of the rounding bound); "
-                  f"ms {ms:.5f} plain_ms {plain_ms:.5f} "
-                  f"library_ms {lib_ms:.5f} bound_ms {b_ms:.6f}", flush=True)
+                  f"forward; launches a call {launches}; sums vs float64 {rel:.3e} "
+                  f"({share:.3f} of the rounding bound); ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                  f"library_ms {lib_ms:.5f} bound_ms {b_ms:.6f}; busiest block {hot} "
+                  f"({hot_edges} edges) alone ms {hot_ms:.5f}", flush=True)
+            check(launches == 1, f"softmax_stats {transport}: {launches} launches a call")
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                              ("library_ms", lib_ms), ("nbytes", nbytes), ("flops", flops)):
@@ -1362,7 +1400,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
         aggs = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, nbytes=0,
                         flops=0, library_ms=None)
                 for k in ("stream_fwd", "stream_bwd_dst", "stream_bwd_src")}
-        sweeps = {"stream_bwd_dst": {}, "stream_bwd_src": {}}
+        sweeps = {"stream_fwd": {}, "stream_bwd_dst": {}, "stream_bwd_src": {}}
         for _, g, chans, kz in stream:
             n_ch, n, e = len(chans), g.num_nodes, g.num_edges
             width, swidth = n_ch * (kz + 1), n_ch * (kz + 3)
@@ -1371,7 +1409,8 @@ def ml25m_kernel_phase(trainer, stream, composed):
             table = band.permute(1, 0, 2).reshape(n, width).contiguous()
             adst_r, mhat = fg.bound_shift(randn(n_ch, n), band[:, :, kz], 0.2, t_dtype)
             fargs = (table, adst_r, mhat, g.src, g.dst, n, kz)
-            acc = sg.stream_gat_fwd(*fargs)
+            fkw = dict(block_bounds=g.block_bounds)
+            acc = sg.stream_gat_fwd(*fargs, **fkw)
             acc_b = acc.view(n, n_ch, kz + 1)
             s = acc_b[:, :, kz].t()
             out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
@@ -1383,7 +1422,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
             # bytes: the stat bands' n_ch*(kz+3) values a row (not the
             # row padding), the ids, the outputs
             cases = (
-                ("stream_fwd", sg.stream_gat_fwd, sg.stream_gat_fwd_plain, fargs, {},
+                ("stream_fwd", sg.stream_gat_fwd, sg.stream_gat_fwd_plain, fargs, fkw,
                  n * width * (it + 4) + 2 * n_ch * n * 4 + 8 * e,
                  e * n_ch * (2 * (kz + 1) + 6)),
                 ("stream_bwd_dst", sg.stream_gat_bwd_dst, sg.stream_gat_bwd_dst_plain, dargs,
@@ -1431,12 +1470,129 @@ def ml25m_kernel_phase(trainer, stream, composed):
         for key, agg in aggs.items():
             agg["bound_by"] = bound_ms(agg.pop("nbytes"), agg.pop("flops"))[1]
             results[(key, transport)] = agg
-        defaults = {"stream_bwd_dst": sg.STREAM_DST_PIECE_EDGES,
+        defaults = {"stream_fwd": sg.STREAM_FWD_PIECE_EDGES,
+                    "stream_bwd_dst": sg.STREAM_DST_PIECE_EDGES,
                     "stream_bwd_src": sg.STREAM_SRC_PIECE_EDGES}
         for key, sweep in sweeps.items():
             print(f"{key} {transport}: (piece edges, ms of the 4 calls) "
                   f"{[(p, round(ms, 5)) for p, ms in sweep.items()]}; default "
                   f"{defaults[key]}", flush=True)
+        torch.cuda.empty_cache()
+    return results
+
+
+def ml25m_edge_kernel_phase(trainers):
+    """K7, K5 and K6 at the shapes one ML-25M training step gives them (the
+    15 composed convs' gathers and sums and their backwards), per
+    transport: the wrappers' calls of one step recorded (their arguments
+    kept), then each kernel's calls replayed back to back, timed together
+    (CUDA events: ms summed over the step's calls), beside the same calls
+    of the plain versions and of one PyTorch call each (index_select from a
+    table with a zero row for K7, index_add_ into a zeroed table with a
+    sentinel row for K5 and K6, in the inputs' dtype) and the byte bound
+    (edge_kernel_phase's counts).  Every call is held to its plain
+    version: K7 bitwise, K5 and K6 row by row within sum_bound of the
+    float64 sums."""
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+    from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
+
+    results = {}
+    gather, sum_by_id = sk._gather, sk._sum_by_id
+    for transport, trainer in trainers.items():
+        calls = {"gather": [], "segsum": [], "scatter": []}
+
+        def rec_gather(v, idx, n):
+            calls["gather"].append((v.detach(), idx, n))
+            return gather(v, idx, n)
+
+        def rec_sum(counter, rows, ids, n):
+            calls["segsum" if counter is sk.sorted_segment_sum else "scatter"].append(
+                (rows.detach(), ids, n))
+            return sum_by_id(counter, rows, ids, n)
+
+        bs = trainer.tcfg.batch_size
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = trainer.init(2020)
+        opt = trainer.optimizer(params)
+        rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+        sk._gather, sk._sum_by_id = rec_gather, rec_sum
+        try:
+            trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
+        finally:
+            sk._gather, sk._sum_by_id = gather, sum_by_id
+        torch.cuda.synchronize()
+        del params, opt
+        for kind, recs in calls.items():
+            err, nbytes, flops, shapes = 0.0, 0, 0, {}
+            libs = []
+            for v, ids, n in recs:
+                ids64 = torch.clamp(ids.long(), max=n)
+                e, n_in = ids.numel(), int((ids < n).sum())
+                if kind == "gather":
+                    v2 = v.reshape(n, -1)
+                    got, want = gather(v, ids, n), sk.sorted_broadcast_plain(v, ids, n)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"ml25m gather {transport}: not a bitwise "
+                          f"copy at rows {n}, width {v2.shape[1]}")
+                    row_bytes = v2.shape[1] * v2.element_size()
+                    nbytes += e * 4 + n * row_bytes + e * row_bytes
+                    vpad = torch.cat([v2, v2.new_zeros(1, v2.shape[1])])
+                    libs.append(lambda vpad=vpad, ids64=ids64: torch.index_select(vpad, 0,
+                                                                                   ids64))
+                    width = v2.shape[1]
+                else:
+                    counter = (sk.sorted_segment_sum if kind == "segsum"
+                               else sk.localized_scatter_add)
+                    got = sum_by_id(counter, v, ids, n)
+                    exact = segment_sum(v.double(), ids, n)
+                    torch.cuda.synchronize()
+                    check_sum(f"ml25m {kind} {transport} (rows {n}, width {v.shape[1]})", got,
+                              exact, sum_bound(v.double(), ids, n))
+                    err = max(err, rel_err(got.double(), exact)[0])
+                    width = v.shape[1]
+                    nbytes += e * 4 + n_in * width * v.element_size() + n * width * 4
+                    flops += n_in * width
+                    libs.append(lambda v=v, ids64=ids64, n=n: torch.zeros(
+                        n + 1, v.shape[1], dtype=v.dtype, device=v.device).index_add_(
+                        0, ids64, v))
+                key = (n, width, str(v.dtype).split(".")[-1], e)
+                shapes[key] = shapes.get(key, 0) + 1
+            if kind == "gather":
+                def run():
+                    for v, ids, n in recs:
+                        gather(v, ids, n)
+
+                def plain():
+                    for v, ids, n in recs:
+                        sk.sorted_broadcast_plain(v, ids, n)
+            else:
+                counter = sk.sorted_segment_sum if kind == "segsum" else sk.localized_scatter_add
+
+                def run():
+                    for v, ids, n in recs:
+                        sum_by_id(counter, v, ids, n)
+
+                def plain():
+                    for v, ids, n in recs:
+                        sk.sorted_segment_sum_plain(v, ids, n, "f32")
+
+            def lib():
+                for f in libs:
+                    f()
+
+            ms = device_ms(run, reps=10)
+            plain_ms = device_ms(plain, reps=3)
+            lib_ms = device_ms(lib, reps=10)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            print(f"ml25m {SEG_KERNELS[kind]} {transport}: {len(recs)} calls in one step "
+                  f"((rows, width, dtype, edges) x calls: "
+                  f"{sorted(shapes.items(), key=lambda kv: -kv[1])}); ms {ms:.5f} plain_ms "
+                  f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by}; "
+                  f"{nbytes} bytes)", flush=True)
+            results[(kind, transport)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                              calls=len(recs))
+        del calls
         torch.cuda.empty_cache()
     return results
 
@@ -1465,9 +1621,9 @@ def plain_on_card():
         (sk, "_gather", lambda v, idx, n: sk.sorted_broadcast_plain(v, idx, n)),  # K7
         (sk, "_sum_by_id", lambda counter, rows, ids, n:  # K5, K6
          sk.sorted_segment_sum_plain(rows, ids, n, "f32")),
-        (sk, "softmax_stats", sk.softmax_stats_plain),  # K8
-        (sg, "stream_gat_fwd", sg.stream_gat_fwd_plain),  # K9
-        # K10, K11: the plain versions read no block bounds
+        # K8-K11: the plain versions read no block bounds
+        (sk, "softmax_stats", lambda *a: sk.softmax_stats_plain(*a[:3])),  # K8
+        (sg, "stream_gat_fwd", lambda *a, block_bounds: sg.stream_gat_fwd_plain(*a)),  # K9
         (sg, "stream_gat_bwd_dst", lambda *a, block_bounds: sg.stream_gat_bwd_dst_plain(*a)),
         (sg, "stream_gat_bwd_src",
          lambda *a, src_block_bounds: sg.stream_gat_bwd_src_plain(*a)),
@@ -1669,7 +1825,12 @@ def main():
     hin25, trainers25 = build_ml25m()
     stream, composed = ml25m_describe(hin25, trainers25["f32"])
     mkres = ml25m_kernel_phase(trainers25["f32"], stream, composed)
+    meres = ml25m_edge_kernel_phase(trainers25)
     mres = {t: ml25m_phase(trainers25[t], stream, composed) for t in TDT}
+    for (kind, transport), r in meres.items():
+        steps = mres[transport]["launches"][kind] / 8
+        check(r["calls"] == steps, f"ml25m {kind} {transport}: {r['calls']} calls recorded "
+              f"in one step, {steps} launches a timed step")
     print(f"ml25m phases {time.perf_counter() - t_m:.1f} s (earlier phases "
           f"{t_m - t_start:.1f} s)", flush=True)
 
@@ -1726,6 +1887,17 @@ def main():
         kernels.append(dict(
             name=f"{name} ({transport}; ML-25M, {calls})", route="cuda",
             source=f"{csrc}/{src_file}", replaces=f"{repo}/ops/{where}",
+            # the 8 timed ML-25M steps
+            launches=mres[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    replaces = {"segsum": "77", "gather": "426", "scatter": "636"}
+    for (kind, transport), r in meres.items():
+        kernels.append(dict(
+            name=f"{SEG_KERNELS[kind]} ({transport}; ML-25M, {r['calls']} calls of one step)",
+            route="cuda", source=f"{csrc}/segment.cu",
+            replaces=f"{repo}/ops/pallas_segment.py:{replaces[kind]}",
             # the 8 timed ML-25M steps
             launches=mres[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

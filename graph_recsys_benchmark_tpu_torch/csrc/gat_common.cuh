@@ -1,7 +1,8 @@
 // gat_common: device helpers shared by the GAT kernels (gat_fwd.cu,
 // gat_bwd.cu, gat_bwd_onepass.cu, stream_gat.cu; segment.cu takes the
-// ordered-int image), and the forward edge walk that the flash /
-// batched forward (K1, K12, K3) and the streaming forward (K9) all run.
+// ordered-int image), and the forward edge walk that the flash and
+// batched forwards (K1, K12, K3) run.  The streaming forward (K9) sums the
+// same terms with its own dst-block pieces (stream_gat.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,7 +66,7 @@ inline unsigned warp_edge_blocks(long long num_edges) {
 // one edge list.  Per channel c and edge (s, d) with d < num_rows:
 //   p_c   = exp(min(leaky(a_dst[c, d] + a_src_c[s]) - mhat[c, d], 60))
 //   acc[d, band c] += [ round_T(z_c[s] * q_c) | round_T(p_c) ]  (f32 atomics)
-// with q_c = round_T(p_c) when RoundPFirst (K3, K9) and p_c otherwise (K1,
+// with q_c = round_T(p_c) when RoundPFirst (K3) and p_c otherwise (K1,
 // K12).  table: [n, n_ch*(kz+1)] row-major bands [z_c | a_src_c]; lanes
 // 0..n_ch-1 each form one channel's p_c, the other lanes take theirs by
 // warp shuffle while the warp walks the row in 32-wide passes, stepping

@@ -41,11 +41,25 @@
 //   * softmax_stats (K8).  The TPU kernel keeps a running max and rescales
 //     its sum as it walks a dst block's edge chunks, which is how it fits
 //     one pass into VMEM; the function is the per-dst max and sum-exp.
-//     Here an edge grid makes two passes of f32 atomics (the logits, 4 B
-//     an edge, and the [N, 2] table stay in L2 between them): atomicMax of
-//     the max through the order-preserving int image of a float, then
-//     atomicAdd of exp(a - max); two row passes set the table up and turn
-//     the ints back into floats.  A row with no edges keeps max -inf.
+//     Its time here is launches and latency, not bytes (a composed ML-25M
+//     graph's 168,830 logits and ids are 1.35 MB, 0.4 us at 3.35 TB/s): an
+//     edge grid of global atomics took four launches a call (set-up, max,
+//     sum, decode).  So one launch, one CTA a 128-row dst block of a
+//     block-monotone dst (StepGraph.block_bounds): the CTA zeroes its rows'
+//     sums, takes its block's max by row in shared memory through the
+//     order-preserving int image of a float (atomicMax, native there),
+//     staging up to kSoftmaxStage logits and ids as it goes, writes the
+//     rows' max, then adds each exp(a - the row's final max) into its
+//     rows' sums in global memory (from the staged edges, past
+//     kSoftmaxStage from global memory again, L2-hot).  Each term is
+//     exp(a - final max), as the plain version's, with no running
+//     rescale; a row with no edge gets (-inf, 0).  The sums go to global
+//     memory because sm_90 has no native shared f32 add: nvcc emits a
+//     compare-and-swap loop (ATOMS.CAST.SPIN), which slowed the busiest
+//     block (16,282 edges over 128 rows of ~127 each, in ML-25M's
+//     composed u2t and i2t graphs) in trial builds on one H100; a global
+//     f32 reduction is native.  Each thread loads kSoftmaxUnroll
+//     edges before it uses them, so the busiest block's loads overlap.
 // Sums are f32 whatever the input type (bf16 inputs are widened exactly),
 // in an order that changes from run to run.  Columns: d <= 256, rows of at
 // most 4 KB for row_gather; the wrappers check.
@@ -125,37 +139,74 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
 using gat::ordered;
 using gat::unordered;
 
-// stats: [num_rows, 2] rows [max | sum]; column 0 holds the int image of
-// the max between softmax_rows(true) and softmax_rows(false).
-__global__ void __launch_bounds__(kThreads) softmax_rows_kernel(float* __restrict__ stats,
-                                                                int num_rows, bool init) {
-  int* key = reinterpret_cast<int*>(stats);
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < num_rows;
-       r += gridDim.x * blockDim.x) {
-    if (init) {
-      key[2 * r] = ordered(__int_as_float(static_cast<int>(0xff800000u)));  // -inf
-      stats[2 * r + 1] = 0.f;
-    } else {
-      stats[2 * r] = unordered(key[2 * r]);
+constexpr int kSoftmaxThreads = 512;
+constexpr int kSoftmaxStage = 4096;  // edges a CTA stages: 32 KB
+constexpr int kSoftmaxUnroll = 4;    // edges a thread loads before it uses them
+constexpr int kBlockRows = 128;      // rows of a dst block
+
+// K8: one CTA per 128-row dst block b, whose edges are [bounds[b],
+// bounds[b+1]); edges whose dst lies outside the block (the padding) are
+// dropped.  stats: f32[num_rows, 2] rows [max | sum].
+__global__ void __launch_bounds__(kSoftmaxThreads) softmax_block_kernel(
+    const float* __restrict__ alpha, const int* __restrict__ dst,
+    const int* __restrict__ bounds, float* __restrict__ stats, int num_rows) {
+  __shared__ int key[kBlockRows];  // the rows' max (ordered int image)
+  __shared__ float sa[kSoftmaxStage];
+  __shared__ int sd[kSoftmaxStage];
+  const int row0 = blockIdx.x * kBlockRows, nr = min(kBlockRows, num_rows - row0);
+  const long long lo = bounds[blockIdx.x];
+  const int n_e = (int)(bounds[blockIdx.x + 1] - lo);
+  float* out = stats + 2LL * row0;
+  for (int r = threadIdx.x; r < kBlockRows; r += kSoftmaxThreads) {
+    key[r] = ordered(__int_as_float(static_cast<int>(0xff800000u)));  // -inf
+    if (r < nr) out[2 * r + 1] = 0.f;
+  }
+  __threadfence();  // the zeroed sums reach memory before the CTA's atomics add to them
+  __syncthreads();
+  constexpr int kStep = kSoftmaxUnroll * kSoftmaxThreads;
+  for (int i0 = threadIdx.x; i0 < n_e; i0 += kStep) {
+    int d[kSoftmaxUnroll];
+    float a[kSoftmaxUnroll];
+#pragma unroll
+    for (int k = 0; k < kSoftmaxUnroll; ++k) {
+      const int i = i0 + k * kSoftmaxThreads;
+      d[k] = i < n_e ? dst[lo + i] : num_rows;
+      a[k] = i < n_e ? alpha[lo + i] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kSoftmaxUnroll; ++k) {
+      const int i = i0 + k * kSoftmaxThreads;
+      if (i < kSoftmaxStage) {
+        sd[i] = d[k];
+        sa[i] = a[k];
+      }
+      const int r = d[k] - row0;
+      if ((unsigned)r < (unsigned)nr) atomicMax(key + r, ordered(a[k]));
     }
   }
-}
-
-template <bool Sum>
-__global__ void __launch_bounds__(kThreads) softmax_edges_kernel(
-    const float* __restrict__ alpha, const int* __restrict__ dst,
-    float* __restrict__ stats, long long num_edges, int num_rows) {
-  int* key = reinterpret_cast<int*>(stats);
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < num_edges;
-       e += step) {
-    const int d = dst[e];
-    if ((unsigned)d >= (unsigned)num_rows) continue;  // padding sentinel
-    const float a = alpha[e];
-    if (Sum)
-      atomicAdd(stats + 2 * (long long)d + 1, expf(__fsub_rn(a, unordered(key[2 * (long long)d]))));
-    else
-      atomicMax(key + 2 * (long long)d, ordered(a));
+  __syncthreads();
+  for (int r = threadIdx.x; r < nr; r += kSoftmaxThreads) out[2 * r] = unordered(key[r]);
+  // each term exp(a - the row's final max), the shift 0 where the max is
+  // not finite, as the plain version's; added in global memory (a native
+  // f32 reduction there, where shared memory takes a compare-and-swap loop)
+  for (int i0 = threadIdx.x; i0 < n_e; i0 += kStep) {
+    int d[kSoftmaxUnroll];
+    float a[kSoftmaxUnroll];
+#pragma unroll
+    for (int k = 0; k < kSoftmaxUnroll; ++k) {
+      const int i = i0 + k * kSoftmaxThreads;
+      const bool staged = i < kSoftmaxStage;
+      d[k] = i >= n_e ? num_rows : staged ? sd[i] : dst[lo + i];
+      a[k] = i >= n_e ? 0.f : staged ? sa[i] : alpha[lo + i];
+    }
+#pragma unroll
+    for (int k = 0; k < kSoftmaxUnroll; ++k) {
+      const int r = d[k] - row0;
+      if ((unsigned)r < (unsigned)nr) {
+        const float m = unordered(key[r]);
+        atomicAdd(out + 2 * r + 1, expf(__fsub_rn(a[k], isfinite(m) ? m : 0.f)));
+      }
+    }
   }
 }
 
@@ -239,27 +290,24 @@ extern "C" int row_gather(int device, const void* v, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// alpha: f32[num_edges] logits; dst: int32[num_edges], any order, ids
-// outside [0, num_rows) dropped; stats: f32[num_rows, 2], written whole
-// (rows [max | sum of exp(alpha - max)], max -inf for a row with no edge).
-// Four launches on `stream`: set up, max pass, sum pass, decode.
-extern "C" int softmax_stats(int device, const void* alpha, const void* dst, void* stats,
-                             long long num_edges, int num_rows, void* stream) {
+// alpha: f32[num_edges] logits; dst: int32[num_edges], block-monotone
+// (graph.py's order: the edges of 128-row dst block b are [bounds[b],
+// bounds[b+1])), ids >= num_rows (padding) dropped; bounds: int32[n_blocks
+// + 1], n_blocks = ceil(num_rows / 128) (ops/flash_gat.dst_block_bounds);
+// stats: f32[num_rows, 2], written whole (rows [max | sum
+// of exp(alpha - max)], max -inf and sum 0 for a row with no edge).  One
+// launch on `stream`.
+extern "C" int softmax_stats(int device, const void* alpha, const void* dst,
+                             const void* bounds, void* stats, long long num_edges,
+                             int n_blocks, int num_rows, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (num_edges < 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
+  if (num_edges < 0 || num_edges > 0x7fffffffLL || num_rows < 0 ||
+      n_blocks != (num_rows + kBlockRows - 1) / kBlockRows)
+    return (int)cudaErrorInvalidValue;
   if (num_rows == 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* st = static_cast<float*>(stats);
-  const auto* a = static_cast<const float*>(alpha);
-  const auto* d = static_cast<const int*>(dst);
-  const unsigned rb = edge_blocks(num_rows, kThreads);
-  softmax_rows_kernel<<<rb, kThreads, 0, s>>>(st, num_rows, true);
-  if (num_edges > 0) {
-    const unsigned eb = edge_blocks(num_edges, kThreads);
-    softmax_edges_kernel<false><<<eb, kThreads, 0, s>>>(a, d, st, num_edges, num_rows);
-    softmax_edges_kernel<true><<<eb, kThreads, 0, s>>>(a, d, st, num_edges, num_rows);
-  }
-  softmax_rows_kernel<<<rb, kThreads, 0, s>>>(st, num_rows, false);
+  softmax_block_kernel<<<n_blocks, kSoftmaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(alpha), static_cast<const int*>(dst),
+      static_cast<const int*>(bounds), static_cast<float*>(stats), num_rows);
   return (int)cudaGetLastError();
 }

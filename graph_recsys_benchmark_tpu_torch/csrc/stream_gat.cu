@@ -12,9 +12,9 @@
 // package leaves them to XLA.  Per channel c and real edge (s, d):
 //   K9:  p_c = exp(min(leaky(a_dst[c, d] + a_src_c[s]) - mhat[c, d], 60)),
 //        acc[d, band c] += [ round_T(z_c[s] * round_T(p_c)) | round_T(p_c) ]
-//        (ops/stream_gat.py:272-283: the rounding points of K3, so the
-//        edge walk is gat_common.cuh's fwd_edges<T, true>, shared with
-//        csrc/gat_fwd.cu);
+//        (ops/stream_gat.py:272-283: the rounding points of K3's
+//        gat_common.cuh fwd_edges<T, true>, which K9 ran before it took
+//        the design below);
 //   K10, K11 recompute from the stat band st_c[d] = round_T([g_c | gout_c
 //        | logden_c | a_dst_c]) (ops/stream_gat.py:311, 760):
 //        pre  = a_dst + a_src_c[s],  att = exp(min(leaky(pre) - logden, 60))
@@ -30,23 +30,24 @@
 // 128-row block of it starts 16-byte aligned.
 //
 // What bounds them on the H100.  Per (edge, channel) they read a
-// (kz+1)-wide source band and a (kz+3)-wide stat band and do ~2-4 kz
-// flops; there is no tensor-core work.  The one-warp-per-edge design they
-// replace ran 30-40x the bytes it must move (K10 2.78 ms, K11 4.18
-// ms an ML-25M step on one H100, f32; bf16 no faster): the limit was
-// instructions and per-edge latency.  One warp an edge left half its lanes
-// idle at kz 16 and took a 5-level butterfly per channel (35 shuffles an
-// edge at 7 channels); K11 walked 32 src-sorted edges one after another
-// through three dependent loads each (perm, dst, the stat row); K10 added
-// 7 global f32 atomics an edge.  What bounds the designs below is latency
+// (kz+1)-wide source band (and the backwards a (kz+3)-wide stat band) and
+// do ~2-4 kz flops; there is no tensor-core work.  The one-warp-per-edge
+// design they replace ran 30-40x the bytes it must move (K9 2.19 ms, K10
+// 2.78 ms, K11 4.18 ms an ML-25M step on one H100, f32; bf16 no faster):
+// the limit was instructions, atomics and per-edge latency.  One warp an
+// edge left half its lanes idle at kz 16 and took a 5-level butterfly per
+// channel (35 shuffles an edge at 7 channels); K11 walked 32 src-sorted
+// edges one after another through three dependent loads each (perm, dst,
+// the stat row); K10 added 7 global f32 atomics an edge, K9 one a value
+// (119 an edge at (7, 16)).  What bounds the designs below is latency
 // and occupancy: each SM needs many edges' gathered rows in flight, so
 // every byte of shared memory a CTA holds costs resident warps (K11
 // staging its src block's table rows and a [128, width] f32 accumulator
 // ran slower on one H100 than without them, in trial builds).  The TPU kernels
 // reduce per 128-row block with the block resident in VMEM; here:
 //   * pieces.  A CTA takes one chunk of `piece_edges` consecutive edges of
-//     the walk's order (the graph's block order for K10, the src-sorted
-//     order for K11) and works it block by block: each nonempty
+//     the walk's order (the graph's block order for K9 and K10, the
+//     src-sorted order for K11) and works it block by block: each nonempty
 //     intersection of the chunk with a 128-row block's edge range
 //     (StepGraph.block_bounds by dst, StepGraph.src_block_bounds by src)
 //     is one piece.  So every CTA takes at most piece_edges edges whatever
@@ -59,6 +60,19 @@
 //     CTA pass takes floor(threads / G / n_ch) edges.  datt reduces over
 //     the group in log2(G) shuffles, every channel of every edge of the
 //     pass at once, and every lane of the group then holds it;
+//   * K9 sorts its piece's edges by dst row in shared memory (a counting
+//     sort: one shared int atomic an edge, a warp scan over the 128 rows)
+//     and cuts each row's run into segments of at most kSegEdges (32)
+//     edges.  A group of G lanes takes (segment, channel) items: every lane
+//     forms each edge's p_c itself (the same instruction for the whole
+//     group, no shuffle), sums its columns' terms over the segment in
+//     registers and adds them into acc with one global atomic a column.
+//     The block's a_dst and m^ rows ([n_ch][128] f32 each) are staged.
+//     Shared f32 atomics are no cheaper: sm_90 has no native shared f32
+//     add (nvcc emits a compare-and-swap loop, ATOMS.CAST.SPIN), and a
+//     first design that summed each edge's values into a [128][width]
+//     shared accumulator with them ran much slower on one H100 (trial
+//     builds), most of the gap in those loops;
 //   * K10 stages its dst block's 128 stat rows in shared memory with
 //     cp.async (16-byte copies; 69.6 KB in f32 at (7, 16)), gathers only
 //     each edge's source row from global memory (edges of a block are
@@ -82,9 +96,9 @@
 //   * padding edges (dst >= num_rows) are skipped by dst before any other
 //     load.  In the src-sorted order they sit inside row 0's run (src 0;
 //     the stable sort puts them after row 0's real edges).  An edge whose
-//     dst lies outside its K10 piece's block (an order that is not
-//     block-monotone) reads and adds through global memory, so any order
-//     gives the right sums.
+//     dst lies outside its K9 or K10 piece's block (an order that is not
+//     block-monotone) reads and adds through global memory, one unit of
+//     lanes an (edge, channel), so any order gives the right sums.
 
 #include <cstdint>
 
@@ -95,23 +109,16 @@ namespace {
 using gat::round_t;
 using gat::to_f32;
 
-constexpr int kRows = 128;            // rows of a dst (K10) or src (K11) block
+constexpr int kRows = 128;            // rows of a dst (K9, K10) or src (K11) block
+constexpr int kFwdThreads = 256;      // K9's CTA
+constexpr int kSegEdges = 32;         // edges of one row K9 sums in registers before an add
+constexpr int kMaxFwdPiece = 8192;    // K9's chunk: 12 bytes an edge of shared memory
 constexpr int kDstThreads = 256;      // K10's CTA
 constexpr int kSrcThreads = 256;      // K11's CTA
 constexpr int kStages = 4;            // K11's ring of gathered stat rows
 constexpr int kMaxCols = 8;           // columns a lane takes of a unit
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a CTA may use (227 KB)
 constexpr int kMaxSrcPiece = 8192;    // K11's chunk ids in shared memory, 8 bytes an edge
-
-template <typename T>
-__global__ void __launch_bounds__(256) stream_gat_fwd_kernel(
-    const T* __restrict__ table, const float* __restrict__ adst,
-    const float* __restrict__ mhat, const int* __restrict__ src,
-    const int* __restrict__ dst, float* __restrict__ acc, long long num_edges,
-    int num_rows, int kz, int n_ch, float slope) {
-  gat::fwd_edges<T, true>(table, adst, mhat, src, dst, acc, num_edges, num_rows,
-                          kz, n_ch, slope);
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -165,6 +172,219 @@ __device__ __forceinline__ float group_sum(float part, int group) {
   for (int o = group >> 1; o > 0; o >>= 1)
     part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
   return part;
+}
+
+// This lane's columns of one (source row, channel) band [z_c | a_src_c]
+// into z (0 past kz); returns a_src_c.
+template <typename T>
+__device__ __forceinline__ float load_band(const T* zrow, int gl, int group, int kz,
+                                           float (&z)[kMaxCols]) {
+#pragma unroll
+  for (int t = 0; t < kMaxCols; ++t) {
+    const int f = gl + t * group;
+    z[t] = f < kz ? to_f32(zrow[f]) : 0.f;
+  }
+  return to_f32(zrow[kz]);
+}
+
+// Add round_T(z * p) (this lane's columns) and, on lane 0 of the group, p
+// into a band of `out`.
+template <typename T>
+__device__ __forceinline__ void add_terms(float* out, const float (&z)[kMaxCols], float p,
+                                          int gl, int group, int kz) {
+#pragma unroll
+  for (int t = 0; t < kMaxCols; ++t) {
+    const int f = gl + t * group;
+    if (f < kz) atomicAdd(out + f, round_t<T>(__fmul_rn(z[t], p)));
+  }
+  if (gl == 0) atomicAdd(out + kz, p);
+}
+
+// K9's shared memory, in 4-byte words: the block's a_dst and m^ rows
+// [2][n_ch][128]; cnt[128], off[129], segoff[129], nfar; the segment
+// table seg[kRows + piece_edges / kSegEdges]; rp, ss and sorted
+// [piece_edges] each.
+__host__ __device__ __forceinline__ int fwd_seg_cap(int piece_edges) {
+  return kRows + piece_edges / kSegEdges;
+}
+__host__ __device__ __forceinline__ size_t fwd_smem_words(int n_ch, int piece_edges) {
+  return (size_t)2 * n_ch * kRows + kRows + 2 * (kRows + 1) + 1 + fwd_seg_cap(piece_edges) +
+         (size_t)3 * piece_edges;
+}
+
+// K9.  Per piece of block b (rows row0 .. row0+nr-1):
+//   1. each edge's row r and its place among the row's edges of the piece
+//      (a shared int atomic on cnt[r]) into rp, its source into ss;
+//      padding (dst >= num_rows) loads nothing more, an edge whose dst lies
+//      outside the block is marked far;
+//   2. warp 0 scans cnt into the rows' offsets and their segments' (a
+//      segment: at most kSegEdges of one row's edges);
+//   3. the sources in row order into `sorted`, the segment table;
+//   4. each group of G lanes takes (segment, channel) items: it walks the
+//      segment's sources, sums [round_T(z * p) | p] in registers and adds
+//      the sums into acc with one global atomic a column;
+//   5. far edges (an order that is not block-monotone) add their terms
+//      through global memory, one (edge, channel) unit a group.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads) stream_gat_fwd_kernel(
+    const T* __restrict__ table, const float* __restrict__ adst,
+    const float* __restrict__ mhat, const int* __restrict__ src, const int* __restrict__ dst,
+    const int* __restrict__ bounds, float* __restrict__ acc, int n_blocks, int num_rows,
+    int kz, int n_ch, int group, int piece_edges, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sad = reinterpret_cast<float*>(smem);
+  float* smh = sad + n_ch * kRows;
+  int* cnt = reinterpret_cast<int*>(smh + n_ch * kRows);
+  int* off = cnt + kRows;
+  int* segoff = off + kRows + 1;
+  int* nfar = segoff + kRows + 1;
+  int* seg = nfar + 1;
+  int* rp = seg + fwd_seg_cap(piece_edges);
+  int* ss = rp + piece_edges;
+  int* sorted = ss + piece_edges;
+  const int bz = kz + 1, width = n_ch * bz;
+  const int grp = threadIdx.x / group, gl = threadIdx.x - grp * group;
+  const int n_groups = kFwdThreads / group;
+  const long long chunk_lo = (long long)blockIdx.x * piece_edges;
+  const long long chunk_hi = min(chunk_lo + piece_edges, (long long)bounds[n_blocks]);
+  for (int b = block_of(bounds, n_blocks, chunk_lo); b < n_blocks && bounds[b] < chunk_hi;
+       ++b) {
+    const long long lo = max(chunk_lo, (long long)bounds[b]);
+    const long long hi = min(chunk_hi, (long long)bounds[b + 1]);
+    if (lo >= hi) continue;  // uniform: an empty block
+    const int row0 = b * kRows, nr = min(kRows, num_rows - row0), n = (int)(hi - lo);
+    __syncthreads();  // the previous piece is done with shared memory
+    for (int i = threadIdx.x; i < n_ch * kRows; i += kFwdThreads) {
+      const int cc = i / kRows, r = i - cc * kRows;
+      const long long g = (long long)cc * num_rows + row0 + r;
+      sad[i] = r < nr ? adst[g] : 0.f;
+      smh[i] = r < nr ? mhat[g] : 0.f;
+    }
+    for (int r = threadIdx.x; r < kRows; r += kFwdThreads) cnt[r] = 0;
+    if (threadIdx.x == 0) *nfar = 0;
+    __syncthreads();
+    // 1.
+    for (int i = threadIdx.x; i < n; i += kFwdThreads) {
+      const int d = dst[lo + i];
+      int v = -1;  // padding
+      if (d < num_rows) {
+        ss[i] = src[lo + i];
+        const int r = d - row0;
+        if ((unsigned)r < (unsigned)nr) {
+          v = atomicAdd(cnt + r, 1) << 7 | r;
+        } else {
+          v = -2;
+          *nfar = 1;
+        }
+      }
+      rp[i] = v;
+    }
+    __syncthreads();
+    // 2.
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int c4[4], s4[4], tc = 0, ts = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        c4[k] = cnt[4 * lane + k];
+        s4[k] = (c4[k] + kSegEdges - 1) / kSegEdges;
+        tc += c4[k];
+        ts += s4[k];
+      }
+      int ic = tc, is = ts;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int a = __shfl_up_sync(0xffffffffu, ic, o);
+        const int q = __shfl_up_sync(0xffffffffu, is, o);
+        if (lane >= o) {
+          ic += a;
+          is += q;
+        }
+      }
+      int ec = ic - tc, es = is - ts;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        off[4 * lane + k] = ec;
+        segoff[4 * lane + k] = es;
+        ec += c4[k];
+        es += s4[k];
+      }
+      if (lane == 31) {
+        off[kRows] = ic;
+        segoff[kRows] = is;
+      }
+    }
+    __syncthreads();
+    // 3.
+    for (int i = threadIdx.x; i < n; i += kFwdThreads) {
+      const int v = rp[i];
+      if (v >= 0) sorted[off[v & 127] + (v >> 7)] = ss[i];
+    }
+    for (int r = threadIdx.x; r < kRows; r += kFwdThreads)
+      for (int q = segoff[r], k = off[r]; k < off[r + 1]; ++q, k += kSegEdges)
+        seg[q] = r << 24 | k;
+    __syncthreads();
+    // 4.
+    const int n_items = segoff[kRows] * n_ch;
+    for (int it = grp; it < n_items; it += n_groups) {
+      const int q = it / n_ch, c = it - q * n_ch;
+      const int r = seg[q] >> 24, k0 = seg[q] & 0xffffff;
+      const int k1 = min(k0 + kSegEdges, off[r + 1]);
+      const float ad = sad[c * kRows + r], mh = smh[c * kRows + r];
+      float sum[kMaxCols], ps = 0.f;
+#pragma unroll
+      for (int t = 0; t < kMaxCols; ++t) sum[t] = 0.f;
+      int k = k0;
+      for (; k + 1 < k1; k += 2) {  // two sources' loads in flight
+        float za[kMaxCols], zb[kMaxCols];
+        const float asa = load_band<T>(table + (long long)sorted[k] * width + c * bz, gl,
+                                       group, kz, za);
+        const float asb = load_band<T>(table + (long long)sorted[k + 1] * width + c * bz, gl,
+                                       group, kz, zb);
+        const float pa = round_t<T>(gat::edge_weight(ad + asa, mh, slope));
+        const float pb = round_t<T>(gat::edge_weight(ad + asb, mh, slope));
+#pragma unroll
+        for (int t = 0; t < kMaxCols; ++t) {
+          sum[t] = __fadd_rn(sum[t], round_t<T>(__fmul_rn(za[t], pa)));
+          sum[t] = __fadd_rn(sum[t], round_t<T>(__fmul_rn(zb[t], pb)));
+        }
+        ps = __fadd_rn(__fadd_rn(ps, pa), pb);
+      }
+      if (k < k1) {
+        float za[kMaxCols];
+        const float asa = load_band<T>(table + (long long)sorted[k] * width + c * bz, gl,
+                                       group, kz, za);
+        const float pa = round_t<T>(gat::edge_weight(ad + asa, mh, slope));
+#pragma unroll
+        for (int t = 0; t < kMaxCols; ++t)
+          sum[t] = __fadd_rn(sum[t], round_t<T>(__fmul_rn(za[t], pa)));
+        ps = __fadd_rn(ps, pa);
+      }
+      float* out = acc + (long long)(row0 + r) * width + c * bz;
+#pragma unroll
+      for (int t = 0; t < kMaxCols; ++t) {
+        const int f = gl + t * group;
+        if (f < kz) atomicAdd(out + f, sum[t]);
+      }
+      if (gl == 0) atomicAdd(out + kz, ps);
+    }
+    // 5.
+    if (*nfar) {  // uniform
+      const int per = kFwdThreads / group / n_ch;  // edges a pass
+      const int j = grp / n_ch, c = grp - j * n_ch;
+      for (int base = 0; base < n; base += per) {
+        const int i = base + j;
+        if (j >= per || i >= n || rp[i] != -2) continue;
+        const int d = dst[lo + i];
+        const T* zrow = table + (long long)ss[i] * width + c * bz;
+        float z[kMaxCols];
+        const float as = load_band<T>(zrow, gl, group, kz, z);
+        const long long g = (long long)c * num_rows + d;
+        const float p = round_t<T>(gat::edge_weight(adst[g] + as, mhat[g], slope));
+        add_terms<T>(acc + (long long)d * width + c * bz, z, p, gl, group, kz);
+      }
+    }
+  }
 }
 
 // att and dpre of one unit from its stat band srow ([g_c | gout_c |
@@ -421,28 +641,47 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 // first n_ch*(kz+3) columns, sstride a multiple of 8; both 16-byte
 // aligned; ids int32[num_edges], padding dst >= num_rows.
 
-// adst/mhat: f32[n_ch, num_rows]; acc: f32[num_rows, n_ch*(kz+1)], zeroed
-// by the caller.
+template <typename T>
+cudaError_t launch_fwd(const void* table, const void* adst, const void* mhat, const void* src,
+                       const void* dst, const void* bounds, void* acc, long long num_edges,
+                       int n_blocks, int num_rows, int kz, int n_ch, int piece_edges,
+                       float slope, cudaStream_t s) {
+  const int group = group_lanes(kz);
+  const size_t smem = fwd_smem_words(n_ch, piece_edges) * 4;
+  cudaError_t err = allow_smem(stream_gat_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((num_edges + piece_edges - 1) / piece_edges);
+  stream_gat_fwd_kernel<T><<<grid, kFwdThreads, smem, s>>>(
+      static_cast<const T*>(table), static_cast<const float*>(adst),
+      static_cast<const float*>(mhat), static_cast<const int*>(src),
+      static_cast<const int*>(dst), static_cast<const int*>(bounds), static_cast<float*>(acc),
+      n_blocks, num_rows, kz, n_ch, group, piece_edges, slope);
+  return cudaSuccess;
+}
+
+// adst/mhat: f32[n_ch, num_rows]; src/dst: the graph's block order;
+// bounds: int32[n_blocks+1], the 128-row dst blocks' edge ranges
+// (bounds[0] = 0, bounds[n_blocks] = num_edges, as
+// ops/flash_gat.dst_block_bounds builds them; n_blocks = ceil(num_rows /
+// 128)); acc: f32[num_rows, n_ch*(kz+1)], 16-byte aligned, zeroed by the
+// caller.  One CTA a chunk of piece_edges >= 1 edges.
 extern "C" int stream_gat_fwd(int device, const void* table, int bf16, const void* adst,
                               const void* mhat, const void* src, const void* dst,
-                              void* acc, long long num_edges, int num_rows, int kz,
-                              int n_ch, float slope, void* stream) {
+                              const void* bounds, void* acc, long long num_edges,
+                              int n_blocks, int num_rows, int kz, int n_ch, int piece_edges,
+                              float slope, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_layout(kz, n_ch) || num_edges < 0) return (int)cudaErrorInvalidValue;
+  if (bad_layout(kz, n_ch) || num_edges < 0 || piece_edges < 1 ||
+      piece_edges > kMaxFwdPiece || n_blocks != (num_rows + kRows - 1) / kRows)
+    return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned b = gat::warp_edge_blocks(num_edges);
-#define ARGS                                                                   \
-  static_cast<const float*>(adst), static_cast<const float*>(mhat),            \
-      static_cast<const int*>(src), static_cast<const int*>(dst),              \
-      static_cast<float*>(acc), num_edges, num_rows, kz, n_ch, slope
-  if (bf16)
-    stream_gat_fwd_kernel<__nv_bfloat16><<<b, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(table), ARGS);
-  else
-    stream_gat_fwd_kernel<float><<<b, 256, 0, s>>>(static_cast<const float*>(table), ARGS);
-#undef ARGS
+  err = bf16 ? launch_fwd<__nv_bfloat16>(table, adst, mhat, src, dst, bounds, acc, num_edges,
+                                         n_blocks, num_rows, kz, n_ch, piece_edges, slope, s)
+             : launch_fwd<float>(table, adst, mhat, src, dst, bounds, acc, num_edges,
+                                 n_blocks, num_rows, kz, n_ch, piece_edges, slope, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -85,7 +85,8 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
         packed_e = gather_src(packed, g, transport)  # [E, H*C + H]
         h_e = packed_e[:, : heads * c].reshape(-1, heads, c)
         alpha = gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float()
-        alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport)
+        alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport,
+                                g.block_bounds)
         msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
         out = _aggregate(msgs.reshape(-1, heads * c), g, transport).reshape(n, heads, c)
     out = out.reshape(n, heads * c) if concat else out.mean(dim=1)

@@ -66,12 +66,13 @@ _SIGNATURES = {
     "scatter_add": ("segment", [_I, _P, _I, _P, _P, _L, _I, _I, _P]),
     # device, v, idx, out, num_edges, num_rows, row_bytes, stream
     "row_gather": ("segment", [_I, _P, _P, _P, _L, _I, _I, _P]),
-    # device, alpha, dst, stats, num_edges, num_rows, stream
-    "softmax_stats": ("segment", [_I, _P, _P, _P, _L, _I, _P]),
-    # device, table, bf16, adst, mhat, src, dst, acc, num_edges, num_rows,
-    # kz, n_ch, slope, stream
-    "stream_gat_fwd": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,
-                                      _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, alpha, dst, bounds, stats, num_edges, n_blocks, num_rows,
+    # stream
+    "softmax_stats": ("segment", [_I, _P, _P, _P, _P, _L, _I, _I, _P]),
+    # device, table, bf16, adst, mhat, src, dst, bounds, acc, num_edges,
+    # n_blocks, num_rows, kz, n_ch, piece_edges, slope, stream
+    "stream_gat_fwd": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                      _L, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
     # device, table, bf16, stat, src, dst, bounds, dadst, num_edges,
     # n_blocks, num_rows, kz, n_ch, sstride, piece_edges, slope, stream
     "stream_gat_bwd_dst": ("stream_gat", [_I, _P, _I, _P, _P, _P, _P, _P,

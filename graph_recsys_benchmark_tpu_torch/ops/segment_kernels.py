@@ -23,14 +23,18 @@ Port of the JAX package's ``ops/pallas_segment.py`` kernels:
     need a gradient.
   * ``softmax_stats`` (K8, ``_softmax_stats_kernel``): per dst row the max
     and the sum of exp(alpha - max) of f32 edge logits, max -inf for a row
-    with no edge.  ``segment_softmax`` (``segment_softmax_pallas``,
+    with no edge.  As the JAX contract, the kernel takes a block-monotone
+    ``dst`` (graph.py's order) and its 128-row blocks' edge ranges
+    (``StepGraph.block_bounds``); the plain version takes any order and
+    reads no bounds.  ``segment_softmax`` (``segment_softmax_pallas``,
     :346-398) builds the softmax on it: stats gathered per edge by K7, the
     +1e-16 guard, padding edges forced to 0; its backward (``_softmax_bwd``,
     :376-391) is a K5 segment-sum of att·g by dst and a K7 gather back.
 
 Kernels: csrc/segment.cu.  K5 and K6 both launch its ``scatter_add`` (f32
 atomics by id, so K5 needs no order on the card; the source says why a
-dst-block design lost), K7 its ``row_gather``, K8 its ``softmax_stats``.  A
+dst-block design lost), K7 its ``row_gather``, K8 its ``softmax_stats`` (one
+CTA a dst block, one launch a call).  A
 CUDA tensor launches the kernel, counted in the wrapper's ``launches``, or
 raises; a CPU tensor takes the ``*_plain`` version in this module.  The
 JAX package's dispatch gates (65,536 edges, ``GATHER_SPAN_MAX``,
@@ -243,22 +247,32 @@ def softmax_stats_plain(alpha, dst, num_rows):
     return torch.stack([m, segment_sum(ex, dst, num_rows)], dim=1)
 
 
-def softmax_stats(alpha, dst, num_rows):
+def softmax_stats(alpha, dst, num_rows, block_bounds=None):
     """Per-dst softmax statistics of f32 edge logits ``alpha`` [E] by int32
-    ``dst`` [E] (any order, padding ``dst >= num_rows`` dropped): f32
-    ``[num_rows, 2]`` rows ``[max | Σ exp(alpha - max)]``, max -inf for a
-    row with no edge.  The max is exact; the sums are f32 in the kernel's
-    atomic order.  Kernel launches counted in ``softmax_stats.launches``."""
+    ``dst`` [E] (padding ``dst >= num_rows`` dropped): f32 ``[num_rows, 2]``
+    rows ``[max | Σ exp(alpha - max)]``, max -inf for a row with no edge.
+    The max is exact; the sums are f32 in the kernel's atomic order.
+
+    block_bounds: int32[ceil(num_rows/128)+1], the 128-row dst blocks' edge
+    ranges from 0 to E of a block-monotone dst (StepGraph.block_bounds,
+    flash_gat.dst_block_bounds), which the kernel needs (one CTA a block)
+    and the plain version (any order) does not read.  Kernel launches
+    counted in ``softmax_stats.launches``."""
     _refuse_grad("softmax_stats", alpha)
     if alpha.device.type == "cpu":
         return softmax_stats_plain(alpha, dst, num_rows)
     dev, e = alpha.device, dst.shape[0]
     _cuda.require(alpha, "softmax_stats alpha", torch.float32, (e,), dev)
     _cuda.require(dst, "softmax_stats dst", torch.int32, (e,), dev)
+    n_blocks = max(1, -(-num_rows // 128))
+    if block_bounds is None:
+        raise ValueError("softmax_stats: the kernel needs the graph's block bounds (StepGraph)")
+    _cuda.require(block_bounds, "softmax_stats block bounds", torch.int32, (n_blocks + 1,),
+                  dev)
     out = torch.empty((num_rows, 2), dtype=torch.float32, device=dev)
     if num_rows > 0:
-        _cuda.launch("softmax_stats", dev, alpha.data_ptr(), dst.data_ptr(), out.data_ptr(),
-                     e, num_rows)
+        _cuda.launch("softmax_stats", dev, alpha.data_ptr(), dst.data_ptr(),
+                     block_bounds.data_ptr(), out.data_ptr(), e, n_blocks, num_rows)
         softmax_stats.launches += 1
     return out
 
@@ -275,8 +289,8 @@ class SegmentSoftmax(torch.autograd.Function):
     transport dtype and s[dst] a K7 gather."""
 
     @staticmethod
-    def forward(ctx, alpha, dst, num_rows, transport):
-        stats = softmax_stats(alpha, dst, num_rows)
+    def forward(ctx, alpha, dst, num_rows, transport, block_bounds):
+        stats = softmax_stats(alpha, dst, num_rows, block_bounds)
         stats = torch.where(torch.isfinite(stats), stats, torch.zeros_like(stats))
         stats_e = sorted_broadcast(stats, dst, num_rows)
         att = torch.exp(alpha - stats_e[:, 0]) / (stats_e[:, 1] + 1e-16)
@@ -290,19 +304,21 @@ class SegmentSoftmax(torch.autograd.Function):
         att, dst = ctx.saved_tensors
         s = sorted_segment_sum((att * g)[:, None], dst, ctx.num_rows, ctx.transport)
         s_e = sorted_broadcast(s[:, 0].contiguous(), dst, ctx.num_rows)
-        return att * (g - s_e), None, None, None
+        return att * (g - s_e), None, None, None, None
 
 
-def segment_softmax(alpha, dst, num_rows, transport="f32"):
+def segment_softmax(alpha, dst, num_rows, transport="f32", block_bounds=None):
     """Per-dst softmax of f32 edge logits ``alpha`` [E] or [E, H] (one K8
     pass per head, as ``segment_softmax_auto`` loops heads) with PyG's
-    +1e-16 guard; padding edges (``dst >= num_rows``) get 0.  Differentiable
-    in alpha (SegmentSoftmax; `transport` is its backward's segment-sum
-    transport)."""
+    +1e-16 guard; padding edges (``dst >= num_rows``) get 0.  On the card
+    ``dst`` is block-monotone (graph.py's order) and ``block_bounds`` its
+    128-row blocks' edge ranges (StepGraph.block_bounds), which K8 needs.
+    Differentiable in alpha (SegmentSoftmax; `transport` is its backward's
+    segment-sum transport)."""
     t_dtype_of(transport)  # validate
     alpha = alpha.float()
     if alpha.dim() == 1:
-        return SegmentSoftmax.apply(alpha.contiguous(), dst, num_rows, transport)
+        return SegmentSoftmax.apply(alpha.contiguous(), dst, num_rows, transport, block_bounds)
     return torch.stack([SegmentSoftmax.apply(alpha[:, h].contiguous(), dst, num_rows,
-                                             transport) for h in range(alpha.shape[1])],
-                       dim=1)
+                                             transport, block_bounds)
+                        for h in range(alpha.shape[1])], dim=1)

@@ -20,12 +20,14 @@ accumulates ``[round_T(z·round_T(p)) | round_T(p)]`` per dst;
 dpre]`` by src over the src-sorted order, both recomputing att and dpre per
 edge from the stat table ``[g | gout | logden | a_dst]`` rounded to the
 transport dtype (ops/stream_gat.py:311, 760; ``stat_table``, its rows
-padded to ``stat_width``, a multiple of 8 values).  K10 and K11 give each
-CTA a chunk of STREAM_DST_PIECE_EDGES / STREAM_SRC_PIECE_EDGES edges of
-their walk, cut at the 128-row blocks' bounds (StepGraph.block_bounds,
-StepGraph.src_block_bounds) into pieces: K10 stages its piece's 128 dst
-rows of stats in shared memory, K11 streams the gathered stat rows through
-a shared-memory ring and sums each source's run in registers.  A CUDA
+padded to ``stat_width``, a multiple of 8 values).  The three give each
+CTA a chunk of STREAM_FWD_PIECE_EDGES / STREAM_DST_PIECE_EDGES /
+STREAM_SRC_PIECE_EDGES edges of their walk, cut at the 128-row blocks'
+bounds (StepGraph.block_bounds, StepGraph.src_block_bounds) into pieces:
+K9 sorts its piece's edges by dst row in shared memory and sums each
+row's run in registers, K10 stages its piece's 128 dst rows of stats in
+shared memory, K11 streams the gathered stat rows through a shared-memory
+ring and sums each source's run in registers.  A CUDA
 tensor launches the kernel, counted in the wrapper's ``launches``, or
 raises; a CPU tensor takes the ``*_plain`` version in this module, which
 sums every real edge whatever the work split.  ``StreamGAT`` (a
@@ -74,43 +76,80 @@ def _check_layout(name, n_ch, kz):
                          f"1..{MAX_KZ}")
 
 
+# Edges a CTA takes (one chunk of the walk's order, cut at the 128-row
+# blocks' bounds into pieces) in K9 (stream_gat_fwd), K10
+# (stream_gat_bwd_dst) and K11 (stream_gat_bwd_src), the fastest of
+# chip_smoke.py's sweep on one H100 (PERF.md).  K11 keeps a chunk's ids in
+# shared memory, so its chunk is at most MAX_SRC_PIECE_EDGES; K9 sorts
+# its chunk's sources by row there, so its chunk is at most
+# MAX_FWD_PIECE_EDGES.
+STREAM_FWD_PIECE_EDGES = 2048
+STREAM_DST_PIECE_EDGES = 2048
+STREAM_SRC_PIECE_EDGES = 1024
+MAX_FWD_PIECE_EDGES = 8192
+MAX_SRC_PIECE_EDGES = 8192
+
+
+def _check_pieces(name, bounds, n_rows, piece_edges, max_piece, dev):
+    """n_blocks of a kernel's 128-row blocks over n_rows, with `bounds`
+    (int32[n_blocks+1], the blocks' edge ranges) and `piece_edges`
+    validated."""
+    n_blocks = max(1, -(-n_rows // 128))
+    if bounds is None:
+        raise ValueError(f"{name}: the kernel needs the graph's block bounds (StepGraph)")
+    _cuda.require(bounds, f"{name} block bounds", torch.int32, (n_blocks + 1,), dev)
+    if not 1 <= piece_edges <= max_piece:
+        raise ValueError(f"{name}: piece_edges {piece_edges} outside 1..{max_piece}")
+    return n_blocks
+
+
 # ---------------------------------------------------------------- K9
 
 
 def stream_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                          negative_slope=0.2, acc_dtype=torch.float32):
     """Plain PyTorch version of stream_gat_fwd, same inputs and rounding
-    points (K3's, ops/flash_gat.gat_fwd_plain with round_p_first)."""
+    points (K3's, ops/flash_gat.gat_fwd_plain with round_p_first), over
+    every real edge (no block bounds, no pieces)."""
     return gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, True,
                          negative_slope, acc_dtype)
 
 
-def stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope=0.2):
+def stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope=0.2,
+                   block_bounds=None, piece_edges=None):
     """Unnormalized accumulator ``[num_rows, n_ch*(kz+1)]`` f32 (band c =
     ``[Σ round_T(z_c·round_T(p_c)) | Σ round_T(p_c)]`` by dst, no loop term)
-    over a loop-free edge list.
+    over a loop-free edge list in block order.
 
     table: [n, n_ch*(kz+1)] row-major bands ``[z_c | a_src_c]`` in the
     transport dtype; adst_r, mhat: f32[n_ch, num_rows] rounded through it;
-    src, dst: int32[E] with padding ``dst >= num_rows``.  Launches counted
-    in ``stream_gat_fwd.launches``."""
+    src, dst: int32[E] with padding ``dst >= num_rows``; block_bounds:
+    int32[ceil(num_rows/128)+1], the 128-row dst blocks' edge ranges from
+    0 to E (StepGraph.block_bounds, flash_gat.dst_block_bounds), which the
+    kernel needs and the plain version does not read; piece_edges: edges a
+    CTA takes, 1..MAX_FWD_PIECE_EDGES (default STREAM_FWD_PIECE_EDGES).
+    Launches counted in ``stream_gat_fwd.launches``."""
     n_ch = adst_r.shape[0]
     _check_layout("stream_gat_fwd", n_ch, kz)
     if table.device.type == "cpu":
         return stream_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                                     negative_slope)
+    piece_edges = piece_edges or STREAM_FWD_PIECE_EDGES
     dev, width = _check_table("stream_gat_fwd", table, n_ch, kz)
     e = dst.shape[0]
     _cuda.require(adst_r, "adst_r", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(mhat, "mhat", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    n_blocks = _check_pieces("stream_gat_fwd", block_bounds, num_rows, piece_edges,
+                             MAX_FWD_PIECE_EDGES, dev)
     acc = torch.zeros((num_rows, width), dtype=torch.float32, device=dev)
-    if e > 0:
+    if e > 0 and num_rows > 0:
         _cuda.launch("stream_gat_fwd", dev, table.data_ptr(),
                      int(table.dtype == torch.bfloat16), adst_r.data_ptr(),
-                     mhat.data_ptr(), src.data_ptr(), dst.data_ptr(), acc.data_ptr(), e,
-                     num_rows, kz, n_ch, float(negative_slope))
+                     mhat.data_ptr(), src.data_ptr(), dst.data_ptr(), block_bounds.data_ptr(),
+                     acc.data_ptr(), e, n_blocks, num_rows, kz, n_ch, piece_edges,
+                     float(negative_slope))
         stream_gat_fwd.launches += 1
     return acc
 
@@ -119,15 +158,6 @@ stream_gat_fwd.launches = 0
 
 
 # ---------------------------------------------------------------- K10, K11
-
-# Edges a CTA takes (one chunk of the walk's order, cut at the 128-row
-# blocks' bounds into pieces) in K10 (stream_gat_bwd_dst) and K11
-# (stream_gat_bwd_src), the fastest of chip_smoke.py's sweep on one H100
-# (PERF.md).  K11 keeps a chunk's ids in shared memory, so its chunk
-# is at most MAX_SRC_PIECE_EDGES.
-STREAM_DST_PIECE_EDGES = 2048
-STREAM_SRC_PIECE_EDGES = 1024
-MAX_SRC_PIECE_EDGES = 8192
 
 
 def stat_width(n_ch, kz):
@@ -173,12 +203,7 @@ def _check_bwd(name, table, stat, num_rows, n_rows, n_ch, kz, ids, bounds, piece
     e = ids[0].shape[0]
     for i, t in enumerate(ids):
         _cuda.require(t, f"{name} ids {i}", torch.int32, (e,), dev)
-    n_blocks = max(1, -(-n_rows // 128))
-    if bounds is None:
-        raise ValueError(f"{name}: the kernel needs the graph's block bounds (StepGraph)")
-    _cuda.require(bounds, f"{name} block bounds", torch.int32, (n_blocks + 1,), dev)
-    if not 1 <= piece_edges <= max_piece:
-        raise ValueError(f"{name}: piece_edges {piece_edges} outside 1..{max_piece}")
+    n_blocks = _check_pieces(name, bounds, n_rows, piece_edges, max_piece, dev)
     for t, what in ((table, "table"), (stat, "stat")):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
@@ -302,16 +327,18 @@ def _loop_terms(table, adst_r, mhat, num_rows, kz, n_ch, negative_slope):
     return z_r, pre, p
 
 
-def _fwd_common(z, a_src, a_dst, src, dst, num_rows, self_loops, negative_slope,
-                t_dtype):
+def _fwd_common(z, a_src, a_dst, src, dst, block_bounds, num_rows, self_loops,
+                negative_slope, t_dtype):
     """(out [n_ch, N, kz] f32, table, adst_r, m̂, s): the table's bands and
-    a_dst rounded once to the transport dtype, K9 over the edges, then the
-    loop term and the normalization in f32 (ops/stream_gat.py:594-665)."""
+    a_dst rounded once to the transport dtype, K9 over the edges (in
+    pieces cut at `block_bounds`), then the loop term and the normalization
+    in f32 (ops/stream_gat.py:594-665)."""
     n_ch, _, kz = z.shape
     band = torch.cat([z.to(t_dtype), a_src[:, :, None].to(t_dtype)], dim=2)
     table = band.permute(1, 0, 2).reshape(num_rows, n_ch * (kz + 1)).contiguous()
     adst_r, mhat = bound_shift(a_dst, band[:, :, kz], negative_slope, t_dtype)
-    acc = stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope)
+    acc = stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope,
+                         block_bounds=block_bounds)
     acc_b = acc.view(num_rows, n_ch, kz + 1)
     num = acc_b[:, :, :kz].permute(1, 0, 2)
     s = acc_b[:, :, kz].t()
@@ -328,7 +355,8 @@ class StreamGAT(torch.autograd.Function):
 
     forward(z f32[n_ch, N, kz], a_src, a_dst f32[n_ch, N], src, dst,
     src_perm, src_sorted int32[E], block_bounds, src_block_bounds
-    (int32[ceil(N/128)+1], read by the backward), num_rows, self_loops,
+    (int32[ceil(N/128)+1]: K9 and K10 read the first, K11 the second),
+    num_rows, self_loops,
     negative_slope, transport) -> out f32[n_ch, N, kz].  The backward builds
     the stat table as ``_stream_bwd`` does (ops/stream_gat.py:707-720: g,
     gout = Σ g·out, logden = m̂ + log(s + 1e-16), a_dst, rounded to the
@@ -340,8 +368,9 @@ class StreamGAT(torch.autograd.Function):
     def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, block_bounds,
                 src_block_bounds, num_rows, self_loops, negative_slope, transport):
         t_dtype = t_dtype_of(transport)
-        out, table, adst_r, mhat, s = _fwd_common(z, a_src, a_dst, src, dst, num_rows,
-                                                  self_loops, negative_slope, t_dtype)
+        out, table, adst_r, mhat, s = _fwd_common(z, a_src, a_dst, src, dst, block_bounds,
+                                                  num_rows, self_loops, negative_slope,
+                                                  t_dtype)
         ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted,
                               block_bounds, src_block_bounds)
         ctx.consts = (num_rows, self_loops, negative_slope)

@@ -30,13 +30,17 @@ in float64 at 1e-5 of the largest value in both transports (they round at
 the plain version's points; f32 atomics in another order over in-degrees
 in the thousands); and 300,000 edges with one dst block of 60,000 and one
 source of 40,000 (both across many of K10's and K11's pieces, also at
-pieces of 300 edges), an empty block and padding, held row by row to the
-rounding bound of an f32 sum in any order (_sum_bound, chip_smoke.py's
-gamma_(k-1) * sum |t| rule with each term's own error).
+pieces of 300 edges), an empty block and padding, K10 and K11 held row
+by row to the rounding bound of an f32 sum in any order (_sum_bound,
+chip_smoke.py's gamma_(k-1) * sum |t| rule with each term's own error),
+K9 at 1e-5 of the largest value at both piece sizes; K9 and K10 also on
+the edges out of block order and K11 on an unsorted src order.
 StreamGAT on the card is held to the CPU's at the whole-op tolerances
-above.  softmax_stats (K8) gets the composed GAT's shape (68,830 rows,
-197,000 edges) with an empty block and padding: its max equals the plain
-version's bitwise, its sums the float64 sums at 1e-6.
+above.  softmax_stats (K8, one CTA a 128-row dst block of a block-monotone
+dst) gets the composed GAT's shape (68,830 rows, 197,000 edges) with an
+empty block and padding: its max equals the plain version's bitwise, its
+sums the float64 sums at 1e-6; and a block of 60,000 edges, past what a
+CTA stages in shared memory, its sums held row by row to _sum_bound.
 
 The edge kernels of csrc/segment.cu (sorted_segment_sum K5,
 sorted_broadcast K7, localized_scatter_add K6) run at the flagship's
@@ -598,20 +602,23 @@ def _bwd_terms(table, stat, s, d, kz, t_dtype):
 def test_stream_kernels_match_plain(cuda, stream_graph, skewed_graph, graph, transport, n_ch,
                                     kz):
     """K9-K11 against the float64 sums of their plain versions' terms:
-    on the zipf graph at 1e-5 of the largest value; on the skewed graph
-    each row within _sum_bound, at the default pieces and at pieces of 300
+    K9 at 1e-5 of the largest value; K10 and K11 on the zipf graph at 1e-5
+    of the largest value, on the skewed graph each row within _sum_bound;
+    each at the default pieces and, on the skewed graph, at pieces of 300
     edges (a block and a source across many CTAs)."""
     g, n = (stream_graph if graph == "popular" else skewed_graph), STREAM_ROWS
     t_dtype = TDT[transport]
     rng = np.random.default_rng(n_ch * 1000 + kz)
     table, adst_r, mhat, gz = _stream_tables(rng, n_ch, kz, t_dtype, cuda)
     fargs = (table, adst_r, mhat, g.src, g.dst, n, kz)
+    pieces = [None] if graph == "popular" else [None, 300]
     before = tuple(f.launches for f in (tsg.stream_gat_fwd, tsg.stream_gat_bwd_dst,
                                         tsg.stream_gat_bwd_src))
-    acc = tsg.stream_gat_fwd(*fargs)
     exact = tsg.stream_gat_fwd_plain(*fargs, acc_dtype=torch.float64)
-    torch.cuda.synchronize()
-    assert torch.isfinite(acc).all() and _rel_err(acc.double(), exact) <= KERNEL_TOL
+    for piece in pieces:
+        acc = tsg.stream_gat_fwd(*fargs, block_bounds=g.block_bounds, piece_edges=piece)
+        torch.cuda.synchronize()
+        assert torch.isfinite(acc).all() and _rel_err(acc.double(), exact) <= KERNEL_TOL
     stat = _stat_table(acc, mhat, adst_r, gz, n_ch, kz, t_dtype)
     assert stat.shape == (n, tsg.stat_width(n_ch, kz)) and stat.shape[1] % 8 == 0
     dargs = (table, stat, g.src, g.dst, n, kz)
@@ -619,7 +626,6 @@ def test_stream_kernels_match_plain(cuda, stream_graph, skewed_graph, graph, tra
     dkw, skw = dict(block_bounds=g.block_bounds), dict(src_block_bounds=g.src_block_bounds)
     exact_d = tsg.stream_gat_bwd_dst_plain(*dargs, acc_dtype=torch.float64)
     exact_s = tsg.stream_gat_bwd_src_plain(*sargs, acc_dtype=torch.float64)
-    pieces = [None] if graph == "popular" else [None, 300]
     if graph == "skewed":
         real = g.dst < n
         s, d = g.src[real].long(), g.dst[real].long()
@@ -640,27 +646,34 @@ def test_stream_kernels_match_plain(cuda, stream_graph, skewed_graph, graph, tra
             assert bool(((dpk.double() - exact_s).abs() <= bound_s).all())
     after = tuple(f.launches for f in (tsg.stream_gat_fwd, tsg.stream_gat_bwd_dst,
                                        tsg.stream_gat_bwd_src))
-    assert after == (before[0] + 1, before[1] + len(pieces), before[2] + len(pieces))
+    assert after == tuple(b + len(pieces) for b in before)
 
 
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
 def test_stream_backwards_take_any_order(cuda, skewed_graph, transport):
-    """K10 on edges out of block order (an edge's dst may lie outside its
-    piece's block: its stats and da_dst go through global memory) and K11
-    on a src order that is not sorted (its runs break at every change),
-    each with block bounds that cut the edges evenly, against the float64
-    sums of every real edge (the plain versions read no bounds) at 1e-5 of
-    the largest value."""
+    """K9 and K10 on edges out of block order (an edge's dst may lie
+    outside its piece's block: its a_dst, m^ or stats and its sums go
+    through global memory) and K11 on a src order that is not sorted (its
+    runs break at every change), each with block bounds that cut the edges
+    evenly, against the float64 sums of every real edge (the plain
+    versions read no bounds) at 1e-5 of the largest value."""
     g, n, n_ch, kz = skewed_graph, STREAM_ROWS, 2, 16
     t_dtype = TDT[transport]
     rng = np.random.default_rng(13)
     table, adst_r, mhat, gz = _stream_tables(rng, n_ch, kz, t_dtype, cuda)
-    acc = tsg.stream_gat_fwd(table, adst_r, mhat, g.src, g.dst, n, kz)
+    acc = tsg.stream_gat_fwd(table, adst_r, mhat, g.src, g.dst, n, kz,
+                             block_bounds=g.block_bounds)
     stat = _stat_table(acc, mhat, adst_r, gz, n_ch, kz, t_dtype)
     e = g.dst.numel()
     order = torch.from_numpy(rng.permutation(e).astype(np.int32)).to(cuda)
     n_blocks = -(-n // 128)
     bounds = torch.linspace(0, e, n_blocks + 1, device=cuda).round().to(torch.int32)
+    fargs = (table, adst_r, mhat, g.src[order.long()].contiguous(),
+             g.dst[order.long()].contiguous(), n, kz)
+    got = tsg.stream_gat_fwd(*fargs, block_bounds=bounds)
+    exact = tsg.stream_gat_fwd_plain(*fargs, acc_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert _rel_err(got.double(), exact) <= KERNEL_TOL
     dargs = (table, stat, g.src[order.long()].contiguous(), g.dst[order.long()].contiguous(),
              n, kz)
     da = tsg.stream_gat_bwd_dst(*dargs, block_bounds=bounds)
@@ -705,8 +718,9 @@ def test_softmax_kernels_match_plain(cuda):
     dst = torch.from_numpy(np.concatenate([dst, np.full(1000, n)]).astype(np.int32)).to(cuda)
     alpha = torch.from_numpy((3.0 * rng.standard_normal(e + 1000)).astype(np.float32)).to(cuda)
     alpha[e:] = 90.0  # padding: large logits that must drop out
+    bounds = tfg.dst_block_bounds(dst, n)
     before = tsk.softmax_stats.launches
-    stats = tsk.softmax_stats(alpha, dst, n)
+    stats = tsk.softmax_stats(alpha, dst, n, bounds)
     plain = tsk.softmax_stats_plain(alpha, dst, n)
     exact = tsk.softmax_stats_plain(alpha.double(), dst, n)
     torch.cuda.synchronize()
@@ -719,12 +733,47 @@ def test_softmax_kernels_match_plain(cuda):
     res = []
     for dev in ("cuda", "cpu"):
         a = alpha.detach().to(dev).requires_grad_()
-        att = tsk.segment_softmax(a, dst.to(dev), n)
+        att = tsk.segment_softmax(a, dst.to(dev), n, "f32", bounds.to(dev))
         att.backward(g.to(dev))
         res.append((att.detach().cpu(), a.grad.cpu()))
     for got, want in zip(*res):
         assert _rel_err(got, want) <= SEG_TOL
     assert not res[0][0][e:].any()
+
+
+def test_softmax_kernel_on_a_hot_block(cuda):
+    """K8 on a block-monotone dst whose block 5 holds 60,000 of 150,000
+    edges, past the edges a CTA stages in shared memory (the rest it reads
+    again from global memory), with padding logits of 90 and an empty
+    block 3: its max equals the plain version's bitwise, its sums the
+    float64 sums row by row within _sum_bound (each term exp(a - max)
+    carries the f32 subtraction's rounding and expf's 2 ulp)."""
+    rng = np.random.default_rng(9)
+    n, e, pad = STREAM_ROWS, 150_000, 1024
+    dst = rng.integers(0, n, e)
+    dst[:60_000] = rng.integers(640, 768, 60_000)
+    dst = np.where(dst // 128 == 3, dst + 128, dst)
+    dst = np.sort(dst, kind="stable")
+    dst = torch.from_numpy(np.concatenate([dst, np.full(pad, n)]).astype(np.int32)).to(cuda)
+    alpha = torch.from_numpy((3.0 * rng.standard_normal(e + pad)).astype(np.float32)).to(cuda)
+    alpha[e:] = 90.0
+    bounds = tfg.dst_block_bounds(dst, n)
+    assert int(bounds[6] - bounds[5]) >= 60_000 and int(bounds[4] - bounds[3]) == 0
+    before = tsk.softmax_stats.launches
+    stats = tsk.softmax_stats(alpha, dst, n, bounds)
+    plain = tsk.softmax_stats_plain(alpha, dst, n)
+    exact = tsk.softmax_stats_plain(alpha.double(), dst, n)
+    torch.cuda.synchronize()
+    assert tsk.softmax_stats.launches == before + 1
+    assert torch.equal(stats[:, 0], plain[:, 0])
+    assert bool(torch.isinf(stats[384:512, 0]).all()) and not stats[384:512, 1].any()
+    a64, dst64 = alpha.double(), torch.clamp(dst.long(), max=n)
+    shift = torch.cat([torch.nan_to_num(exact[:, 0], neginf=0.0), a64.new_zeros(1)])
+    d = a64 - shift[dst64]
+    t = torch.exp(d)
+    t_err = t * (torch.expm1(U_SUM * d.abs()) * (1 + 2.0 ** -22) + 2.0 ** -22)
+    bound = _sum_bound(t[:, None], dst, n, t_err[:, None])[:, 0]
+    assert bool(((stats[:, 1].double() - exact[:, 1]).abs() <= bound).all())
 
 
 def test_stream_wrappers_reject_bad_inputs(cuda):
@@ -757,7 +806,18 @@ def test_stream_wrappers_reject_bad_inputs(cuda):
         tsg.stream_gat_bwd_src(table, stat, ids, ids, ids, n, kz,
                                piece_edges=tsg.MAX_SRC_PIECE_EDGES + 1, **skw)
     with pytest.raises(ValueError):  # bf16 logits
-        tsk.softmax_stats(torch.zeros(16, device=cuda, dtype=torch.bfloat16), ids, n)
+        tsk.softmax_stats(torch.zeros(16, device=cuda, dtype=torch.bfloat16), ids, n, bb)
+    with pytest.raises(ValueError):  # no block bounds: K8 needs the graph's
+        tsk.softmax_stats(torch.zeros(16, device=cuda), ids, n)
+    with pytest.raises(ValueError):  # K8's block bounds of the wrong length
+        tsk.softmax_stats(torch.zeros(16, device=cuda), ids, n, bb[:3])
+    with pytest.raises(ValueError):  # no block bounds: K9 needs the graph's
+        tsg.stream_gat_fwd(table, v, v, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # K9's block bounds in int64
+        tsg.stream_gat_fwd(table, v, v, ids, ids, n, kz, block_bounds=bb.long())
+    with pytest.raises(ValueError):  # a chunk past K9's shared-memory sort
+        tsg.stream_gat_fwd(table, v, v, ids, ids, n, kz, block_bounds=bb,
+                           piece_edges=tsg.MAX_FWD_PIECE_EDGES + 1)
     after = (tsg.stream_gat_fwd.launches, tsg.stream_gat_bwd_dst.launches,
              tsg.stream_gat_bwd_src.launches, tsk.softmax_stats.launches)
     assert after == before
