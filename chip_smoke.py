@@ -31,7 +31,8 @@
    the plain version (K7 bitwise; K5 and K6 each row within sum_bound of
    the float64 sums), device ms of the kernel, the
    plain version and one PyTorch library call of the same function, and
-   the bound.
+   the bound; K5 and K6 walk the union graph's sorted orders as the path
+   does.
 6. PEAGAT eval phase, per transport: init(2020), then PEATrainer.evaluate --
    the hybrid GAT forward, the pair scorer, the 99-negative HR/NDCG/AUC --
    with every kernel's launch count set to 0 just before and read just
@@ -106,7 +107,12 @@
       sums and backwards), each replayed against its plain version (K7
       bitwise, K5 and K6 within sum_bound of the float64 sums), and timed
       back to back as a step's sum beside the plain versions, the library
-      calls (index_select, index_add_) and the byte bound.
+      calls (index_select, index_add_) and the byte bound; then per width
+      group (the calls of one row width and dtype) the same replay's ms
+      and its byte bound, and for K5 and K6 the kernels' time alone
+      (sum_alone: without the zeroing of their outputs) and the mean edges
+      an id takes in runs of the edge order, in a 32-edge window, in a
+      2,048-edge chunk and in the call (id_runs).
    c. Training, per transport: one step's launch counts (K9 4, K8 15,
       K10 4, K11 4, K7 75, K5 45, K6 15, as the graphs' grouping predicts);
       one step's loss and every gradient against the same step with every
@@ -714,8 +720,12 @@ def edge_kernel_phase(trainers):
                          "scatter": segment_sum(ct.double(), g.src, n)}
                 sbound = {"segsum": sum_bound(msgs.double(), g.dst, n),
                           "scatter": sum_bound(ct.double(), g.src, n)}
+                # the kernels walk the edges as the path does (by dst for K5,
+                # by src for K6: the graph's sorted orders)
+                dst_walk, src_walk = (g.dst_perm, g.dst_sorted), (g.src_perm, g.src_sorted)
                 cases = {
-                    "segsum": (lambda: sk.sorted_segment_sum(msgs, g.dst, n, transport),
+                    "segsum": (lambda: sk.sorted_segment_sum(msgs, g.dst, n, transport,
+                                                             dst_walk),
                                lambda: sk.sorted_segment_sum_plain(msgs, g.dst, n, transport),
                                lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
                                .index_add_(0, dst64, msgs),
@@ -724,7 +734,8 @@ def edge_kernel_phase(trainers):
                                lambda: sk.sorted_broadcast_plain(table, g.src, n),
                                lambda: torch.index_select(tpad, 0, src64),
                                e_pad * 4 + n * d * it + e_pad * d * it, 0),
-                    "scatter": (lambda: sk.localized_scatter_add(ct, g.src, n, transport),
+                    "scatter": (lambda: sk.localized_scatter_add(ct, g.src, n, transport,
+                                                                 src_walk),
                                 lambda: sk.localized_scatter_add_plain(ct, g.src, n, transport),
                                 lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
                                 .index_add_(0, src64, ct),
@@ -1481,6 +1492,91 @@ def ml25m_kernel_phase(trainer, stream, composed):
     return results
 
 
+def record_edge_calls(trainer):
+    """{"gather": [(v, idx, n)], "segsum" / "scatter": [(rows, ids, n,
+    order)]}: the arguments of every K7, K5 and K6 call (the wrappers'
+    sk._gather and sk._sum_by_id) of one training step of `trainer` from
+    init(2020), batch rows from a seeded generator."""
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    calls = {"gather": [], "segsum": [], "scatter": []}
+    gather, sum_by_id = sk._gather, sk._sum_by_id
+
+    def rec_gather(v, idx, n, *rest):
+        calls["gather"].append((v.detach(), idx, n) + rest)
+        return gather(v, idx, n, *rest)
+
+    def rec_sum(counter, rows, ids, n, *rest):
+        calls["segsum" if counter is sk.sorted_segment_sum else "scatter"].append(
+            (rows.detach(), ids, n) + rest)
+        return sum_by_id(counter, rows, ids, n, *rest)
+
+    bs = trainer.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = trainer.init(2020)
+    opt = trainer.optimizer(params)
+    rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+    sk._gather, sk._sum_by_id = rec_gather, rec_sum
+    try:
+        trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
+    finally:
+        sk._gather, sk._sum_by_id = gather, sum_by_id
+    torch.cuda.synchronize()
+    return calls
+
+
+def sum_alone(group):
+    """A function that runs K5's or K6's recorded calls [(rows, ids, n,
+    order)] straight through csrc/segment.cu's C entry: the kernel without
+    the zeroing of its output, which the wrapper does a call.  The calls
+    of one output shape share one output, zeroed once here, as the
+    wrapper's calls get the same block back from the caching allocator
+    (and find it in L2, where the zeroing left it); a separate output a
+    call, out of L2, read up to 0.03 ms slower than the whole wrapper on
+    one H100 (ML-25M K5 width 64, bf16).  The sums pile up; only the
+    time is read.  (torch.profiler's kernel sums over such short replays
+    came back empty for some groups on the card.)"""
+    from graph_recsys_benchmark_tpu_torch.ops import _cuda
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    outs, args = {}, []
+    for v, ids, n, order in group:
+        d = v.shape[1]
+        shape = (n, sk.acc_width(d))
+        if shape not in outs:
+            outs[shape] = torch.zeros(shape, dtype=torch.float32, device=v.device)
+        perm, walk = order if order is not None else (None, ids)
+        args.append((v.device, v.data_ptr(), int(v.dtype == torch.bfloat16),
+                     None if perm is None else perm.data_ptr(), walk.data_ptr(),
+                     outs[shape].data_ptr(), v.shape[0], n, d, shape[1]))
+
+    def run():
+        for a in args:
+            _cuda.launch("scatter_add", *a)
+    run.outs = outs  # kept alive with run
+    return run
+
+
+def id_runs(ids, n):
+    """Mean edges an id takes, over the real edges (ids < n) of one call:
+    (in runs of equal consecutive ids, among a 32-edge window's distinct
+    ids, among a 2,048-edge chunk's, among the call's): what summing
+    before the atomic can save at each reach.  For a block-monotone dst
+    the last is the mean inside a 128-row block."""
+    real = ids < n
+    pos = torch.nonzero(real).flatten()
+    r = ids[real].long()
+    e = r.numel()
+    if e == 0:
+        return (0.0,) * 4, 0
+    runs = 1 + int((r[1:] != r[:-1]).sum())
+
+    def distinct(reach):
+        return torch.unique((pos // reach) * (n + 1) + r).numel()
+
+    return (e / runs, e / distinct(32), e / distinct(2048), e / torch.unique(r).numel()), e
+
+
 def ml25m_edge_kernel_phase(trainers):
     """K7, K5 and K6 at the shapes one ML-25M training step gives them (the
     15 composed convs' gathers and sums and their backwards), per
@@ -1492,95 +1588,97 @@ def ml25m_edge_kernel_phase(trainers):
     sentinel row for K5 and K6, in the inputs' dtype) and the byte bound
     (edge_kernel_phase's counts).  Every call is held to its plain
     version: K7 bitwise, K5 and K6 row by row within sum_bound of the
-    float64 sums."""
+    float64 sums.  Then per width group (the calls of one row width and
+    dtype): their ms replayed back to back and bound ms, and for K5 and K6
+    the kernel's own device time (sum_alone) and the mean edges an id
+    takes (id_runs)."""
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
     from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
 
     results = {}
     gather, sum_by_id = sk._gather, sk._sum_by_id
     for transport, trainer in trainers.items():
-        calls = {"gather": [], "segsum": [], "scatter": []}
-
-        def rec_gather(v, idx, n):
-            calls["gather"].append((v.detach(), idx, n))
-            return gather(v, idx, n)
-
-        def rec_sum(counter, rows, ids, n):
-            calls["segsum" if counter is sk.sorted_segment_sum else "scatter"].append(
-                (rows.detach(), ids, n))
-            return sum_by_id(counter, rows, ids, n)
-
-        bs = trainer.tcfg.batch_size
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        params = trainer.init(2020)
-        opt = trainer.optimizer(params)
-        rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
-        sk._gather, sk._sum_by_id = rec_gather, rec_sum
-        try:
-            trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
-        finally:
-            sk._gather, sk._sum_by_id = gather, sum_by_id
-        torch.cuda.synchronize()
-        del params, opt
+        calls = record_edge_calls(trainer)
         for kind, recs in calls.items():
             err, nbytes, flops, shapes = 0.0, 0, 0, {}
             libs = []
-            for v, ids, n in recs:
+            groups = {}  # (width, dtype) -> [call, bytes, runs, real edges]
+            for rec in recs:
+                v, ids, n = rec[:3]
                 ids64 = torch.clamp(ids.long(), max=n)
                 e, n_in = ids.numel(), int((ids < n).sum())
                 if kind == "gather":
                     v2 = v.reshape(n, -1)
-                    got, want = gather(v, ids, n), sk.sorted_broadcast_plain(v, ids, n)
+                    got, want = gather(*rec), sk.sorted_broadcast_plain(v, ids, n)
                     torch.cuda.synchronize()
                     check(torch.equal(got, want), f"ml25m gather {transport}: not a bitwise "
                           f"copy at rows {n}, width {v2.shape[1]}")
                     row_bytes = v2.shape[1] * v2.element_size()
-                    nbytes += e * 4 + n * row_bytes + e * row_bytes
+                    call_bytes, call_flops = e * 4 + n * row_bytes + e * row_bytes, 0
                     vpad = torch.cat([v2, v2.new_zeros(1, v2.shape[1])])
                     libs.append(lambda vpad=vpad, ids64=ids64: torch.index_select(vpad, 0,
                                                                                    ids64))
-                    width = v2.shape[1]
+                    width, runs = v2.shape[1], None
                 else:
                     counter = (sk.sorted_segment_sum if kind == "segsum"
                                else sk.localized_scatter_add)
-                    got = sum_by_id(counter, v, ids, n)
+                    if len(rec) > 3 and rec[3] is not None:  # the walk sums by its own ids
+                        perm, walk = rec[3]
+                        check(torch.equal(walk, ids[perm.long()]),
+                              f"ml25m {kind} {transport}: a walk that is not ids[perm]")
+                    got = sum_by_id(counter, *rec)
                     exact = segment_sum(v.double(), ids, n)
                     torch.cuda.synchronize()
                     check_sum(f"ml25m {kind} {transport} (rows {n}, width {v.shape[1]})", got,
                               exact, sum_bound(v.double(), ids, n))
                     err = max(err, rel_err(got.double(), exact)[0])
                     width = v.shape[1]
-                    nbytes += e * 4 + n_in * width * v.element_size() + n * width * 4
-                    flops += n_in * width
+                    call_bytes = e * 4 + n_in * width * v.element_size() + n * width * 4
+                    call_flops = n_in * width
                     libs.append(lambda v=v, ids64=ids64, n=n: torch.zeros(
                         n + 1, v.shape[1], dtype=v.dtype, device=v.device).index_add_(
                         0, ids64, v))
-                key = (n, width, str(v.dtype).split(".")[-1], e)
+                    runs = id_runs(ids, n)
+                nbytes += call_bytes
+                flops += call_flops
+                dtype = str(v.dtype).split(".")[-1]
+                key = (n, width, dtype, e)
                 shapes[key] = shapes.get(key, 0) + 1
-            if kind == "gather":
-                def run():
-                    for v, ids, n in recs:
-                        gather(v, ids, n)
+                grp = groups.setdefault((width, dtype), [[], 0, 0, [0.0] * 4, 0])
+                grp[0].append(rec)
+                grp[1] += call_bytes
+                grp[2] += call_flops
+                if runs is not None:
+                    grp[3] = [a + b * runs[1] for a, b in zip(grp[3], runs[0])]
+                    grp[4] += runs[1]
+            counter = {"gather": None, "segsum": sk.sorted_segment_sum,
+                       "scatter": sk.localized_scatter_add}[kind]
 
+            def replay(group):
+                if kind == "gather":
+                    def run():
+                        for rec in group:
+                            gather(*rec)
+                else:
+                    def run():
+                        for rec in group:
+                            sum_by_id(counter, *rec)
+                return run
+
+            if kind == "gather":
                 def plain():
-                    for v, ids, n in recs:
+                    for v, ids, n, *_ in recs:
                         sk.sorted_broadcast_plain(v, ids, n)
             else:
-                counter = sk.sorted_segment_sum if kind == "segsum" else sk.localized_scatter_add
-
-                def run():
-                    for v, ids, n in recs:
-                        sum_by_id(counter, v, ids, n)
-
                 def plain():
-                    for v, ids, n in recs:
+                    for v, ids, n, *_ in recs:
                         sk.sorted_segment_sum_plain(v, ids, n, "f32")
 
             def lib():
                 for f in libs:
                     f()
 
-            ms = device_ms(run, reps=10)
+            ms = device_ms(replay(recs), reps=10)
             plain_ms = device_ms(plain, reps=3)
             lib_ms = device_ms(lib, reps=10)
             b_ms, b_by = bound_ms(nbytes, flops)
@@ -1589,6 +1687,19 @@ def ml25m_edge_kernel_phase(trainers):
                   f"{sorted(shapes.items(), key=lambda kv: -kv[1])}); ms {ms:.5f} plain_ms "
                   f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by}; "
                   f"{nbytes} bytes)", flush=True)
+            for (width, dtype), (group, g_bytes, g_flops, run_sum, run_e) in sorted(
+                    groups.items(), key=lambda kv: -kv[1][1]):
+                g_ms = device_ms(replay(group), reps=10)
+                g_bound = bound_ms(g_bytes, g_flops)[0]
+                line = (f"ml25m {SEG_KERNELS[kind]} {transport} width {width} {dtype}: "
+                        f"{len(group)} calls ms {g_ms:.5f} bound_ms {g_bound:.5f} (share "
+                        f"{g_bound / g_ms:.3f})")
+                if kind != "gather":
+                    k_ms = device_ms(sum_alone(group), reps=10)
+                    line += (f"; kernel alone {k_ms:.5f} ms, zeroing {g_ms - k_ms:.5f} ms; "
+                             "mean edges an id takes (run, 32-edge window, 2,048-edge "
+                             f"chunk, call) {[round(x / run_e, 3) for x in run_sum]}")
+                print(line, flush=True)
             results[(kind, transport)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                                               calls=len(recs))
@@ -1619,7 +1730,7 @@ def plain_on_card():
         (bg, "batch_gat_fwd", bg.batch_gat_fwd_plain),  # K3
         (bg, "batch_gat_bwd", bg.batch_gat_bwd_plain),  # K4
         (sk, "_gather", lambda v, idx, n: sk.sorted_broadcast_plain(v, idx, n)),  # K7
-        (sk, "_sum_by_id", lambda counter, rows, ids, n:  # K5, K6
+        (sk, "_sum_by_id", lambda counter, rows, ids, n, order=None:  # K5, K6
          sk.sorted_segment_sum_plain(rows, ids, n, "f32")),
         # K8-K11: the plain versions read no block bounds
         (sk, "softmax_stats", lambda *a: sk.softmax_stats_plain(*a[:3])),  # K8

@@ -14,30 +14,66 @@
 // resolve each edge chunk against a 128-row window with a one-hot MXU
 // matmul; none of that is carried over: rows are read and written directly.
 //
-// What bounds them on the H100: bytes.  Each moves its [E, D] edge array
-// once (f32 or bf16) and an [N, D] node table (N << E at the flagship:
-// 15,210 rows against 154k-663k edges) and does at most one add per
-// element; there is no tensor-core work.  The designs:
-//   * scatter_add (K5, K6).  f32 atomics into the caller's zeroed [N, D]
-//     accumulator (3.9 MB at the flagship: it stays in the 50 MB L2), four
-//     columns in one of Hopper's 16-byte vector atomics (float4); a group
-//     of threads takes one edge's row (16 B f32 / 8 B bf16 a thread), so
-//     loads are coalesced.  An edge grid balances any degree skew.  K5's
-//     block-monotone dst order is not needed.  A first design used it: one
-//     CTA per 128-row dst block summing in a shared-memory tile, no global
-//     atomics, each output row written once.  At the flagship it took
-//     0.25-1.19 ms a call against 0.03-0.11 ms for this one (H100 80GB HBM3
-//     at 700 W, chip_smoke.py; PERF.md): the union graphs' busiest dst block
-//     holds 12.6x the mean block's edges (17,949 against 1,421 at PEAGCN
-//     step 1), and that one CTA set the time.
+// What bounds them on the H100: bytes, and for K5 and K6 the atomics.  Each
+// moves its [E, D] edge array once (f32 or bf16) and an [N, D] node table
+// and does at most one add per element; there is no tensor-core work.  The
+// numbers below are chip_smoke.py's on one NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md section 6), at the ML-25M composed GAT's recorded calls (68,830
+// rows; 85k-197k edges; widths 1, 2, 16, 17, 64 and the packed [h | a_src]
+// rows of 65) and the flagship's union graphs (15,210 rows, 154k-663k
+// edges, widths 16 and 64).  The designs:
+//   * scatter_add (K5, K6): f32 atomics into the caller's zeroed
+//     accumulator, over a walk of the edges.  A group of lanes takes
+//     `slice` consecutive positions of the walk, each lane 4 columns; it
+//     sums each run of equal ids in registers and adds the run's sum with
+//     one vector atomic (float4; float2 or scalar for D 2 or 1) when the id
+//     changes.  The walk is (perm, ids[perm]): the graph's sort by id
+//     (StepGraph.dst_perm for K5, src_perm for K6), every id's edges one
+//     run, the rows read through the permutation; or perm NULL and the
+//     edges' own order.  The kernel sums by the walk's ids, so they must be
+//     ids[perm] of the ids the caller means; the order only sets the runs.
+//     K13's K6 walks the edges' own order: on the union graph block order
+//     already runs a source's edges together, and the two walks tie there
+//     (PERF.md section 6).  The accumulator's rows are padded to a multiple
+//     of 4 columns (68 for 65, 20 for 17) so that every row takes 16-byte
+//     atomics; the wrapper hands back a view of its first D columns.  Why:
+//     the design before it, one atomic per (edge, 4 columns) in the edges'
+//     order, ran the 15 K6 calls of an ML-25M step at 32 % of their byte
+//     bound (0.62 ms): a row of 65 or 17 has no 16-byte vector path, so
+//     every element took its own 4-byte load and scalar atomic (65 an
+//     edge); and the runs of equal ids in the edge order are 1.00 (K5 by
+//     dst) and 1.18 (K6 by src) edges long against 2.18 in a whole call, so
+//     nothing was summed before the atomic.  An edge order cut at the
+//     128-row dst blocks and sorted by row in shared memory (K9's design)
+//     would reach 2.02 for K5 and 1.26 for K6 (2,048-edge chunks).  The
+//     slice, chosen in the C entry from the call's shape: 4 for D <= 2 (so
+//     that a narrow call fills the card), else 8, or 16 where the call
+//     averages more than 4 edges an id (the flagship's union graphs, where
+//     longer runs fold more); torch_tools/segment_variants.py measures the
+//     other slices.  What is left is the zeroing (a memset of the
+//     accumulator, about 0.04 ms of an ML-25M step's 0.33 ms of width-64 K5
+//     calls) and the atomics' read-modify-write of an accumulator that the
+//     edge rows stream past in L2; a design that writes each row once would
+//     need a second launch for runs cut by a slice (ROADMAP).
+//     The design before that one, one CTA per 128-row dst block summing in
+//     shared memory, took 0.25-1.19 ms a flagship call against 0.03-0.11 ms
+//     for atomics: the union graphs' busiest dst block holds 12.6x the mean
+//     block's edges, and that one CTA set the time.
 //     Ids outside [0, num_rows) are dropped (K5's padding sentinel dst ==
 //     num_rows); K6's padding edges carry zero ct at idx 0 (graph.py).
 //   * row_gather (K7).  A pure copy, so it moves raw words: the widest of
-//     16/8/4/2 bytes that divides the row and the pointers.  A group of
-//     threads copies one row, neighbouring groups take neighbouring edges,
-//     so the loads of a row and all stores are coalesced.  idx outside
-//     [0, num_rows) -- the padding sentinel -- writes zeros and reads
-//     nothing.
+//     16/8/4/2 bytes that divides the row and the pointers.  The output is
+//     one flat array of words, cut into tiles of whole rows (256 x U words);
+//     a thread copies U words of a tile (U = 2 for 16-byte words, else 4,
+//     more where one row outgrows a tile), loading the tile's ids first,
+//     then U independent rows' words, then storing U coalesced words; up to
+//     132 x 32 CTAs, which loop over the tiles past that.  So no lane idles
+//     because of the width: the design before it gave a row a group of
+//     lanes, one word each, which left 61 of 256 lanes idle at 65 words and
+//     held one 4-byte word in flight a thread, and ran the 11 width-65 f32
+//     calls of an ML-25M step at 41 % of their byte bound (64: 72 %).  idx
+//     outside [0, num_rows) -- the padding sentinel -- writes zeros and
+//     reads nothing.
 //   * softmax_stats (K8).  The TPU kernel keeps a running max and rescales
 //     its sum as it walks a dst block's edge chunks, which is how it fits
 //     one pass into VMEM; the function is the per-dst max and sum-exp.
@@ -72,67 +108,141 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 256;
+constexpr int kRunUnroll = 4;  // edges a lane loads before it adds them (scatter_add)
+constexpr int kMaxWords = 8;   // words a thread copies, at most (row_gather)
+constexpr long long kMaxCtas = 132LL * 32;  // row_gather's grid, at most
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// V consecutive elements of T at p, widened to f32: V == 4 is one 16-byte
-// (f32) or 8-byte (bf16) load, p aligned to it; V == 1 one element.
-template <typename T, int V>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&o)[V]) {
-  if constexpr (V == 1) {
-    o[0] = to_f32(__ldg(p));
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(V == 4, "f32 vectors are float4");
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+// Columns c .. c+V-1 of one row of T at p (row width d), widened to f32;
+// columns >= d read as 0.  kVec: one V-element load (p + c aligned to it).
+template <typename T, int V, bool kVec>
+__device__ __forceinline__ void load_cols(const T* __restrict__ p, int c, int d, float (&o)[V]) {
+  if constexpr (kVec && V == 4 && sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p + c));
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  } else {
-    static_assert(V == 4, "bf16 vectors are 4 x bf16");
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  } else if constexpr (kVec && V == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p + c));
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
     o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  } else if constexpr (kVec && V == 2 && sizeof(T) == 4) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p + c));
+    o[0] = v.x; o[1] = v.y;
+  } else {
+#pragma unroll
+    for (int t = 0; t < V; ++t) o[t] = c + t < d ? to_f32(__ldg(p + c + t)) : 0.f;
   }
 }
 
-template <typename T, int V>
+// One lane's V columns of a run's sum into out (16- or 8-byte aligned for
+// V 4 or 2: sm_90's vector atomics).
+template <int V>
+__device__ __forceinline__ void add_cols(float* o, const float (&a)[V]) {
+  if constexpr (V == 4)
+    atomicAdd(reinterpret_cast<float4*>(o), make_float4(a[0], a[1], a[2], a[3]));
+  else if constexpr (V == 2)
+    atomicAdd(reinterpret_cast<float2*>(o), make_float2(a[0], a[1]));
+  else
+    atomicAdd(o, a[0]);
+}
+
+// K5, K6: out[ids[k]] += rows[perm ? perm[k] : k] over the walk k = 0 ..
+// num_edges-1.  A group of G = stride / V lanes takes `slice` consecutive
+// positions of the walk, each lane V columns; it sums a run of equal ids in
+// registers and adds the sum with one atomic when the id changes (and at
+// the slice's end).  ids outside [0, num_rows) are dropped.
+template <typename T, int V, bool kVec>
 __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
-    const T* __restrict__ rows, const int* __restrict__ idx, float* __restrict__ out,
-    long long num_edges, int num_rows, int d) {
-  // thread -> (edge slot, V-column group); `per` edges a block pass
-  const int dv = d / V;
-  const int per = blockDim.x / dv;
-  const int slot = threadIdx.x / dv;
-  const int c = (threadIdx.x - slot * dv) * V;
-  if (slot >= per) return;
-  const long long step = (long long)gridDim.x * per;
-  for (long long e = (long long)blockIdx.x * per + slot; e < num_edges; e += step) {
-    const int r = idx[e];
-    if ((unsigned)r >= (unsigned)num_rows) continue;
-    float m[V];
-    load_f32<T, V>(rows + e * d + c, m);
-    float* o = out + (long long)r * d + c;
-    if constexpr (V == 1)
-      atomicAdd(o, m[0]);
-    else  // sm_90 vector atomic; o is 16-byte aligned (d % 4 == 0)
-      atomicAdd(reinterpret_cast<float4*>(o), make_float4(m[0], m[1], m[2], m[3]));
+    const T* __restrict__ rows, const int* __restrict__ perm, const int* __restrict__ ids,
+    float* __restrict__ out, long long num_edges, int num_rows, int d, int stride, int slice) {
+  const int group = stride / V;
+  const int n_groups = kThreads / group;
+  const int grp = threadIdx.x / group;
+  if (grp >= n_groups) return;
+  const int c = (threadIdx.x - grp * group) * V;
+  const long long k0 = ((long long)blockIdx.x * n_groups + grp) * slice;
+  const long long k1 = min(k0 + slice, num_edges);
+  int cur = -1;
+  float acc[V];
+#pragma unroll
+  for (int t = 0; t < V; ++t) acc[t] = 0.f;
+  for (long long k = k0; k < k1; k += kRunUnroll) {
+    int id[kRunUnroll];
+    long long e[kRunUnroll];
+#pragma unroll
+    for (int u = 0; u < kRunUnroll; ++u) {
+      const long long kk = k + u;
+      id[u] = kk < k1 ? __ldg(ids + kk) : -1;
+      e[u] = kk < k1 ? (perm ? (long long)__ldg(perm + kk) : kk) : 0;
+    }
+    float x[kRunUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kRunUnroll; ++u) {
+      if ((unsigned)id[u] < (unsigned)num_rows)
+        load_cols<T, V, kVec>(rows + e[u] * d, c, d, x[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRunUnroll; ++u) {
+      if ((unsigned)id[u] >= (unsigned)num_rows) continue;
+      if (id[u] != cur) {
+        if (cur >= 0) add_cols<V>(out + (long long)cur * stride + c, acc);
+        cur = id[u];
+#pragma unroll
+        for (int t = 0; t < V; ++t) acc[t] = x[u][t];
+      } else {
+#pragma unroll
+        for (int t = 0; t < V; ++t) acc[t] = __fadd_rn(acc[t], x[u][t]);
+      }
+    }
   }
+  if (cur >= 0) add_cols<V>(out + (long long)cur * stride + c, acc);
 }
 
-template <typename W>
+// K7: the output [num_edges, words] W is one flat array, cut into tiles of
+// `tile` edges, tile * words consecutive output words; a CTA copies tiles
+// b, b + gridDim.x, ..., U words a thread (w = threadIdx.x + u * kThreads):
+// the tile's ids first, then U independent row loads, then U coalesced
+// stores.  A word's (edge, column) steps by (kThreads / words, kThreads %
+// words) from u to u + 1, the same in every tile.
+template <typename W, int U>
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     const W* __restrict__ v, const int* __restrict__ idx, W* __restrict__ out,
-    long long num_edges, int num_rows, int words) {
-  const int per = blockDim.x / words;
-  const int slot = threadIdx.x / words;
-  const int w = threadIdx.x - slot * words;
-  if (slot >= per) return;
-  const long long step = (long long)gridDim.x * per;
-  for (long long e = (long long)blockIdx.x * per + slot; e < num_edges; e += step) {
-    const int r = idx[e];
-    W val{};
-    if ((unsigned)r < (unsigned)num_rows) val = __ldg(v + (long long)r * words + w);
-    out[e * words + w] = val;
+    long long num_edges, int num_rows, int words, int tile) {
+  const int dj = kThreads / words, dw = kThreads - dj * words;
+  int jj[U], ww[U];
+  {
+    int j = threadIdx.x / words, w = threadIdx.x - j * words;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      jj[u] = j;
+      ww[u] = w;
+      j += dj;
+      w += dw;
+      if (w >= words) {
+        w -= words;
+        ++j;
+      }
+    }
+  }
+  for (long long e0 = (long long)blockIdx.x * tile; e0 < num_edges;
+       e0 += (long long)gridDim.x * tile) {
+    const int nt = (int)min((long long)tile, num_edges - e0);
+    int r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) r[u] = jj[u] < nt ? __ldg(idx + e0 + jj[u]) : -1;
+    W val[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      val[u] = W{};
+      if ((unsigned)r[u] < (unsigned)num_rows)
+        val[u] = __ldg(v + (long long)r[u] * words + ww[u]);
+    }
+    W* o = out + e0 * words;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (jj[u] < nt) o[threadIdx.x + u * kThreads] = val[u];
   }
 }
 
@@ -214,27 +324,65 @@ bool aligned(const void* p, unsigned bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-unsigned edge_blocks(long long num_edges, int per) {
-  long long blocks = (num_edges + per - 1) / per;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride past this
-  return (unsigned)(blocks > 0 ? blocks : 1);
-}
-
 template <typename T, int V>
-void launch_scatter_add(cudaStream_t s, const void* rows, const void* idx, void* out,
-                        long long num_edges, int num_rows, int d) {
-  scatter_add_kernel<T, V><<<edge_blocks(num_edges, kThreads / (d / V)), kThreads, 0, s>>>(
-      static_cast<const T*>(rows), static_cast<const int*>(idx), static_cast<float*>(out),
-      num_edges, num_rows, d);
+void launch_scatter_add(cudaStream_t s, const void* rows, bool vec, const void* perm,
+                        const void* ids, void* out, long long num_edges, int num_rows, int d,
+                        int stride, int slice) {
+  const long long per = (long long)(kThreads / (stride / V)) * slice;  // edges a CTA
+  const unsigned grid = (unsigned)((num_edges + per - 1) / per);
+  auto kernel = vec ? scatter_add_kernel<T, V, true> : scatter_add_kernel<T, V, false>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(rows), static_cast<const int*>(perm),
+                                   static_cast<const int*>(ids), static_cast<float*>(out),
+                                   num_edges, num_rows, d, stride, slice);
 }
 
+// The slice: a group of one lane (d <= 2) takes 4 positions, so that a
+// narrow call fills the card; wider groups 8, or 16 where the mean id takes
+// more than 4 edges (longer runs fold more before their atomic).  Within 3 %
+// of the fastest slice at every ML-25M and flagship shape on one H100
+// (torch_tools/segment_variants.py; PERF.md).
+template <typename T>
+void launch_scatter_add(cudaStream_t s, const void* rows, const void* perm, const void* ids,
+                        void* out, long long num_edges, int num_rows, int d, int stride) {
+  const int slice = d <= 2 ? 4 : num_edges > 4LL * num_rows ? 16 : 8;
+  const int v = stride % 4 == 0 ? 4 : stride;  // stride is 1, 2 or a multiple of 4
+  const bool vec = d % v == 0 && aligned(rows, v * (unsigned)sizeof(T));
+  if (v == 4)
+    launch_scatter_add<T, 4>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+  else if (v == 2)
+    launch_scatter_add<T, 2>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+  else
+    launch_scatter_add<T, 1>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+}
+
+// One CTA a tile, up to kMaxCtas; past that the CTAs loop over the tiles.
+// A grid of only the CTAs resident at once ran slower at the flagship's
+// 16-byte shapes on one H100 (torch_tools/segment_variants.py; PERF.md).
+template <typename W, int U>
+void launch_row_gather(cudaStream_t s, const void* v, const void* idx, void* out,
+                       long long num_edges, int num_rows, int words) {
+  const int tile = kThreads * U / words;
+  const unsigned grid = (unsigned)min((num_edges + tile - 1) / tile, kMaxCtas);
+  row_gather_kernel<W, U><<<grid, kThreads, 0, s>>>(
+      static_cast<const W*>(v), static_cast<const int*>(idx), static_cast<W*>(out), num_edges,
+      num_rows, words, tile);
+}
+
+// U, the words a thread copies: 2 for 16-byte words and 4 for narrower
+// ones, doubled until a tile holds a row.  Within a few percent of the
+// fastest U at every ML-25M and flagship shape on one H100
+// (torch_tools/segment_variants.py; PERF.md).
 template <typename W>
 void launch_row_gather(cudaStream_t s, const void* v, const void* idx, void* out,
-                       long long num_edges, int num_rows, int row_bytes) {
-  const int words = row_bytes / (int)sizeof(W);
-  row_gather_kernel<W><<<edge_blocks(num_edges, kThreads / words), kThreads, 0, s>>>(
-      static_cast<const W*>(v), static_cast<const int*>(idx), static_cast<W*>(out),
-      num_edges, num_rows, words);
+                       long long num_edges, int num_rows, int words) {
+  int u = sizeof(W) == 16 ? 2 : 4;
+  while (u * kThreads < words) u *= 2;  // words <= kMaxWords * kThreads: the C entry checks
+  if (u >= 8)
+    launch_row_gather<W, 8>(s, v, idx, out, num_edges, num_rows, words);
+  else if (u >= 4)
+    launch_row_gather<W, 4>(s, v, idx, out, num_edges, num_rows, words);
+  else
+    launch_row_gather<W, 2>(s, v, idx, out, num_edges, num_rows, words);
 }
 
 }  // namespace
@@ -244,23 +392,27 @@ void launch_row_gather(cudaStream_t s, const void* v, const void* idx, void* out
 // int32 ids.  The vector paths are taken when the row width and the
 // pointers allow them.
 
-// rows: [num_edges, d], bf16 when `bf16` else f32; idx: [num_edges], any
-// order, ids outside [0, num_rows) dropped; out: [num_rows, d] f32, zeroed
-// by the caller.
-extern "C" int scatter_add(int device, const void* rows, int bf16, const void* idx, void* out,
-                           long long num_edges, int num_rows, int d, void* stream) {
+// rows: [num_edges, d], bf16 when `bf16` else f32; out: [num_rows, stride]
+// f32, zeroed by the caller, stride = d for d <= 2, else d rounded up to a
+// multiple of 4 (the sum is out[:, :d]); the walk: for k = 0 ..
+// num_edges-1, rows[perm[k]] (rows[k] where perm is NULL) is added to row
+// ids[k], so with a perm, ids must be the caller's ids permuted by it;
+// runs of equal ids in the walk are summed before their atomic; ids
+// outside [0, num_rows) dropped.
+extern "C" int scatter_add(int device, const void* rows, int bf16, const void* perm,
+                           const void* ids, void* out, long long num_edges, int num_rows, int d,
+                           int stride, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > kMaxCols || num_edges < 0) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxCols || num_edges < 0 ||
+      stride != (d <= 2 ? d : (d + 3) / 4 * 4) || !aligned(out, 16))
+    return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 && aligned(rows, bf16 ? 8 : 16) && aligned(out, 16);
   if (bf16)
-    vec ? launch_scatter_add<__nv_bfloat16, 4>(s, rows, idx, out, num_edges, num_rows, d)
-        : launch_scatter_add<__nv_bfloat16, 1>(s, rows, idx, out, num_edges, num_rows, d);
+    launch_scatter_add<__nv_bfloat16>(s, rows, perm, ids, out, num_edges, num_rows, d, stride);
   else
-    vec ? launch_scatter_add<float, 4>(s, rows, idx, out, num_edges, num_rows, d)
-        : launch_scatter_add<float, 1>(s, rows, idx, out, num_edges, num_rows, d);
+    launch_scatter_add<float>(s, rows, perm, ids, out, num_edges, num_rows, d, stride);
   return (int)cudaGetLastError();
 }
 
@@ -270,23 +422,23 @@ extern "C" int row_gather(int device, const void* v, const void* idx, void* out,
                           long long num_edges, int num_rows, int row_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // the widest word that divides the row and both pointers; a row is at
-  // most kThreads words (one thread a word)
+  // the widest word that divides the row and both pointers
   const uintptr_t a = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
                       (uintptr_t)row_bytes;
   const int ws = a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
-  if (row_bytes < 2 || a % 2 != 0 || row_bytes / ws > kThreads || num_edges < 0)
+  if (row_bytes < 2 || a % 2 != 0 || row_bytes / ws > kMaxWords * kThreads || num_edges < 0)
     return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int words = row_bytes / ws;
   if (ws == 16)
-    launch_row_gather<uint4>(s, v, idx, out, num_edges, num_rows, row_bytes);
+    launch_row_gather<uint4>(s, v, idx, out, num_edges, num_rows, words);
   else if (ws == 8)
-    launch_row_gather<uint2>(s, v, idx, out, num_edges, num_rows, row_bytes);
+    launch_row_gather<uint2>(s, v, idx, out, num_edges, num_rows, words);
   else if (ws == 4)
-    launch_row_gather<unsigned>(s, v, idx, out, num_edges, num_rows, row_bytes);
+    launch_row_gather<unsigned>(s, v, idx, out, num_edges, num_rows, words);
   else
-    launch_row_gather<unsigned short>(s, v, idx, out, num_edges, num_rows, row_bytes);
+    launch_row_gather<unsigned short>(s, v, idx, out, num_edges, num_rows, words);
   return (int)cudaGetLastError();
 }
 

@@ -54,7 +54,15 @@ class StepGraph:
     w:       float32[E_pad] per-edge coefficient; 0 on padding edges.
     rel:     int32[E_pad] signed relation ids (0 when unused).
     src_perm/src_sorted: the stable sort of `src`; the streaming GAT's
-             src-side backward (K11) walks the edges in this order.
+             src-side backward (K11) and the scatter-add by src (K6,
+             ops/gather.gather_src) walk the edges in this order.
+    dst_perm/dst_sorted: the stable sort of `dst` (padding last); the
+             segment-sum by dst (K5: nn/conv._aggregate, the softmax's and
+             gather_dst's backwards) walks the edges in this order, each
+             row's edges one run.  Built for every graph, as which conv
+             runs a graph is decided per call (models/pea.py): a graph
+             that only the streaming GAT reads holds 8 bytes an edge
+             unread (ML-25M's u2i and i2u, 2.13 M edges each).
     gat_loops: True = PyG's GAT self-loops are implicit (not in the list);
              only nn/conv.gat_apply and the grouped forward understand it,
              and fuse_step_graphs refuses such graphs.
@@ -78,6 +86,8 @@ class StepGraph:
     rel: torch.Tensor
     src_perm: torch.Tensor
     src_sorted: torch.Tensor
+    dst_perm: torch.Tensor
+    dst_sorted: torch.Tensor
     num_nodes: int
     num_edges: int  # valid (non-padding) edges
     block_bounds: torch.Tensor
@@ -88,8 +98,8 @@ class StepGraph:
     def to(self, device) -> "StepGraph":
         move = {
             f: getattr(self, f).to(device)
-            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted", "block_bounds",
-                      "src_block_bounds")
+            for f in ("src", "dst", "w", "rel", "src_perm", "src_sorted", "dst_perm",
+                      "dst_sorted", "block_bounds", "src_block_bounds")
         }
         return dataclasses.replace(self, **move)
 
@@ -107,6 +117,7 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
     w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
     rel = np.concatenate([rel, np.zeros(pad, dtype=np.int64)])
     src_perm = np.argsort(src, kind="stable")
+    dst_perm = np.argsort(dst, kind="stable")
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
@@ -121,6 +132,8 @@ def _sort_pad(src, dst, w, rel, num_nodes, pad_to=PAD_TO, gat_loops=False):
         rel=i32(rel),
         src_perm=i32(src_perm),
         src_sorted=src_sorted,
+        dst_perm=i32(dst_perm),
+        dst_sorted=i32(dst[dst_perm]),
         # the same 128-row searchsorted, over the src-sorted ids
         src_block_bounds=dst_block_bounds(src_sorted, int(num_nodes)),
         num_nodes=int(num_nodes),

@@ -29,8 +29,9 @@ from .init import glorot, torch_linear_bias, torch_linear_weight
 
 def _aggregate(msgs, g, transport="f32"):
     """Segment-sum edge messages [E, D] into g's destination rows -> f32
-    [g.num_nodes, D]; the messages ride the transport dtype."""
-    return sorted_segment_sum(msgs, g.dst, g.num_nodes, transport)
+    [g.num_nodes, D]; the messages ride the transport dtype, and the kernel
+    walks the edges by dst (g.dst_perm), each row's edges one run."""
+    return sorted_segment_sum(msgs, g.dst, g.num_nodes, transport, (g.dst_perm, g.dst_sorted))
 
 
 def gcn_init(generator, in_dim, out_dim):
@@ -86,7 +87,7 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
         h_e = packed_e[:, : heads * c].reshape(-1, heads, c)
         alpha = gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float()
         alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport,
-                                g.block_bounds)
+                                g.block_bounds, (g.dst_perm, g.dst_sorted))
         msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
         out = _aggregate(msgs.reshape(-1, heads * c), g, transport).reshape(n, heads, c)
     out = out.reshape(n, heads * c) if concat else out.mean(dim=1)

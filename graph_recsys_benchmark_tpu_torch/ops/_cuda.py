@@ -62,8 +62,9 @@ _SIGNATURES = {
     "gat_bwd_onepass": ("gat_bwd_onepass", [_I, _P, _I, _P, _P, _P, _P, _P,
                                             _P, _P, _I, _I, _I, _I, _I,
                                             ctypes.c_float, _P]),
-    # device, rows, bf16, idx, out, num_edges, num_rows, d, stream
-    "scatter_add": ("segment", [_I, _P, _I, _P, _P, _L, _I, _I, _P]),
+    # device, rows, bf16, perm, ids, out, num_edges, num_rows, d, stride,
+    # stream
+    "scatter_add": ("segment", [_I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P]),
     # device, v, idx, out, num_edges, num_rows, row_bytes, stream
     "row_gather": ("segment", [_I, _P, _P, _P, _L, _I, _I, _P]),
     # device, alpha, dst, bounds, stats, num_edges, n_blocks, num_rows,

@@ -29,14 +29,15 @@ from .segment_kernels import localized_scatter_add, sorted_broadcast
 
 
 class GatherRows(torch.autograd.Function):
-    """forward(x [N, ...], idx int32[E], transport) -> x[idx] [E, ...]:
-    K7 on x flattened to [N, K]; backward: K6 of the cotangent (reshaped to
-    [E, K], rounded to the transport dtype) by idx, f32, cast to x's dtype."""
+    """forward(x [N, ...], idx int32[E], transport, order) -> x[idx] [E,
+    ...]: K7 on x flattened to [N, K]; backward: K6 of the cotangent
+    (reshaped to [E, K], rounded to the transport dtype) by idx, f32, cast
+    to x's dtype, walking the edges in `order` (localized_scatter_add's)."""
 
     @staticmethod
-    def forward(ctx, x, idx, transport):
+    def forward(ctx, x, idx, transport, order):
         ctx.save_for_backward(idx)
-        ctx.shape, ctx.dtype, ctx.transport = x.shape, x.dtype, transport
+        ctx.shape, ctx.dtype, ctx.transport, ctx.order = x.shape, x.dtype, transport, order
         n = x.shape[0]
         out = sorted_broadcast(x.reshape(n, -1), idx, n)
         return out.reshape((idx.shape[0],) + tuple(x.shape[1:]))
@@ -46,22 +47,27 @@ class GatherRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         n = ctx.shape[0]
         ct2 = ct.reshape(ct.shape[0], -1).contiguous()
-        gx = localized_scatter_add(ct2, idx, n, ctx.transport)
-        return gx.reshape(ctx.shape).to(ctx.dtype), None, None
+        gx = localized_scatter_add(ct2, idx, n, ctx.transport, ctx.order)
+        return gx.reshape(ctx.shape).to(ctx.dtype), None, None, None
 
 
-def gather_rows(x, idx, transport="f32"):
-    """x[idx] with the K7 forward and the K6 scatter-add backward."""
-    return GatherRows.apply(x.contiguous(), idx, transport)
+def gather_rows(x, idx, transport="f32", order=None):
+    """x[idx] with the K7 forward and the K6 scatter-add backward; `order`:
+    the backward's walk, (perm, idx[perm]) sorted by this very idx, or None
+    for the edges' own order (localized_scatter_add's)."""
+    return GatherRows.apply(x.contiguous(), idx, transport, order)
 
 
 def gather_src(x, g, transport="f32"):
-    """Per-edge source rows x[g.src] of StepGraph `g`."""
-    return gather_rows(x, g.src, transport)
+    """Per-edge source rows x[g.src] of StepGraph `g`; the backward walks
+    the edges by src (g.src_perm), each source's edges one run."""
+    return gather_rows(x, g.src, transport, (g.src_perm, g.src_sorted))
 
 
 def gather_dst(x, g, transport="f32"):
     """Per-edge destination rows x[g.dst] of StepGraph `g` (x: [g.num_nodes]
     or [g.num_nodes, K]; padding edges read zeros), differentiable in x
-    through a dst segment-sum (ops/segment_kernels.Broadcast)."""
-    return sorted_broadcast(x.contiguous(), g.dst, g.num_nodes, transport)
+    through a dst segment-sum (ops/segment_kernels.Broadcast) that walks the
+    edges by dst (g.dst_perm), each row's edges one run."""
+    return sorted_broadcast(x.contiguous(), g.dst, g.num_nodes, transport,
+                            (g.dst_perm, g.dst_sorted))

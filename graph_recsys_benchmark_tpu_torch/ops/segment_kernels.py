@@ -32,8 +32,11 @@ Port of the JAX package's ``ops/pallas_segment.py`` kernels:
     :376-391) is a K5 segment-sum of att·g by dst and a K7 gather back.
 
 Kernels: csrc/segment.cu.  K5 and K6 both launch its ``scatter_add`` (f32
-atomics by id, so K5 needs no order on the card; the source says why a
-dst-block design lost), K7 its ``row_gather``, K8 its ``softmax_stats`` (one
+atomics by id over a walk of the edges: the graph's sort by id where the
+caller passes it as ``order`` = (perm, ids[perm]), each id's edges one run
+summed before its atomic, else the edges' own order; the kernel then sums
+by ``order[1]``, not by the ids, so the walk must be that of the same ids;
+the source says why a dst-block design lost), K7 its ``row_gather``, K8 its ``softmax_stats`` (one
 CTA a dst block, one launch a call).  A
 CUDA tensor launches the kernel, counted in the wrapper's ``launches``, or
 raises; a CPU tensor takes the ``*_plain`` version in this module.  The
@@ -78,19 +81,44 @@ def _check_launch(name, data, ids, num_ids):
     return dev, int(data.dtype == torch.bfloat16)
 
 
-def _sum_by_id(counter, rows, ids, num_rows):
+def acc_width(d):
+    """Columns of scatter_add's f32 accumulator for rows of width d: d for
+    d <= 2, else d rounded up to a multiple of 4, so that every row of it
+    takes 16-byte vector atomics (65 -> 68, 17 -> 20)."""
+    return d if d <= 2 else -(-d // 4) * 4
+
+
+def _sum_by_id(counter, rows, ids, num_rows, order=None):
     """f32 ``[num_rows, D]`` sums of ``rows`` (a CUDA tensor already in the
     transport dtype) by int32 ``ids``: csrc/segment.cu's scatter_add, which
-    serves K5 and K6.  A launch is counted in ``counter.launches`` (the
+    serves K5 and K6.  ``order``: (perm, ids[perm]) int32[E], a walk of the
+    edges sorted by id (StepGraph.dst_perm / dst_sorted, src_perm /
+    src_sorted), in which each id's edges form one run that the kernel sums
+    before its atomic; the kernel adds rows[perm[k]] to row order[1][k] and
+    reads ``ids`` no more, so order[1] must equal ids[perm] (the caller's
+    contract, held by the card tests; checking it here would cost a gather
+    and a host sync a call).  None walks the edges in their own order (the
+    runs are shorter).  The accumulator's rows are
+    acc_width(D) wide: for D % 4 != 0 (65, 17) the result is a view of its
+    first D columns, no copy; the padding costs (acc_width(D) - D) / D
+    more zeroed bytes.  A launch is counted in ``counter.launches`` (the
     calling wrapper)."""
     e, d = rows.shape
-    dev, bf16 = _check_launch(counter.__name__, rows, ids, e)
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
+    name = counter.__name__
+    dev, bf16 = _check_launch(name, rows, ids, e)
+    stride = acc_width(d)
+    out = torch.zeros((num_rows, stride), dtype=torch.float32, device=dev)
+    perm, walk = None, ids
+    if order is not None:
+        perm, walk = order
+        _cuda.require(perm, f"{name} perm", torch.int32, (e,), dev)
+        _cuda.require(walk, f"{name} sorted ids", torch.int32, (e,), dev)
     if e > 0 and num_rows > 0:
-        _cuda.launch("scatter_add", dev, rows.data_ptr(), bf16, ids.data_ptr(),
-                     out.data_ptr(), e, num_rows, d)
+        _cuda.launch("scatter_add", dev, rows.data_ptr(), bf16,
+                     None if perm is None else perm.data_ptr(), walk.data_ptr(),
+                     out.data_ptr(), e, num_rows, d, stride)
         counter.launches += 1
-    return out
+    return out if stride == d else out[:, :d]
 
 
 def _refuse_grad(name, t):
@@ -117,30 +145,32 @@ class SegmentSum(torch.autograd.Function):
     to the messages' own dtype, as the JAX VJP's ``astype`` does."""
 
     @staticmethod
-    def forward(ctx, msgs, dst, num_rows, transport):
+    def forward(ctx, msgs, dst, num_rows, transport, order):
         ctx.save_for_backward(dst)
         ctx.num_rows = num_rows
         ctx.msg_dtype = msgs.dtype
         if msgs.device.type == "cpu":
             return sorted_segment_sum_plain(msgs, dst, num_rows, transport)
         return _sum_by_id(sorted_segment_sum, msgs.to(t_dtype_of(transport)).contiguous(),
-                          dst, num_rows)
+                          dst, num_rows, order)
 
     @staticmethod
     def backward(ctx, g):
         (dst,) = ctx.saved_tensors
         gm = sorted_broadcast(g.float().contiguous(), dst, ctx.num_rows)
-        return gm.to(ctx.msg_dtype), None, None, None
+        return gm.to(ctx.msg_dtype), None, None, None, None
 
 
-def sorted_segment_sum(msgs, dst, num_rows, transport="f32"):
+def sorted_segment_sum(msgs, dst, num_rows, transport="f32", order=None):
     """Segment-sum ``msgs`` ([E] or [E, D], f32 or bf16) by ``dst`` (int32[E]
     in graph.py's block order or any other, padding sentinel ``dst ==
     num_rows`` dropped) into f32 ``[num_rows]`` / ``[num_rows, D]``; the
-    messages are rounded to the transport dtype first.  Differentiable in
-    msgs (SegmentSum).  Kernel launches counted in
-    ``sorted_segment_sum.launches``."""
-    out = SegmentSum.apply(_as_2d("sorted_segment_sum", msgs), dst, num_rows, transport)
+    messages are rounded to the transport dtype first.  ``order``: the
+    kernel's walk, (perm, dst[perm]) sorted by dst (StepGraph.dst_perm,
+    dst_sorted) for this very ``dst``, or None for the edges' own order
+    (_sum_by_id); the plain version reads none.  Differentiable in msgs (SegmentSum).  Kernel
+    launches counted in ``sorted_segment_sum.launches``."""
+    out = SegmentSum.apply(_as_2d("sorted_segment_sum", msgs), dst, num_rows, transport, order)
     return out[:, 0] if msgs.dim() == 1 else out
 
 
@@ -178,29 +208,30 @@ class Broadcast(torch.autograd.Function):
     dtype; padding ids drop out."""
 
     @staticmethod
-    def forward(ctx, v, idx, num_rows, transport):
+    def forward(ctx, v, idx, num_rows, transport, order):
         ctx.save_for_backward(idx)
-        ctx.num_rows, ctx.dtype, ctx.transport = num_rows, v.dtype, transport
+        ctx.num_rows, ctx.dtype, ctx.transport, ctx.order = num_rows, v.dtype, transport, order
         return _gather(v, idx, num_rows)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        gv = sorted_segment_sum(g.contiguous(), idx, ctx.num_rows, ctx.transport)
-        return gv.to(ctx.dtype), None, None, None
+        gv = sorted_segment_sum(g.contiguous(), idx, ctx.num_rows, ctx.transport, ctx.order)
+        return gv.to(ctx.dtype), None, None, None, None
 
 
-def sorted_broadcast(v, idx, num_rows, transport="f32"):
+def sorted_broadcast(v, idx, num_rows, transport="f32", order=None):
     """``out[e] = v[idx[e]]`` for v ``[num_rows]`` or ``[num_rows, K]`` (f32
     or bf16) and int32 idx in any order (block order is the speed contract,
     never the correctness one); ids >= num_rows give zeros.
     An exact copy in v's dtype, differentiable in v (Broadcast; `transport`
-    is its backward's).  Kernel launches counted in
+    is its backward's, and `order` its backward's walk, as
+    sorted_segment_sum's).  Kernel launches counted in
     ``sorted_broadcast.launches``."""
     if v.shape[0] != num_rows:
         raise ValueError(f"sorted_broadcast: v has {v.shape[0]} rows, expected {num_rows}")
     t_dtype_of(transport)  # validate
-    return Broadcast.apply(v, idx, num_rows, transport)
+    return Broadcast.apply(v, idx, num_rows, transport, order)
 
 
 sorted_broadcast.launches = 0
@@ -215,18 +246,20 @@ def localized_scatter_add_plain(ct, idx, num_rows, transport="f32"):
     return sorted_segment_sum_plain(ct, idx, num_rows, transport)
 
 
-def localized_scatter_add(ct, idx, num_rows, transport="f32"):
+def localized_scatter_add(ct, idx, num_rows, transport="f32", order=None):
     """``out[i] = Σ_{idx[e]=i} ct[e]`` for ct ``[E]`` or ``[E, K]`` (f32 or
     bf16, rounded to the transport dtype first) and int32 idx in any order;
     ids >= num_rows are dropped.  Returns f32 ``[num_rows]`` /
-    ``[num_rows, K]``.  Kernel launches counted in
+    ``[num_rows, K]``.  ``order``: the kernel's walk, (perm, idx[perm])
+    sorted by idx (StepGraph.src_perm, src_sorted) for this very ``idx``,
+    or None for the edges' own order (_sum_by_id).  Kernel launches counted in
     ``localized_scatter_add.launches``."""
     _refuse_grad("localized_scatter_add", ct)
     ct2 = _as_2d("localized_scatter_add", ct.to(t_dtype_of(transport)))
     if ct2.device.type == "cpu":
         out = localized_scatter_add_plain(ct2, idx, num_rows, transport)
     else:
-        out = _sum_by_id(localized_scatter_add, ct2, idx, num_rows)
+        out = _sum_by_id(localized_scatter_add, ct2, idx, num_rows, order)
     return out[:, 0] if ct.dim() == 1 else out
 
 
@@ -289,36 +322,37 @@ class SegmentSoftmax(torch.autograd.Function):
     transport dtype and s[dst] a K7 gather."""
 
     @staticmethod
-    def forward(ctx, alpha, dst, num_rows, transport, block_bounds):
+    def forward(ctx, alpha, dst, num_rows, transport, block_bounds, order):
         stats = softmax_stats(alpha, dst, num_rows, block_bounds)
         stats = torch.where(torch.isfinite(stats), stats, torch.zeros_like(stats))
         stats_e = sorted_broadcast(stats, dst, num_rows)
         att = torch.exp(alpha - stats_e[:, 0]) / (stats_e[:, 1] + 1e-16)
         att = torch.where(dst < num_rows, att, torch.zeros_like(att))
         ctx.save_for_backward(att, dst)
-        ctx.num_rows, ctx.transport = num_rows, transport
+        ctx.num_rows, ctx.transport, ctx.order = num_rows, transport, order
         return att
 
     @staticmethod
     def backward(ctx, g):
         att, dst = ctx.saved_tensors
-        s = sorted_segment_sum((att * g)[:, None], dst, ctx.num_rows, ctx.transport)
+        s = sorted_segment_sum((att * g)[:, None], dst, ctx.num_rows, ctx.transport, ctx.order)
         s_e = sorted_broadcast(s[:, 0].contiguous(), dst, ctx.num_rows)
-        return att * (g - s_e), None, None, None, None
+        return att * (g - s_e), None, None, None, None, None
 
 
-def segment_softmax(alpha, dst, num_rows, transport="f32", block_bounds=None):
+def segment_softmax(alpha, dst, num_rows, transport="f32", block_bounds=None, order=None):
     """Per-dst softmax of f32 edge logits ``alpha`` [E] or [E, H] (one K8
     pass per head, as ``segment_softmax_auto`` loops heads) with PyG's
     +1e-16 guard; padding edges (``dst >= num_rows``) get 0.  On the card
     ``dst`` is block-monotone (graph.py's order) and ``block_bounds`` its
     128-row blocks' edge ranges (StepGraph.block_bounds), which K8 needs.
     Differentiable in alpha (SegmentSoftmax; `transport` is its backward's
-    segment-sum transport)."""
+    segment-sum transport, `order` its walk, as sorted_segment_sum's)."""
     t_dtype_of(transport)  # validate
     alpha = alpha.float()
     if alpha.dim() == 1:
-        return SegmentSoftmax.apply(alpha.contiguous(), dst, num_rows, transport, block_bounds)
+        return SegmentSoftmax.apply(alpha.contiguous(), dst, num_rows, transport, block_bounds,
+                                    order)
     return torch.stack([SegmentSoftmax.apply(alpha[:, h].contiguous(), dst, num_rows,
-                                             transport, block_bounds)
+                                             transport, block_bounds, order)
                         for h in range(alpha.shape[1])], dim=1)

@@ -46,12 +46,17 @@ The edge kernels of csrc/segment.cu (sorted_segment_sum K5,
 sorted_broadcast K7, localized_scatter_add K6) run at the flagship's
 PEAGCN/PEASage union-graph shapes (15,210 rows; 169,472 or 647,680 padded
 edges; D 64 and 16) with padding sentinels and an empty dst block; K6 gets
-an unordered idx.  K5 and K6 sum in f32 in another order than the plain
-version, so each is held to the same sums taken in float64, row by row
-within the rounding bound of an f32 sum in any order (_sum_bound; 1e-6
-of the largest value, the bound before, refused a right K6 at 1.047e-6
-at PEASage step 2's shape); K7 is a copy and equals the plain version
-bitwise.
+an unordered idx.  At the ML-25M composed convs' shapes (68,830 rows, a
+block-ordered graph of ~169k edges with one 16,282-edge dst block, widths
+1, 2, 16, 17, 64 and 65, f32 and bf16) K5 and K6 run on the graph's
+sorted walks, on the edges' own order and on an idx out of block order,
+and at each of scatter_add's slices on a sorted, an edge-order and a
+shuffled walk, each walk first checked to be ids[perm].  K5 and K6 sum
+in f32 in another order than the plain version, so each is held to the
+same sums taken in float64, row by row within the rounding bound of an
+f32 sum in any order (_sum_bound; 1e-6 of the largest value, the bound
+before, refused a right K6 at 1.047e-6 at PEASage step 2's shape); K7 is
+a copy and equals the plain version bitwise.
 
 The flash-GAT variant routes (ops/config.FlashGATMode) run at the step-1
 union shape: gat_rowmax (K12-online's row max) equals its plain version
@@ -448,8 +453,9 @@ def test_segment_kernels_match_plain(cuda, transport, n, e_real, e_pad, d):
 
 @pytest.mark.parametrize("k", [1, 3, 17, 256])
 def test_segment_kernels_odd_widths(cuda, k):
-    """The kernels' scalar paths: widths that no 16-byte vector divides,
-    [E] vectors, and a table view that is not 16-byte aligned."""
+    """Widths that no 16-byte vector divides (K7's narrow words, K5's and
+    K6's scalar loads into a padded accumulator), [E] vectors, and a table
+    view that is not 16-byte aligned."""
     rng = np.random.default_rng(6)
     n = 300
     src, dst, rows = _seg_inputs(rng, n, 2900, 3072, k, cuda, empty_block=1)
@@ -487,6 +493,94 @@ def test_segment_kernels_reject_bad_inputs(cuda):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     out = tsk.sorted_segment_sum(rows[:0], empty, 10)  # no edges: zeros
     assert out.shape == (10, 8) and not out.any()
+
+
+ML_ROWS = 68830
+ML_HOT_EDGES = 16282
+
+
+@pytest.fixture(scope="module")
+def ml25m_graph(cuda):
+    """An ML-25M composed-GAT-like graph in block order over 68,830 rows:
+    a loop edge a row, 84,000 random edges and one 128-row dst block
+    (rows 0..127) of 16,282 edges, as u2t's and i2t's busiest; padded."""
+    rng = np.random.default_rng(9)
+    n, hot = ML_ROWS, ML_HOT_EDGES - 128
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 84_000), rng.integers(0, n, hot)])
+    dst = np.concatenate([np.arange(n), rng.integers(128, n, 84_000), rng.integers(0, 128, hot)])
+    return tgraph.build_sage_graph(src, dst, n).to(cuda)
+
+
+@pytest.mark.parametrize("d", [1, 2, 16, 17, 64, 65])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_segment_kernels_at_ml25m_shapes(cuda, ml25m_graph, transport, d):
+    """K7 bitwise, K5 and K6 row by row within _sum_bound, at the ML-25M
+    composed convs' rows and widths: on the graph's sorted walks (as the
+    path), on the edges' own order, and on an idx out of block order with
+    and without its own sorted walk."""
+    g = ml25m_graph
+    n, e = g.num_nodes, g.dst.numel()
+    assert int(torch.diff(g.block_bounds).max()) == ML_HOT_EDGES
+    rng = np.random.default_rng(d)
+    t_dtype = TDT[transport]
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+
+    perm = torch.from_numpy(rng.permutation(e)).to(cuda)
+    shuffled = g.src[perm].contiguous()
+    table = randn(n, d).to(t_dtype)
+    for idx in (g.src, g.dst, shuffled):
+        got = tsk.sorted_broadcast(table, idx, n)
+        assert got.dtype == t_dtype and torch.equal(got, tsk.sorted_broadcast_plain(table, idx, n))
+    assert not tsk.sorted_broadcast(table, g.dst, n)[g.dst == n].any()  # padding: zeros
+    rows = randn(e, d)
+    terms = rows.to(t_dtype).double()
+    for order in ((g.dst_perm, g.dst_sorted), None):
+        if order is not None:  # the kernel sums by the walk's ids: ids[perm]
+            assert torch.equal(order[1], g.dst[order[0].long()])
+        got = tsk.sorted_segment_sum(rows, g.dst, n, transport, order)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert ((got.double() - _exact(rows, g.dst, n, transport)).abs()
+                <= _sum_bound(terms, g.dst, n)).all()
+    ct = rows.to(t_dtype)
+    ct[g.num_edges:] = 0  # padding edges carry zero cotangent (graph.py)
+    sp = torch.argsort(shuffled, stable=True).to(torch.int32)
+    for idx, c, order in ((g.src, ct, (g.src_perm, g.src_sorted)), (shuffled, ct[perm], None),
+                          (shuffled, ct[perm], (sp, shuffled[sp.long()].contiguous()))):
+        if order is not None:
+            assert torch.equal(order[1], idx[order[0].long()])
+        got = tsk.localized_scatter_add(c, idx, n, transport, order)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert ((got.double() - _exact(c, idx, n, transport)).abs()
+                <= _sum_bound(c.double(), idx, n)).all()
+
+
+@pytest.mark.parametrize("d,e_real", [(2, 2900), (17, 2900), (17, 9000)])
+def test_scatter_add_walks_at_each_slice(cuda, d, e_real):
+    """scatter_add picks its slice from the call's shape: 4 positions a
+    group at width 2, 8 at 17, 16 at 17 where the call averages more than
+    4 edges a row.  At each, K5 by dst and K6 by src on the sorted walk, on
+    the edges' own order and on a shuffled walk (perm random, the walk
+    ids[perm]) hold row by row to _sum_bound."""
+    rng = np.random.default_rng(d + e_real)
+    n = 2000
+    src, dst, rows = _seg_inputs(rng, n, e_real, -(-e_real // 512) * 512, d, cuda)
+    e = dst.numel()
+    shuffle = torch.from_numpy(rng.permutation(e)).to(cuda)
+    for ids, wrapper in ((dst, tsk.sorted_segment_sum), (src, tsk.localized_scatter_add)):
+        sp = torch.argsort(ids, stable=True)
+        for order in ((sp.to(torch.int32), ids[sp]), None,
+                      (shuffle.to(torch.int32), ids[shuffle])):
+            if order is not None:
+                assert torch.equal(order[1], ids[order[0].long()])
+            got = wrapper(rows, ids, n, "f32", order)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == (n, d)
+            assert ((got.double() - _exact(rows, ids, n, "f32")).abs()
+                    <= _sum_bound(rows.double(), ids, n)).all()
 
 
 STREAM_ROWS = 68830

@@ -7,8 +7,8 @@ On the CPU the port's wrappers take their plain versions; these hold the
 semantics the CUDA kernels are held to on the card
 (tests/test_torch_kernels.py).  Inputs come from numpy seeds: block-ordered
 dst with an empty 128-row block and nonzero messages on padding-sentinel
-edges (dropped by both), idx shuffled for K6, widths 1, 16 and 64, f32 and
-bf16.  Tolerances: f32 sums 1e-6 of the largest value (the two sum in
+edges (dropped by both), idx shuffled for K6, widths 1, 16 and 64 (the
+flagship's) and 65, 17 and 2 (the ML-25M composed GAT's), f32 and bf16.  Tolerances: f32 sums 1e-6 of the largest value (the two sum in
 different orders); bf16 copies bitwise; bf16 transport rounds each message
 once and sums in f32, held at 1e-6 too.  The VJP tests compare bitwise:
 their summed values are small integers, so every sum is exact in f32.
@@ -29,7 +29,10 @@ from graph_recsys_benchmark_tpu.ops.pallas_segment import (
 from graph_recsys_benchmark_tpu_torch.ops import gather as tgather
 from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as tsk
 
-SHAPES = [(300, 2600, 16), (130, 700, 64), (13, 77, 1)]
+# (rows, edges, width): the flagship's widths and the ML-25M composed GAT's
+# odd ones (65 and 17: the [h | a_src] rows; 2: the softmax stats)
+SHAPES = [(300, 2600, 16), (130, 700, 64), (13, 77, 1), (300, 2600, 65), (200, 1800, 17),
+          (130, 700, 2)]
 TRANSPORTS = ["f32", "bf16"]
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}

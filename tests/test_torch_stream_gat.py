@@ -271,7 +271,10 @@ def test_gather_dst_and_its_vjp_match_jax(k):
         return out, vjp(ct)[0]
 
     jout, jgrad = jax.jit(f)(x, ct)
-    g = types.SimpleNamespace(dst=torch.from_numpy(dst), num_nodes=300)
+    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    g = types.SimpleNamespace(dst=torch.from_numpy(dst), num_nodes=300,
+                              dst_perm=torch.from_numpy(perm),
+                              dst_sorted=torch.from_numpy(dst[perm]))
     for dtype in (torch.float32, torch.bfloat16):
         tx = torch.from_numpy(x).to(dtype).requires_grad_()
         out = tgather.gather_dst(tx, g)
