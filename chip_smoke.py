@@ -24,7 +24,10 @@
    order the atomics add, so a lost bf16 rounding point, ~1e-3, fails), the
    kernel's and the plain version's device time, and the bound (bytes read
    once + written once over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
-   whichever is larger).
+   whichever is larger).  The backwards walk the graph's sort by source
+   (StepGraph.src_perm / src_sorted), and each graph's line gives the mean
+   edges a source takes in the edges' own order and in that walk
+   (print_src_runs, id_runs).
 5. Edge kernel phase (edge_kernel_phase): sorted_segment_sum (K5),
    sorted_broadcast (K7) and localized_scatter_add (K6) at each of the
    PEAGCN and PEASage union graphs' shapes, per transport: error against
@@ -139,6 +142,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -342,6 +346,21 @@ def check_kernel(name, transport, got, want):
     return worst
 
 
+def print_src_runs(label, g, num_rows):
+    """id_runs of a GAT graph's sources, real edges only, in the edges' own
+    (128-row dst block) order and in the walk of the GAT backwards
+    (StepGraph.src_perm / src_sorted); also checks the walk is src[perm]."""
+    check(torch.equal(g.src_sorted, g.src[g.src_perm.long()]),
+          f"{label}: src_sorted is not src[src_perm]")
+    pad = torch.full_like(g.src, num_rows)
+    block = id_runs(torch.where(g.dst < num_rows, g.src, pad), num_rows)[0]
+    walk = id_runs(torch.where(g.dst[g.src_perm.long()] < num_rows, g.src_sorted, pad),
+                   num_rows)[0]
+    print(f"{label}: mean edges a source takes (run, 32-edge window, 2,048-edge chunk, "
+          f"call): block order {[round(x, 2) for x in block]}, src walk "
+          f"{[round(x, 2) for x in walk]}", flush=True)
+
+
 def kernel_phase(plan, num_nodes):
     """Each kernel vs its plain version at the plan's shapes, per transport:
     the forwards on random tables, the backwards on the forward kernel's
@@ -387,7 +406,8 @@ def kernel_phase(plan, num_nodes):
 
         gtab, logden = bwd_stats(acc, mhat, 1, kz1, t_dtype, randn(n_v, 1, kz1))
         bargs = (table, gtab, logden[0], adst_r, union.src, union.dst, n_v, kz1)
-        err, rel = check_kernel("flash_gat_bwd", transport, fg.flash_gat_bwd(*bargs),
+        walk = dict(src_perm=union.src_perm, src_sorted=union.src_sorted)
+        err, rel = check_kernel("flash_gat_bwd", transport, fg.flash_gat_bwd(*bargs, **walk),
                                 fg.flash_gat_bwd_plain(*bargs))
         # reads each node's [z | a_src] and stat row [g | gout], logden and
         # a_dst, the real edges' ids; writes dpk [dz | da_src] and da_dst
@@ -397,7 +417,7 @@ def kernel_phase(plan, num_nodes):
         b_ms, b_by = bound_ms(nbytes, flops)
         results[("flash_bwd", transport)] = dict(
             max_abs_err=err,
-            ms=device_ms(lambda: fg.flash_gat_bwd(*bargs)),
+            ms=device_ms(lambda: fg.flash_gat_bwd(*bargs, **walk)),
             plain_ms=device_ms(lambda: fg.flash_gat_bwd_plain(*bargs), reps=10),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         )
@@ -406,6 +426,8 @@ def kernel_phase(plan, num_nodes):
               f"[g | gout] {n_v * (kz1 + 1)}x4 + logden,a_dst {2 * n_v}x4 + src,dst "
               f"{e_union}x8 + dpk {n_v * (kz1 + 1)}x4 + da_dst {n_v}x4 = {nbytes}",
               flush=True)
+        if transport == "f32":
+            print_src_runs("union", union, n_v)
 
         # ---- batch_gat_fwd / batch_gat_bwd on the step-2 shares (one entry
         # each: both calls)
@@ -421,21 +443,24 @@ def kernel_phase(plan, num_nodes):
             gtab, logden = bwd_stats(acc, mh, n_ch, kz2, t_dtype,
                                      randn(num_nodes, n_ch, kz2))
             bargs = (tab, gtab, logden, ad, g.src, g.dst, num_nodes, kz2)
-            for key, fn, plain, a, nbytes, flops in (
-                ("batch_fwd", bg.batch_gat_fwd, bg.batch_gat_fwd_plain, fargs,
+            walk = dict(src_perm=g.src_perm, src_sorted=g.src_sorted)
+            if transport == "f32":
+                print_src_runs(f"share {chans}", g, num_nodes)
+            for key, fn, plain, a, kw, nbytes, flops in (
+                ("batch_fwd", bg.batch_gat_fwd, bg.batch_gat_fwd_plain, fargs, {},
                  tab.numel() * itemsize + 2 * ad.numel() * 4 + g.num_edges * 8
                  + tab.numel() * 4,
                  g.num_edges * n_ch * (2 * (kz2 + 1) + 6)),
-                ("batch_bwd", bg.batch_gat_bwd, bg.batch_gat_bwd_plain, bargs,
+                ("batch_bwd", bg.batch_gat_bwd, bg.batch_gat_bwd_plain, bargs, walk,
                  tab.numel() * (itemsize + 4) + 2 * ad.numel() * 4 + g.num_edges * 8
                  + tab.numel() * 4 + ad.numel() * 4,
                  g.num_edges * n_ch * (4 * kz2 + 14)),
             ):
-                got = fn(*a)
+                got = fn(*a, **kw)
                 err, rel = check_kernel(fn.__name__, transport,
                                         got if isinstance(got, tuple) else [got],
                                         plain(*a) if key == "batch_bwd" else [plain(*a)])
-                ms = device_ms(lambda: fn(*a))
+                ms = device_ms(lambda: fn(*a, **kw))
                 plain_ms = device_ms(lambda: plain(*a), reps=10)
                 print(f"{fn.__name__} {transport}: n_ch {n_ch} rows {num_nodes} kz {kz2} "
                       f"edges {g.num_edges} (padded {g.dst.numel()}) rel_err {rel:.3e} "
@@ -1297,12 +1322,15 @@ STREAM_PIECES = (512, 1024, 2048, 4096, 8192)
 # the kernels whose registers, shared memory and spills ptxas_summary prints
 PTXAS_KERNELS = {"stream_gat": ("stream_gat_fwd_kernel", "stream_gat_bwd_dst_kernel",
                                 "stream_gat_bwd_src_kernel"),
-                 "segment": ("softmax_block_kernel",)}
+                 "segment": ("softmax_block_kernel",),
+                 "gat_bwd": ("gat_bwd_walk_kernel",)}
 
 
 def ptxas_summary(logs):
     """ptxas's registers, shared memory and spills of each kernel of the
-    streaming GAT (K9, K10, K11) and of K8, one line each."""
+    streaming GAT (K9, K10, K11), of K8 and of the GAT backwards' walk (K2,
+    K4; its template's int arguments: K4's rounding, lanes an edge, lanes a
+    channel, columns a lane), one line each."""
     out = {}
     for source, kernels in PTXAS_KERNELS.items():
         cur = None
@@ -1310,9 +1338,11 @@ def ptxas_summary(logs):
             if "Compiling entry function" in line:
                 name = line.split("'")[1] if "'" in line else line
                 cur = next((k for k in kernels if k in name), None)
-                if cur:  # the transport type of a template kernel
-                    cur += ("<bf16>" if "bfloat16" in name else
-                            "<f32>" if f"{cur}If" in name else "")
+                if cur:  # the transport type of a template kernel, its ints
+                    targs = (["bf16"] if "bfloat16" in name else
+                             ["f32"] if f"{cur}If" in name else [])
+                    targs += re.findall(r"L[bi](\d+)E", name)
+                    cur += f"<{', '.join(targs)}>" if targs else ""
                     out[cur] = []
             elif cur and ("Used" in line or "spill" in line):
                 out[cur].append(line.split("info    :")[-1].strip())

@@ -41,10 +41,10 @@ _SIGNATURES = {
     # num_edges, num_rows, kz, n_ch, slope, stream
     "gat_fwd": ("gat_fwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P,
                             _L, _I, _I, _I, ctypes.c_float, _P]),
-    # device, table, bf16, round_att_first, gtab, logden, adst, src, dst,
-    # dpk, dadst, num_edges, num_rows, kz, n_ch, slope, stream
-    "gat_bwd": ("gat_bwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, table, bf16, round_att_first, gtab, logden, adst, perm, ids,
+    # dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slope, stream
+    "gat_bwd": ("gat_bwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _L, _I, _I, _I, _I, ctypes.c_float, _P]),
     # device, table, bf16, adst, src, dst, m, num_edges, num_rows, kz,
     # slope, stream (K12-online, pass 1)
     "gat_rowmax": ("gat_fwd", [_I, _P, _I, _P, _P, _P, _P, _L, _I, _I,

@@ -19,8 +19,11 @@ round_T(p)]``, and replaces both TPU forms (K1 chunk-major, K12 dst-block in
 bound-shift mode), which differ only in how the TPU grid walks the edges.
 ``gat_bwd`` launches the backward; ``flash_gat_bwd`` is its one-channel
 case at K2's rounding points (the fused glue kernel, ``_flash_bwd``'s
-choice at ops/flash_gat.py:1443-1450).  A CUDA tensor takes the kernel, a
-CPU tensor the plain version in this module.
+choice at ops/flash_gat.py:1443-1450).  The backward walks the graph's
+stable sort by source (``src_perm`` / ``src_sorted``, StepGraph's; the
+callers without a StepGraph build it with ``src_walk``), summing each
+source's run before it writes.  A CUDA tensor takes the kernel, a CPU
+tensor the plain version in this module.
 
 The variant routes, picked by ``ops/config.FlashGATMode`` (the JAX
 package's FLASH_SOFTMAX_SHIFT, FLASH_BWD_GLUE and FLASH_BWD_MEGA):
@@ -292,7 +295,7 @@ flash_gat_fwd_online.launches = 0
 
 
 def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
-                  round_att_first, negative_slope=0.2):
+                  round_att_first, negative_slope=0.2, src_perm=None, src_sorted=None):
     """Plain PyTorch version of csrc/gat_bwd.cu, same inputs and rounding
     points: (dpk f32[n, n_ch*(kz+1)], da_dst f32[n_ch, num_rows]).  Per
     edge and channel, att = exp(min(act − logden, 60)), datt = Σ_k g·z,
@@ -300,7 +303,9 @@ def gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     round_T(dpre)] by src and da_dst sums dpre by dst.  K4
     (`round_att_first`) rounds g·z before the sum, uses a = round_T(att)
     and sums round_T(dpre) into da_dst; K2 uses a = att and sums the
-    unrounded g·z and dpre."""
+    unrounded g·z and dpre.  The walk (`src_perm`, `src_sorted`) is
+    accepted and not read: every real edge is summed by its own src, so a
+    walk that drops or repeats edges shows as a mismatch with the kernel."""
     real = dst < num_rows
     s, d = src[real].long(), dst[real].long()
     ct, dpre = _bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
@@ -340,8 +345,34 @@ def _bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
     return ct.reshape(-1, n_ch * bz), dpre
 
 
+def src_walk(src, src_perm=None, src_sorted=None):
+    """(src_perm, src_sorted) int32[E] on src's device: the walk given (a
+    StepGraph's), or where none is given the stable sort of `src` and
+    src[perm] (graph.py builds the same for every StepGraph), for callers
+    with bare edges."""
+    if src_perm is None and src_sorted is None:
+        perm = torch.argsort(src, stable=True)
+        return perm.to(torch.int32), src[perm].to(torch.int32)
+    if src_perm is None or src_sorted is None:
+        raise ValueError("src_perm and src_sorted: pass both or neither")
+    return tuple(torch.as_tensor(w, device=src.device).to(torch.int32).contiguous()
+                 for w in (src_perm, src_sorted))
+
+
+def check_walk(src, src_perm, src_sorted):
+    """The backward kernel's walk validated against `src`: both given, each
+    an int32 [E] contiguous tensor on src's device.  The values are not
+    read (that would synchronise): src_sorted must be src[src_perm]."""
+    if src_perm is None or src_sorted is None:
+        raise ValueError("gat_bwd: a CUDA call needs the walk (src_perm, src_sorted: "
+                         "StepGraph's, or src_walk(src))")
+    shape = (src.shape[0],)
+    _cuda.require(src_perm, "src_perm", torch.int32, shape, src.device)
+    _cuda.require(src_sorted, "src_sorted", torch.int32, shape, src.device)
+
+
 def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
-            round_att_first, negative_slope=0.2):
+            round_att_first, negative_slope=0.2, src_perm=None, src_sorted=None):
     """(dpk f32[n, n_ch*(kz+1)], da_dst f32[n_ch, num_rows]): the backward
     of gat_fwd for n_ch <= 8 channels over one edge list.
 
@@ -349,54 +380,69 @@ def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
     a_src_c]`` in the transport dtype; gtab: f32[num_rows, n_ch*(kz+1)]
     stat bands ``[round_T(g_c) | gout_c]``; logden = m̂ + log(s + 1e-16) and
     adst_r = round_T(a_dst): f32[n_ch, num_rows]; src, dst: int32[E] with
-    padding ``dst >= num_rows``.  dpk's band c is ``[dz_c | da_src_c]``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    counted in ``counter.launches`` (the calling wrapper), or raise."""
+    padding ``dst >= num_rows``; src_perm, src_sorted: int32[E], the stable
+    sort of src and src[src_perm] (required on a CUDA tensor, check_walk).
+    dpk's band c is ``[dz_c | da_src_c]``; on the card it is a view of a
+    zeroed buffer whose rows are padded to a multiple of 4 columns.  K2's
+    rounding points take one channel and kz <= 256, K4's kz <= 128.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, counted
+    in ``counter.launches`` (the calling wrapper), or raise."""
     if table.device.type == "cpu":
         return gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                              round_att_first, negative_slope)
     n_ch = adst_r.shape[0]
     dev, width = _check_table("gat_bwd", table, n_ch, kz)
+    if kz > (128 if round_att_first else 256) or (not round_att_first and n_ch != 1):
+        raise ValueError(f"gat_bwd: kz {kz} / n_ch {n_ch} outside the kernel's layouts "
+                         "(K2: one channel, kz <= 256; K4: kz <= 128)")
     e = dst.shape[0]
     _cuda.require(gtab, "gtab", torch.float32, (num_rows, width), dev)
     _cuda.require(logden, "logden", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(adst_r, "adst_r", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
-    dpk = torch.zeros((table.shape[0], width), dtype=torch.float32, device=dev)
-    da_dst = torch.zeros((n_ch, num_rows), dtype=torch.float32, device=dev)
-    if e == 0:
-        return dpk, da_dst
-    _cuda.launch(
-        "gat_bwd", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        int(round_att_first), gtab.data_ptr(), logden.data_ptr(), adst_r.data_ptr(),
-        src.data_ptr(), dst.data_ptr(), dpk.data_ptr(), da_dst.data_ptr(), e,
-        num_rows, kz, n_ch, float(negative_slope),
-    )
-    counter.launches += 1
-    return dpk, da_dst
+    check_walk(src, src_perm, src_sorted)
+    # one zeroed buffer for both sums: dpk's rows padded to 16 bytes, da_dst
+    # by dst, then channel (an edge's channels share a sector)
+    stride = -(-width // 4) * 4
+    n = table.shape[0]
+    out = torch.zeros(n * stride + num_rows * n_ch, dtype=torch.float32, device=dev)
+    dpk = out[: n * stride].view(n, stride)
+    da_dst = out[n * stride:].view(num_rows, n_ch)
+    if e > 0:
+        _cuda.launch(
+            "gat_bwd", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+            int(round_att_first), gtab.data_ptr(), logden.data_ptr(), adst_r.data_ptr(),
+            src_perm.data_ptr(), src_sorted.data_ptr(), dst.data_ptr(), dpk.data_ptr(),
+            da_dst.data_ptr(), e, num_rows, kz, n_ch, stride, float(negative_slope),
+        )
+        counter.launches += 1
+    # one transpose here: left strided, the autograd consumers copied it twice
+    return dpk[:, :width], da_dst.t().contiguous()
 
 
 def flash_gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
-                        negative_slope=0.2):
+                        negative_slope=0.2, src_perm=None, src_sorted=None):
     """Plain PyTorch version of flash_gat_bwd, same inputs and rounding
-    points (K2's)."""
+    points (K2's); the walk is accepted and not read (gat_bwd_plain)."""
     dpk, da_dst = gat_bwd_plain(table, gtab, logden[None], adst_r[None], src, dst,
                                 num_rows, kz, False, negative_slope)
     return dpk, da_dst[0]
 
 
 def flash_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows, kz,
-                  negative_slope=0.2):
+                  negative_slope=0.2, src_perm=None, src_sorted=None):
     """(dpk f32[n, kz+1], da_dst f32[num_rows]): gat_bwd for one channel at
     K2's rounding points.
 
     table: the forward's [n, kz+1] ``[z | a_src]`` rows in the transport
     dtype; gtab: f32[num_rows, kz+1] ``[round_T(g) | gout]``; logden,
     adst_r: f32[num_rows]; src, dst: int32[E] with padding ``dst >=
-    num_rows``.  Launches counted in ``flash_gat_bwd.launches``."""
+    num_rows``; src_perm, src_sorted: the walk (gat_bwd; required on a CUDA
+    tensor).  Launches counted in ``flash_gat_bwd.launches``."""
     dpk, da_dst = gat_bwd(flash_gat_bwd, table, gtab, logden[None], adst_r[None],
-                          src, dst, num_rows, kz, False, negative_slope)
+                          src, dst, num_rows, kz, False, negative_slope, src_perm,
+                          src_sorted)
     return dpk, da_dst[0]
 
 
@@ -560,7 +606,8 @@ class FlashGAT(torch.autograd.Function):
 
     forward(table [n, kz+1] in the transport dtype, a_dst f32[num_rows],
     src, dst int32[E], block_bounds (int32[n_blocks+1], read by the one-pass
-    backward only), num_rows, kz, negative_slope, mode) -> out f32[num_rows,
+    backward only), src_perm, src_sorted (int32[E], the walk of the fused
+    backward, K2), num_rows, kz, negative_slope, mode) -> out f32[num_rows,
     kz].  The shift is m̂ (bound_shift, K1/K12) or the row max m
     (online_shift, K12-online); it is a residual with no gradient, and
     logden = shift + log(s + 1e-16).  The backward builds the route's stat
@@ -572,8 +619,8 @@ class FlashGAT(torch.autograd.Function):
     A graph without edges gives exact zeros both ways."""
 
     @staticmethod
-    def forward(ctx, table, a_dst, src, dst, block_bounds, num_rows, kz, negative_slope,
-                mode):
+    def forward(ctx, table, a_dst, src, dst, block_bounds, src_perm, src_sorted, num_rows,
+                kz, negative_slope, mode):
         if mode.softmax_shift == "online":
             adst_r, shift = online_shift(table, a_dst, src, dst, num_rows, kz,
                                          negative_slope)
@@ -586,17 +633,19 @@ class FlashGAT(torch.autograd.Function):
                                 negative_slope)
         s = acc[:, kz]
         out = acc[:, :kz] / (s[:, None] + 1e-16)
-        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, block_bounds)
+        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, block_bounds, src_perm,
+                              src_sorted)
         ctx.consts = (num_rows, kz, negative_slope, mode)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        table, adst_r, shift, s, out, src, dst, block_bounds = ctx.saved_tensors
+        (table, adst_r, shift, s, out, src, dst, block_bounds, src_perm,
+         src_sorted) = ctx.saved_tensors
         num_rows, kz, negative_slope, mode = ctx.consts
         if dst.shape[0] == 0:  # JAX flash_gat.py:1354-1356
             return (torch.zeros_like(table), torch.zeros_like(adst_r), None, None, None,
-                    None, None, None, None)
+                    None, None, None, None, None, None)
         g = g.float()
         gout = (g * out).sum(dim=1, keepdim=True)
         logden = shift + torch.log(s + 1e-16)
@@ -615,13 +664,15 @@ class FlashGAT(torch.autograd.Function):
                     ct, src, table.shape[0], "bf16" if table.dtype == torch.bfloat16 else "f32")
             else:
                 dpk, da_dst = flash_gat_bwd(table, gtab, logden, adst_r, src, dst,
-                                            num_rows, kz, negative_slope)
-        return dpk.to(table.dtype), da_dst, None, None, None, None, None, None, None
+                                            num_rows, kz, negative_slope, src_perm=src_perm,
+                                            src_sorted=src_sorted)
+        return (dpk.to(table.dtype), da_dst, None, None, None, None, None, None, None, None,
+                None)
 
 
 def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
                              negative_slope=0.2, transport="f32", mode=FlashGATMode(),
-                             block_bounds=None):
+                             block_bounds=None, src_perm=None, src_sorted=None):
     """out[i] = Σ_e softmax_dst(leaky_relu(a_dst[i] + a_src[j]))_e · z[j]
     for single-head GAT, from the row-major table the kernel reads.
 
@@ -629,17 +680,22 @@ def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
     a_dst: [num_rows] f32; src/dst: int32[E] with padding sentinel
     ``dst == num_rows``; mode: the routes (ops/config.FlashGATMode);
     block_bounds: the StepGraph's, for the one-pass backward (None =
-    dst_block_bounds of `dst`).  Returns [num_rows, kz] f32,
+    dst_block_bounds of `dst`); src_perm, src_sorted: the StepGraph's walk
+    by source, for the fused backward (None = src_walk of `src`, a sort,
+    for callers without a StepGraph).  Returns [num_rows, kz] f32,
     differentiable in table and a_dst (FlashGAT).  The cast to the
     transport dtype stays outside the Function, so the table's gradient is
     rounded to it as the JAX VJP's is."""
     table = table.to(t_dtype_of(transport)).contiguous()
+    src = src.to(torch.int32).contiguous()
     dst = dst.to(torch.int32).contiguous()
     if mode.bwd == "onepass" and block_bounds is None:
         block_bounds = dst_block_bounds(dst, num_rows)
+    if mode.bwd == "fused":
+        src_perm, src_sorted = src_walk(src, src_perm, src_sorted)
     return FlashGAT.apply(
-        table, a_dst.float().contiguous(), src.to(torch.int32).contiguous(), dst,
-        block_bounds, num_rows, kz, negative_slope, mode,
+        table, a_dst.float().contiguous(), src, dst, block_bounds, src_perm, src_sorted,
+        num_rows, kz, negative_slope, mode,
     )
 
 
@@ -650,9 +706,8 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
 
     packed_t: [k_pad, n_src_pad] column-major ``[z | a_src]`` table
     (pack_gat_table), copied once to the row-major [n_src_pad, kz+1];
-    src_perm/src_sorted: the StepGraph's src-sorted permutation, kept for
-    the JAX signature (only the JAX package's composed backward reads
-    it)."""
+    src_perm/src_sorted: the StepGraph's src-sorted permutation, the walk
+    of the fused backward (None, None: built with src_walk)."""
     _, k_pad, n_src_pad = _layout(num_rows, kz)
     if tuple(packed_t.shape) != (k_pad, n_src_pad):
         raise ValueError(
@@ -660,7 +715,7 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
         )
     return flash_gat_attention_rows(packed_t[: kz + 1].t(), a_dst, src, dst,
                                     num_rows, kz, negative_slope, transport, mode,
-                                    block_bounds)
+                                    block_bounds, src_perm, src_sorted)
 
 
 def flash_gat_reference(packed_t, a_dst, src, dst, num_rows, kz,

@@ -7,7 +7,11 @@ the flagship's (bench.py:42-59): the step-1 union graph (kz 64, 15,210 rows,
 shared i2u/u2i graph (kz 16, 1,690 rows, 73,728 padded edges, 7 and 2
 channels) for batch_gat_fwd and batch_gat_bwd.  Random block-ordered edges
 from a numpy seed stand in for the graphs; the backwards get the stats of
-the forward on the same inputs.  Tolerances: a kernel against its plain
+the forward on the same inputs and walk the edges' stable sort by source
+(flash_gat.src_walk, as StepGraph.src_perm / src_sorted), and K4 also
+runs on a graph where one source holds 20,000 of the 73,611 edges, each
+row of its sums held to the rounding bound of an f32 sum in any order
+(_sum_bound, below) of the float64 sums of its plain version's terms.  Tolerances: a kernel against its plain
 version on the card, 1e-5 of the largest value in both transports (the two
 round at the same points and differ only in the order the atomics add, so
 a lost bf16 rounding point, ~1e-3, fails); the card's whole op against the
@@ -209,8 +213,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, transport):
     acc = tfg.flash_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
     gtab, logden = _bwd_inputs(table, adst_r[None], mhat[None], acc, kz, rng, t_dtype)
     args = (table, gtab, logden[0], adst_r, src, dst, n, kz)
+    perm, srt = tfg.src_walk(src)
     before = tfg.flash_gat_bwd.launches
-    got = tfg.flash_gat_bwd(*args)
+    got = tfg.flash_gat_bwd(*args, src_perm=perm, src_sorted=srt)
     torch.cuda.synchronize()
     assert tfg.flash_gat_bwd.launches == before + 1
     want = tfg.flash_gat_bwd_plain(*args)
@@ -232,14 +237,136 @@ def test_batch_bwd_kernel_matches_plain(cuda, transport, n_ch):
     acc = tbg.batch_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
     gtab, logden = _bwd_inputs(table, adst_r, mhat, acc, kz, rng, t_dtype)
     args = (table, gtab, logden, adst_r, src, dst, n, kz)
+    perm, srt = tfg.src_walk(src)
     before = tbg.batch_gat_bwd.launches
-    got = tbg.batch_gat_bwd(*args)
+    got = tbg.batch_gat_bwd(*args, src_perm=perm, src_sorted=srt)
     torch.cuda.synchronize()
     assert tbg.batch_gat_bwd.launches == before + 1
     want = tbg.batch_gat_bwd_plain(*args)
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _rel_err(a, b) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("n_ch", [7, 2])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_batch_bwd_kernel_on_a_hot_source(cuda, transport, n_ch):
+    """K4 at the step-2 shape with one source holding 20,000 of the 73,611
+    edges (its run across many warps' slices, beside row 0's run with the
+    padding): dpk by src and da_dst by dst, each row within _sum_bound of
+    the float64 sums of the plain version's terms (each dpre term with its
+    own error, _gat_bwd_terms)."""
+    rng = np.random.default_rng(5)
+    n, kz, t_dtype, e_real, e_pad = 1690, 16, TDT[transport], 73611, 73728
+    src, dst = rng.integers(0, n, e_real), rng.integers(0, n, e_real)
+    src[:20000] = 777
+    order = np.lexsort((dst, src, dst // 128))
+    src = np.concatenate([src[order], np.zeros(e_pad - e_real, np.int64)])
+    dst = np.concatenate([dst[order], np.full(e_pad - e_real, n)])
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (src, dst))
+    z = torch.from_numpy(rng.standard_normal((n_ch, n, kz), dtype=np.float32)).to(cuda)
+    a_src = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    a_dst = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    table, adst_r, mhat = tbg._pack_tables(z, a_src, a_dst, n, kz, n_ch, 0.2, t_dtype)
+    acc = tbg.batch_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
+    gtab, logden = _bwd_inputs(table, adst_r, mhat, acc, kz, rng, t_dtype)
+    perm, srt = tfg.src_walk(src)
+    dpk, da_dst = tbg.batch_gat_bwd(table, gtab, logden, adst_r, src, dst, n, kz,
+                                    src_perm=perm, src_sorted=srt)
+    torch.cuda.synchronize()
+    real = dst < n
+    s, d = src[real].long(), dst[real].long()
+    dpre_t, err, ct, ct_err = _gat_bwd_terms(table, gtab, logden, adst_r, s, d, kz, t_dtype)
+    assert torch.isfinite(dpk).all() and torch.isfinite(da_dst).all()
+    assert (torch.bincount(s, minlength=n)[777] >= 20000).item()
+    assert ((dpk.double() - segment_sum(ct, s, n)).abs()
+            <= _sum_bound(ct, s, n, ct_err)).all()
+    assert ((da_dst.t().double() - segment_sum(dpre_t, d, n)).abs()
+            <= _sum_bound(dpre_t, d, n, err)).all()
+
+
+# every worker layout of csrc/gat_bwd.cu's walk (launch_walk): K2 at kz
+# <= 32, 64, 128 and 256, K4 at kz <= 16 (up to 2, 4 and 8 channels), 32,
+# 64 and 128 (the flagship's own K2 kz 64 and K4 kz 16 at 7 and 2 channels
+# are tested above)
+LAYOUT_CASES = [("K2", 1, 32), ("K2", 1, 100), ("K2", 1, 200), ("K4", 3, 16),
+                ("K4", 3, 32), ("K4", 7, 32), ("K4", 3, 64), ("K4", 7, 64), ("K4", 3, 125),
+                ("K4", 7, 125)]
+
+
+@pytest.mark.parametrize("kernel,n_ch,kz", LAYOUT_CASES)
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_gat_bwd_kernel_at_each_layout(cuda, transport, kernel, n_ch, kz):
+    """K2 and K4 at each worker layout: dpk by src and da_dst by dst, each
+    row within _sum_bound of the float64 sums of the plain version's terms
+    (each dpre term with its own error, _gat_bwd_terms).  Not KERNEL_TOL of
+    the largest value: the kernel sums datt's kz products in another order
+    than torch, and at kz 200 in bf16 that moves a round_T(dpre) by one
+    unit of bf16 (2.2e-5 of the largest value on the H100)."""
+    rng = np.random.default_rng(6)
+    n, t_dtype = 1000, TDT[transport]
+    src, dst = _edges(rng, n, 12000, 12288, cuda)
+    z = torch.from_numpy(rng.standard_normal((n_ch, n, kz), dtype=np.float32)).to(cuda)
+    a_src = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    a_dst = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    table, adst_r, mhat = tbg._pack_tables(z, a_src, a_dst, n, kz, n_ch, 0.2, t_dtype)
+    acc = tbg.batch_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
+    gtab, logden = _bwd_inputs(table, adst_r, mhat, acc, kz, rng, t_dtype)
+    perm, srt = tfg.src_walk(src)
+    if kernel == "K2":
+        wrapper = tfg.flash_gat_bwd
+        args = (table, gtab, logden[0], adst_r[0], src, dst, n, kz)
+    else:
+        wrapper = tbg.batch_gat_bwd
+        args = (table, gtab, logden, adst_r, src, dst, n, kz)
+    before = wrapper.launches
+    dpk, da_dst = wrapper(*args, src_perm=perm, src_sorted=srt)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert dpk.shape == (n, n_ch * (kz + 1)) and da_dst.numel() == n_ch * n
+    assert torch.isfinite(dpk).all() and torch.isfinite(da_dst).all()
+    real = dst < n
+    s, d = src[real].long(), dst[real].long()
+    da_t, da_err, ct, ct_err = _gat_bwd_terms(table, gtab, logden, adst_r, s, d, kz, t_dtype,
+                                              kernel == "K4")
+    assert ((dpk.double() - segment_sum(ct, s, n)).abs()
+            <= _sum_bound(ct, s, n, ct_err)).all()
+    assert ((da_dst.reshape(n_ch, n).t().double() - segment_sum(da_t, d, n)).abs()
+            <= _sum_bound(da_t, d, n, da_err)).all()
+
+
+def _gat_bwd_terms(table, gtab, logden, adst_r, s, d, kz, t_dtype, round_att_first=True):
+    """The float64 terms K4 (round_att_first) or K2 adds for real edges (s,
+    d), as its plain version computes them: da_dst's [E, n_ch] (K4
+    round_T(dpre), K2 dpre) and the rows [E, n_ch*(kz+1)] [round_T(g * a) |
+    round_T(dpre)], with a bound on each dpre term's own error, by
+    _bwd_terms' rule: the kernel sums datt's kz products (K4 rounded) in
+    another order than torch's (at most twice gamma_(kz-1) * sum |p|
+    apart), which att and leaky' scale, three roundings after it add 6
+    units of |dpre|, and bf16's rounding of a moved dpre one unit of bf16.
+    att is the same f32 computation in both."""
+    n_ch = adst_r.shape[0]
+    rows = table[s].float().view(-1, n_ch, kz + 1)
+    g = gtab[d].view(-1, n_ch, kz + 1)
+    pre = adst_r[:, d].t() + rows[:, :, kz]
+    act = torch.where(pre > 0, pre, 0.2 * pre)
+    att = torch.exp(torch.clamp(act - logden[:, d].t(), max=60.0))
+    ct, dpre = tfg._bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
+                                   0.2)
+    prod = g[:, :, :kz] * rows[:, :, :kz]
+    prod = (prod.to(t_dtype).float() if round_att_first else prod).abs().sum(2).double()
+    gam = (kz - 1) * U_SUM / (1 - (kz - 1) * U_SUM)
+    sigma = torch.where(pre > 0, 1.0, 0.2).double()
+    err = 2 * gam * prod * att.double() * sigma * (1 + 4 * U_SUM) + 6 * U_SUM * dpre.abs().double()
+    err_t = err
+    if t_dtype == torch.bfloat16:
+        err_t = err + 2.0 ** -7 * (dpre.abs().double() + err)
+    ct_err = torch.zeros((len(s), n_ch, kz + 1), dtype=torch.float64, device=ct.device)
+    ct_err[:, :, kz] = err_t
+    ct_err = ct_err.reshape(len(s), -1)
+    if round_att_first:
+        return dpre.to(t_dtype).double(), err_t, ct.double(), ct_err
+    return dpre.double(), err, ct.double(), ct_err
 
 
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
@@ -352,21 +479,41 @@ def test_wrappers_reject_bad_inputs(cuda):
     assert out.shape == (n, kz + 1) and not out.any()
     assert tfg.flash_gat_fwd.launches == before
     gtab = torch.zeros((n, kz + 1), device=cuda)
+    walk = dict(src_perm=ids, src_sorted=ids)
     before = (tfg.flash_gat_bwd.launches, tbg.batch_gat_bwd.launches)
     with pytest.raises(ValueError):  # bf16 stat table
-        tfg.flash_gat_bwd(table, gtab.bfloat16(), stat, stat, ids, ids, n, kz)
+        tfg.flash_gat_bwd(table, gtab.bfloat16(), stat, stat, ids, ids, n, kz, **walk)
     with pytest.raises(ValueError):  # stat table of the wrong width
-        tfg.flash_gat_bwd(table, gtab[:, :kz].contiguous(), stat, stat, ids, ids, n, kz)
+        tfg.flash_gat_bwd(table, gtab[:, :kz].contiguous(), stat, stat, ids, ids, n, kz,
+                          **walk)
     with pytest.raises(ValueError):  # int64 ids
-        tfg.flash_gat_bwd(table, gtab, stat, stat, ids, ids.long(), n, kz)
+        tfg.flash_gat_bwd(table, gtab, stat, stat, ids, ids.long(), n, kz, **walk)
     with pytest.raises(ValueError):  # non-contiguous table
-        tfg.flash_gat_bwd(table.t().contiguous().t(), gtab, stat, stat, ids, ids, n, kz)
+        tfg.flash_gat_bwd(table.t().contiguous().t(), gtab, stat, stat, ids, ids, n, kz,
+                          **walk)
     with pytest.raises(ValueError):  # 9 channels
         tbg.batch_gat_bwd(torch.zeros((n, 9 * (kz + 1)), device=cuda),
                           torch.zeros((n, 9 * (kz + 1)), device=cuda),
                           torch.zeros((9, n), device=cuda), torch.zeros((9, n), device=cuda),
-                          ids, ids, n, kz)
-    dpk, da = tfg.flash_gat_bwd(table, gtab, stat, stat, empty, empty, n, kz)
+                          ids, ids, n, kz, **walk)
+    with pytest.raises(ValueError):  # no walk: a CUDA call never sorts for itself
+        tfg.flash_gat_bwd(table, gtab, stat, stat, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # no walk
+        tbg.batch_gat_bwd(table, gtab, stat[None], stat[None], ids, ids, n, kz)
+    with pytest.raises(ValueError):  # a walk shorter than the edges
+        tfg.flash_gat_bwd(table, gtab, stat, stat, ids, ids, n, kz, src_perm=ids[:8],
+                          src_sorted=ids[:8])
+    with pytest.raises(ValueError):  # an int64 walk
+        tfg.flash_gat_bwd(table, gtab, stat, stat, ids, ids, n, kz, src_perm=ids.long(),
+                          src_sorted=ids)
+    with pytest.raises(ValueError):  # the walk on the CPU
+        tbg.batch_gat_bwd(table, gtab, stat[None], stat[None], ids, ids, n, kz,
+                          src_perm=ids, src_sorted=ids.cpu())
+    wide = torch.zeros((n, 258), device=cuda)
+    with pytest.raises(ValueError, match="kz 257"):  # K2 past its widest layout
+        tfg.flash_gat_bwd(wide, wide, stat, stat, ids, ids, n, 257, **walk)
+    dpk, da = tfg.flash_gat_bwd(table, gtab, stat, stat, empty, empty, n, kz, src_perm=empty,
+                                src_sorted=empty)
     assert dpk.shape == (n + 1, kz + 1) and da.shape == (n,)
     assert not dpk.any() and not da.any()
     assert (tfg.flash_gat_bwd.launches, tbg.batch_gat_bwd.launches) == before

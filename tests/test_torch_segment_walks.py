@@ -8,10 +8,11 @@
     fused union).
   * The accumulator's padded width (acc_width): the row itself for widths
     1 and 2, else the next multiple of 4 (16-byte rows).
-  * Every work-split rule that torch_tools/segment_variants.py replaces is
-    in csrc/segment.cu exactly once, so its variants measure the source as
-    it stands.  The kernel's own split runs on the card
-    (tests/test_torch_kernels.py).
+  * torch_tools/cu_variants.py, which builds the variants that
+    torch_tools/segment_variants.py and gat_bwd_walk.py time, replaces a
+    rule's text only where the source holds it exactly once, so a variant
+    measures the source as it stands.  The kernel's own split runs on the
+    card (tests/test_torch_kernels.py).
 """
 
 import importlib.util
@@ -79,16 +80,21 @@ def test_acc_width_pads_rows_to_16_bytes():
 
 
 def test_variants_replace_each_rule_once():
+    """torch_tools/cu_variants.py, which builds the variants of
+    torch_tools/segment_variants.py and gat_bwd_walk.py: each rule's text
+    is replaced where it is held once, and a text held twice or not at all
+    is refused before anything is built."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
-        "segment_variants", os.path.join(root, "torch_tools", "segment_variants.py"))
-    sv = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sv)
-    with open(os.path.join(root, "graph_recsys_benchmark_tpu_torch", "csrc", "segment.cu")) as f:
-        source = f.read()
-    assert len(sv.VARIANTS) == 8
-    for name, (_, old, new) in sv.VARIANTS.items():
-        out = sv.variant_source(name, source)
-        assert out.count(new) == 1 and old not in out and len(out) < len(source)
-    with pytest.raises(RuntimeError):
-        sv.variant_source("slice 4", source.replace(sv._SLICE, ""))
+        "cu_variants", os.path.join(root, "torch_tools", "cu_variants.py"))
+    cv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cv)
+    source = "int u = 4;\nconst int slice = 8;\nint v = 4;\n"
+    out = cv.variant_source("x.cu", source, [("int u = 4;", "int u = 2;"),
+                                            ("slice = 8;", "slice = 16;")])
+    assert out == "int u = 2;\nconst int slice = 16;\nint v = 4;\n"
+    assert cv.variant_source("x.cu", source, []) == source
+    for rules in ([("= 4;", "= 1;")], [("slice = 32;", "slice = 4;")],
+                  [("int u = 4;", "int v = 4;"), ("int v = 4;", "int w = 4;")]):
+        with pytest.raises(RuntimeError, match="csrc/x.cu"):
+            cv.variant_source("x.cu", source, rules)

@@ -8,11 +8,11 @@ slice and walk, at the calls of one ML-25M f32 training step and of one
 PEAGCN and one PEASage f32 step of the flagship
 (chip_smoke.record_edge_calls), per group of the calls of one kernel, row
 width and dtype.  Each variant is csrc/segment.cu with one rule replaced by
-a constant (VARIANTS), built with the port's nvcc flags into
-graph_recsys_benchmark_tpu_torch/_build/variants/ (one nvcc a variant, all
-started together) and bound by ctypes beside the package's own build, which
-is the default; "edge order" is the default build walking the edges' own
-order instead of the graph's sort by id.  Every call of every variant is
+a constant (VARIANTS), built by torch_tools/cu_variants.py with the port's
+nvcc flags into graph_recsys_benchmark_tpu_torch/_build/variants/ (one nvcc
+a variant, all started together) and bound by ctypes beside the package's
+own build, which is the default; "edge order" is the default build
+walking the edges' own order instead of the graph's sort by id.  Every call of every variant is
 checked first (K7 bitwise; K5 and K6 row by row within chip_smoke.sum_bound
 of the float64 sums), then each group is timed back to back
 (chip_smoke.device_ms) into outputs allocated once, one a shape, as
@@ -21,11 +21,12 @@ power limit, then per group [(variant, ms)], the default first.  Needs a
 CUDA device (exit 2 without one); prints no result line.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
 import time
+
+from cu_variants import build, entry
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,58 +42,6 @@ VARIANTS = {
     "grid 132 x 8 CTAs": ("gather", _GRID, "constexpr long long kMaxCtas = 132LL * 8;"),
     **{f"slice {k}": ("sum", _SLICE, f"const int slice = {k};") for k in (2, 4, 8, 16)},
 }
-
-
-def variant_source(name, source):
-    """`source` (csrc/segment.cu's text) with variant `name`'s rule replaced."""
-    _, old, new = VARIANTS[name]
-    if source.count(old) != 1:
-        raise RuntimeError(f"{name}: csrc/segment.cu does not hold {old!r} exactly once")
-    return source.replace(old, new)
-
-
-def build_variants():
-    """{variant: CDLL}: every variant compiled, one nvcc each, all at once."""
-    from graph_recsys_benchmark_tpu_torch.ops import _cuda
-
-    out_dir = os.path.join(_cuda.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_cuda.CSRC, "segment.cu")) as f:
-        source = f.read()
-    procs = {}
-    try:
-        for i, name in enumerate(VARIANTS):
-            cu, so = (os.path.join(out_dir, f"segment_v{i}{ext}") for ext in (".cu", ".so"))
-            with open(cu, "w") as f:
-                f.write(variant_source(name, source))
-            procs[name] = (subprocess.Popen(
-                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", _cuda.CSRC, "-o", so, cu],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-        libs, failed = {}, []
-        for name, (proc, so) in procs.items():
-            log = proc.communicate(timeout=_cuda.BUILD_TIMEOUT_S)[0]
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
-            else:
-                libs[name] = ctypes.CDLL(so)
-    finally:
-        for proc, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    if failed:
-        raise RuntimeError("nvcc failed for\n" + "\n".join(failed))
-    return libs
-
-
-def entry(lib, name):
-    """C entry `name` of a variant's library, typed as the package's."""
-    from graph_recsys_benchmark_tpu_torch.ops import _cuda
-
-    fn = getattr(lib, name)
-    fn.argtypes = _cuda._SIGNATURES[name][1]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def runner(fn, kind, group, sorted_walk, shared):
@@ -158,7 +107,7 @@ def main():
           flush=True)
     t0 = time.perf_counter()
     _cuda.build_all()
-    libs = build_variants()
+    libs = build("segment.cu", {name: [(old, new)] for name, (_, old, new) in VARIANTS.items()})
     print(f"built the package and {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
     _, ml25m = cs.build_ml25m()
