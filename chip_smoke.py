@@ -24,10 +24,11 @@
    order the atomics add, so a lost bf16 rounding point, ~1e-3, fails), the
    kernel's and the plain version's device time, and the bound (bytes read
    once + written once over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
-   whichever is larger).  The backwards walk the graph's sort by source
-   (StepGraph.src_perm / src_sorted), and each graph's line gives the mean
-   edges a source takes in the edges' own order and in that walk
-   (print_src_runs, id_runs).
+   whichever is larger).  The forwards walk the graph's sort by dst
+   (StepGraph.dst_perm / dst_sorted), the backwards its sort by source
+   (src_perm / src_sorted); each graph's lines check that each walk is
+   ids[perm] and give the mean edges a dst and a source take in the edges'
+   own order and in the walk (print_runs, id_runs).
 5. Edge kernel phase (edge_kernel_phase): sorted_segment_sum (K5),
    sorted_broadcast (K7) and localized_scatter_add (K6) at each of the
    PEAGCN and PEASage union graphs' shapes, per transport: error against
@@ -346,19 +347,21 @@ def check_kernel(name, transport, got, want):
     return worst
 
 
-def print_src_runs(label, g, num_rows):
-    """id_runs of a GAT graph's sources, real edges only, in the edges' own
-    (128-row dst block) order and in the walk of the GAT backwards
-    (StepGraph.src_perm / src_sorted); also checks the walk is src[perm]."""
-    check(torch.equal(g.src_sorted, g.src[g.src_perm.long()]),
-          f"{label}: src_sorted is not src[src_perm]")
-    pad = torch.full_like(g.src, num_rows)
-    block = id_runs(torch.where(g.dst < num_rows, g.src, pad), num_rows)[0]
-    walk = id_runs(torch.where(g.dst[g.src_perm.long()] < num_rows, g.src_sorted, pad),
-                   num_rows)[0]
-    print(f"{label}: mean edges a source takes (run, 32-edge window, 2,048-edge chunk, "
-          f"call): block order {[round(x, 2) for x in block]}, src walk "
-          f"{[round(x, 2) for x in walk]}", flush=True)
+def print_runs(label, g, num_rows):
+    """id_runs of a GAT graph's sources and dsts, real edges only, in the
+    edges' own (128-row dst block) order and in the walks of the GAT
+    backwards (StepGraph.src_perm / src_sorted) and forwards (dst_perm /
+    dst_sorted); also checks each walk is ids[perm]."""
+    for side, what in (("src", "a source"), ("dst", "a dst row")):
+        ids, perm, srt = (getattr(g, f"{side}{x}") for x in ("", "_perm", "_sorted"))
+        check(torch.equal(srt, ids[perm.long()]), f"{label}: {side}_sorted is not "
+              f"{side}[{side}_perm]")
+        pad = torch.full_like(ids, num_rows)
+        block = id_runs(torch.where(g.dst < num_rows, ids, pad), num_rows)[0]
+        walk = id_runs(torch.where(g.dst[perm.long()] < num_rows, srt, pad), num_rows)[0]
+        print(f"{label}: mean edges {what} takes (run, 32-edge window, 2,048-edge chunk, "
+              f"call): block order {[round(x, 2) for x in block]}, {side} walk "
+              f"{[round(x, 2) for x in walk]}", flush=True)
 
 
 def kernel_phase(plan, num_nodes):
@@ -384,7 +387,8 @@ def kernel_phase(plan, num_nodes):
         table = randn(n_v, kz1 + 1).to(t_dtype)  # row-major [z | a_src]
         adst_r, mhat = fg.bound_shift(randn(n_v), table[:, kz1], 0.2, t_dtype)
         args = (table, adst_r, mhat, union.src, union.dst, n_v, kz1)
-        acc = fg.flash_gat_fwd(*args)
+        fwalk = dict(dst_perm=union.dst_perm, dst_sorted=union.dst_sorted)
+        acc = fg.flash_gat_fwd(*args, **fwalk)
         err, rel = check_kernel("flash_gat_fwd", transport, [acc],
                                 [fg.flash_gat_fwd_plain(*args)])
         # the bound counts what the work needs: each node's [z | a_src]
@@ -395,7 +399,7 @@ def kernel_phase(plan, num_nodes):
         b_ms, b_by = bound_ms(nbytes, flops)
         results[("flash_fwd", transport)] = dict(
             max_abs_err=err,
-            ms=device_ms(lambda: fg.flash_gat_fwd(*args)),
+            ms=device_ms(lambda: fg.flash_gat_fwd(*args, **fwalk)),
             plain_ms=device_ms(lambda: fg.flash_gat_fwd_plain(*args), reps=10),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         )
@@ -427,7 +431,7 @@ def kernel_phase(plan, num_nodes):
               f"{e_union}x8 + dpk {n_v * (kz1 + 1)}x4 + da_dst {n_v}x4 = {nbytes}",
               flush=True)
         if transport == "f32":
-            print_src_runs("union", union, n_v)
+            print_runs("union", union, n_v)
 
         # ---- batch_gat_fwd / batch_gat_bwd on the step-2 shares (one entry
         # each: both calls)
@@ -439,15 +443,16 @@ def kernel_phase(plan, num_nodes):
                                           randn(n_ch, num_nodes), num_nodes, kz2, n_ch, 0.2,
                                           t_dtype)
             fargs = (tab, ad, mh, g.src, g.dst, num_nodes, kz2)
-            acc = bg.batch_gat_fwd(*fargs)
+            fwalk = dict(dst_perm=g.dst_perm, dst_sorted=g.dst_sorted)
+            acc = bg.batch_gat_fwd(*fargs, **fwalk)
             gtab, logden = bwd_stats(acc, mh, n_ch, kz2, t_dtype,
                                      randn(num_nodes, n_ch, kz2))
             bargs = (tab, gtab, logden, ad, g.src, g.dst, num_nodes, kz2)
             walk = dict(src_perm=g.src_perm, src_sorted=g.src_sorted)
             if transport == "f32":
-                print_src_runs(f"share {chans}", g, num_nodes)
+                print_runs(f"share {chans}", g, num_nodes)
             for key, fn, plain, a, kw, nbytes, flops in (
-                ("batch_fwd", bg.batch_gat_fwd, bg.batch_gat_fwd_plain, fargs, {},
+                ("batch_fwd", bg.batch_gat_fwd, bg.batch_gat_fwd_plain, fargs, fwalk,
                  tab.numel() * itemsize + 2 * ad.numel() * 4 + g.num_edges * 8
                  + tab.numel() * 4,
                  g.num_edges * n_ch * (2 * (kz2 + 1) + 6)),
@@ -1323,14 +1328,17 @@ STREAM_PIECES = (512, 1024, 2048, 4096, 8192)
 PTXAS_KERNELS = {"stream_gat": ("stream_gat_fwd_kernel", "stream_gat_bwd_dst_kernel",
                                 "stream_gat_bwd_src_kernel"),
                  "segment": ("softmax_block_kernel",),
-                 "gat_bwd": ("gat_bwd_walk_kernel",)}
+                 "gat_bwd": ("gat_bwd_walk_kernel",),
+                 "gat_fwd": ("gat_fwd_walk_kernel",)}
 
 
 def ptxas_summary(logs):
     """ptxas's registers, shared memory and spills of each kernel of the
-    streaming GAT (K9, K10, K11), of K8 and of the GAT backwards' walk (K2,
-    K4; its template's int arguments: K4's rounding, lanes an edge, lanes a
-    channel, columns a lane), one line each."""
+    streaming GAT (K9, K10, K11), of K8 and of the GAT walks (the forwards
+    K1/K12 and K3 by dst, the backwards K2 and K4 by source; their
+    template's int arguments: K3's or K4's rounding, lanes an edge, lanes a
+    channel, columns a lane, and the backward's wide passes), one line
+    each."""
     out = {}
     for source, kernels in PTXAS_KERNELS.items():
         cur = None

@@ -62,6 +62,11 @@
 //     16-byte vector atomics into dpk, whose rows the wrapper pads to a
 //     multiple of 4 columns (65 -> 68, 119 -> 120, 34 -> 36) and hands
 //     back as a view;
+//   * any width: one channel past the widest layout (K2 at kz > 256) walks
+//     its slice once per 256-column pass; each pass sums datt over the
+//     whole row before it forms its columns' terms, and only the last
+//     writes dpre and da_dst (a layout holds J columns a lane in
+//     registers, and dpre needs datt over every column);
 //   * da_dst stays one atomic a (edge, channel) by dst, the dst changing
 //     from edge to edge of a run; it is summed as [num_rows, n_ch], so an
 //     edge's channels share a sector (the wrapper transposes it): summed
@@ -108,11 +113,15 @@ constexpr int kWarps = kThreads / 32;
 
 // K2 / K4 on a walk of the edges.  A worker of GE lanes (32 / GE a warp,
 // each with its own slice of the walk) takes one edge at a time; lane l of
-// a worker holds channel l / GC and that channel's columns k = l % GC + j
-// * GC, j < J.  dpk: f32[n, stride], stride = n_ch * (kz+1) rounded up to
-// 4; dadst: f32[num_rows, n_ch]; shared memory: one row of `stride` floats
-// a worker.
-template <typename T, bool RoundAttFirst, int GE, int GC, int J>
+// a worker holds channel l / GC and that channel's columns k = base + l %
+// GC + j * GC, j < J, of the pass at column `base`.  Wide (K2 past its
+// widest layout, one channel): the worker walks its slice once per GC * J
+// columns, each pass summing datt over every column of the row before it
+// forms the pass's outputs, and only the last pass writes dpre and da_dst;
+// otherwise one pass, base 0.  dpk: f32[n, stride], stride = n_ch * (kz+1)
+// rounded up to 4; dadst: f32[num_rows, n_ch]; shared memory: one row of
+// gat::walk_row_floats floats a worker, the pass's columns of dpk's row.
+template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide>
 __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
     const T* __restrict__ table, const float* __restrict__ gtab,
     const float* __restrict__ logden, const float* __restrict__ adst,
@@ -121,6 +130,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
     long long num_edges, int num_rows, int kz, int n_ch, int stride, int slice,
     float slope) {
   constexpr int kWorkers = 32 / GE;  // a warp's
+  constexpr int kCols = GC * J;  // a channel's columns in one pass
   extern __shared__ float4 smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wl = lane & (GE - 1), wk = lane / GE;  // lane in its worker, worker
@@ -128,92 +138,107 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
   const int c = wl / GC, gl = wl & (GC - 1);  // the lane's channel, lane in it
   const bool chv = c < n_ch;
   const int bz = kz + 1, width = n_ch * bz;
-  float* buf = reinterpret_cast<float*>(smem) + (warp * kWorkers + wk) * stride;
-  for (int q = wl; q < stride; q += GE) buf[q] = 0.f;  // the pad columns stay 0
-  __syncwarp();
+  const int bw = gat::walk_row_floats(stride, kCols, Wide);
+  float* buf = reinterpret_cast<float*>(smem) + (warp * kWorkers + wk) * bw;
   // the worker's slice [k0, k0 + slice); every worker of the warp runs the
   // same trip counts (positions past the walk read as padding), so that
   // the shuffles see every lane
   const long long k0 = (((long long)blockIdx.x * kWarps + warp) * kWorkers + wk) * slice;
-  bool colv[J];
+  for (int base = 0; base < (Wide ? kz : 1); base += kCols) {
+    // the last pass also writes dpre (column kz), the pad columns and da_dst
+    const bool last = !Wide || base + kCols >= kz;
+    const int span = last ? stride - base : kCols;  // dpk columns this pass writes
+    for (int q = wl; q < bw; q += GE) buf[q] = 0.f;  // unwritten columns stay 0
+    __syncwarp(wmask);
+    bool colv[J];
 #pragma unroll
-  for (int j = 0; j < J; ++j) colv[j] = chv && gl + j * GC < kz;
-  float acc[J], accd = 0.f;  // the run's sums
-  int cur = -1;  // the run's source; -1 before the slice's first real edge
+    for (int j = 0; j < J; ++j) colv[j] = chv && base + gl + j * GC < kz;
+    float acc[J], accd = 0.f;  // the run's sums
+    int cur = -1;  // the run's source; -1 before the slice's first real edge
 
-  // the run's row of dpk: the worker's columns and dpre into its shared
-  // row, then 16-byte atomics (the worker's lanes only: a run ends where
-  // the worker's source changes)
-  auto flush = [&]() {
+    // the run's row of dpk: the worker's columns and dpre into its shared
+    // row, then 16-byte atomics (the worker's lanes only: a run ends where
+    // the worker's source changes)
+    auto flush = [&]() {
 #pragma unroll
-    for (int j = 0; j < J; ++j)
-      if (colv[j]) buf[c * bz + gl + j * GC] = acc[j];
-    if (chv && gl == 0) buf[c * bz + kz] = accd;
-    __syncwarp(wmask);
-    float4* out = reinterpret_cast<float4*>(dpk + (long long)cur * stride);
-    const float4* b4 = reinterpret_cast<const float4*>(buf);
-    for (int q = wl; q < stride / 4; q += GE) atomicAdd(out + q, b4[q]);
-    __syncwarp(wmask);
-  };
-  for (int kb = 0; kb < slice; kb += GE) {
-    int my_s = 0, my_d = num_rows;  // positions past the slice read as padding
-    if (kb + wl < slice && k0 + kb + wl < num_edges) {
-      const long long k = k0 + kb + wl;
-      my_s = __ldg(ids + k);
-      my_d = __ldg(dst + __ldg(perm + k));
-    }
-    for (int i = 0; i < GE && i < slice; ++i) {
-      const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
-      const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
-      const bool real = d < num_rows;  // padding: no load
-      const float* grow = gtab + (long long)d * width + c * bz;
-      const T* row = table + (long long)s * width + c * bz;
-      const long long cd = (long long)c * num_rows + d;
-      const bool v = real && chv;
-      float g[J], part = 0.f;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        g[j] = v && colv[j] ? __ldg(grow + gl + j * GC) : 0.f;
-        const float z = v && colv[j] ? to_f32(row[gl + j * GC]) : 0.f;
-        // datt: the lane's columns in order, then a butterfly within the
-        // channel's lanes (every lane ends with the same sum)
-        float gz = __fmul_rn(g[j], z);
-        if (RoundAttFirst) gz = round_t<T>(gz);
-        if (colv[j]) part = __fadd_rn(part, gz);
+      for (int j = 0; j < J; ++j)
+        if (colv[j]) buf[c * bz + gl + j * GC] = acc[j];
+      if (last && chv && gl == 0) buf[c * bz + kz - base] = accd;
+      __syncwarp(wmask);
+      float4* out = reinterpret_cast<float4*>(dpk + (long long)cur * stride + base);
+      const float4* b4 = reinterpret_cast<const float4*>(buf);
+      for (int q = wl; q < span / 4; q += GE) atomicAdd(out + q, b4[q]);
+      __syncwarp(wmask);
+    };
+    for (int kb = 0; kb < slice; kb += GE) {
+      int my_s = 0, my_d = num_rows;  // positions past the slice read as padding
+      if (kb + wl < slice && k0 + kb + wl < num_edges) {
+        const long long k = k0 + kb + wl;
+        my_s = __ldg(ids + k);
+        my_d = __ldg(dst + __ldg(perm + k));
       }
-      const float gout = v ? __ldg(grow + kz) : 0.f;
-      const float ld = v ? __ldg(logden + cd) : 0.f;
-      const float pre = v ? __ldg(adst + cd) + to_f32(row[kz]) : 0.f;
+      for (int i = 0; i < GE && i < slice; ++i) {
+        const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
+        const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
+        const bool real = d < num_rows;  // padding: no load
+        const float* grow = gtab + (long long)d * width + c * bz;
+        const T* row = table + (long long)s * width + c * bz;
+        const long long cd = (long long)c * num_rows + d;
+        const bool v = real && chv;
+        float g[J], part = 0.f;
 #pragma unroll
-      for (int o = GC / 2; o > 0; o >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-      if (!real) continue;  // uniform in the worker: neither adds nor ends a run
-      // _rn intrinsics keep nvcc from contracting into FMAs, so every
-      // product and difference rounds as the plain version's does
-      const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
-      const float att = expf(fminf(__fsub_rn(act, ld), 60.f));
-      const float dalpha = __fmul_rn(att, __fsub_rn(part, gout));
-      const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
-      const float dpre_t = round_t<T>(dpre);
-      if (chv && gl == 0)  // dadst by dst, then channel: an edge's channels share a sector
-        atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);
-      const float a = RoundAttFirst ? round_t<T>(att) : att;
-      // the sums by source, in walk order: a new source flushes the run
-      const bool fresh = s != cur;
-      if (fresh && cur >= 0) flush();
-      cur = s;
+        for (int j = 0; j < J; ++j) {
+          g[j] = v && colv[j] ? __ldg(grow + base + gl + j * GC) : 0.f;
+          if (Wide) continue;  // datt below, over every pass's columns
+          const float z = v && colv[j] ? to_f32(row[gl + j * GC]) : 0.f;
+          // datt: the lane's columns in order, then a butterfly within the
+          // channel's lanes (every lane ends with the same sum)
+          float gz = __fmul_rn(g[j], z);
+          if (RoundAttFirst) gz = round_t<T>(gz);
+          if (colv[j]) part = __fadd_rn(part, gz);
+        }
+        if (Wide && v) {  // the lane's columns of every pass, in order
+          for (int k = gl; k < kz; k += GC) {
+            float gz = __fmul_rn(__ldg(grow + k), to_f32(row[k]));
+            if (RoundAttFirst) gz = round_t<T>(gz);
+            part = __fadd_rn(part, gz);
+          }
+        }
+        const float gout = v ? __ldg(grow + kz) : 0.f;
+        const float ld = v ? __ldg(logden + cd) : 0.f;
+        const float pre = v ? __ldg(adst + cd) + to_f32(row[kz]) : 0.f;
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float t = round_t<T>(__fmul_rn(g[j], a));
-        acc[j] = fresh ? t : __fadd_rn(acc[j], t);
+        for (int o = GC / 2; o > 0; o >>= 1)
+          part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+        if (!real) continue;  // uniform in the worker: neither adds nor ends a run
+        // _rn intrinsics keep nvcc from contracting into FMAs, so every
+        // product and difference rounds as the plain version's does
+        const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
+        const float att = expf(fminf(__fsub_rn(act, ld), 60.f));
+        const float dalpha = __fmul_rn(att, __fsub_rn(part, gout));
+        const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
+        const float dpre_t = round_t<T>(dpre);
+        if (last && chv && gl == 0)  // dadst by dst, then channel: an edge's channels share a sector
+          atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);
+        const float a = RoundAttFirst ? round_t<T>(att) : att;
+        // the sums by source, in walk order: a new source flushes the run
+        const bool fresh = s != cur;
+        if (fresh && cur >= 0) flush();
+        cur = s;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float t = round_t<T>(__fmul_rn(g[j], a));
+          acc[j] = fresh ? t : __fadd_rn(acc[j], t);
+        }
+        accd = fresh ? dpre_t : __fadd_rn(accd, dpre_t);
       }
-      accd = fresh ? dpre_t : __fadd_rn(accd, dpre_t);
     }
+    if (cur >= 0) flush();
+    __syncwarp(wmask);  // the next pass zeroes buf
   }
-  if (cur >= 0) flush();
 }
 
-template <typename T, bool RoundAttFirst, int GE, int GC, int J>
+template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide>
 void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void* logden,
                  const void* adst, const void* perm, const void* ids, const void* dst, void* dpk,
                  void* dadst, long long num_edges, int num_rows, int kz, int n_ch, int stride,
@@ -221,8 +246,9 @@ void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void
   const long long per_warp = (long long)slice * (32 / GE);
   const long long warps = (num_edges + per_warp - 1) / per_warp;
   const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
-  const size_t smem = (size_t)kThreads / GE * stride * sizeof(float);
-  gat_bwd_walk_kernel<T, RoundAttFirst, GE, GC, J><<<grid, kThreads, smem, s>>>(
+  const size_t smem =
+      (size_t)kThreads / GE * gat::walk_row_floats(stride, GC * J, Wide) * sizeof(float);
+  gat_bwd_walk_kernel<T, RoundAttFirst, GE, GC, J, Wide><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(table), static_cast<const float*>(gtab),
       static_cast<const float*>(logden), static_cast<const float*>(adst),
       static_cast<const int*>(perm), static_cast<const int*>(ids), static_cast<const int*>(dst),
@@ -232,30 +258,31 @@ void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void
 
 // The worker layout (GE lanes an edge, GC lanes a channel, J columns a
 // lane) for (kz, n_ch), or false where none is built: K2's rounding for
-// one channel at kz <= 256, K4's for n_ch <= 8 at kz <= 128.
+// one channel at any kz (past 256 in 256-column passes), K4's for n_ch <=
+// 8 at kz <= 128.
 template <typename T, bool RoundAttFirst>
 bool launch_walk(cudaStream_t s, const void* table, const void* gtab, const void* logden,
                  const void* adst, const void* perm, const void* ids, const void* dst, void* dpk,
                  void* dadst, long long num_edges, int num_rows, int kz, int n_ch, int stride,
                  int slice, float slope) {
-#define GAT_BWD_WALK(GE, GC, J)                                                             \
-  launch_walk<T, RoundAttFirst, GE, GC, J>(s, table, gtab, logden, adst, perm, ids, dst, dpk, \
-                                           dadst, num_edges, num_rows, kz, n_ch, stride,      \
-                                           slice, slope)
+#define GAT_BWD_WALK(GE, GC, J, WIDE)                                                       \
+  launch_walk<T, RoundAttFirst, GE, GC, J, WIDE>(s, table, gtab, logden, adst, perm, ids, dst, \
+                                                 dpk, dadst, num_edges, num_rows, kz, n_ch,   \
+                                                 stride, slice, slope)
   if constexpr (!RoundAttFirst) {  // K2: one channel
     if (n_ch != 1) return false;
-    if (kz <= 32) GAT_BWD_WALK(8, 8, 4);
-    else if (kz <= 64) GAT_BWD_WALK(16, 16, 4);
-    else if (kz <= 128) GAT_BWD_WALK(16, 16, 8);
-    else if (kz <= 256) GAT_BWD_WALK(32, 32, 8);
-    else return false;
+    if (kz <= 32) GAT_BWD_WALK(8, 8, 4, false);
+    else if (kz <= 64) GAT_BWD_WALK(16, 16, 4, false);
+    else if (kz <= 128) GAT_BWD_WALK(16, 16, 8, false);
+    else if (kz <= 256) GAT_BWD_WALK(32, 32, 8, false);
+    else GAT_BWD_WALK(32, 32, 8, true);
   } else {  // K4
-    if (kz <= 16 && n_ch <= 2) GAT_BWD_WALK(16, 8, 2);
-    else if (kz <= 16 && n_ch <= 4) GAT_BWD_WALK(16, 4, 4);
-    else if (kz <= 16) GAT_BWD_WALK(32, 4, 4);
-    else if (kz <= 32) GAT_BWD_WALK(32, 4, 8);
-    else if (kz <= 64) GAT_BWD_WALK(32, 4, 16);
-    else if (kz <= 128) GAT_BWD_WALK(32, 4, 32);
+    if (kz <= 16 && n_ch <= 2) GAT_BWD_WALK(16, 8, 2, false);
+    else if (kz <= 16 && n_ch <= 4) GAT_BWD_WALK(16, 4, 4, false);
+    else if (kz <= 16) GAT_BWD_WALK(32, 4, 4, false);
+    else if (kz <= 32) GAT_BWD_WALK(32, 4, 8, false);
+    else if (kz <= 64) GAT_BWD_WALK(32, 4, 16, false);
+    else if (kz <= 128) GAT_BWD_WALK(32, 4, 32, false);
     else return false;
   }
 #undef GAT_BWD_WALK
@@ -344,7 +371,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_glue_kernel(
 // n_ch*(kz+1) rounded up to a multiple of 4, 16-byte aligned, and dadst:
 // f32[num_rows, n_ch] (by dst, then channel), both zeroed by the caller.  `round_att_first`
 // selects K4's rounding points (n_ch <= 8, kz <= 128) over K2's (n_ch 1,
-// kz <= 256).  Launches on `stream`; returns cudaGetLastError() (or
+// any kz).  Launches on `stream`; returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments it refuses).
 extern "C" int gat_bwd(int device, const void* table, int bf16, int round_att_first,
                        const void* gtab, const void* logden, const void* adst,

@@ -1,8 +1,10 @@
 // gat_common: device helpers shared by the GAT kernels (gat_fwd.cu,
 // gat_bwd.cu, gat_bwd_onepass.cu, stream_gat.cu; segment.cu takes the
-// ordered-int image), and the forward edge walk that the flash and
-// batched forwards (K1, K12, K3) run.  The streaming forward (K9) sums the
-// same terms with its own dst-block pieces (stream_gat.cu).
+// ordered-int image), and the per-edge forward walk that K12-online's
+// second pass runs (gat_fwd.cu gat_fwd_online).  The flash and batched
+// forwards (K1, K12, K3) sum the same terms on the graph's walk by dst
+// (gat_fwd.cu gat_fwd_walk_kernel), the streaming forward (K9) with its
+// own dst-block pieces (stream_gat.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +56,14 @@ __device__ __forceinline__ float edge_weight(float pre, float shift, float slope
   return expf(fminf(__fsub_rn(act, shift), 60.f));
 }
 
+// Floats of one worker's row in shared memory in the GAT walks (gat_fwd.cu
+// by dst, gat_bwd.cu by source): the whole padded row of `stride` floats,
+// or where one channel takes passes of `cols` columns, a pass's columns
+// and the 4 after them (the last pass's p or dpre column and the padding).
+__host__ __device__ __forceinline__ int walk_row_floats(int stride, int cols, bool passes) {
+  return passes && stride > cols + 4 ? cols + 4 : stride;
+}
+
 // Blocks for a one-warp-per-edge grid of 256-thread blocks, grid-stride
 // past 64 blocks per SM.
 inline unsigned warp_edge_blocks(long long num_edges) {
@@ -62,8 +72,10 @@ inline unsigned warp_edge_blocks(long long num_edges) {
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
-// Forward edge walk, one warp per edge, for n_ch <= 8 channels that share
-// one edge list.  Per channel c and edge (s, d) with d < num_rows:
+// Forward edge walk, one warp per edge in the edges' own order, for n_ch
+// <= 8 channels that share one edge list: K12-online's second pass runs it
+// (one channel, RoundPFirst false), as K1/K12 and K3 ran it before their
+// walk by dst.  Per channel c and edge (s, d) with d < num_rows:
 //   p_c   = exp(min(leaky(a_dst[c, d] + a_src_c[s]) - mhat[c, d], 60))
 //   acc[d, band c] += [ round_T(z_c[s] * q_c) | round_T(p_c) ]  (f32 atomics)
 // with q_c = round_T(p_c) when RoundPFirst (K3) and p_c otherwise (K1,

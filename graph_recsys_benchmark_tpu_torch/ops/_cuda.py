@@ -37,10 +37,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry -> (source in csrc/, ctypes argtypes)
 _SIGNATURES = {
-    # device, table, bf16, round_p_first, adst, mhat, src, dst, acc,
-    # num_edges, num_rows, kz, n_ch, slope, stream
-    "gat_fwd": ("gat_fwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P,
-                            _L, _I, _I, _I, ctypes.c_float, _P]),
+    # device, table, bf16, round_p_first, adst, mhat, perm, ids, src, acc,
+    # num_edges, num_rows, kz, n_ch, stride, slope, stream
+    "gat_fwd": ("gat_fwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _L, _I, _I, _I, _I, ctypes.c_float, _P]),
     # device, table, bf16, round_att_first, gtab, logden, adst, perm, ids,
     # dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slope, stream
     "gat_bwd": ("gat_bwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

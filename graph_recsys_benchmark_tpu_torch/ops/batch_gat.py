@@ -10,7 +10,8 @@ over a loop-materialized edge list.
 
 Kernels: ``batch_gat_fwd`` launches csrc/gat_fwd.cu (ops/flash_gat.gat_fwd)
 at K3's rounding points and replaces the TPU kernel K3
-(ops/batch_gat.py:_make_fwd_kernel); ``batch_gat_bwd`` launches
+(ops/batch_gat.py:_make_fwd_kernel), walking the graph's stable sort by dst
+(``dst_perm`` / ``dst_sorted``); ``batch_gat_bwd`` launches
 csrc/gat_bwd.cu (ops/flash_gat.gat_bwd) at K4's rounding points and
 replaces K4 (ops/batch_gat.py:_make_bwd_kernel), walking the graph's
 stable sort by source (``src_perm`` / ``src_sorted``).  Their input is the
@@ -28,6 +29,7 @@ import torch
 
 from .flash_gat import (
     bound_shift,
+    dst_walk,
     gat_bwd,
     gat_bwd_plain,
     gat_fwd,
@@ -60,27 +62,30 @@ def _pack_tables(z, a_src, a_dst, num_rows, kz, n_ch, negative_slope, t_dtype):
 
 
 def batch_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
-                        negative_slope=0.2):
+                        negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Plain PyTorch version of batch_gat_fwd, same inputs and rounding
     points: acc[num_rows, n_ch*(kz+1)] f32, band c = Σ_e [round_T(z_c·p_c) |
-    p_c] with p_c rounded through the transport dtype first."""
+    p_c] with p_c rounded through the transport dtype first; the walk is
+    accepted and not read (flash_gat.flash_gat_fwd_plain)."""
     return gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, True,
                          negative_slope)
 
 
 def batch_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
-                  negative_slope=0.2):
+                  negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Unnormalized accumulator ``[num_rows, n_ch*(kz+1)]`` f32 (band column
     kz = s_c): ops/flash_gat.gat_fwd at K3's rounding points.
 
     table: [n, n_ch*(kz+1)] row-major bands in the transport dtype; adst_r,
     mhat: f32[n_ch, num_rows]; src, dst: int32[E] with padding ``dst >=
-    num_rows``.  Launches counted in ``batch_gat_fwd.launches``."""
+    num_rows``; dst_perm, dst_sorted: the walk by dst (flash_gat.gat_fwd;
+    required on a CUDA tensor).  Launches counted in
+    ``batch_gat_fwd.launches``."""
     n_ch = adst_r.shape[0]
     if not (1 <= n_ch <= MAX_CHANNELS and 1 <= kz <= MAX_KZ):
         raise ValueError(f"batch_gat_fwd: n_ch {n_ch} / kz {kz} outside 1..8 / 1..125")
     return gat_fwd(batch_gat_fwd, table, adst_r, mhat, src, dst, num_rows, kz,
-                   True, negative_slope)
+                   True, negative_slope, dst_perm, dst_sorted)
 
 
 batch_gat_fwd.launches = 0
@@ -119,20 +124,21 @@ class BatchGAT(torch.autograd.Function):
     """batch_gat_fwd + normalization, differentiable in z, a_src and a_dst.
 
     forward(z f32[n_ch, N, kz], a_src, a_dst f32[n_ch, N], src, dst,
-    src_perm, src_sorted int32[E] (the walk of the backward), num_rows,
-    negative_slope, transport) -> out f32[n_ch, N, kz].
+    src_perm, src_sorted int32[E] (the walk of the backward), dst_perm,
+    dst_sorted int32[E] (the forward's), num_rows, negative_slope,
+    transport) -> out f32[n_ch, N, kz].
     The backward builds the stat bands as ``_batch_bwd`` does
     (ops/batch_gat.py:532-552) and returns dz, da_src, da_dst in f32
     (:608-612).  A graph without edges gives exact zeros both ways."""
 
     @staticmethod
-    def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, num_rows,
-                negative_slope, transport):
+    def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, dst_perm, dst_sorted,
+                num_rows, negative_slope, transport):
         n_ch, _, kz = z.shape
         table, adst_r, mhat = _pack_tables(z, a_src, a_dst, num_rows, kz, n_ch,
                                            negative_slope, t_dtype_of(transport))
         acc = batch_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
-                            negative_slope)
+                            negative_slope, dst_perm=dst_perm, dst_sorted=dst_sorted)
         acc_b = acc.view(num_rows, n_ch, kz + 1)
         s = acc_b[:, :, kz].t()  # [n_ch, N]
         out = acc_b[:, :, :kz].permute(1, 0, 2) / (s[:, :, None] + 1e-16)
@@ -156,24 +162,27 @@ class BatchGAT(torch.autograd.Function):
         dpk_b = dpk.unflatten(1, (n_ch, kz + 1))[:num_rows]
         dz = dpk_b[:, :, :kz].permute(1, 0, 2)
         da_src = dpk_b[:, :, kz].t()
-        return dz, da_src, da_dst, None, None, None, None, None, None, None
+        return dz, da_src, da_dst, None, None, None, None, None, None, None, None, None
 
 
 def batch_gat_attention(z, a_src, a_dst, src, dst, num_rows,
                         negative_slope=0.2, transport="f32", src_perm=None,
-                        src_sorted=None):
+                        src_sorted=None, dst_perm=None, dst_sorted=None):
     """Single-head GAT attention for n_ch channels sharing ONE
     loop-materialized edge list (padding sentinel ``dst == num_rows``).
 
     z: [n_ch, num_rows, kz]; a_src/a_dst: [n_ch, num_rows] f32; src_perm,
     src_sorted: the StepGraph's walk by source, read by the backward (None =
-    flash_gat.src_walk of `src`, a sort, for callers without a StepGraph).
-    Returns [n_ch, num_rows, kz] f32, differentiable in z, a_src and a_dst
-    (BatchGAT)."""
+    flash_gat.src_walk of `src`, a sort, for callers without a StepGraph);
+    dst_perm, dst_sorted: its walk by dst, read by the forward (None =
+    flash_gat.dst_walk of `dst`).  Returns [n_ch, num_rows, kz] f32,
+    differentiable in z, a_src and a_dst (BatchGAT)."""
     src = src.to(torch.int32).contiguous()
+    dst = dst.to(torch.int32).contiguous()
     src_perm, src_sorted = src_walk(src, src_perm, src_sorted)
+    dst_perm, dst_sorted = dst_walk(dst, dst_perm, dst_sorted)
     return BatchGAT.apply(
-        z, a_src, a_dst, src, dst.to(torch.int32).contiguous(), src_perm, src_sorted,
+        z, a_src, a_dst, src, dst, src_perm, src_sorted, dst_perm, dst_sorted,
         num_rows, negative_slope, transport,
     )
 

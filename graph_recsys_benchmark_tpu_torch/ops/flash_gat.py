@@ -17,11 +17,13 @@ and returns the unnormalized accumulator; ``flash_gat_fwd`` is its
 one-channel case at K1's rounding points, ``[Σ round_T(p·z) | Σ
 round_T(p)]``, and replaces both TPU forms (K1 chunk-major, K12 dst-block in
 bound-shift mode), which differ only in how the TPU grid walks the edges.
-``gat_bwd`` launches the backward; ``flash_gat_bwd`` is its one-channel
-case at K2's rounding points (the fused glue kernel, ``_flash_bwd``'s
-choice at ops/flash_gat.py:1443-1450).  The backward walks the graph's
-stable sort by source (``src_perm`` / ``src_sorted``, StepGraph's; the
-callers without a StepGraph build it with ``src_walk``), summing each
+The forward walks the graph's stable sort by dst (``dst_perm`` /
+``dst_sorted``, StepGraph's; the callers without a StepGraph build it with
+``dst_walk``), summing each dst row's run before it writes.  ``gat_bwd``
+launches the backward; ``flash_gat_bwd`` is its one-channel case at K2's
+rounding points (the fused glue kernel, ``_flash_bwd``'s choice at
+ops/flash_gat.py:1443-1450).  The backward walks the graph's stable sort by
+source (``src_perm`` / ``src_sorted``; ``src_walk``), summing each
 source's run before it writes.  A CUDA tensor takes the kernel, a CPU
 tensor the plain version in this module.
 
@@ -127,10 +129,18 @@ def gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, round_p_first,
     round_T(p_c)] by dst, with q_c = round_T(p_c) if `round_p_first` (K3)
     else p_c (K1/K12).  `acc_dtype` float64 gives the exact sums of the
     same terms (the card check's reference for atomic sums)."""
-    t_dtype = table.dtype
-    n_ch = adst_r.shape[0]
     real = dst < num_rows
     s, d = src[real].long(), dst[real].long()
+    msg = _fwd_edge_terms(table, adst_r, mhat, s, d, kz, round_p_first, negative_slope)
+    return segment_sum(msg.to(acc_dtype), d, num_rows)
+
+
+def _fwd_edge_terms(table, adst_r, mhat, s, d, kz, round_p_first, negative_slope):
+    """gat_fwd_plain's per-edge terms for the real edges (s, d) (int64):
+    f32[e, n_ch*(kz+1)], band c = [round_T(z_c·q_c) | round_T(p_c)],
+    transport-dtype values."""
+    t_dtype = table.dtype
+    n_ch = adst_r.shape[0]
     rows = table[s].float().view(-1, n_ch, kz + 1)
     pre = adst_r[:, d].t() + rows[:, :, kz]
     act = torch.where(pre > 0, pre, negative_slope * pre)
@@ -138,7 +148,7 @@ def gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz, round_p_first,
     q = p.to(t_dtype).float() if round_p_first else p
     msg = torch.cat([(rows[:, :, :kz] * q[:, :, None]).to(t_dtype).float(),
                      p.to(t_dtype).float()[:, :, None]], dim=2)
-    return segment_sum(msg.reshape(-1, n_ch * (kz + 1)).to(acc_dtype), d, num_rows)
+    return msg.reshape(-1, n_ch * (kz + 1))
 
 
 def _check_table(name, table, n_ch, kz):
@@ -158,56 +168,70 @@ def _check_table(name, table, n_ch, kz):
 
 
 def gat_fwd(counter, table, adst_r, mhat, src, dst, num_rows, kz, round_p_first,
-            negative_slope=0.2):
+            negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Unnormalized accumulator ``[num_rows, n_ch*(kz+1)]`` f32 (band column
     kz = s_c) for n_ch <= 8 channels over one edge list.
 
     table: [n, n_ch*(kz+1)] row-major bands ``[z_c | a_src_c]`` in the
     transport dtype (f32 or bf16), n > max real src; adst_r, mhat:
     f32[n_ch, num_rows]; src, dst: int32[E] with padding ``dst >=
-    num_rows``.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, counted in ``counter.launches`` (the calling wrapper), or
-    raise."""
+    num_rows``; dst_perm, dst_sorted: int32[E], the stable sort of dst and
+    dst[dst_perm] (required on a CUDA tensor, check_dst_walk), the kernel's
+    walk: it sums each dst row's run of edges before one write.  On the card
+    the result is a view of a zeroed buffer whose rows are padded to a
+    multiple of 4 columns.  K1's rounding points take one channel and any
+    kz, K3's kz <= 128.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel, counted in ``counter.launches`` (the calling
+    wrapper), or raise."""
     if table.device.type == "cpu":
         return gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                              round_p_first, negative_slope)
     n_ch = adst_r.shape[0]
     dev, width = _check_table("gat_fwd", table, n_ch, kz)
+    if kz > 128 if round_p_first else n_ch != 1:
+        raise ValueError(f"gat_fwd: kz {kz} / n_ch {n_ch} outside the kernel's layouts "
+                         "(K1/K12: one channel; K3: kz <= 128)")
     e = dst.shape[0]
     _cuda.require(adst_r, "adst_r", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(mhat, "mhat", torch.float32, (n_ch, num_rows), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
-    acc = torch.zeros((num_rows, width), dtype=torch.float32, device=dev)
-    if e == 0:
-        return acc
-    _cuda.launch(
-        "gat_fwd", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        int(round_p_first), adst_r.data_ptr(), mhat.data_ptr(), src.data_ptr(),
-        dst.data_ptr(), acc.data_ptr(), e, num_rows, kz, n_ch, float(negative_slope),
-    )
-    counter.launches += 1
-    return acc
+    check_dst_walk(dst, dst_perm, dst_sorted)
+    stride = -(-width // 4) * 4  # 16-byte rows for the kernel's vector atomics
+    acc = torch.zeros((num_rows, stride), dtype=torch.float32, device=dev)
+    if e > 0:
+        _cuda.launch(
+            "gat_fwd", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+            int(round_p_first), adst_r.data_ptr(), mhat.data_ptr(), dst_perm.data_ptr(),
+            dst_sorted.data_ptr(), src.data_ptr(), acc.data_ptr(), e, num_rows, kz, n_ch,
+            stride, float(negative_slope),
+        )
+        counter.launches += 1
+    return acc[:, :width]
 
 
 def flash_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
-                        negative_slope=0.2):
+                        negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Plain PyTorch version of flash_gat_fwd, same inputs and rounding
-    points: acc[num_rows, kz+1] f32 = Σ_e [round_T(p·z_src) | round_T(p)]."""
+    points: acc[num_rows, kz+1] f32 = Σ_e [round_T(p·z_src) | round_T(p)].
+    The walk (`dst_perm`, `dst_sorted`) is accepted and not read: every
+    real edge is summed by its own dst, so a walk that drops or repeats
+    edges shows as a mismatch with the kernel."""
     return gat_fwd_plain(table, adst_r[None], mhat[None], src, dst, num_rows, kz,
                          False, negative_slope)
 
 
 def flash_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
-                  negative_slope=0.2):
+                  negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Unnormalized accumulator ``[num_rows, kz+1]`` f32 (column kz = s):
     gat_fwd for one channel at K1's rounding points.
 
     table: [n, kz+1] row-major ``[z | a_src]`` rows in the transport dtype;
     adst_r, mhat: f32[num_rows]; src, dst: int32[E] with padding ``dst >=
-    num_rows``.  Launches counted in ``flash_gat_fwd.launches``."""
+    num_rows``; dst_perm, dst_sorted: the walk by dst (gat_fwd; required on
+    a CUDA tensor).  Launches counted in ``flash_gat_fwd.launches``."""
     return gat_fwd(flash_gat_fwd, table, adst_r[None], mhat[None], src, dst,
-                   num_rows, kz, False, negative_slope)
+                   num_rows, kz, False, negative_slope, dst_perm, dst_sorted)
 
 
 flash_gat_fwd.launches = 0
@@ -345,30 +369,55 @@ def _bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, round_att_first,
     return ct.reshape(-1, n_ch * bz), dpre
 
 
+def _sorted_walk(ids, perm, srt, side):
+    """(perm, ids[perm]) int32[E] on ids' device: the walk given, or the
+    stable sort of `ids` where neither half is given."""
+    if perm is None and srt is None:
+        perm = torch.argsort(ids, stable=True)
+        return perm.to(torch.int32), ids[perm].to(torch.int32)
+    if perm is None or srt is None:
+        raise ValueError(f"{side}_perm and {side}_sorted: pass both or neither")
+    return tuple(torch.as_tensor(w, device=ids.device).to(torch.int32).contiguous()
+                 for w in (perm, srt))
+
+
 def src_walk(src, src_perm=None, src_sorted=None):
     """(src_perm, src_sorted) int32[E] on src's device: the walk given (a
     StepGraph's), or where none is given the stable sort of `src` and
     src[perm] (graph.py builds the same for every StepGraph), for callers
     with bare edges."""
-    if src_perm is None and src_sorted is None:
-        perm = torch.argsort(src, stable=True)
-        return perm.to(torch.int32), src[perm].to(torch.int32)
-    if src_perm is None or src_sorted is None:
-        raise ValueError("src_perm and src_sorted: pass both or neither")
-    return tuple(torch.as_tensor(w, device=src.device).to(torch.int32).contiguous()
-                 for w in (src_perm, src_sorted))
+    return _sorted_walk(src, src_perm, src_sorted, "src")
+
+
+def dst_walk(dst, dst_perm=None, dst_sorted=None):
+    """(dst_perm, dst_sorted) int32[E] on dst's device, the forward's walk:
+    the one given (a StepGraph's), or where none is given the stable sort
+    of `dst` and dst[perm] (StepGraph.dst_perm / dst_sorted; the padding
+    sorts last), for callers with bare edges."""
+    return _sorted_walk(dst, dst_perm, dst_sorted, "dst")
+
+
+def _check_walk(kernel, ids, perm, srt, side):
+    if perm is None or srt is None:
+        raise ValueError(f"{kernel}: a CUDA call needs the walk ({side}_perm, {side}_sorted: "
+                         f"StepGraph's, or {side}_walk({side}))")
+    shape = (ids.shape[0],)
+    _cuda.require(perm, f"{side}_perm", torch.int32, shape, ids.device)
+    _cuda.require(srt, f"{side}_sorted", torch.int32, shape, ids.device)
 
 
 def check_walk(src, src_perm, src_sorted):
     """The backward kernel's walk validated against `src`: both given, each
     an int32 [E] contiguous tensor on src's device.  The values are not
     read (that would synchronise): src_sorted must be src[src_perm]."""
-    if src_perm is None or src_sorted is None:
-        raise ValueError("gat_bwd: a CUDA call needs the walk (src_perm, src_sorted: "
-                         "StepGraph's, or src_walk(src))")
-    shape = (src.shape[0],)
-    _cuda.require(src_perm, "src_perm", torch.int32, shape, src.device)
-    _cuda.require(src_sorted, "src_sorted", torch.int32, shape, src.device)
+    _check_walk("gat_bwd", src, src_perm, src_sorted, "src")
+
+
+def check_dst_walk(dst, dst_perm, dst_sorted):
+    """The forward kernel's walk validated against `dst`, as check_walk
+    validates the backward's: both given, each an int32 [E] contiguous
+    tensor on dst's device; dst_sorted must be dst[dst_perm] (not read)."""
+    _check_walk("gat_fwd", dst, dst_perm, dst_sorted, "dst")
 
 
 def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
@@ -384,7 +433,7 @@ def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
     sort of src and src[src_perm] (required on a CUDA tensor, check_walk).
     dpk's band c is ``[dz_c | da_src_c]``; on the card it is a view of a
     zeroed buffer whose rows are padded to a multiple of 4 columns.  K2's
-    rounding points take one channel and kz <= 256, K4's kz <= 128.  CPU
+    rounding points take one channel and any kz, K4's kz <= 128.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, counted
     in ``counter.launches`` (the calling wrapper), or raise."""
     if table.device.type == "cpu":
@@ -392,9 +441,9 @@ def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
                              round_att_first, negative_slope)
     n_ch = adst_r.shape[0]
     dev, width = _check_table("gat_bwd", table, n_ch, kz)
-    if kz > (128 if round_att_first else 256) or (not round_att_first and n_ch != 1):
+    if kz > 128 if round_att_first else n_ch != 1:
         raise ValueError(f"gat_bwd: kz {kz} / n_ch {n_ch} outside the kernel's layouts "
-                         "(K2: one channel, kz <= 256; K4: kz <= 128)")
+                         "(K2: one channel; K4: kz <= 128)")
     e = dst.shape[0]
     _cuda.require(gtab, "gtab", torch.float32, (num_rows, width), dev)
     _cuda.require(logden, "logden", torch.float32, (n_ch, num_rows), dev)
@@ -607,8 +656,9 @@ class FlashGAT(torch.autograd.Function):
     forward(table [n, kz+1] in the transport dtype, a_dst f32[num_rows],
     src, dst int32[E], block_bounds (int32[n_blocks+1], read by the one-pass
     backward only), src_perm, src_sorted (int32[E], the walk of the fused
-    backward, K2), num_rows, kz, negative_slope, mode) -> out f32[num_rows,
-    kz].  The shift is m̂ (bound_shift, K1/K12) or the row max m
+    backward, K2), dst_perm, dst_sorted (int32[E], the walk of the
+    bound-shift forward, K1/K12), num_rows, kz, negative_slope, mode) ->
+    out f32[num_rows, kz].  The shift is m̂ (bound_shift, K1/K12) or the row max m
     (online_shift, K12-online); it is a residual with no gradient, and
     logden = shift + log(s + 1e-16).  The backward builds the route's stat
     table as ``_flash_bwd`` does (ops/flash_gat.py:1360-1479): K2 and K13
@@ -619,8 +669,8 @@ class FlashGAT(torch.autograd.Function):
     A graph without edges gives exact zeros both ways."""
 
     @staticmethod
-    def forward(ctx, table, a_dst, src, dst, block_bounds, src_perm, src_sorted, num_rows,
-                kz, negative_slope, mode):
+    def forward(ctx, table, a_dst, src, dst, block_bounds, src_perm, src_sorted, dst_perm,
+                dst_sorted, num_rows, kz, negative_slope, mode):
         if mode.softmax_shift == "online":
             adst_r, shift = online_shift(table, a_dst, src, dst, num_rows, kz,
                                          negative_slope)
@@ -630,7 +680,7 @@ class FlashGAT(torch.autograd.Function):
             adst_r, shift = bound_shift(a_dst, table[:num_rows, kz], negative_slope,
                                         table.dtype)
             acc = flash_gat_fwd(table, adst_r, shift, src, dst, num_rows, kz,
-                                negative_slope)
+                                negative_slope, dst_perm=dst_perm, dst_sorted=dst_sorted)
         s = acc[:, kz]
         out = acc[:, :kz] / (s[:, None] + 1e-16)
         ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, block_bounds, src_perm,
@@ -645,7 +695,7 @@ class FlashGAT(torch.autograd.Function):
         num_rows, kz, negative_slope, mode = ctx.consts
         if dst.shape[0] == 0:  # JAX flash_gat.py:1354-1356
             return (torch.zeros_like(table), torch.zeros_like(adst_r), None, None, None,
-                    None, None, None, None, None, None)
+                    None, None, None, None, None, None, None, None)
         g = g.float()
         gout = (g * out).sum(dim=1, keepdim=True)
         logden = shift + torch.log(s + 1e-16)
@@ -667,12 +717,13 @@ class FlashGAT(torch.autograd.Function):
                                             num_rows, kz, negative_slope, src_perm=src_perm,
                                             src_sorted=src_sorted)
         return (dpk.to(table.dtype), da_dst, None, None, None, None, None, None, None, None,
-                None)
+                None, None, None)
 
 
 def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
                              negative_slope=0.2, transport="f32", mode=FlashGATMode(),
-                             block_bounds=None, src_perm=None, src_sorted=None):
+                             block_bounds=None, src_perm=None, src_sorted=None,
+                             dst_perm=None, dst_sorted=None):
     """out[i] = Σ_e softmax_dst(leaky_relu(a_dst[i] + a_src[j]))_e · z[j]
     for single-head GAT, from the row-major table the kernel reads.
 
@@ -682,7 +733,9 @@ def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
     block_bounds: the StepGraph's, for the one-pass backward (None =
     dst_block_bounds of `dst`); src_perm, src_sorted: the StepGraph's walk
     by source, for the fused backward (None = src_walk of `src`, a sort,
-    for callers without a StepGraph).  Returns [num_rows, kz] f32,
+    for callers without a StepGraph); dst_perm, dst_sorted: its walk by dst,
+    for the bound-shift forward (None = dst_walk of `dst`).  Returns
+    [num_rows, kz] f32,
     differentiable in table and a_dst (FlashGAT).  The cast to the
     transport dtype stays outside the Function, so the table's gradient is
     rounded to it as the JAX VJP's is."""
@@ -693,21 +746,26 @@ def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
         block_bounds = dst_block_bounds(dst, num_rows)
     if mode.bwd == "fused":
         src_perm, src_sorted = src_walk(src, src_perm, src_sorted)
+    if mode.softmax_shift == "bound":
+        dst_perm, dst_sorted = dst_walk(dst, dst_perm, dst_sorted)
     return FlashGAT.apply(
         table, a_dst.float().contiguous(), src, dst, block_bounds, src_perm, src_sorted,
-        num_rows, kz, negative_slope, mode,
+        dst_perm, dst_sorted, num_rows, kz, negative_slope, mode,
     )
 
 
 def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
                         num_rows, kz, negative_slope=0.2, transport="f32",
-                        mode=FlashGATMode(), block_bounds=None):
+                        mode=FlashGATMode(), block_bounds=None, dst_perm=None,
+                        dst_sorted=None):
     """flash_gat_attention_rows with the JAX signature.
 
     packed_t: [k_pad, n_src_pad] column-major ``[z | a_src]`` table
     (pack_gat_table), copied once to the row-major [n_src_pad, kz+1];
     src_perm/src_sorted: the StepGraph's src-sorted permutation, the walk
-    of the fused backward (None, None: built with src_walk)."""
+    of the fused backward (None, None: built with src_walk);
+    dst_perm/dst_sorted: its dst-sorted one, the forward's walk (None,
+    None: built with dst_walk)."""
     _, k_pad, n_src_pad = _layout(num_rows, kz)
     if tuple(packed_t.shape) != (k_pad, n_src_pad):
         raise ValueError(
@@ -715,7 +773,7 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
         )
     return flash_gat_attention_rows(packed_t[: kz + 1].t(), a_dst, src, dst,
                                     num_rows, kz, negative_slope, transport, mode,
-                                    block_bounds, src_perm, src_sorted)
+                                    block_bounds, src_perm, src_sorted, dst_perm, dst_sorted)
 
 
 def flash_gat_reference(packed_t, a_dst, src, dst, num_rows, kz,

@@ -6,12 +6,19 @@ the flagship's (bench.py:42-59): the step-1 union graph (kz 64, 15,210 rows,
 169,472 padded edges) for flash_gat_fwd and flash_gat_bwd, the step-2
 shared i2u/u2i graph (kz 16, 1,690 rows, 73,728 padded edges, 7 and 2
 channels) for batch_gat_fwd and batch_gat_bwd.  Random block-ordered edges
-from a numpy seed stand in for the graphs; the backwards get the stats of
-the forward on the same inputs and walk the edges' stable sort by source
-(flash_gat.src_walk, as StepGraph.src_perm / src_sorted), and K4 also
+from a numpy seed stand in for the graphs; the forwards walk the edges'
+stable sort by dst (flash_gat.dst_walk, as StepGraph.dst_perm /
+dst_sorted), the backwards get the stats of the forward on the same inputs
+and walk the edges' stable sort by source (flash_gat.src_walk, as
+StepGraph.src_perm / src_sorted), and K4 also
 runs on a graph where one source holds 20,000 of the 73,611 edges, each
 row of its sums held to the rounding bound of an f32 sum in any order
-(_sum_bound, below) of the float64 sums of its plain version's terms.  Tolerances: a kernel against its plain
+(_sum_bound, below) of the float64 sums of its plain version's terms.
+The forwards' walk also runs at each worker layout (K1/K12 at kz 32 to
+300, past its widest layout; K3 at 1 to 8 channels and kz 16 to 125) and
+on a graph where one dst row holds 60,000 edges, K2 at kz 257 and 512
+(its passes past the widest layout), each row held to _sum_bound.
+Tolerances: a kernel against its plain
 version on the card, 1e-5 of the largest value in both transports (the two
 round at the same points and differ only in the order the atomics add, so
 a lost bf16 rounding point, ~1e-3, fails); the card's whole op against the
@@ -139,8 +146,10 @@ def test_flash_kernel_matches_plain(cuda, transport):
     a_dst = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(cuda)
     table = torch.cat([z_t.t(), a_src[:, None]], dim=1).to(TDT[transport])
     adst_r, mhat = tfg.bound_shift(a_dst, table[:, kz], 0.2, TDT[transport])
+    perm, srt = tfg.dst_walk(dst)
     before = tfg.flash_gat_fwd.launches
-    got = tfg.flash_gat_fwd(table, adst_r, mhat, src, dst, n, kz)
+    got = tfg.flash_gat_fwd(table, adst_r, mhat, src, dst, n, kz, dst_perm=perm,
+                            dst_sorted=srt)
     torch.cuda.synchronize()
     assert tfg.flash_gat_fwd.launches == before + 1
     want = tfg.flash_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
@@ -158,8 +167,10 @@ def test_batch_kernel_matches_plain(cuda, transport, n_ch):
     a_src = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
     a_dst = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
     table, adst_r, mhat = tbg._pack_tables(z, a_src, a_dst, n, kz, n_ch, 0.2, TDT[transport])
+    perm, srt = tfg.dst_walk(dst)
     before = tbg.batch_gat_fwd.launches
-    got = tbg.batch_gat_fwd(table, adst_r, mhat, src, dst, n, kz)
+    got = tbg.batch_gat_fwd(table, adst_r, mhat, src, dst, n, kz, dst_perm=perm,
+                            dst_sorted=srt)
     torch.cuda.synchronize()
     assert tbg.batch_gat_fwd.launches == before + 1
     want = tbg.batch_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
@@ -286,12 +297,12 @@ def test_batch_bwd_kernel_on_a_hot_source(cuda, transport, n_ch):
 
 
 # every worker layout of csrc/gat_bwd.cu's walk (launch_walk): K2 at kz
-# <= 32, 64, 128 and 256, K4 at kz <= 16 (up to 2, 4 and 8 channels), 32,
-# 64 and 128 (the flagship's own K2 kz 64 and K4 kz 16 at 7 and 2 channels
-# are tested above)
-LAYOUT_CASES = [("K2", 1, 32), ("K2", 1, 100), ("K2", 1, 200), ("K4", 3, 16),
-                ("K4", 3, 32), ("K4", 7, 32), ("K4", 3, 64), ("K4", 7, 64), ("K4", 3, 125),
-                ("K4", 7, 125)]
+# <= 32, 64, 128 and 256 and past it (257 and 512: 256-column passes), K4
+# at kz <= 16 (up to 2, 4 and 8 channels), 32, 64 and 128 (the flagship's
+# own K2 kz 64 and K4 kz 16 at 7 and 2 channels are tested above)
+LAYOUT_CASES = [("K2", 1, 32), ("K2", 1, 100), ("K2", 1, 200), ("K2", 1, 257),
+                ("K2", 1, 512), ("K4", 3, 16), ("K4", 3, 32), ("K4", 7, 32), ("K4", 3, 64),
+                ("K4", 7, 64), ("K4", 3, 125), ("K4", 7, 125)]
 
 
 @pytest.mark.parametrize("kernel,n_ch,kz", LAYOUT_CASES)
@@ -333,6 +344,72 @@ def test_gat_bwd_kernel_at_each_layout(cuda, transport, kernel, n_ch, kz):
             <= _sum_bound(ct, s, n, ct_err)).all()
     assert ((da_dst.reshape(n_ch, n).t().double() - segment_sum(da_t, d, n)).abs()
             <= _sum_bound(da_t, d, n, da_err)).all()
+
+
+# every worker layout of csrc/gat_fwd.cu's walk (launch_walk): K1/K12 at kz
+# <= 32, 64, 128, 256 and past it (300: two 256-column passes), K3 at each
+# of 1, 2, 3, 7 and 8 channels with kz 16, 32, 64 and 125
+FWD_LAYOUT_CASES = ([("K1", 1, kz) for kz in (32, 64, 100, 200, 300)]
+                    + [("K3", n_ch, kz) for n_ch in (1, 2, 3, 7, 8)
+                       for kz in (16, 32, 64, 125)])
+
+
+def _fwd_call(cuda, rng, kernel, n_ch, kz, t_dtype, src, dst, n):
+    """(wrapper, args) of a forward call on random tables, and the float64
+    terms its plain version sums by dst for the real edges."""
+    z = torch.from_numpy(rng.standard_normal((n_ch, n, kz), dtype=np.float32)).to(cuda)
+    a_src = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    a_dst = torch.from_numpy(rng.standard_normal((n_ch, n), dtype=np.float32)).to(cuda)
+    table, adst_r, mhat = tbg._pack_tables(z, a_src, a_dst, n, kz, n_ch, 0.2, t_dtype)
+    real = dst < n
+    terms = tfg._fwd_edge_terms(table, adst_r, mhat, src[real].long(), dst[real].long(), kz,
+                                kernel == "K3", 0.2).double()
+    if kernel == "K1":
+        return tfg.flash_gat_fwd, (table, adst_r[0], mhat[0], src, dst, n, kz), terms
+    return tbg.batch_gat_fwd, (table, adst_r, mhat, src, dst, n, kz), terms
+
+
+def _check_fwd(wrapper, args, terms, dst, n, n_ch, kz):
+    """One launch on the walk by dst; each row within _sum_bound of the
+    float64 sums of the plain version's terms (the kernel adds the same
+    f32 terms, the same expf and products, in another order)."""
+    perm, srt = tfg.dst_walk(dst)
+    before = wrapper.launches
+    acc = wrapper(*args, dst_perm=perm, dst_sorted=srt)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert acc.shape == (n, n_ch * (kz + 1)) and torch.isfinite(acc).all()
+    d = dst[dst < n].long()
+    assert ((acc.double() - segment_sum(terms, d, n)).abs() <= _sum_bound(terms, d, n)).all()
+
+
+@pytest.mark.parametrize("kernel,n_ch,kz", FWD_LAYOUT_CASES)
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_gat_fwd_kernel_at_each_layout(cuda, transport, kernel, n_ch, kz):
+    """K1/K12 and K3 at each worker layout, on the walk by dst."""
+    rng = np.random.default_rng(7)
+    n = 1000
+    src, dst = _edges(rng, n, 12000, 12288, cuda)
+    wrapper, args, terms = _fwd_call(cuda, rng, kernel, n_ch, kz, TDT[transport], src, dst, n)
+    _check_fwd(wrapper, args, terms, dst, n, n_ch, kz)
+
+
+@pytest.mark.parametrize("kernel,n_ch,kz", [("K1", 1, 64), ("K3", 7, 16)])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_gat_fwd_kernel_on_a_hot_row(cuda, transport, kernel, n_ch, kz):
+    """The flagship's K1/K12 and K3 layouts with one dst row holding 60,000
+    of 100,000 edges: its run crosses many workers' slices."""
+    rng = np.random.default_rng(8)
+    n, e_real, e_pad = 1690, 100000, 100352
+    src, dst = rng.integers(0, n, e_real), rng.integers(0, n, e_real)
+    dst[:60000] = 777
+    order = np.lexsort((dst, src, dst // 128))
+    src = np.concatenate([src[order], np.zeros(e_pad - e_real, np.int64)])
+    dst = np.concatenate([dst[order], np.full(e_pad - e_real, n)])
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (src, dst))
+    wrapper, args, terms = _fwd_call(cuda, rng, kernel, n_ch, kz, TDT[transport], src, dst, n)
+    assert (torch.bincount(dst[dst < n].long(), minlength=n)[777] >= 60000).item()
+    _check_fwd(wrapper, args, terms, dst, n, n_ch, kz)
 
 
 def _gat_bwd_terms(table, gtab, logden, adst_r, s, d, kz, t_dtype, round_att_first=True):
@@ -462,22 +539,34 @@ def test_wrappers_reject_bad_inputs(cuda):
     table = torch.zeros((n + 1, kz + 1), device=cuda)
     stat = torch.zeros(n, device=cuda)
     ids = torch.zeros(16, dtype=torch.int32, device=cuda)
-    before = tfg.flash_gat_fwd.launches
+    fwalk = dict(dst_perm=ids, dst_sorted=ids)
+    before = (tfg.flash_gat_fwd.launches, tbg.batch_gat_fwd.launches)
     with pytest.raises(ValueError):  # int64 ids
-        tfg.flash_gat_fwd(table, stat, stat, ids.long(), ids, n, kz)
+        tfg.flash_gat_fwd(table, stat, stat, ids.long(), ids, n, kz, **fwalk)
     with pytest.raises(ValueError):  # ids on the CPU
-        tfg.flash_gat_fwd(table, stat, stat, ids.cpu(), ids, n, kz)
+        tfg.flash_gat_fwd(table, stat, stat, ids.cpu(), ids, n, kz, **fwalk)
     with pytest.raises(ValueError):  # f16 table
-        tfg.flash_gat_fwd(table.half(), stat, stat, ids, ids, n, kz)
+        tfg.flash_gat_fwd(table.half(), stat, stat, ids, ids, n, kz, **fwalk)
     with pytest.raises(ValueError):  # 9 channels
         tbg.batch_gat_fwd(torch.zeros((n, 9 * (kz + 1)), device=cuda),
                           torch.zeros((9, n), device=cuda), torch.zeros((9, n), device=cuda),
-                          ids, ids, n, kz)
-    assert tfg.flash_gat_fwd.launches == before
+                          ids, ids, n, kz, **fwalk)
+    with pytest.raises(ValueError, match="dst_perm"):  # no walk: a CUDA call never sorts
+        tfg.flash_gat_fwd(table, stat, stat, ids, ids, n, kz)
+    with pytest.raises(ValueError, match="dst_perm"):  # no walk
+        tbg.batch_gat_fwd(table, stat[None], stat[None], ids, ids, n, kz)
+    with pytest.raises(ValueError):  # an int64 walk
+        tfg.flash_gat_fwd(table, stat, stat, ids, ids, n, kz, dst_perm=ids.long(),
+                          dst_sorted=ids)
+    with pytest.raises(ValueError):  # a walk shorter than the edges
+        tbg.batch_gat_fwd(table, stat[None], stat[None], ids, ids, n, kz, dst_perm=ids[:8],
+                          dst_sorted=ids[:8])
+    assert (tfg.flash_gat_fwd.launches, tbg.batch_gat_fwd.launches) == before
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
-    out = tfg.flash_gat_fwd(table, stat, stat, empty, empty, n, kz)
+    out = tfg.flash_gat_fwd(table, stat, stat, empty, empty, n, kz, dst_perm=empty,
+                            dst_sorted=empty)
     assert out.shape == (n, kz + 1) and not out.any()
-    assert tfg.flash_gat_fwd.launches == before
+    assert (tfg.flash_gat_fwd.launches, tbg.batch_gat_fwd.launches) == before
     gtab = torch.zeros((n, kz + 1), device=cuda)
     walk = dict(src_perm=ids, src_sorted=ids)
     before = (tfg.flash_gat_bwd.launches, tbg.batch_gat_bwd.launches)
@@ -509,9 +598,10 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):  # the walk on the CPU
         tbg.batch_gat_bwd(table, gtab, stat[None], stat[None], ids, ids, n, kz,
                           src_perm=ids, src_sorted=ids.cpu())
-    wide = torch.zeros((n, 258), device=cuda)
-    with pytest.raises(ValueError, match="kz 257"):  # K2 past its widest layout
-        tfg.flash_gat_bwd(wide, wide, stat, stat, ids, ids, n, 257, **walk)
+    wide = torch.zeros((n, 2 * 127), device=cuda)
+    with pytest.raises(ValueError, match="kz 126"):  # K4 past its wrapper's limit, 125
+        tbg.batch_gat_bwd(wide, wide, torch.zeros((2, n), device=cuda),
+                          torch.zeros((2, n), device=cuda), ids, ids, n, 126, **walk)
     dpk, da = tfg.flash_gat_bwd(table, gtab, stat, stat, empty, empty, n, kz, src_perm=empty,
                                 src_sorted=empty)
     assert dpk.shape == (n + 1, kz + 1) and da.shape == (n,)

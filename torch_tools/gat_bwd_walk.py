@@ -42,8 +42,8 @@ from cu_variants import build, entry
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SLICE = "const int slice = !bf16 && !round_att_first ? 16 : 4;"
-_K2 = "else if (kz <= 64) GAT_BWD_WALK(16, 16, 4);"
-_K4_7 = "else if (kz <= 16) GAT_BWD_WALK(32, 4, 4);"
+_K2 = "else if (kz <= 64) GAT_BWD_WALK(16, 16, 4, false);"
+_K4_7 = "else if (kz <= 16) GAT_BWD_WALK(32, 4, 4, false);"
 _DA = "atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);"
 _DPK = "atomicAdd(out + q, b4[q]);"
 _HEAD = "  constexpr int kWorkers = 32 / GE;  // a warp's\n"
@@ -56,11 +56,11 @@ _HEAD = "  constexpr int kWorkers = 32 / GE;  // a warp's\n"
 VARIANTS = {
     **{f"slice {k}": (True, [(_SLICE, f"const int slice = {k};")]) for k in (4, 8, 16, 32)},
     "workers 32, 16 lanes a channel": (True, [
-        (_K2, "else if (kz <= 64) GAT_BWD_WALK(32, 32, 2);"),
-        (_K4_7, "else if (kz <= 16) GAT_BWD_WALK(16, 2, 8);")]),
+        (_K2, "else if (kz <= 64) GAT_BWD_WALK(32, 32, 2, false);"),
+        (_K4_7, "else if (kz <= 16) GAT_BWD_WALK(16, 2, 8, false);")]),
     "workers 8": (True, [
-        (_K2, "else if (kz <= 64) GAT_BWD_WALK(8, 8, 8);"),
-        (_K4_7, "else if (kz <= 16) GAT_BWD_WALK(8, 1, 16);")]),
+        (_K2, "else if (kz <= 64) GAT_BWD_WALK(8, 8, 8, false);"),
+        (_K4_7, "else if (kz <= 16) GAT_BWD_WALK(8, 1, 16, false);")]),
     "no atomics (unchecked)": (False, [(_DA, "(void)dpre_t;"), (_DPK, "(void)b4;")]),
     "no work (unchecked)": (False, [(_HEAD, "  if (num_edges >= 0) return;\n" + _HEAD)]),
 }
