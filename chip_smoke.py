@@ -68,8 +68,9 @@
       cotangent element within one unit of the transport's last place of
       the plain version's, padding rows exact zeros, da_dst <= KERNEL_TOL),
       localized_scatter_add (K6) on K13's rows (sum_bound of the float64
-      sums of the same rows), flash_gat_bwd_onepass (K14, <= KERNEL_TOL;
-      also timed at other piece sizes); device, plain, library ms and the
+      sums of the same rows), flash_gat_bwd_onepass (K14, on the walk by
+      source: dpk and da_dst row by row within sum_bound of the float64
+      sums of its plain version's terms); device, plain, library ms and the
       bound of each.
    b. mode_slice_phase, per transport and non-default mode (online-fused,
       bound-glue, bound-onepass): a PEATrainer(..., flash_mode=...) against
@@ -943,7 +944,6 @@ MODES = {"online-fused": dict(fwd=dict(rowmax=1, flash_fwd_online=1),
          "bound-glue": dict(fwd=dict(flash_fwd=1), bwd=dict(flash_bwd_glue=1, scatter=1)),
          "bound-onepass": dict(fwd=dict(flash_fwd=1), bwd=dict(flash_bwd_onepass=1))}
 MODE_STEPS = 20
-ONEPASS_PIECES = (64, 128, 256, 512, 1024, 1 << 30)
 
 
 def ulp(x, t_dtype):
@@ -952,20 +952,50 @@ def ulp(x, t_dtype):
     return torch.ldexp(torch.ones_like(x.float()), e - (24 if t_dtype == torch.float32 else 8))
 
 
+def k2_terms(table, gtab, logden, adst_r, s, d, kz, t_dtype):
+    """The float64 terms that K2's rounding points add for the real edges
+    (s, d), as the plain version computes them: da_dst's dpre [E, 1] and the
+    cotangent rows [round_T(g * att) | round_T(dpre)] [E, kz+1], each with a
+    bound on its own error.  The kernel sums datt's kz products in another
+    order than torch (each order within gamma_(kz-1) * sum |g z| of the
+    exact sum, so the two at most twice that apart), which att and leaky'
+    scale; the three roundings after it add 6 units of |dpre|, and bf16's
+    rounding of a moved dpre one unit of bf16 (2^-7 of it).  att is the same
+    f32 computation in both, so the dz columns are exact."""
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+
+    rows = table[s].float()
+    g = gtab[d]
+    pre = adst_r[0, d] + rows[:, kz]
+    att = torch.exp(torch.clamp(torch.where(pre > 0, pre, 0.2 * pre) - logden[0, d], max=60.0))
+    ct, dpre = fg._bwd_edge_terms(table, gtab, logden, adst_r, s, d, kz, False, 0.2)
+    prod = (g[:, :kz] * rows[:, :kz]).abs().sum(1).double()
+    gam = (kz - 1) * U_SUM / (1 - (kz - 1) * U_SUM)
+    sigma = torch.where(pre > 0, 1.0, 0.2).double()
+    err = (2 * gam * prod * att.double() * sigma * (1 + 4 * U_SUM)
+           + 6 * U_SUM * dpre[:, 0].abs().double())
+    ct_err = torch.zeros(ct.shape, dtype=torch.float64, device=ct.device)
+    ct_err[:, kz] = err + (2.0 ** -7 * (dpre[:, 0].abs().double() + err)
+                           if t_dtype == torch.bfloat16 else 0.0)
+    return dpre.double(), err[:, None], ct.double(), ct_err
+
+
 def mode_kernel_phase(plan, num_nodes):
     """K12-online (gat_rowmax, flash_gat_fwd_online), K13
     (flash_gat_bwd_glue, then K6 localized_scatter_add on its rows) and K14
     (flash_gat_bwd_onepass) at the step-1 union graph's shapes (kz 64), per
     transport, on random tables from a numpy seed and the stats of the
-    forward on them: each against its plain version on the card
-    (gat_rowmax's m bitwise; the walk, K13's da_dst and K14 within
-    KERNEL_TOL, as K1 and K2, whose arithmetic they share; K13's stored
-    rows each within one unit of the transport's last place of the plain
-    version's, since datt sums in another order, and its padding rows exact
-    zeros; K6 on them within sum_bound of the float64 sums of the same
-    rows), device ms, plain ms, the bound, and the library call where one
-    computes the function (scatter_reduce_ amax of the edge logits for the
-    row max; index_add_ for K6).  K14 is also timed at other piece sizes."""
+    forward on them, K12-online on the graph's walk by dst and K14 on its
+    walk by source: each against its plain version on the card
+    (gat_rowmax's m bitwise; the walk and K13's da_dst within KERNEL_TOL,
+    as K1, whose arithmetic the walk shares; K13's stored rows each within
+    one unit of the transport's last place of the plain version's, since
+    datt sums in another order, and its padding rows exact zeros; K6 on
+    them within sum_bound of the float64 sums of the same rows; K14's dpk
+    and da_dst row by row within sum_bound of the float64 sums of its
+    plain version's terms, k2_terms), device ms, plain ms, the bound, and
+    the library call where one computes the function (scatter_reduce_ amax
+    of the edge logits for the row max; index_add_ for K6)."""
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
     from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
@@ -978,8 +1008,11 @@ def mode_kernel_phase(plan, num_nodes):
 
     (_, union, rest), _ = plan.steps
     n_v, kz = len(rest) * num_nodes, 64
-    e, src, dst, bounds = union.num_edges, union.src, union.dst, union.block_bounds
+    e, src, dst = union.num_edges, union.src, union.dst
+    fwalk = dict(dst_perm=union.dst_perm, dst_sorted=union.dst_sorted)
+    walk = dict(src_perm=union.src_perm, src_sorted=union.src_sorted)
     real = dst < n_v
+    rows_hit = int(torch.unique(dst[real]).numel())
     results = {}
     for transport, t_dtype in TDT.items():
         it = torch.finfo(t_dtype).bits // 8
@@ -999,7 +1032,7 @@ def mode_kernel_phase(plan, num_nodes):
 
         # ---- K12-online: the row max, then the walk with m as the shift
         rargs = (table, adst_r, src, dst, n_v, kz)
-        m = fg.gat_rowmax(*rargs)
+        m = fg.gat_rowmax(*rargs, **fwalk)
         m_plain = fg.gat_rowmax_plain(*rargs)
         torch.cuda.synchronize()
         check(torch.equal(m, m_plain), f"gat_rowmax {transport}: m not bitwise the plain "
@@ -1007,17 +1040,20 @@ def mode_kernel_phase(plan, num_nodes):
         pre = adst_r[dst[real].long()] + table[src[real].long(), kz].float()
         act = torch.where(pre > 0, pre, 0.2 * pre)
         d_real = dst[real].long()
-        record("rowmax", lambda: fg.gat_rowmax(*rargs), lambda: fg.gat_rowmax_plain(*rargs),
+        record("rowmax", lambda: fg.gat_rowmax(*rargs, **fwalk),
+               lambda: fg.gat_rowmax_plain(*rargs),
                # a_src column, a_dst, the real edges' ids, m
                n_v * it + n_v * 4 + e * 8 + n_v * 4, e * 4, 0.0,
                lib=lambda: torch.full((n_v,), float("-inf"), device=dev)
                .scatter_reduce_(0, d_real, act, "amax"),
-               what=" (library: scatter_reduce_ amax of precomputed edge logits)")
+               what=f" (library: scatter_reduce_ amax of precomputed edge logits; {rows_hit} "
+                    f"rows with an edge, one atomic a run of the walk and a 64-position "
+                    f"slice)")
         wargs = (table, adst_r, m, src, dst, n_v, kz)
-        acc = fg.flash_gat_fwd_online(*wargs)
+        acc = fg.flash_gat_fwd_online(*wargs, **fwalk)
         err, _ = check_kernel("flash_gat_fwd_online", transport, [acc],
                               [fg.flash_gat_fwd_plain(*wargs)])
-        record("flash_fwd_online", lambda: fg.flash_gat_fwd_online(*wargs),
+        record("flash_fwd_online", lambda: fg.flash_gat_fwd_online(*wargs, **fwalk),
                lambda: fg.flash_gat_fwd_plain(*wargs),
                n_v * (kz + 1) * it + 2 * n_v * 4 + e * 8 + n_v * (kz + 1) * 4,
                e * (2 * (kz + 1) + 6), err)
@@ -1058,30 +1094,32 @@ def mode_kernel_phase(plan, num_nodes):
                .index_add_(0, src64, ct),
                what=f" ({share:.3f} of the rounding bound)")
 
-        # ---- K14: g unrounded in its stat table
+        # ---- K14: g unrounded in its stat table, on the walk by source
         stat = torch.cat([g, gtab[:, kz:], logden[0][:, None], adst_r[:, None]], dim=1)
-        oargs = (table, stat, src, dst, bounds, n_v, kz)
-        err, _ = check_kernel("flash_gat_bwd_onepass", transport,
-                              fg.flash_gat_bwd_onepass(*oargs),
-                              fg.flash_gat_bwd_onepass_plain(*oargs))
-        record("flash_bwd_onepass", lambda: fg.flash_gat_bwd_onepass(*oargs),
+        oargs = (table, stat, src, dst, n_v, kz)
+        dpk, da = fg.flash_gat_bwd_onepass(*oargs, **walk)
+        torch.cuda.synchronize()
+        check(dpk.shape == (n_v, kz + 1) and da.shape == (n_v,)
+              and bool(torch.isfinite(dpk).all()) and bool(torch.isfinite(da).all()),
+              f"flash_gat_bwd_onepass {transport}: shapes {tuple(dpk.shape)}, "
+              f"{tuple(da.shape)} or non-finite output")
+        s_r, d_r = src[real].long(), dst[real].long()
+        dpre, dpre_err, ct, ct_err = k2_terms(table, stat[:, : kz + 1], stat[None, :, kz + 1],
+                                              stat[None, :, kz + 2], s_r, d_r, kz, t_dtype)
+        ex_dpk, ex_da = segment_sum(ct, s_r, n_v), segment_sum(dpre, d_r, n_v)
+        shares = (check_sum(f"flash_gat_bwd_onepass dpk {transport}", dpk, ex_dpk,
+                            sum_bound(ct, s_r, n_v, ct_err)),
+                  check_sum(f"flash_gat_bwd_onepass da_dst {transport}", da[:, None], ex_da,
+                            sum_bound(dpre, d_r, n_v, dpre_err)))
+        err = max(float((dpk.double() - ex_dpk).abs().max()),
+                  float((da.double() - ex_da[:, 0]).abs().max()))
+        record("flash_bwd_onepass", lambda: fg.flash_gat_bwd_onepass(*oargs, **walk),
                lambda: fg.flash_gat_bwd_onepass_plain(*oargs),
-               # [z | a_src], the stat rows, ids, block bounds; dpk, da_dst
-               n_v * (kz + 1) * it + n_v * (kz + 3) * 4 + e * 8 + bounds.numel() * 4
-               + n_v * (kz + 1) * 4 + n_v * 4, e * (4 * kz + 14), err,
-               what=f" (pieces of {fg.ONEPASS_PIECE_EDGES} edges: "
-                    f"{int(fg.onepass_pieces(bounds, fg.ONEPASS_PIECE_EDGES)[-1])} CTAs)")
-        sweep = []
-        for piece in ONEPASS_PIECES:
-            got = fg.flash_gat_bwd_onepass(*oargs, piece_edges=piece)
-            check_kernel(f"flash_gat_bwd_onepass pieces of {piece}", transport, got,
-                         fg.flash_gat_bwd_onepass_plain(*oargs, piece_edges=piece))
-            sweep.append((piece, int(fg.onepass_pieces(bounds, piece)[-1]),
-                          round(device_ms(lambda: fg.flash_gat_bwd_onepass(
-                              *oargs, piece_edges=piece)), 5)))
-        print(f"flash_gat_bwd_onepass {transport}: (piece edges, CTAs, ms) {sweep}; "
-              f"busiest block {int((bounds[1:] - bounds[:-1]).max())} edges, mean "
-              f"{e / (bounds.numel() - 1):.1f}", flush=True)
+               # [z | a_src], the stat rows, ids; dpk, da_dst
+               n_v * (kz + 1) * it + n_v * (kz + 3) * 4 + e * 8 + n_v * (kz + 1) * 4
+               + n_v * 4, e * (4 * kz + 14), err,
+               what=f" (against the float64 sums; shares of the rounding bound dpk "
+                    f"{shares[0]:.3f}, da_dst {shares[1]:.3f})")
     return results
 
 
@@ -1329,15 +1367,16 @@ PTXAS_KERNELS = {"stream_gat": ("stream_gat_fwd_kernel", "stream_gat_bwd_dst_ker
                                 "stream_gat_bwd_src_kernel"),
                  "segment": ("softmax_block_kernel",),
                  "gat_bwd": ("gat_bwd_walk_kernel",),
-                 "gat_fwd": ("gat_fwd_walk_kernel",)}
+                 "gat_fwd": ("gat_fwd_walk_kernel", "gat_rowmax_walk_kernel")}
 
 
 def ptxas_summary(logs):
     """ptxas's registers, shared memory and spills of each kernel of the
     streaming GAT (K9, K10, K11), of K8 and of the GAT walks (the forwards
-    K1/K12 and K3 by dst, the backwards K2 and K4 by source; their
-    template's int arguments: K3's or K4's rounding, lanes an edge, lanes a
-    channel, columns a lane, and the backward's wide passes), one line
+    K1/K12 and K3 and K12-online's row max by dst, the backwards K2, K4 and
+    K14 by source; their template's int arguments: K3's or K4's rounding,
+    lanes an edge, lanes a channel, columns a lane, the backward's wide
+    passes and K14's stat rows; the row max's chunks a warp), one line
     each."""
     out = {}
     for source, kernels in PTXAS_KERNELS.items():
@@ -2062,7 +2101,7 @@ def main():
                                 "flash_gat_bwd_glue (K13"),
              "scatter_glue": ("bound-glue", "launches", "segment.cu", None,
                               "localized_scatter_add (K6 on K13's rows"),
-             "flash_bwd_onepass": ("bound-onepass", "launches", "gat_bwd_onepass.cu", "1079",
+             "flash_bwd_onepass": ("bound-onepass", "launches", "gat_bwd.cu", "1079",
                                    "flash_gat_bwd_onepass (K14")}
     for (kind, transport), r in mkres_modes.items():
         mode, runs, src_file, line, name = modes[kind]

@@ -85,6 +85,29 @@
 // atomics and without any work.  Trial builds that kept several edges'
 // loads in flight a worker did not run faster.
 //
+// K14, ops/flash_gat.py:_make_flash_bwd_kernel (the one-pass backward, the
+// JAX route when FLASH_BWD_MEGA is set), launched by
+// ops/flash_gat.flash_gat_bwd_onepass: K2's function at K2's rounding
+// points on other stats.  Per dst row d its stat row stat[d] = [g | gout |
+// logden | a_dst] (f32[kz+3]) holds g NOT rounded to the transport, as
+// the TPU route builds it (flash_gat.py:1365-1373), so in bf16 datt sums
+// the products of the unrounded g (in f32 the two functions are the same).
+// The walk above runs it as a mode of its own (StatRow, a __global__
+// instance apart from K2's): each edge reads its dst's stat row in place,
+// g and gout, then logden and a_dst from columns kz+1 and kz+2 of the same
+// row (K2 gathers them from two more tables), with K2's layouts and
+// 256-column passes at any kz, 4 positions a worker (gat_bwd's slice
+// rule).  The design before this one mirrored the TPU kernel: a CTA a
+// piece of a 128-row dst block's edge range, the block's stat rows staged
+// in shared memory (so kz <= 125), one warp an edge in the edges' own
+// order and kz+1 scalar f32 atomics an edge by source (11.0 M a flagship
+// call): 0.098 ms against a bound of 0.004 (PERF.md section 6).  On this
+// card the staging bought little: the time went into the atomics by
+// source, which the walk sums first.  What is left is K2's (each edge's
+// stat-row gather, the zeroing and the launch); the one row a dst reads
+// 5-12 % slower than K2's three tables on the same sums, for a reason
+// not measured.
+//
 // K13, ops/flash_gat.py:_make_bwd_glue_kernel(fused_scatter=False) (the JAX
 // route when the fused tables exceed 13 MiB, flash_gat.py:1444-1479): K2's
 // per-edge math, one warp per edge in the edges' own order, as before the
@@ -121,7 +144,10 @@ constexpr int kWarps = kThreads / 32;
 // otherwise one pass, base 0.  dpk: f32[n, stride], stride = n_ch * (kz+1)
 // rounded up to 4; dadst: f32[num_rows, n_ch]; shared memory: one row of
 // gat::walk_row_floats floats a worker, the pass's columns of dpk's row.
-template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide>
+// StatRow (K14, one channel): gtab is the stat table [num_rows, kz+3]
+// whose row d also holds logden and a_dst (columns kz+1, kz+2); logden and
+// adst are not read.
+template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide, bool StatRow>
 __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
     const T* __restrict__ table, const float* __restrict__ gtab,
     const float* __restrict__ logden, const float* __restrict__ adst,
@@ -138,6 +164,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
   const int c = wl / GC, gl = wl & (GC - 1);  // the lane's channel, lane in it
   const bool chv = c < n_ch;
   const int bz = kz + 1, width = n_ch * bz;
+  const int gw = StatRow ? kz + 3 : width;  // floats of a dst's row of gtab
   const int bw = gat::walk_row_floats(stride, kCols, Wide);
   float* buf = reinterpret_cast<float*>(smem) + (warp * kWorkers + wk) * bw;
   // the worker's slice [k0, k0 + slice); every worker of the warp runs the
@@ -181,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
         const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
         const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
         const bool real = d < num_rows;  // padding: no load
-        const float* grow = gtab + (long long)d * width + c * bz;
+        const float* grow = gtab + (long long)d * gw + c * bz;
         const T* row = table + (long long)s * width + c * bz;
         const long long cd = (long long)c * num_rows + d;
         const bool v = real && chv;
@@ -205,8 +232,8 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
           }
         }
         const float gout = v ? __ldg(grow + kz) : 0.f;
-        const float ld = v ? __ldg(logden + cd) : 0.f;
-        const float pre = v ? __ldg(adst + cd) + to_f32(row[kz]) : 0.f;
+        const float ld = v ? __ldg(StatRow ? grow + kz + 1 : logden + cd) : 0.f;
+        const float pre = v ? __ldg(StatRow ? grow + kz + 2 : adst + cd) + to_f32(row[kz]) : 0.f;
 #pragma unroll
         for (int o = GC / 2; o > 0; o >>= 1)
           part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
@@ -238,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
   }
 }
 
-template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide>
+template <typename T, bool RoundAttFirst, int GE, int GC, int J, bool Wide, bool StatRow>
 void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void* logden,
                  const void* adst, const void* perm, const void* ids, const void* dst, void* dpk,
                  void* dadst, long long num_edges, int num_rows, int kz, int n_ch, int stride,
@@ -248,7 +275,7 @@ void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void
   const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
   const size_t smem =
       (size_t)kThreads / GE * gat::walk_row_floats(stride, GC * J, Wide) * sizeof(float);
-  gat_bwd_walk_kernel<T, RoundAttFirst, GE, GC, J, Wide><<<grid, kThreads, smem, s>>>(
+  gat_bwd_walk_kernel<T, RoundAttFirst, GE, GC, J, Wide, StatRow><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(table), static_cast<const float*>(gtab),
       static_cast<const float*>(logden), static_cast<const float*>(adst),
       static_cast<const int*>(perm), static_cast<const int*>(ids), static_cast<const int*>(dst),
@@ -257,19 +284,19 @@ void launch_walk(cudaStream_t s, const void* table, const void* gtab, const void
 }
 
 // The worker layout (GE lanes an edge, GC lanes a channel, J columns a
-// lane) for (kz, n_ch), or false where none is built: K2's rounding for
-// one channel at any kz (past 256 in 256-column passes), K4's for n_ch <=
-// 8 at kz <= 128.
-template <typename T, bool RoundAttFirst>
+// lane) for (kz, n_ch), or false where none is built: K2's rounding (and
+// K14's, StatRow) for one channel at any kz (past 256 in 256-column
+// passes), K4's for n_ch <= 8 at kz <= 128.
+template <typename T, bool RoundAttFirst, bool StatRow>
 bool launch_walk(cudaStream_t s, const void* table, const void* gtab, const void* logden,
                  const void* adst, const void* perm, const void* ids, const void* dst, void* dpk,
                  void* dadst, long long num_edges, int num_rows, int kz, int n_ch, int stride,
                  int slice, float slope) {
-#define GAT_BWD_WALK(GE, GC, J, WIDE)                                                       \
-  launch_walk<T, RoundAttFirst, GE, GC, J, WIDE>(s, table, gtab, logden, adst, perm, ids, dst, \
-                                                 dpk, dadst, num_edges, num_rows, kz, n_ch,   \
-                                                 stride, slice, slope)
-  if constexpr (!RoundAttFirst) {  // K2: one channel
+#define GAT_BWD_WALK(GE, GC, J, WIDE)                                                    \
+  launch_walk<T, RoundAttFirst, GE, GC, J, WIDE, StatRow>(                                \
+      s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, \
+      n_ch, stride, slice, slope)
+  if constexpr (!RoundAttFirst) {  // K2, K14: one channel
     if (n_ch != 1) return false;
     if (kz <= 32) GAT_BWD_WALK(8, 8, 4, false);
     else if (kz <= 64) GAT_BWD_WALK(16, 16, 4, false);
@@ -287,6 +314,45 @@ bool launch_walk(cudaStream_t s, const void* table, const void* gtab, const void
   }
 #undef GAT_BWD_WALK
   return true;
+}
+
+// The walk on `stream` for the entries below: K4's rounding points where
+// `round_att_first`, else K2's, or K14's where `stat_row`.  Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
+int bwd_walk(int device, const void* table, int bf16, int round_att_first, bool stat_row,
+             const void* gtab, const void* logden, const void* adst, const void* perm,
+             const void* ids, const void* dst, void* dpk, void* dadst, long long num_edges,
+             int num_rows, int kz, int n_ch, int stride, float slope, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_ch < 1 || n_ch > 8 || kz < 1 || num_edges < 0 ||
+      (stat_row && (n_ch != 1 || round_att_first)) ||
+      stride != (n_ch * (kz + 1) + 3) / 4 * 4 || reinterpret_cast<uintptr_t>(dpk) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (num_edges == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // positions of the walk a worker takes, by kernel and transport, fitted
+  // to the flagship's calls alone (K2 and K14 at kz 64 on 169,472
+  // positions, K4 at kz 16 with 7 and 2 channels on 73,728):
+  // torch_tools/gat_bwd_walk.py read K2 in f32 fastest at 16, K2 in bf16,
+  // K4 and K14 at 4 (K4 in f32 within 1 % of 8; K14 in f32 0.043 ms at 4,
+  // 0.048 at 16); the other layouts take the same slices unmeasured
+  const int slice = !bf16 && !round_att_first && !stat_row ? 16 : 4;
+  bool ok;
+  if (bf16 && round_att_first)
+    ok = launch_walk<__nv_bfloat16, true, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  else if (bf16 && stat_row)
+    ok = launch_walk<__nv_bfloat16, false, true>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  else if (bf16)
+    ok = launch_walk<__nv_bfloat16, false, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  else if (round_att_first)
+    ok = launch_walk<float, true, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  else if (stat_row)
+    ok = launch_walk<float, false, true>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  else
+    ok = launch_walk<float, false, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // K13: one warp per edge in the edges' own order (the design that K2 and
@@ -378,30 +444,20 @@ extern "C" int gat_bwd(int device, const void* table, int bf16, int round_att_fi
                        const void* perm, const void* ids, const void* dst, void* dpk,
                        void* dadst, long long num_edges, int num_rows, int kz, int n_ch,
                        int stride, float slope, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_ch < 1 || n_ch > 8 || kz < 1 || num_edges < 0 ||
-      stride != (n_ch * (kz + 1) + 3) / 4 * 4 || reinterpret_cast<uintptr_t>(dpk) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (num_edges == 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // positions of the walk a worker takes, by kernel and transport, fitted
-  // to the flagship's two calls alone (K2 at kz 64 on 169,472 positions, K4
-  // at kz 16 with 7 and 2 channels on 73,728): torch_tools/gat_bwd_walk.py
-  // read K2 in f32 fastest at 16, K2 in bf16 and K4 at 4 (K4 in f32 within
-  // 1 % of 8); the other layouts take the same slices unmeasured
-  const int slice = !bf16 && !round_att_first ? 16 : 4;
-  bool ok;
-  if (bf16 && round_att_first)
-    ok = launch_walk<__nv_bfloat16, true>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
-  else if (bf16)
-    ok = launch_walk<__nv_bfloat16, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
-  else if (round_att_first)
-    ok = launch_walk<float, true>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
-  else
-    ok = launch_walk<float, false>(s, table, gtab, logden, adst, perm, ids, dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slice, slope);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return bwd_walk(device, table, bf16, round_att_first, false, gtab, logden, adst, perm, ids,
+                  dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slope, stream);
+}
+
+// K14.  As gat_bwd for one channel at K2's rounding points, but stat:
+// f32[num_rows, kz+3] rows [g | gout | logden | a_dst] in place of gtab,
+// logden and adst; dpk: f32[n, stride] (stride = kz+1 rounded up to 4) and
+// dadst: f32[num_rows], both zeroed by the caller.
+extern "C" int gat_bwd_onepass(int device, const void* table, int bf16, const void* stat,
+                               const void* perm, const void* ids, const void* dst, void* dpk,
+                               void* dadst, long long num_edges, int num_rows, int kz,
+                               int stride, float slope, void* stream) {
+  return bwd_walk(device, table, bf16, 0, true, stat, nullptr, nullptr, perm, ids, dst, dpk,
+                  dadst, num_edges, num_rows, kz, 1, stride, slope, stream);
 }
 
 // K13.  As gat_bwd for one channel at K2's rounding points, in the edges'

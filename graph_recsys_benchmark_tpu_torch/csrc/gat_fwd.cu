@@ -65,23 +65,39 @@
 // logit spread.  The TPU kernel keeps a running max per 128-row dst block
 // and rescales its accumulator when the max grows; rounding the max to T at
 // each step is monotone, so its final m is round_T of the exact row max.
-// Here two passes compute the same function:
-//   1. gat_rowmax: a thread per edge forms the edge's logit act =
-//      leaky(round_T(a_dst[d]) + a_src[s]) and takes an atomicMax of its
-//      ordered-int image into m[d] (as segment.cu's K8 does); a row pass
-//      turns the images back, rounds to T and writes 0 for a row without
-//      an edge (JAX flash_gat.py:474).  Bound: the ids and one a_src value
-//      an edge, ~E * 10 bytes.
-//   2. gat_fwd_online: gat_common.cuh's per-edge walk (fwd_edges<T, false>:
-//      one warp an edge in the edges' own order, scalar f32 atomics, the
-//      design K1/K12 ran before the walk above) with m as the shift, under
-//      its own __global__ so that it is counted and timed apart from
-//      K1/K12.  p = exp(act - m) <= ~1, so the +60 clamp is inert.
+// Here two passes compute the same function, both on the graph's walk by
+// dst (StepGraph.dst_perm / dst_sorted):
+//   1. gat_rowmax: m = round_T(max act) by dst row, 0 for a row without an
+//      edge (JAX flash_gat.py:474), from act = leaky(round_T(a_dst[d]) +
+//      a_src[s]), the walk's own logit (gat::edge_weight), so that in f32
+//      act - m is exactly 0 at the row's best edge.  A warp takes a fixed
+//      slice of RowmaxChunks chunks of 32 positions (so a row with many
+//      edges spreads over many warps); its lanes load a chunk's ids,
+//      src[perm], a_src and a_dst coalesced where the walk is, every
+//      chunk's loads in flight together; a segmented max over the lanes
+//      (a shuffle scan: a run's lanes are neighbours) leaves each run's max
+//      at its last lane, and a run that goes on past the chunk is carried
+//      into the next.  One unsigned atomicMax of an order-preserving key
+//      (max_key) a run and slice, where the design before this took one a
+//      real edge (169,155 onto 15,210 rows a flagship call, in block
+//      order) after a launch that set every key to -inf's.  Key 0 is no
+//      float's but a NaN's, so the wrapper's zeroed buffer is the set-up,
+//      and a decode launch turns each key into round_T(max) in place, or 0
+//      where no edge wrote one.  Folding the decode into the walk read
+//      slower on the H100 (torch_tools/gat_fwd_walk.py: the last CTA to
+//      finish decoding every row; a count of each row's parts, the last
+//      part decoding, took a fence a part and also read slower), and the
+//      zeroing and the two launches are most of the time.  Bound: each
+//      real edge's ids (8 bytes), each row's a_src and a_dst once and m,
+//      ~E * 8 + N * (sizeof(T) + 8) bytes; the walk also reads perm (4
+//      bytes an edge) and gathers a_src and a_dst an edge.
+//   2. flash_gat_fwd_online: the walk above (gat_fwd, K1/K12's rounding
+//      points) with m as the shift.  p = exp(act - m) <= ~1, so the +60
+//      clamp is inert.
 // The TPU kernel rounds p * z at the running shift and rescales the
 // rounded sums by exp(m_old - m_new) in f32 (flash_gat.py:455-470); this one
 // rounds p * z at the final m, so out and s agree with it at rounding level
-// while m agrees bitwise.  A per-block online rescale would need
-// cross-warp synchronisation: block-ordered edges interleave rows.
+// while m agrees bitwise.
 
 #include <stdint.h>
 
@@ -243,84 +259,93 @@ bool launch_walk(cudaStream_t s, const void* table, const void* adst, const void
   return true;
 }
 
-// K12-online's walk: K1/K12's edge walk with the row max as the shift.
-template <typename T>
-__global__ void __launch_bounds__(256) gat_fwd_online_kernel(
-    const T* __restrict__ table, const float* __restrict__ adst,
-    const float* __restrict__ m, const int* __restrict__ src,
-    const int* __restrict__ dst, float* __restrict__ acc, long long num_edges,
-    int num_rows, int kz, float slope) {
-  gat::fwd_edges<T, false>(table, adst, m, src, dst, acc, num_edges, num_rows, kz,
-                           1, slope);
+// A float's key for an unsigned atomicMax: order-preserving (ordered()'s
+// image moved to unsigned order), and above 0 for every float but a NaN.
+__device__ __forceinline__ unsigned max_key(float v) {
+  return static_cast<unsigned>(gat::ordered(v)) ^ 0x80000000u;
 }
 
-// K12-online's row max, edge pass: key[d] = max ordered(act) over the real
-// edges of row d (key starts at the image of -inf).
-template <typename T>
-__global__ void __launch_bounds__(256) gat_rowmax_kernel(
+// K12-online's row max on the walk by dst: key[d] = max max_key(act) over
+// the real edges of row d (key zeroed by the caller).  A warp takes C
+// chunks of 32 consecutive positions of the walk.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads) gat_rowmax_walk_kernel(
     const T* __restrict__ table, const float* __restrict__ adst,
-    const int* __restrict__ src, const int* __restrict__ dst, int* __restrict__ key,
-    long long num_edges, int num_rows, int kz, float slope) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < num_edges;
-       e += step) {
-    const int d = dst[e];
-    if ((unsigned)d >= (unsigned)num_rows) continue;  // padding sentinel
-    const float pre = adst[d] + gat::to_f32(table[(long long)src[e] * (kz + 1) + kz]);
-    // the walk's own logit (edge_weight), so that in f32 act - m is
-    // exactly 0 at the row's best edge
-    const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
-    atomicMax(key + d, gat::ordered(act));
-  }
-}
-
-// K12-online's row max, row passes: set every key to the image of -inf
-// (init), or turn the keys into m = round_T(max), 0 for an empty row.
-template <typename T>
-__global__ void __launch_bounds__(256) gat_rowmax_rows_kernel(float* __restrict__ m,
-                                                              int num_rows, bool init) {
-  int* key = reinterpret_cast<int*>(m);
-  const int neg_inf = gat::ordered(__int_as_float(static_cast<int>(0xff800000u)));
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < num_rows;
-       r += gridDim.x * blockDim.x) {
-    if (init) {
-      key[r] = neg_inf;
-    } else {
-      const int k = key[r];
-      m[r] = k == neg_inf ? 0.f : gat::round_t<T>(gat::unordered(k));
+    const int* __restrict__ perm, const int* __restrict__ ids, const int* __restrict__ src,
+    unsigned* __restrict__ key, long long num_edges, int num_rows, int kz, float slope) {
+  const int lane = threadIdx.x & 31;
+  const long long k0 = (((long long)blockIdx.x * kThreads + threadIdx.x) >> 5) * (C * 32) + lane;
+  int d[C], s[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j)  // positions past the walk read as padding
+    d[j] = k0 + j * 32 < num_edges ? __ldg(ids + k0 + j * 32) : num_rows;
+#pragma unroll
+  for (int j = 0; j < C; ++j)  // padding: no load
+    s[j] = d[j] < num_rows ? __ldg(src + __ldg(perm + k0 + j * 32)) : 0;
+  unsigned v[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    v[j] = 0u;
+    if (d[j] < num_rows) {
+      const float pre = __ldg(adst + d[j]) + to_f32(table[(long long)s[j] * (kz + 1) + kz]);
+      v[j] = max_key(pre > 0.f ? pre : __fmul_rn(slope, pre));  // edge_weight's act
     }
   }
+  int cur = num_rows;  // the run carried from the chunk before; num_rows: none
+  unsigned best = 0u;  // its max so far
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int dj = d[j];
+    unsigned x = v[j];
+    // a segmented max: in the sorted walk a lane o back with the same row
+    // is in the same run, and so is every lane between (in another order
+    // a run's parts each take their own atomic)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned xo = __shfl_up_sync(0xffffffffu, x, o);
+      const int dd = __shfl_up_sync(0xffffffffu, dj, o);
+      if (lane >= o && dd == dj) x = max(x, xo);
+    }
+    if (dj == cur) x = max(x, best);  // the run from the chunk before goes on
+    const int first = __shfl_sync(0xffffffffu, dj, 0);
+    if (lane == 0 && cur < num_rows && cur != first) atomicMax(key + cur, best);  // or ended
+    const int next = __shfl_down_sync(0xffffffffu, dj, 1);
+    if (lane < 31 && dj != next && dj < num_rows) atomicMax(key + dj, x);  // a run's end
+    cur = __shfl_sync(0xffffffffu, dj, 31);
+    best = __shfl_sync(0xffffffffu, x, 31);
+  }
+  if (lane == 0 && cur < num_rows) atomicMax(key + cur, best);
 }
 
-unsigned thread_blocks(long long n) {
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride past this
-  return (unsigned)(blocks > 0 ? blocks : 1);
-}
-
+// K12-online's row max, decode: each key into m = round_T(max) in place,
+// 0 where no edge wrote one.
 template <typename T>
-void launch_rowmax(cudaStream_t s, const void* table, const void* adst, const void* src,
-                   const void* dst, void* m, long long num_edges, int num_rows, int kz,
-                   float slope) {
-  float* mf = static_cast<float*>(m);
-  const unsigned rb = thread_blocks(num_rows);
-  gat_rowmax_rows_kernel<T><<<rb, 256, 0, s>>>(mf, num_rows, true);
-  gat_rowmax_kernel<T><<<thread_blocks(num_edges), 256, 0, s>>>(
-      static_cast<const T*>(table), static_cast<const float*>(adst),
-      static_cast<const int*>(src), static_cast<const int*>(dst), reinterpret_cast<int*>(mf),
-      num_edges, num_rows, kz, slope);
-  gat_rowmax_rows_kernel<T><<<rb, 256, 0, s>>>(mf, num_rows, false);
+__global__ void __launch_bounds__(kThreads) gat_rowmax_decode_kernel(
+    unsigned* __restrict__ key, int num_rows) {
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < num_rows; r += gridDim.x * kThreads) {
+    const unsigned k = key[r];
+    const float m = k == 0u ? 0.f : round_t<T>(gat::unordered(static_cast<int>(k ^ 0x80000000u)));
+    key[r] = __float_as_uint(m);
+  }
 }
 
+// The row max's launches on `s`: the walk, RowmaxChunks chunks of 32
+// positions a warp, then the decode.
 template <typename T>
-void launch_online(unsigned blocks, cudaStream_t s, const void* table, const void* adst,
-                   const void* m, const void* src, const void* dst, void* acc,
-                   long long num_edges, int num_rows, int kz, float slope) {
-  gat_fwd_online_kernel<T><<<blocks, 256, 0, s>>>(
+void launch_rowmax(cudaStream_t s, const void* table, const void* adst, const void* perm,
+                   const void* ids, const void* src, void* m, long long num_edges, int num_rows,
+                   int kz, float slope) {
+  constexpr int RowmaxChunks = 2;
+  unsigned* key = static_cast<unsigned*>(m);
+  const long long warps = (num_edges + RowmaxChunks * 32 - 1) / (RowmaxChunks * 32);
+  const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
+  gat_rowmax_walk_kernel<T, RowmaxChunks><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(table), static_cast<const float*>(adst),
-      static_cast<const float*>(m), static_cast<const int*>(src),
-      static_cast<const int*>(dst), static_cast<float*>(acc), num_edges, num_rows, kz,
-      slope);
+      static_cast<const int*>(perm), static_cast<const int*>(ids), static_cast<const int*>(src),
+      key, num_edges, num_rows, kz, slope);
+  long long blocks = ((long long)num_rows + kThreads - 1) / kThreads;
+  if (blocks > 132LL * 16) blocks = 132LL * 16;  // grid-stride past this
+  gat_rowmax_decode_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(key, num_rows);
 }
 
 }  // namespace
@@ -364,40 +389,22 @@ extern "C" int gat_fwd(int device, const void* table, int bf16, int round_p_firs
 }
 
 // K12-online, pass 1.  table: [n, kz+1] T row-major [z | a_src]; adst:
-// f32[num_rows] = round_T(a_dst); src/dst: int32[num_edges]; m:
-// f32[num_rows], written whole.  Three launches on `stream` (set up, edges,
-// decode); returns cudaGetLastError().
+// f32[num_rows] = round_T(a_dst); the walk by dst and src as gat_fwd's;
+// m: f32[num_rows], zeroed by the caller (every bit 0), written whole.
+// Two launches on `stream` (the walk, the decode); returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
 extern "C" int gat_rowmax(int device, const void* table, int bf16, const void* adst,
-                          const void* src, const void* dst, void* m, long long num_edges,
-                          int num_rows, int kz, float slope, void* stream) {
+                          const void* perm, const void* ids, const void* src, void* m,
+                          long long num_edges, int num_rows, int kz, float slope,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (kz < 1 || num_rows < 0 || num_edges < 0) return (int)cudaErrorInvalidValue;
-  if (num_rows == 0) return (int)cudaGetLastError();
+  if (num_rows == 0 || num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch_rowmax<__nv_bfloat16>(s, table, adst, src, dst, m, num_edges, num_rows, kz, slope);
+    launch_rowmax<__nv_bfloat16>(s, table, adst, perm, ids, src, m, num_edges, num_rows, kz, slope);
   else
-    launch_rowmax<float>(s, table, adst, src, dst, m, num_edges, num_rows, kz, slope);
-  return (int)cudaGetLastError();
-}
-
-// K12-online, pass 2: gat_fwd for one channel at K1's rounding points with
-// m as the shift.  acc: f32[num_rows, kz+1], zeroed by the caller.
-extern "C" int gat_fwd_online(int device, const void* table, int bf16, const void* adst,
-                              const void* m, const void* src, const void* dst, void* acc,
-                              long long num_edges, int num_rows, int kz, float slope,
-                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (kz < 1) return (int)cudaErrorInvalidValue;
-  if (num_edges > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned b = gat::warp_edge_blocks(num_edges);
-    if (bf16)
-      launch_online<__nv_bfloat16>(b, s, table, adst, m, src, dst, acc, num_edges, num_rows, kz, slope);
-    else
-      launch_online<float>(b, s, table, adst, m, src, dst, acc, num_edges, num_rows, kz, slope);
-  }
+    launch_rowmax<float>(s, table, adst, perm, ids, src, m, num_edges, num_rows, kz, slope);
   return (int)cudaGetLastError();
 }

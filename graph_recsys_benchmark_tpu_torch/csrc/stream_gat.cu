@@ -12,9 +12,8 @@
 // package leaves them to XLA.  Per channel c and real edge (s, d):
 //   K9:  p_c = exp(min(leaky(a_dst[c, d] + a_src_c[s]) - mhat[c, d], 60)),
 //        acc[d, band c] += [ round_T(z_c[s] * round_T(p_c)) | round_T(p_c) ]
-//        (ops/stream_gat.py:272-283: the rounding points of K3's
-//        gat_common.cuh fwd_edges<T, true>, which K9 ran before it took
-//        the design below);
+//        (ops/stream_gat.py:272-283: K3's rounding points, gat_fwd.cu's
+//        RoundPFirst);
 //   K10, K11 recompute from the stat band st_c[d] = round_T([g_c | gout_c
 //        | logden_c | a_dst_c]) (ops/stream_gat.py:311, 760):
 //        pre  = a_dst + a_src_c[s],  att = exp(min(leaky(pre) - logden, 60))

@@ -68,10 +68,9 @@ class StepGraph:
              and fuse_step_graphs refuses such graphs.
     block_bounds: int32[ceil(num_nodes / 128) + 1]: the 128-row dst block
              b's edges are [block_bounds[b], block_bounds[b+1]) (the
-             padding in the last block's range), the one-pass flash-GAT
-             backward's work split (ops/flash_gat.dst_block_bounds; JAX
-             ``_block_chunk_bounds``), and the streaming GAT's dst-side
-             backward's (K10).
+             padding in the last block's range; ops/flash_gat.dst_block_bounds,
+             JAX ``_block_chunk_bounds``): the work split of the softmax
+             stats (K8) and of the streaming GAT (K9, K10).
     src_block_bounds: int32[ceil(num_nodes / 128) + 1]: the 128-row src
              block b's edges are [src_block_bounds[b], src_block_bounds[b+1])
              of the src-sorted order (the padding, src 0, in block 0's

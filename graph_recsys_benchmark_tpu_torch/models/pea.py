@@ -209,7 +209,7 @@ def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
         table = torch.cat([z3.reshape(n_virtual, c_dim), a_src[:, None]], dim=1)
         out_h = flash_gat_attention_rows(
             table, a_dst, g.src, g.dst, n_virtual, c_dim, 0.2, transport, flash_mode,
-            g.block_bounds, g.src_perm, g.src_sorted, g.dst_perm, g.dst_sorted,
+            g.src_perm, g.src_sorted, g.dst_perm, g.dst_sorted,
         )
         head_outs.append(out_h.reshape(num_channels, num_nodes, c_dim))
     out = head_outs[0] if heads == 1 else torch.cat(head_outs, dim=-1)

@@ -45,23 +45,18 @@ _SIGNATURES = {
     # dst, dpk, dadst, num_edges, num_rows, kz, n_ch, stride, slope, stream
     "gat_bwd": ("gat_bwd", [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _L, _I, _I, _I, _I, ctypes.c_float, _P]),
-    # device, table, bf16, adst, src, dst, m, num_edges, num_rows, kz,
-    # slope, stream (K12-online, pass 1)
-    "gat_rowmax": ("gat_fwd", [_I, _P, _I, _P, _P, _P, _P, _L, _I, _I,
+    # device, table, bf16, adst, perm, ids, src, m, num_edges, num_rows,
+    # kz, slope, stream (K12-online, pass 1; pass 2 is gat_fwd)
+    "gat_rowmax": ("gat_fwd", [_I, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I,
                                ctypes.c_float, _P]),
-    # device, table, bf16, adst, m, src, dst, acc, num_edges, num_rows, kz,
-    # slope, stream (K12-online, pass 2)
-    "gat_fwd_online": ("gat_fwd", [_I, _P, _I, _P, _P, _P, _P, _P, _L, _I,
-                                   _I, ctypes.c_float, _P]),
     # device, table, bf16, gtab, logden, adst, src, dst, ct, dadst,
     # num_edges, num_rows, kz, slope, stream (K13)
     "gat_bwd_glue": ("gat_bwd", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                  _L, _I, _I, ctypes.c_float, _P]),
-    # device, table, bf16, stat, src, dst, block_bounds, piece_end, dpk,
-    # dadst, grid, n_blocks, num_rows, kz, piece_edges, slope, stream (K14)
-    "gat_bwd_onepass": ("gat_bwd_onepass", [_I, _P, _I, _P, _P, _P, _P, _P,
-                                            _P, _P, _I, _I, _I, _I, _I,
-                                            ctypes.c_float, _P]),
+    # device, table, bf16, stat, perm, ids, dst, dpk, dadst, num_edges,
+    # num_rows, kz, stride, slope, stream (K14)
+    "gat_bwd_onepass": ("gat_bwd", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _L,
+                                    _I, _I, _I, ctypes.c_float, _P]),
     # device, rows, bf16, perm, ids, out, num_edges, num_rows, d, stride,
     # stream
     "scatter_add": ("segment", [_I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P]),

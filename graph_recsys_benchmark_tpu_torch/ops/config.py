@@ -30,8 +30,9 @@ class FlashGATMode:
                    default);
       'glue'    -> K13, the per-edge cotangent stored, then K6 scatters it
                    by src (the JAX route when the fused tables exceed 13 MiB);
-      'onepass' -> K14, the one-pass dst-block backward (FLASH_BWD_MEGA),
-                   whose stat table keeps g in f32.
+      'onepass' -> K14, the one-pass backward (FLASH_BWD_MEGA), whose
+                   stat table keeps g in f32 (on the card: K2's walk by
+                   source on that table).
     The default is the JAX package's default route."""
 
     softmax_shift: str = "bound"

@@ -31,13 +31,14 @@ The variant routes, picked by ``ops/config.FlashGATMode`` (the JAX
 package's FLASH_SOFTMAX_SHIFT, FLASH_BWD_GLUE and FLASH_BWD_MEGA):
   * ``softmax_shift='online'`` (K12-online): ``online_shift`` takes the
     exact row max m with ``gat_rowmax`` (csrc/gat_fwd.cu), then
-    ``flash_gat_fwd_online`` walks the edges with m as the shift;
+    ``flash_gat_fwd_online`` runs the forward's walk with m as the shift;
+    both walk the graph's sort by dst;
   * ``bwd='glue'`` (K13): ``flash_gat_bwd_glue`` (csrc/gat_bwd.cu's StoreCt
     mode) stores each edge's cotangent row and sums da_dst, then
     ``segment_kernels.localized_scatter_add`` (K6) scatters the rows by src;
-  * ``bwd='onepass'`` (K14): ``flash_gat_bwd_onepass``
-    (csrc/gat_bwd_onepass.cu) walks each 128-row dst block's edge range in
-    pieces, with g unrounded in its stat table.
+  * ``bwd='onepass'`` (K14): ``flash_gat_bwd_onepass`` (csrc/gat_bwd.cu's
+    StatRow mode) runs the backward's walk by source on one stat table
+    ``[g | gout | logden | a_dst]`` with g unrounded.
 
 Autograd: ``FlashGAT`` (a ``torch.autograd.Function``) saves the shift (m̂
 or m), s and out as ``_flash_fwd`` does and builds the route's stat table
@@ -62,11 +63,6 @@ from .config import FlashGATMode
 from .segment import segment_max, segment_softmax, segment_sum
 
 _BR = 128
-# K14's largest edge range for one CTA: a dst block with more edges is cut
-# into pieces of at most this many.  At the flagship's union graph (H100,
-# chip_smoke.py; PERF.md, PR 6) 256 took 0.096 ms, 1,024 0.168 ms and one
-# CTA a block 2.16 ms: its busiest block holds 12.6x the mean's edges.
-ONEPASS_PIECE_EDGES = 256
 
 
 def _cdiv(a, b):
@@ -237,9 +233,11 @@ def flash_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
 flash_gat_fwd.launches = 0
 
 
-def gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
+def gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2,
+                     dst_perm=None, dst_sorted=None):
     """Plain PyTorch version of gat_rowmax: m[d] = round_T(max_e leaky(adst_r[d]
-    + a_src[src_e])) over the real edges of row d, 0 for a row without one."""
+    + a_src[src_e])) over the real edges of row d, 0 for a row without one.
+    The walk is accepted and not read (flash_gat_fwd_plain)."""
     real = dst < num_rows
     s, d = src[real].long(), dst[real].long()
     pre = adst_r[d] + table[s, kz].float()
@@ -249,16 +247,19 @@ def gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
     return m.to(table.dtype).float()
 
 
-def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
+def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2,
+               dst_perm=None, dst_sorted=None):
     """K12-online's shift f32[num_rows]: the exact row max of the logits,
     rounded to the transport dtype, 0 for a row without an edge (the JAX
     online kernel's m, flash_gat.py:442-446, 474).
 
     table: [n, kz+1] row-major ``[z | a_src]`` rows in the transport dtype;
     adst_r: f32[num_rows] = round_T(a_dst); src, dst: int32[E] with padding
-    ``dst >= num_rows``.  CPU tensors take the plain version; CUDA tensors
-    launch csrc/gat_fwd.cu's row max, counted in ``gat_rowmax.launches``,
-    or raise."""
+    ``dst >= num_rows``; dst_perm, dst_sorted: the walk by dst (gat_fwd;
+    required on a CUDA tensor): the kernel takes one atomic a run of it.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/gat_fwd.cu's row max (the walk, then a decode), counted once in
+    ``gat_rowmax.launches``, or raise."""
     if table.device.type == "cpu":
         return gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope)
     dev, _ = _check_table("gat_rowmax", table, 1, kz)
@@ -266,13 +267,14 @@ def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
     _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    check_dst_walk(dst, dst_perm, dst_sorted)
+    m = torch.zeros(num_rows, dtype=torch.float32, device=dev)  # the kernel's empty keys
     if e == 0:
-        return torch.zeros(num_rows, dtype=torch.float32, device=dev)
-    m = torch.empty(num_rows, dtype=torch.float32, device=dev)
+        return m
     _cuda.launch(
         "gat_rowmax", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        adst_r.data_ptr(), src.data_ptr(), dst.data_ptr(), m.data_ptr(), e, num_rows, kz,
-        float(negative_slope),
+        adst_r.data_ptr(), dst_perm.data_ptr(), dst_sorted.data_ptr(), src.data_ptr(),
+        m.data_ptr(), e, num_rows, kz, float(negative_slope),
     )
     gat_rowmax.launches += 1
     return m
@@ -281,38 +283,25 @@ def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2):
 gat_rowmax.launches = 0
 
 
-def online_shift(table, a_dst, src, dst, num_rows, kz, negative_slope=0.2):
+def online_shift(table, a_dst, src, dst, num_rows, kz, negative_slope=0.2,
+                 dst_perm=None, dst_sorted=None):
     """(a_dst, m) rounded through the transport dtype, as the online kernel
     gathers them: m = gat_rowmax (the exact row max, rounded; 0 for an
-    empty row).  The counterpart of bound_shift for
+    empty row) on the walk by dst.  The counterpart of bound_shift for
     ``FlashGATMode(softmax_shift='online')``."""
     adst_r = a_dst.to(table.dtype).float().contiguous()
-    return adst_r, gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope)
+    return adst_r, gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope,
+                              dst_perm=dst_perm, dst_sorted=dst_sorted)
 
 
-def flash_gat_fwd_online(table, adst_r, m, src, dst, num_rows, kz, negative_slope=0.2):
-    """K12-online's edge walk: flash_gat_fwd with the row max m as the
-    shift, under a kernel of its own (csrc/gat_fwd.cu gat_fwd_online), so
-    that it is counted in ``flash_gat_fwd_online.launches`` and timed apart.
-    Its plain version is flash_gat_fwd_plain."""
-    if table.device.type == "cpu":
-        return flash_gat_fwd_plain(table, adst_r, m, src, dst, num_rows, kz, negative_slope)
-    dev, width = _check_table("flash_gat_fwd_online", table, 1, kz)
-    e = dst.shape[0]
-    _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
-    _cuda.require(m, "m", torch.float32, (num_rows,), dev)
-    _cuda.require(src, "src", torch.int32, (e,), dev)
-    _cuda.require(dst, "dst", torch.int32, (e,), dev)
-    acc = torch.zeros((num_rows, width), dtype=torch.float32, device=dev)
-    if e == 0:
-        return acc
-    _cuda.launch(
-        "gat_fwd_online", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        adst_r.data_ptr(), m.data_ptr(), src.data_ptr(), dst.data_ptr(), acc.data_ptr(), e,
-        num_rows, kz, float(negative_slope),
-    )
-    flash_gat_fwd_online.launches += 1
-    return acc
+def flash_gat_fwd_online(table, adst_r, m, src, dst, num_rows, kz, negative_slope=0.2,
+                         dst_perm=None, dst_sorted=None):
+    """K12-online's walk: flash_gat_fwd with the row max m as the shift, the
+    same kernel (gat_fwd) on the walk by dst (required on a CUDA tensor),
+    counted in ``flash_gat_fwd_online.launches``.  Its plain version is
+    flash_gat_fwd_plain."""
+    return gat_fwd(flash_gat_fwd_online, table, adst_r[None], m[None], src, dst, num_rows,
+                   kz, False, negative_slope, dst_perm, dst_sorted)
 
 
 flash_gat_fwd_online.launches = 0
@@ -563,87 +552,55 @@ def dst_block_bounds(dst, num_rows):
     return bounds
 
 
-def onepass_pieces(block_bounds, piece_edges):
-    """int32[n_blocks]: the inclusive prefix sum of each dst block's pieces
-    of at most `piece_edges` edges (K14's CTAs, in order)."""
-    lengths = block_bounds[1:] - block_bounds[:-1]
-    return torch.cumsum((lengths + piece_edges - 1) // piece_edges, 0).to(torch.int32)
+def flash_gat_bwd_onepass_plain(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
+                                src_perm=None, src_sorted=None):
+    """Plain PyTorch version of flash_gat_bwd_onepass, same inputs and
+    rounding points: gat_bwd_plain at K2's points on the stat table's
+    columns (g unrounded); the walk is accepted and not read."""
+    dpk, da_dst = gat_bwd_plain(table, stat[:, : kz + 1], stat[None, :, kz + 1],
+                                stat[None, :, kz + 2], src, dst, num_rows, kz, False,
+                                negative_slope)
+    return dpk, da_dst[0]
 
 
-def flash_gat_bwd_onepass_plain(table, stat, src, dst, block_bounds, num_rows, kz,
-                                negative_slope=0.2, piece_edges=None):
-    """Plain PyTorch version of flash_gat_bwd_onepass, same inputs, rounding
-    points and edge pieces: each piece's edges, as the kernel's CTAs take
-    them, give dpk's rows by src; each piece sums its dpre by row and the
-    pieces add by row, as the kernel flushes its shared da_dst."""
-    piece_edges = piece_edges or ONEPASS_PIECE_EDGES
-    dev = table.device
-    piece_end = onepass_pieces(block_bounds, piece_edges).long()
-    counts = torch.diff(piece_end, prepend=piece_end.new_zeros(1))
-    n_pieces = int(piece_end[-1])
-    blk = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
-    k = torch.arange(n_pieces, device=dev) - (piece_end[blk] - counts[blk])
-    bb = block_bounds.long()
-    lo = bb[blk] + k * piece_edges
-    sizes = torch.minimum(lo + piece_edges, bb[blk + 1]) - lo
-    first = torch.cumsum(sizes, 0) - sizes
-    edge = (torch.repeat_interleave(lo - first, sizes)
-            + torch.arange(int(sizes.sum()), device=dev))
-    piece = torch.repeat_interleave(torch.arange(n_pieces, device=dev), sizes)
-    real = dst[edge] < num_rows
-    edge, piece = edge[real], piece[real]
-    s, d = src[edge].long(), dst[edge].long()
-    ct, dpre = _bwd_edge_terms(table, stat[:, : kz + 1], stat[None, :, kz + 1],
-                               stat[None, :, kz + 2], s, d, kz, False, negative_slope)
-    dpk = torch.zeros((table.shape[0], kz + 1), dtype=torch.float32, device=dev)
-    dpk.index_add_(0, s, ct)
-    part = segment_sum(dpre[:, 0], piece * num_rows + d, n_pieces * num_rows)
-    return dpk, part.view(n_pieces, num_rows).sum(dim=0)
-
-
-def flash_gat_bwd_onepass(table, stat, src, dst, block_bounds, num_rows, kz,
-                          negative_slope=0.2, piece_edges=None):
+def flash_gat_bwd_onepass(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
+                          src_perm=None, src_sorted=None):
     """K14 (``bwd='onepass'``): (dpk f32[n, kz+1], da_dst f32[num_rows]),
-    the one-pass dst-block backward.
+    the one-pass backward: K2's function with g not rounded to the
+    transport, from one stat table.
 
     table: the forward's [n, kz+1] ``[z | a_src]`` rows in the transport
     dtype; stat: f32[num_rows, kz+3] rows ``[g | gout | logden | a_dst]``
     with g NOT rounded to the transport (JAX flash_gat.py:1365-1373);
-    src, dst: int32[E] with padding ``dst >= num_rows``; block_bounds:
-    int32[n_blocks+1] (dst_block_bounds, StepGraph.block_bounds);
-    piece_edges: the most edges one CTA takes (default
-    ONEPASS_PIECE_EDGES).  CPU tensors take the plain version; CUDA tensors
-    launch csrc/gat_bwd_onepass.cu, counted in
-    ``flash_gat_bwd_onepass.launches``, or raise."""
+    src, dst: int32[E] with padding ``dst >= num_rows``; src_perm,
+    src_sorted: the walk by source (gat_bwd; required on a CUDA tensor,
+    check_walk).  On the card dpk is a view of a zeroed buffer whose rows
+    are padded to a multiple of 4 columns.  Any kz.  CPU tensors take the
+    plain version; CUDA tensors launch csrc/gat_bwd.cu's walk in its
+    StatRow mode, counted in ``flash_gat_bwd_onepass.launches``, or
+    raise."""
     if table.device.type == "cpu":
-        return flash_gat_bwd_onepass_plain(table, stat, src, dst, block_bounds, num_rows, kz,
-                                           negative_slope, piece_edges)
-    piece_edges = piece_edges or ONEPASS_PIECE_EDGES
+        return flash_gat_bwd_onepass_plain(table, stat, src, dst, num_rows, kz,
+                                           negative_slope)
     dev, width = _check_table("flash_gat_bwd_onepass", table, 1, kz)
-    if kz > 125:
-        raise ValueError(f"flash_gat_bwd_onepass: kz {kz} > 125 (its stat rows in "
-                         "shared memory)")
     e = dst.shape[0]
-    n_blocks = max(1, _cdiv(num_rows, _BR))
     _cuda.require(stat, "stat", torch.float32, (num_rows, kz + 3), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
-    _cuda.require(block_bounds, "block_bounds", torch.int32, (n_blocks + 1,), dev)
-    dpk = torch.zeros((table.shape[0], width), dtype=torch.float32, device=dev)
-    da_dst = torch.zeros(num_rows, dtype=torch.float32, device=dev)
-    if e == 0:
-        return dpk, da_dst
-    piece_end = onepass_pieces(block_bounds, piece_edges)
-    # at most one more piece a block than E / piece_edges: no count is read
-    grid = n_blocks + _cdiv(e, piece_edges)
-    _cuda.launch(
-        "gat_bwd_onepass", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        stat.data_ptr(), src.data_ptr(), dst.data_ptr(), block_bounds.data_ptr(),
-        piece_end.data_ptr(), dpk.data_ptr(), da_dst.data_ptr(), grid, n_blocks, num_rows,
-        kz, piece_edges, float(negative_slope),
-    )
-    flash_gat_bwd_onepass.launches += 1
-    return dpk, da_dst
+    check_walk(src, src_perm, src_sorted)
+    # one zeroed buffer for both sums, dpk's rows padded to 16 bytes
+    stride = -(-width // 4) * 4
+    n = table.shape[0]
+    out = torch.zeros(n * stride + num_rows, dtype=torch.float32, device=dev)
+    dpk, da_dst = out[: n * stride].view(n, stride), out[n * stride:]
+    if e > 0:
+        _cuda.launch(
+            "gat_bwd_onepass", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
+            stat.data_ptr(), src_perm.data_ptr(), src_sorted.data_ptr(), dst.data_ptr(),
+            dpk.data_ptr(), da_dst.data_ptr(), e, num_rows, kz, stride, float(negative_slope),
+        )
+        flash_gat_bwd_onepass.launches += 1
+    return dpk[:, :width], da_dst
 
 
 flash_gat_bwd_onepass.launches = 0
@@ -654,55 +611,55 @@ class FlashGAT(torch.autograd.Function):
     a_dst, on the routes of `mode` (ops/config.FlashGATMode).
 
     forward(table [n, kz+1] in the transport dtype, a_dst f32[num_rows],
-    src, dst int32[E], block_bounds (int32[n_blocks+1], read by the one-pass
-    backward only), src_perm, src_sorted (int32[E], the walk of the fused
-    backward, K2), dst_perm, dst_sorted (int32[E], the walk of the
-    bound-shift forward, K1/K12), num_rows, kz, negative_slope, mode) ->
-    out f32[num_rows, kz].  The shift is m̂ (bound_shift, K1/K12) or the row max m
-    (online_shift, K12-online); it is a residual with no gradient, and
-    logden = shift + log(s + 1e-16).  The backward builds the route's stat
-    table as ``_flash_bwd`` does (ops/flash_gat.py:1360-1479): K2 and K13
-    take ``[round_T(g) | gout]`` (g rounded once through the transport,
-    gout = Σ g·out from the unrounded g), logden and round_T(a_dst); K14
-    takes ``[g | gout | logden | round_T(a_dst)]`` with g unrounded.  It
-    returns the table's gradient in the table's dtype and a_dst's in f32.
-    A graph without edges gives exact zeros both ways."""
+    src, dst int32[E], src_perm, src_sorted (int32[E], the walk by source
+    of the fused and one-pass backwards, K2 and K14), dst_perm, dst_sorted
+    (int32[E], the walk by dst of the forwards, K1/K12 and K12-online),
+    num_rows, kz, negative_slope, mode) -> out f32[num_rows, kz].  The
+    shift is m̂ (bound_shift, K1/K12) or the row max m (online_shift,
+    K12-online); it is a residual with no gradient, and logden = shift +
+    log(s + 1e-16).  The backward builds the route's stat table as
+    ``_flash_bwd`` does (ops/flash_gat.py:1360-1479): K2 and K13 take
+    ``[round_T(g) | gout]`` (g rounded once through the transport, gout =
+    Σ g·out from the unrounded g), logden and round_T(a_dst); K14 takes
+    ``[g | gout | logden | round_T(a_dst)]`` with g unrounded.  It returns
+    the table's gradient in the table's dtype and a_dst's in f32.  A graph
+    without edges gives exact zeros both ways."""
 
     @staticmethod
-    def forward(ctx, table, a_dst, src, dst, block_bounds, src_perm, src_sorted, dst_perm,
-                dst_sorted, num_rows, kz, negative_slope, mode):
+    def forward(ctx, table, a_dst, src, dst, src_perm, src_sorted, dst_perm, dst_sorted,
+                num_rows, kz, negative_slope, mode):
+        fwalk = dict(dst_perm=dst_perm, dst_sorted=dst_sorted)
         if mode.softmax_shift == "online":
             adst_r, shift = online_shift(table, a_dst, src, dst, num_rows, kz,
-                                         negative_slope)
+                                         negative_slope, **fwalk)
             acc = flash_gat_fwd_online(table, adst_r, shift, src, dst, num_rows, kz,
-                                       negative_slope)
+                                       negative_slope, **fwalk)
         else:
             adst_r, shift = bound_shift(a_dst, table[:num_rows, kz], negative_slope,
                                         table.dtype)
             acc = flash_gat_fwd(table, adst_r, shift, src, dst, num_rows, kz,
-                                negative_slope, dst_perm=dst_perm, dst_sorted=dst_sorted)
+                                negative_slope, **fwalk)
         s = acc[:, kz]
         out = acc[:, :kz] / (s[:, None] + 1e-16)
-        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, block_bounds, src_perm,
-                              src_sorted)
+        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, src_perm, src_sorted)
         ctx.consts = (num_rows, kz, negative_slope, mode)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (table, adst_r, shift, s, out, src, dst, block_bounds, src_perm,
-         src_sorted) = ctx.saved_tensors
+        table, adst_r, shift, s, out, src, dst, src_perm, src_sorted = ctx.saved_tensors
         num_rows, kz, negative_slope, mode = ctx.consts
         if dst.shape[0] == 0:  # JAX flash_gat.py:1354-1356
             return (torch.zeros_like(table), torch.zeros_like(adst_r), None, None, None,
-                    None, None, None, None, None, None, None, None)
+                    None, None, None, None, None, None, None)
         g = g.float()
         gout = (g * out).sum(dim=1, keepdim=True)
         logden = shift + torch.log(s + 1e-16)
+        walk = dict(src_perm=src_perm, src_sorted=src_sorted)
         if mode.bwd == "onepass":
             stat = torch.cat([g, gout, logden[:, None], adst_r[:, None]], dim=1)
-            dpk, da_dst = flash_gat_bwd_onepass(table, stat, src, dst, block_bounds,
-                                                num_rows, kz, negative_slope)
+            dpk, da_dst = flash_gat_bwd_onepass(table, stat, src, dst, num_rows, kz,
+                                                negative_slope, **walk)
         else:
             gtab = torch.cat([g.to(table.dtype).float(), gout], dim=1)
             if mode.bwd == "glue":
@@ -714,56 +671,48 @@ class FlashGAT(torch.autograd.Function):
                     ct, src, table.shape[0], "bf16" if table.dtype == torch.bfloat16 else "f32")
             else:
                 dpk, da_dst = flash_gat_bwd(table, gtab, logden, adst_r, src, dst,
-                                            num_rows, kz, negative_slope, src_perm=src_perm,
-                                            src_sorted=src_sorted)
+                                            num_rows, kz, negative_slope, **walk)
         return (dpk.to(table.dtype), da_dst, None, None, None, None, None, None, None, None,
-                None, None, None)
+                None, None)
 
 
 def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
                              negative_slope=0.2, transport="f32", mode=FlashGATMode(),
-                             block_bounds=None, src_perm=None, src_sorted=None,
-                             dst_perm=None, dst_sorted=None):
+                             src_perm=None, src_sorted=None, dst_perm=None, dst_sorted=None):
     """out[i] = Σ_e softmax_dst(leaky_relu(a_dst[i] + a_src[j]))_e · z[j]
     for single-head GAT, from the row-major table the kernel reads.
 
     table: [n, kz+1] ``[z | a_src]`` rows (n >= num_rows, n > max real src);
     a_dst: [num_rows] f32; src/dst: int32[E] with padding sentinel
     ``dst == num_rows``; mode: the routes (ops/config.FlashGATMode);
-    block_bounds: the StepGraph's, for the one-pass backward (None =
-    dst_block_bounds of `dst`); src_perm, src_sorted: the StepGraph's walk
-    by source, for the fused backward (None = src_walk of `src`, a sort,
-    for callers without a StepGraph); dst_perm, dst_sorted: its walk by dst,
-    for the bound-shift forward (None = dst_walk of `dst`).  Returns
-    [num_rows, kz] f32,
-    differentiable in table and a_dst (FlashGAT).  The cast to the
-    transport dtype stays outside the Function, so the table's gradient is
-    rounded to it as the JAX VJP's is."""
+    src_perm, src_sorted: the StepGraph's walk by source, for the fused and
+    one-pass backwards (None = src_walk of `src`, a sort, for callers
+    without a StepGraph); dst_perm, dst_sorted: its walk by dst, for the
+    forward in either shift (None = dst_walk of `dst`).  Returns
+    [num_rows, kz] f32, differentiable in table and a_dst (FlashGAT).  The
+    cast to the transport dtype stays outside the Function, so the table's
+    gradient is rounded to it as the JAX VJP's is."""
     table = table.to(t_dtype_of(transport)).contiguous()
     src = src.to(torch.int32).contiguous()
     dst = dst.to(torch.int32).contiguous()
-    if mode.bwd == "onepass" and block_bounds is None:
-        block_bounds = dst_block_bounds(dst, num_rows)
-    if mode.bwd == "fused":
+    if mode.bwd in ("fused", "onepass"):
         src_perm, src_sorted = src_walk(src, src_perm, src_sorted)
-    if mode.softmax_shift == "bound":
-        dst_perm, dst_sorted = dst_walk(dst, dst_perm, dst_sorted)
+    dst_perm, dst_sorted = dst_walk(dst, dst_perm, dst_sorted)
     return FlashGAT.apply(
-        table, a_dst.float().contiguous(), src, dst, block_bounds, src_perm, src_sorted,
-        dst_perm, dst_sorted, num_rows, kz, negative_slope, mode,
+        table, a_dst.float().contiguous(), src, dst, src_perm, src_sorted, dst_perm,
+        dst_sorted, num_rows, kz, negative_slope, mode,
     )
 
 
 def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
                         num_rows, kz, negative_slope=0.2, transport="f32",
-                        mode=FlashGATMode(), block_bounds=None, dst_perm=None,
-                        dst_sorted=None):
+                        mode=FlashGATMode(), dst_perm=None, dst_sorted=None):
     """flash_gat_attention_rows with the JAX signature.
 
     packed_t: [k_pad, n_src_pad] column-major ``[z | a_src]`` table
     (pack_gat_table), copied once to the row-major [n_src_pad, kz+1];
     src_perm/src_sorted: the StepGraph's src-sorted permutation, the walk
-    of the fused backward (None, None: built with src_walk);
+    of the fused and one-pass backwards (None, None: built with src_walk);
     dst_perm/dst_sorted: its dst-sorted one, the forward's walk (None,
     None: built with dst_walk)."""
     _, k_pad, n_src_pad = _layout(num_rows, kz)
@@ -773,7 +722,7 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
         )
     return flash_gat_attention_rows(packed_t[: kz + 1].t(), a_dst, src, dst,
                                     num_rows, kz, negative_slope, transport, mode,
-                                    block_bounds, src_perm, src_sorted, dst_perm, dst_sorted)
+                                    src_perm, src_sorted, dst_perm, dst_sorted)
 
 
 def flash_gat_reference(packed_t, a_dst, src, dst, num_rows, kz,

@@ -1,6 +1,6 @@
 """Port parity for the flash-GAT variant routes (ops/config.FlashGATMode):
 the online-max forward (K12-online), the unfused glue backward with the
-src scatter (K13 + K6) and the one-pass dst-block backward (K14), on CPU
+src scatter (K13 + K6) and the one-pass backward (K14), on CPU
 tensors (the kernels' plain versions), against the JAX package's Pallas
 kernels in interpret mode under the same switches (FLASH_SOFTMAX_SHIFT,
 FLASH_BWD_MEGA; the K13 route sits behind a 13 MiB literal gate, so its
@@ -242,36 +242,6 @@ def test_every_mode_grads_match_jax(jax_grads, mode, transport):
         tol = ONLINE_BF16_BWD_TOL
     _close(tdp.float().numpy(), jdp.astype(jnp.float32), tol, "d packed")
     _close(tda.numpy(), jda, tol, "d a_dst")
-
-
-@pytest.mark.parametrize("transport", ["f32", "bf16"])
-def test_onepass_pieces_cover_every_edge(jax_grads, transport):
-    """K14's plain version with dst blocks cut into pieces of 48 edges
-    (~15 a block, as the kernel's CTAs take a skewed block), and with one
-    piece a block, against JAX's one-pass gradients."""
-    case, get = jax_grads
-    n, kz, z_t, a_src, a_dst, g, src, dst = case
-    jdp, jda = get("bound", True, transport)
-    table = tfg.pack_gat_table(torch.from_numpy(z_t), torch.from_numpy(a_src), n,
-                               TDT[transport])[: kz + 1].t().contiguous()
-    ts, td = torch.from_numpy(src), torch.from_numpy(dst)
-    adst_r, mhat = tfg.bound_shift(torch.from_numpy(a_dst), table[:n, kz], 0.2, TDT[transport])
-    acc = tfg.flash_gat_fwd_plain(table, adst_r, mhat, ts, td, n, kz)
-    s = acc[:, kz]
-    out = acc[:, :kz] / (s[:, None] + 1e-16)
-    gt = torch.from_numpy(g)
-    stat = torch.cat([gt, (gt * out).sum(dim=1, keepdim=True),
-                      (mhat + torch.log(s + 1e-16))[:, None], adst_r[:, None]], dim=1)
-    bounds = tfg.dst_block_bounds(td, n)
-    assert bounds.tolist()[0] == 0 and bounds.tolist()[-1] == dst.size
-    for piece_edges in (48, dst.size):
-        pieces = tfg.onepass_pieces(bounds, piece_edges)
-        assert int(pieces[-1]) >= (bounds.numel() - 1 if piece_edges == dst.size else 30)
-        dpk, da = tfg.flash_gat_bwd_onepass_plain(table, stat, ts, td, bounds, n, kz,
-                                                  piece_edges=piece_edges)
-        jdpk = np.asarray(jdp.astype(jnp.float32))[: kz + 1].T
-        _close(dpk.to(TDT[transport]).float(), jdpk, BWD_TOL[transport], "dpk")
-        _close(da, jda, BWD_TOL[transport], "da_dst")
 
 
 @pytest.mark.parametrize("mode", MODES[1:], ids=lambda m: f"{m.softmax_shift}-{m.bwd}")

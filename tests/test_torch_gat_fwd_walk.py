@@ -1,16 +1,19 @@
-"""The walk of the GAT forwards K1/K12 (flash_gat_fwd) and K3 (batch_gat_fwd)
-on the CPU, torch only.
+"""The walk of the GAT forwards K1/K12 (flash_gat_fwd), K3 (batch_gat_fwd)
+and K12-online (gat_rowmax, then flash_gat_fwd_online) on the CPU, torch
+only.
 
 csrc/gat_fwd.cu walks the graph's stable sort by dst (StepGraph.dst_perm /
-dst_sorted) and sums each dst row's run before it writes; the kernel runs
-on the card only (tests/test_torch_kernels.py, chip_smoke.py).  Here:
+dst_sorted) and sums each dst row's run before it writes (the row max
+takes one atomic a run); the kernels run on the card only
+(tests/test_torch_kernels.py, chip_smoke.py).  Here:
   * the plain versions accept the walk and do not read it: the same
     results, bitwise, with the walk, without it and with a wrong one, so
     they stay an independent reference for the kernel's walk;
   * the flagship's plan, built at a tiny size, hands each GAT forward its
     StepGraph's own walk by dst (a spy on the wrappers during one step:
-    pea_forward_hybrid's batched shares and _fused_gat_step's union), and
-    the entry points build dst_walk's sort for callers with bare edges;
+    pea_forward_hybrid's batched shares and _fused_gat_step's union, in
+    the default mode and with the online shift), and the entry points
+    build dst_walk's sort for callers with bare edges;
   * every step graph's walk is dst[dst_perm] with the padding edges last;
   * check_dst_walk, the argument check of a CUDA call, refuses a missing,
     non-int32 or wrong-length walk, and dst_walk builds the graph's stable
@@ -40,11 +43,12 @@ def one_thread():
 
 
 def _fwd_case(kernel, transport, seed=0):
-    """A small forward call (args of flash_gat_fwd or batch_gat_fwd) on a
-    block-ordered graph with padding, and its dst."""
+    """A small forward call (args of flash_gat_fwd, batch_gat_fwd,
+    gat_rowmax or flash_gat_fwd_online) on a block-ordered graph with
+    padding, and its dst."""
     rng = np.random.default_rng(seed)
     n, e_real, e_pad = 300, 2000, 2048
-    n_ch, kz = (1, 8) if kernel == "K1" else (3, 4)
+    n_ch, kz = (3, 4) if kernel == "K3" else (1, 8)
     src, dst = rng.integers(0, n, e_real), rng.integers(0, n, e_real)
     order = np.lexsort((dst, src, dst // 128))
     src = torch.from_numpy(np.concatenate([src[order], np.zeros(e_pad - e_real)]).astype(np.int32))
@@ -53,15 +57,26 @@ def _fwd_case(kernel, transport, seed=0):
     a_src, a_dst = (torch.from_numpy(rng.standard_normal((n_ch, n)).astype(np.float32))
                     for _ in range(2))
     table, adst_r, mhat = tbg._pack_tables(z, a_src, a_dst, n, kz, n_ch, 0.2, TDT[transport])
+    if kernel == "K12-online row max":
+        return (table, adst_r[0], src, dst, n, kz), dst
+    if kernel == "K12-online walk":  # the row max as the shift
+        m = tfg.gat_rowmax_plain(table, adst_r[0], src, dst, n, kz)
+        return (table, adst_r[0], m, src, dst, n, kz), dst
     if kernel == "K1":
         return (table, adst_r[0], mhat[0], src, dst, n, kz), dst
     return (table, adst_r, mhat, src, dst, n, kz), dst
 
 
+WRAPPERS = {"K1": (tfg.flash_gat_fwd, tfg.flash_gat_fwd_plain),
+            "K3": (tbg.batch_gat_fwd, tbg.batch_gat_fwd_plain),
+            "K12-online row max": (tfg.gat_rowmax, tfg.gat_rowmax_plain),
+            "K12-online walk": (tfg.flash_gat_fwd_online, tfg.flash_gat_fwd_plain)}
+
+
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
-@pytest.mark.parametrize("kernel", ["K1", "K3"])
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_plain_forwards_do_not_read_the_walk(kernel, transport):
-    plain = tfg.flash_gat_fwd_plain if kernel == "K1" else tbg.batch_gat_fwd_plain
+    wrapper, plain = WRAPPERS[kernel]
     args, dst = _fwd_case(kernel, transport)
     want = plain(*args)
     assert want.abs().sum() > 0
@@ -70,7 +85,6 @@ def test_plain_forwards_do_not_read_the_walk(kernel, transport):
     for walk in ((perm, srt), (wrong, dst[wrong.long()])):
         assert torch.equal(plain(*args, dst_perm=walk[0], dst_sorted=walk[1]), want)
     # the wrapper on CPU tensors: the plain version, no launch
-    wrapper = tfg.flash_gat_fwd if kernel == "K1" else tbg.batch_gat_fwd
     before = wrapper.launches
     assert torch.equal(wrapper(*args, dst_perm=perm, dst_sorted=srt), want)
     assert torch.equal(wrapper(*args), want)
@@ -96,12 +110,22 @@ def _spy(seen, kind, plain):
     return call
 
 
-def test_models_pass_the_step_graphs_dst_walk(flagship_plan, monkeypatch):
+@pytest.mark.parametrize("shift", ["bound", "online"])
+def test_models_pass_the_step_graphs_dst_walk(flagship_plan, monkeypatch, shift):
+    """K1/K12 (the default mode) or K12-online's row max and walk
+    (softmax_shift='online') on the union graph, K3 on the step-2 shares."""
     tr = flagship_plan
     (_, union, rest), (shares, _, _) = tr.graphs.steps
     assert rest and len(shares) == 2
-    seen = {"flash": [], "batch": []}
-    monkeypatch.setattr(tfg, "flash_gat_fwd", _spy(seen, "flash", tfg.flash_gat_fwd_plain))
+    seen = {"flash": [], "rowmax": [], "batch": []}
+    if shift == "online":
+        monkeypatch.setattr(tr, "flash_mode", FlashGATMode(softmax_shift="online"))
+        monkeypatch.setattr(tfg, "flash_gat_fwd", None)  # must not run
+        monkeypatch.setattr(tfg, "gat_rowmax", _spy(seen, "rowmax", tfg.gat_rowmax_plain))
+        monkeypatch.setattr(tfg, "flash_gat_fwd_online",
+                            _spy(seen, "flash", tfg.flash_gat_fwd_plain))
+    else:
+        monkeypatch.setattr(tfg, "flash_gat_fwd", _spy(seen, "flash", tfg.flash_gat_fwd_plain))
     monkeypatch.setattr(tbg, "batch_gat_fwd", _spy(seen, "batch", tbg.batch_gat_fwd_plain))
     params = tr.init(0)
     batch = tr._build_batch(torch.arange(64), torch.Generator().manual_seed(0))
@@ -109,7 +133,8 @@ def test_models_pass_the_step_graphs_dst_walk(flagship_plan, monkeypatch):
     # the StepGraph's own tensors, one forward each: no copy and no sort a
     # step (_fused_gat_step on the union graph, pea_forward_hybrid on the
     # shares)
-    want = {"flash": [union], "batch": [g for g, _ in shares]}
+    want = {"flash": [union], "rowmax": [union] if shift == "online" else [],
+            "batch": [g for g, _ in shares]}
     for kind, graphs in want.items():
         got = sorted((perm.data_ptr(), srt.data_ptr()) for perm, srt in seen[kind])
         assert got == sorted((g.dst_perm.data_ptr(), g.dst_sorted.data_ptr()) for g in graphs)
@@ -118,10 +143,12 @@ def test_models_pass_the_step_graphs_dst_walk(flagship_plan, monkeypatch):
 @pytest.mark.parametrize("entry", ["flash", "flash online", "batch"])
 def test_entry_points_sort_bare_edges_by_dst(entry, monkeypatch):
     """flash_gat_attention and batch_gat_attention without a walk hand the
-    forward dst_walk's sort of their dst; the online shift runs its own
-    per-edge walk and gets none."""
-    seen = {"flash": [], "batch": []}
+    forward dst_walk's sort of their dst; in the online shift both the row
+    max and the walk get it."""
+    seen = {"flash": [], "rowmax": [], "batch": []}
     monkeypatch.setattr(tfg, "flash_gat_fwd", _spy(seen, "flash", tfg.flash_gat_fwd_plain))
+    monkeypatch.setattr(tfg, "flash_gat_fwd_online", _spy(seen, "flash", tfg.flash_gat_fwd_plain))
+    monkeypatch.setattr(tfg, "gat_rowmax", _spy(seen, "rowmax", tfg.gat_rowmax_plain))
     monkeypatch.setattr(tbg, "batch_gat_fwd", _spy(seen, "batch", tbg.batch_gat_fwd_plain))
     rng = np.random.default_rng(4)
     n, kz, n_ch, e = 200, 4, 2, 1024
@@ -137,12 +164,12 @@ def test_entry_points_sort_bare_edges_by_dst(entry, monkeypatch):
         out = tfg.flash_gat_attention(packed, a[1], src, dst, None, None, n, kz, mode=mode)
     assert torch.isfinite(out).all()
     kind = "batch" if entry == "batch" else "flash"
-    if entry == "flash online":
-        assert seen == {"flash": [], "batch": []}
-        return
-    (perm, srt), = seen[kind]
+    kinds = [kind, "rowmax"] if entry == "flash online" else [kind]
+    assert sorted(k for k, v in seen.items() if v) == sorted(kinds)
     want = tfg.dst_walk(dst)
-    assert torch.equal(perm, want[0]) and torch.equal(srt, want[1])
+    for k in kinds:
+        (perm, srt), = seen[k]
+        assert torch.equal(perm, want[0]) and torch.equal(srt, want[1])
 
 
 def test_step_graph_dst_walks_put_the_padding_last(flagship_plan):

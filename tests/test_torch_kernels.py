@@ -1156,8 +1156,9 @@ def test_stream_wrappers_reject_bad_inputs(cuda):
 
 # ---------------------------------------------------------------- the
 # flash-GAT variant routes (ops/config.FlashGATMode): K12-online
-# (gat_rowmax + flash_gat_fwd_online), K13 (flash_gat_bwd_glue, then K6) and
-# K14 (flash_gat_bwd_onepass), at the flagship's step-1 union shape
+# (gat_rowmax + flash_gat_fwd_online) and K13 (flash_gat_bwd_glue, then K6)
+# at the flagship's step-1 union shape, K14 (flash_gat_bwd_onepass) at each
+# of its layouts and on a hot source
 
 
 def _ulp(x, t_dtype):
@@ -1183,25 +1184,47 @@ def _flagship_union(rng, cuda, t_dtype, skew=False):
     return n, kz, src.to(cuda), dst.to(cuda), table.to(cuda), a_dst.to(cuda)
 
 
+@pytest.mark.parametrize("graph", ["union", "hot row"])
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
-def test_online_kernels_match_plain(cuda, transport):
-    """gat_rowmax's m equals the plain version's bitwise (one max, rounded
-    once); the walk's sums within KERNEL_TOL, as K1/K12's."""
+def test_online_kernels_match_plain(cuda, transport, graph):
+    """K12-online on the walk by dst: gat_rowmax's m equals the plain
+    version's bitwise (one max, rounded once); the walk's sums within
+    KERNEL_TOL, as K1/K12's.  "hot row": dst row 777 takes 60,000 of the
+    edges, its run across many warps' slices of the row max and many
+    workers' of the walk, each row of the walk's sums within _sum_bound of
+    the float64 sums of the plain version's terms."""
     rng = np.random.default_rng(10)
     t_dtype = TDT[transport]
     n, kz, src, dst, table, a_dst = _flagship_union(rng, cuda, t_dtype)
+    if graph == "hot row":
+        real = dst < n
+        dst = torch.where(real & (torch.arange(dst.numel(), device=cuda) < 60000), 777, dst)
+        order = np.lexsort((dst.cpu().numpy(), src.cpu().numpy(), dst.cpu().numpy() // 128))
+        order = torch.from_numpy(order).to(cuda)
+        src, dst = src[order].contiguous(), dst[order].contiguous()
+        assert int((dst == 777).sum()) >= 60000
     adst_r = a_dst.to(t_dtype).float()
+    walk = dict(zip(("dst_perm", "dst_sorted"), tfg.dst_walk(dst)))
     before = (tfg.gat_rowmax.launches, tfg.flash_gat_fwd_online.launches)
-    m = tfg.gat_rowmax(table, adst_r, src, dst, n, kz)
-    acc = tfg.flash_gat_fwd_online(table, adst_r, m, src, dst, n, kz)
+    m = tfg.gat_rowmax(table, adst_r, src, dst, n, kz, **walk)
+    acc = tfg.flash_gat_fwd_online(table, adst_r, m, src, dst, n, kz, **walk)
     torch.cuda.synchronize()
     assert (tfg.gat_rowmax.launches, tfg.flash_gat_fwd_online.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(m, tfg.gat_rowmax_plain(table, adst_r, src, dst, n, kz))
-    want = tfg.flash_gat_fwd_plain(table, adst_r, m, src, dst, n, kz)
-    assert torch.isfinite(acc).all() and _rel_err(acc, want) <= KERNEL_TOL
+    assert torch.isfinite(acc).all() and acc.shape == (n, kz + 1)
+    if graph == "union":
+        want = tfg.flash_gat_fwd_plain(table, adst_r, m, src, dst, n, kz)
+        assert _rel_err(acc, want) <= KERNEL_TOL
+    else:
+        d = dst[dst < n].long()
+        terms = tfg._fwd_edge_terms(table, adst_r[None], m[None], src[dst < n].long(), d, kz,
+                                    False, 0.2).double()
+        assert ((acc.double() - segment_sum(terms, d, n)).abs()
+                <= _sum_bound(terms, d, n)).all()
     empty = dst.new_zeros(0)
-    assert not tfg.gat_rowmax(table, adst_r, empty, empty, n, kz).any()
+    assert not tfg.gat_rowmax(table, adst_r, empty, empty, n, kz, dst_perm=empty,
+                              dst_sorted=empty).any()
     assert tfg.gat_rowmax.launches == before[0] + 1
 
 
@@ -1250,34 +1273,77 @@ def test_glue_kernel_matches_plain(cuda, transport):
     assert _rel_err(dpk.double(), exact) <= 1e-6
 
 
-@pytest.mark.parametrize("piece_edges", [None, 64])
-@pytest.mark.parametrize("transport", ["f32", "bf16"])
-def test_onepass_kernel_matches_plain(cuda, transport, piece_edges):
-    """K14 on a skewed union graph (one block with 12x the mean's edges),
-    with the default pieces and with 64-edge pieces (~25 a mean block),
-    against its plain version at KERNEL_TOL; and on the same edges out of
-    block order (its global fallback)."""
-    rng = np.random.default_rng(12)
-    t_dtype = TDT[transport]
-    n, kz, src, dst, table, a_dst = _flagship_union(rng, cuda, t_dtype, skew=True)
-    _, _, _, stat = _mode_bwd_inputs(rng, n, kz, src, dst, table, a_dst, t_dtype)
-    bounds = tfg.dst_block_bounds(dst, n)
+def _check_onepass(table, stat, src, dst, n, kz, t_dtype):
+    """K14 on the walk by source: one launch; dpk by src and da_dst by dst,
+    each row within _sum_bound of the float64 sums of its plain version's
+    terms (K2's rounding points on the stat table's columns, each dpre
+    term with its own error, _gat_bwd_terms)."""
+    perm, srt = tfg.src_walk(src)
     before = tfg.flash_gat_bwd_onepass.launches
-    got = tfg.flash_gat_bwd_onepass(table, stat, src, dst, bounds, n, kz,
-                                    piece_edges=piece_edges)
+    dpk, da_dst = tfg.flash_gat_bwd_onepass(table, stat, src, dst, n, kz, src_perm=perm,
+                                            src_sorted=srt)
     torch.cuda.synchronize()
     assert tfg.flash_gat_bwd_onepass.launches == before + 1
-    want = tfg.flash_gat_bwd_onepass_plain(table, stat, src, dst, bounds, n, kz,
-                                           piece_edges=piece_edges)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and torch.isfinite(a).all()
-        assert _rel_err(a, b) <= KERNEL_TOL
+    assert dpk.shape == (table.shape[0], kz + 1) and da_dst.shape == (n,)
+    assert torch.isfinite(dpk).all() and torch.isfinite(da_dst).all()
+    real = dst < n
+    s, d = src[real].long(), dst[real].long()
+    da_t, da_err, ct, ct_err = _gat_bwd_terms(table, stat[:, : kz + 1], stat[None, :, kz + 1],
+                                              stat[None, :, kz + 2], s, d, kz, t_dtype, False)
+    assert ((dpk.double() - segment_sum(ct, s, table.shape[0])).abs()
+            <= _sum_bound(ct, s, table.shape[0], ct_err)).all()
+    assert ((da_dst[:, None].double() - segment_sum(da_t, d, n)).abs()
+            <= _sum_bound(da_t, d, n, da_err)).all()
+
+
+def _onepass_stat(rng, table, src, dst, n, kz, t_dtype):
+    """K14's stat table [g | gout | logden | round_T(a_dst)] (g unrounded)
+    from the plain forward on the same inputs and a random cotangent."""
+    adst_r, mhat = tfg.bound_shift(torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
+                                   .to(table.device), table[:n, kz], 0.2, t_dtype)
+    acc = tfg.flash_gat_fwd_plain(table, adst_r, mhat, src, dst, n, kz)
+    s = acc[:, kz]
+    out = acc[:, :kz] / (s[:, None] + 1e-16)
+    g = torch.from_numpy(rng.standard_normal((n, kz), dtype=np.float32)).to(table.device)
+    return torch.cat([g, (g * out).sum(dim=1, keepdim=True),
+                      (mhat + torch.log(s + 1e-16))[:, None], adst_r[:, None]], dim=1)
+
+
+@pytest.mark.parametrize("kz", [16, 64, 125, 200, 257])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_onepass_kernel_matches_plain(cuda, transport, kz):
+    """K14 at each of K2's worker layouts (kz <= 32, 64, 128, 256) and past
+    the widest (257: 256-column passes; the design before refused kz >
+    125), on the walk by source, each row within _sum_bound."""
+    rng = np.random.default_rng(12)
+    n, t_dtype = 1000, TDT[transport]
+    src, dst = _edges(rng, n, 12000, 12288, cuda)
+    table = torch.from_numpy(rng.standard_normal((n, kz + 1), dtype=np.float32)).to(cuda)
+    table = table.to(t_dtype)
+    _check_onepass(table, _onepass_stat(rng, table, src, dst, n, kz, t_dtype), src, dst, n,
+                   kz, t_dtype)
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_onepass_kernel_on_a_hot_source(cuda, transport):
+    """K14 at the flagship's layout (kz 64) with one source holding 20,000
+    of 73,611 edges (its run across many workers' slices), then on the same
+    edges out of block order (the walk of a shuffled src)."""
+    rng = np.random.default_rng(14)
+    n, kz, t_dtype, e_real, e_pad = 1690, 64, TDT[transport], 73611, 73728
+    src, dst = rng.integers(0, n, e_real), rng.integers(0, n, e_real)
+    src[:20000] = 777
+    order = np.lexsort((dst, src, dst // 128))
+    src = np.concatenate([src[order], np.zeros(e_pad - e_real, np.int64)])
+    dst = np.concatenate([dst[order], np.full(e_pad - e_real, n)])
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (src, dst))
+    table = torch.from_numpy(rng.standard_normal((n, kz + 1), dtype=np.float32)).to(cuda)
+    table = table.to(t_dtype)
+    stat = _onepass_stat(rng, table, src, dst, n, kz, t_dtype)
+    assert (torch.bincount(src[dst < n].long(), minlength=n)[777] >= 20000).item()
+    _check_onepass(table, stat, src, dst, n, kz, t_dtype)
     perm = torch.from_numpy(rng.permutation(dst.numel())).to(cuda)
-    shuffled = tfg.flash_gat_bwd_onepass(table, stat, src[perm].contiguous(),
-                                         dst[perm].contiguous(), bounds, n, kz,
-                                         piece_edges=piece_edges)
-    for a, b in zip(shuffled, want):
-        assert _rel_err(a, b) <= KERNEL_TOL
+    _check_onepass(table, stat, src[perm].contiguous(), dst[perm].contiguous(), n, kz, t_dtype)
 
 
 @pytest.mark.parametrize("bwd", ["fused", "glue", "onepass"])
@@ -1316,22 +1382,27 @@ def test_mode_wrappers_reject_bad_inputs(cuda):
     ids = torch.zeros(16, dtype=torch.int32, device=cuda)
     gtab = torch.zeros((n, kz + 1), device=cuda)
     stat = torch.zeros((n, kz + 3), device=cuda)
-    bounds = tfg.dst_block_bounds(ids, n)
+    fwalk = dict(dst_perm=ids, dst_sorted=ids)
+    walk = dict(src_perm=ids, src_sorted=ids)
     before = [c.launches for c in (tfg.gat_rowmax, tfg.flash_gat_fwd_online,
                                    tfg.flash_gat_bwd_glue, tfg.flash_gat_bwd_onepass)]
     with pytest.raises(ValueError):  # int64 ids
-        tfg.gat_rowmax(table, vec, ids.long(), ids, n, kz)
+        tfg.gat_rowmax(table, vec, ids.long(), ids, n, kz, **fwalk)
+    with pytest.raises(ValueError, match="dst_perm"):  # no walk: a CUDA call never sorts
+        tfg.gat_rowmax(table, vec, ids, ids, n, kz)
     with pytest.raises(ValueError):  # m of the wrong length
-        tfg.flash_gat_fwd_online(table, vec, vec[:-1], ids, ids, n, kz)
+        tfg.flash_gat_fwd_online(table, vec, vec[:-1], ids, ids, n, kz, **fwalk)
+    with pytest.raises(ValueError, match="dst_perm"):  # no walk
+        tfg.flash_gat_fwd_online(table, vec, vec, ids, ids, n, kz)
     with pytest.raises(ValueError):  # bf16 stat table
         tfg.flash_gat_bwd_glue(table, gtab.bfloat16(), vec, vec, ids, ids, n, kz)
     with pytest.raises(ValueError):  # K2's stat table for K14
-        tfg.flash_gat_bwd_onepass(table, gtab, ids, ids, bounds, n, kz)
-    with pytest.raises(ValueError):  # int64 block bounds
-        tfg.flash_gat_bwd_onepass(table, stat, ids, ids, bounds.long(), n, kz)
-    with pytest.raises(ValueError):  # past its shared-memory layout
-        tfg.flash_gat_bwd_onepass(torch.zeros((n, 127), device=cuda),
-                                  torch.zeros((n, 129), device=cuda), ids, ids, bounds, n, 126)
+        tfg.flash_gat_bwd_onepass(table, gtab, ids, ids, n, kz, **walk)
+    with pytest.raises(ValueError, match="src_perm"):  # no walk
+        tfg.flash_gat_bwd_onepass(table, stat, ids, ids, n, kz)
+    with pytest.raises(ValueError):  # an int64 walk
+        tfg.flash_gat_bwd_onepass(table, stat, ids, ids, n, kz, src_perm=ids.long(),
+                                  src_sorted=ids)
     after = [c.launches for c in (tfg.gat_rowmax, tfg.flash_gat_fwd_online,
                                   tfg.flash_gat_bwd_glue, tfg.flash_gat_bwd_onepass)]
     assert after == before

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The flagship's GAT backwards, K2 (flash_gat_bwd) and K4 (batch_gat_bwd),
-on the port's package of a checkout, and csrc/gat_bwd.cu's walk against its
-alternatives:
+"""The flagship's GAT backwards, K2 (flash_gat_bwd), K4 (batch_gat_bwd) and
+K14 (flash_gat_bwd_onepass, the one-pass route), on the port's package of a
+checkout, and csrc/gat_bwd.cu's walk against its alternatives:
 
     python3 torch_tools/gat_bwd_walk.py [ROOT]
 
@@ -14,17 +14,20 @@ runs chip_smoke.kernel_phase on the flagship's PEAGAT plan (per transport:
 K1/K12 and K2 on the step-1 union graph, K3 and K4 on the step-2 shares of
 7 and 2 channels; each checked against its plain version, its ms, plain ms
 and bound; the id_runs of each graph's sources) and times K13
-(flash_gat_bwd_glue, the stored cotangent rows) on the union graph.  A
-ROOT whose backwards take no walk (before csrc/gat_bwd.cu summed each
-source's run) is called without it.  On a ROOT with the walk it then times
+(flash_gat_bwd_glue, the stored cotangent rows) and K14 on the union graph
+(K14 with g unrounded in its stat table).  A ROOT whose backwards take no
+walk (before csrc/gat_bwd.cu summed each source's run) is called without
+it, and a ROOT whose K14 takes the 128-row dst blocks' edge ranges (its
+design before the walk) is given the union graph's block_bounds.  On a
+ROOT whose K14 walks too (VARIANTS' lines are this tree's), it then times
 the alternatives at the same calls, each checked against the plain version
 first (KERNEL_TOL of the largest value) unless VARIANTS marks it a
 diagnostic: the edges' own order (the walk perm = arange, ids = src), and
 csrc/gat_bwd.cu with some of its lines replaced (VARIANTS: the slice rule,
-the worker layouts, the kernel without its atomics or without any work;
-built by torch_tools/cu_variants.py, one nvcc a variant, all started
-together, into _build/variants/).  Times
-are device ms (chip_smoke.device_ms) of the zeroing and the launch, K4's
+the worker layouts, each of which K14 shares with K2, the kernel without
+its atomics or without any work; built by torch_tools/cu_variants.py, one
+nvcc a variant, all started together, into _build/variants/).  Times are
+device ms (chip_smoke.device_ms) of the zeroing and the launch, K4's
 summed over its two calls.  Needs a CUDA device (exit 2 without one);
 prints no result line.
 """
@@ -41,7 +44,7 @@ from cu_variants import build, entry
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_SLICE = "const int slice = !bf16 && !round_att_first ? 16 : 4;"
+_SLICE = "const int slice = !bf16 && !round_att_first && !stat_row ? 16 : 4;"
 _K2 = "else if (kz <= 64) GAT_BWD_WALK(16, 16, 4, false);"
 _K4_7 = "else if (kz <= 16) GAT_BWD_WALK(32, 4, 4, false);"
 _DA = "atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);"
@@ -69,8 +72,9 @@ VARIANTS = {
 def backward_calls(cs, plan, num_nodes, transport):
     """The flagship step's backward calls on random inputs, as
     chip_smoke.kernel_phase makes them: [(kernel, table, gtab, logden,
-    adst_r, g, n_ch, kz, round_att_first)], K2 on the union graph, then K4
-    on the two step-2 shares."""
+    adst_r, g, n_ch, kz, round_att_first)], K2 on the union graph, K14 on
+    the same inputs (gtab its stat table [g | gout | logden | a_dst] with g
+    unrounded, logden None), then K4 on the two step-2 shares."""
     import numpy as np
     import torch
 
@@ -88,8 +92,11 @@ def backward_calls(cs, plan, num_nodes, transport):
     table = randn(n_v, 65).to(t_dtype)
     adst_r, mhat = fg.bound_shift(randn(n_v), table[:, 64], 0.2, t_dtype)
     acc = fg.flash_gat_fwd_plain(table, adst_r, mhat, union.src, union.dst, n_v, 64)
-    gtab, logden = cs.bwd_stats(acc, mhat, 1, 64, t_dtype, randn(n_v, 1, 64))
-    calls = [("K2", table, gtab, logden, adst_r[None], union, 1, 64, False)]
+    g = randn(n_v, 1, 64)
+    gtab, logden = cs.bwd_stats(acc, mhat, 1, 64, t_dtype, g)
+    stat = torch.cat([g[:, 0], gtab[:, 64:], logden[0][:, None], adst_r[:, None]], dim=1)
+    calls = [("K2", table, gtab, logden, adst_r[None], union, 1, 64, False),
+             ("K14", table, stat, None, adst_r[None], union, 1, 64, False)]
     for g, chans in shares:
         n_ch = len(chans)
         tab, ad, mh = bg._pack_tables(randn(n_ch, num_nodes, 16), randn(n_ch, num_nodes),
@@ -100,9 +107,10 @@ def backward_calls(cs, plan, num_nodes, transport):
     return calls
 
 
-def alternatives(cs, plan, num_nodes):
-    """Per transport and kernel, the walk's alternatives at the flagship's
-    calls: each checked against the plain version, then timed."""
+def alternatives(cs, plan, num_nodes, kernels):
+    """Per transport and kernel of `kernels`, the walk's alternatives at the
+    flagship's calls: each checked against the plain version, then
+    timed."""
     import torch
 
     from graph_recsys_benchmark_tpu_torch.ops import _cuda
@@ -111,16 +119,23 @@ def alternatives(cs, plan, num_nodes):
     t0 = time.perf_counter()
     libs = build("gat_bwd.cu", {name: rules for name, (_, rules) in VARIANTS.items()})
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
-    cands = [("default", _cuda.load("gat_bwd"), True, True),
-             ("edge order", _cuda.load("gat_bwd"), False, True)]
-    cands += [(name, entry(lib, "gat_bwd"), True, VARIANTS[name][0])
-              for name, lib in libs.items()]
     for transport in cs.TDT:
         calls = backward_calls(cs, plan, num_nodes, transport)
-        for kernel in ("K2", "K4"):
+        for kernel in kernels:
+            c_entry = "gat_bwd_onepass" if kernel == "K14" else "gat_bwd"
+            cands = [("default", _cuda.load(c_entry), True, True),
+                     ("edge order", _cuda.load(c_entry), False, True)]
+            cands += [(name, entry(lib, c_entry), True, VARIANTS[name][0])
+                      for name, lib in libs.items()]
             mine = [c for c in calls if c[0] == kernel]
-            wants = [fg.gat_bwd_plain(table, gtab, logden, ad, g.src, g.dst, ad.shape[1], kz,
-                                      rnd) for _, table, gtab, logden, ad, g, _, kz, rnd in mine]
+            if kernel == "K14":
+                wants = [fg.flash_gat_bwd_onepass_plain(table, stat, g.src, g.dst, ad.shape[1],
+                                                        kz)
+                         for _, table, stat, _, ad, g, _, kz, _ in mine]
+            else:
+                wants = [fg.gat_bwd_plain(table, gtab, logden, ad, g.src, g.dst, ad.shape[1],
+                                          kz, rnd)
+                         for _, table, gtab, logden, ad, g, _, kz, rnd in mine]
             res = []
             for name, fn, walk, checked in cands:
                 runs, outs = [], []
@@ -134,13 +149,21 @@ def alternatives(cs, plan, num_nodes):
                     perm, ids = ((g.src_perm, g.src_sorted) if walk else
                                  (torch.arange(g.src.numel(), dtype=torch.int32,
                                                device=g.src.device), g.src))
-                    args = (table.device.index, table.data_ptr(),
-                            int(table.dtype == torch.bfloat16), int(rnd), gtab.data_ptr(),
-                            logden.data_ptr(), ad.data_ptr(), perm.data_ptr(), ids.data_ptr(),
-                            g.dst.data_ptr(), dpk.data_ptr(), da.data_ptr(), g.dst.numel(),
-                            rows, kz, n_ch, stride, 0.2)
+                    bf16 = int(table.dtype == torch.bfloat16)
+                    if kernel == "K14":  # gtab: the stat table
+                        args = (table.device.index, table.data_ptr(), bf16, gtab.data_ptr(),
+                                perm.data_ptr(), ids.data_ptr(), g.dst.data_ptr(),
+                                dpk.data_ptr(), da.data_ptr(), g.dst.numel(), rows, kz,
+                                stride, 0.2)
+                        outs.append((dpk[:, :width], da))
+                    else:
+                        args = (table.device.index, table.data_ptr(), bf16, int(rnd),
+                                gtab.data_ptr(), logden.data_ptr(), ad.data_ptr(),
+                                perm.data_ptr(), ids.data_ptr(), g.dst.data_ptr(),
+                                dpk.data_ptr(), da.data_ptr(), g.dst.numel(), rows, kz, n_ch,
+                                stride, 0.2)
+                        outs.append((dpk[:, :width], da.view(rows, n_ch).t()))
                     runs.append((out, perm, args))
-                    outs.append((dpk[:, :width], da.view(rows, n_ch).t()))
 
                 def run():
                     stream = torch.cuda.current_stream().cuda_stream
@@ -164,6 +187,19 @@ def without_walk(fn):
     def call(*args, src_perm=None, src_sorted=None):
         return fn(*args)
     return call
+
+
+def onepass_calls(fg, table, stat, g, rows, kz):
+    """(run, plain): () -> K14's outputs on the step graph g, and its plain
+    version's: on the walk by source, or on g's 128-row dst blocks' edge
+    ranges where ROOT's K14 takes those (its design before the walk)."""
+    if "src_perm" in inspect.signature(fg.flash_gat_bwd_onepass).parameters:
+        return (lambda: fg.flash_gat_bwd_onepass(table, stat, g.src, g.dst, rows, kz,
+                                                 src_perm=g.src_perm, src_sorted=g.src_sorted),
+                lambda: fg.flash_gat_bwd_onepass_plain(table, stat, g.src, g.dst, rows, kz))
+    args = (table, stat, g.src, g.dst, g.block_bounds, rows, kz)
+    return (lambda: fg.flash_gat_bwd_onepass(*args),
+            lambda: fg.flash_gat_bwd_onepass_plain(*args))
 
 
 def main(argv):
@@ -215,8 +251,14 @@ def main(argv):
                         [fg.flash_gat_bwd_glue_plain(*args)[1]])
         print(f"K13 flash_gat_bwd_glue {transport}: ms "
               f"{cs.device_ms(lambda: fg.flash_gat_bwd_glue(*args)):.5f}", flush=True)
-    if has_walk:
-        alternatives(cs, plan, hin.num_nodes)
+        _, table, stat, _, ad, g, _, kz, _ = backward_calls(
+            cs, plan, hin.num_nodes, transport)[1]
+        rows = ad.shape[1]
+        run, plain = onepass_calls(fg, table, stat, g, rows, kz)
+        cs.check_kernel("flash_gat_bwd_onepass", transport, run(), plain())
+        print(f"K14 flash_gat_bwd_onepass {transport}: ms {cs.device_ms(run):.5f}", flush=True)
+    if "src_perm" in inspect.signature(fg.flash_gat_bwd_onepass).parameters:
+        alternatives(cs, plan, hin.num_nodes, ("K2", "K14", "K4"))
     return 0
 
 

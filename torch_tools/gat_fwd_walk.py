@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The flagship's GAT forwards, K1/K12 (flash_gat_fwd) and K3
-(batch_gat_fwd), on the port's package of a checkout, and csrc/gat_fwd.cu's
-walk by dst against its alternatives:
+"""The flagship's GAT forwards, K1/K12 (flash_gat_fwd), K3 (batch_gat_fwd)
+and K12-online (gat_rowmax, then flash_gat_fwd_online: the online-shift
+route), on the port's package of a checkout, and csrc/gat_fwd.cu's walk by
+dst and row max against their alternatives:
 
     python3 torch_tools/gat_fwd_walk.py [ROOT]
 
@@ -14,20 +15,23 @@ runs chip_smoke.kernel_phase on the flagship's PEAGAT plan (per transport:
 K1/K12 and K2 on the step-1 union graph, K3 and K4 on the step-2 shares of
 7 and 2 channels; each checked against its plain version, its ms, plain ms
 and bound; the id_runs of each graph's sources and dsts) and times
-K12-online's walk (flash_gat_fwd_online, the per-edge kernel) on the union
-graph.  A ROOT whose forwards take no walk (before csrc/gat_fwd.cu summed
-each dst row's run) is called without it.  On a ROOT with the walk it then
-times the alternatives at the same calls, each checked against the plain
-version first (chip_smoke.check_kernel: KERNEL_TOL of the largest value)
-unless VARIANTS marks it a diagnostic: the edges' own order (the walk perm
-= arange, ids = dst), and csrc/gat_fwd.cu with some of its lines replaced
-(VARIANTS: the slice, the worker layouts, plain 16-byte stores for the
-runs that lie inside one slice, the kernel without its atomics or without
+K12-online's two passes on the union graph: the row max (m bitwise the
+plain version's) and the walk with m as the shift.  A ROOT whose forwards
+take no walk (before csrc/gat_fwd.cu summed each dst row's run, and before
+K12-online walked it) is called without it.  On a ROOT with the walk it
+then times the alternatives at the same calls, each checked against the
+plain version first (chip_smoke.check_kernel: KERNEL_TOL of the largest
+value; the row max bitwise) unless VARIANTS marks it a diagnostic: the
+edges' own order (the walk perm = arange, ids = dst), and csrc/gat_fwd.cu
+with some of its lines replaced (VARIANTS: the slice, the worker layouts,
+plain 16-byte stores for the runs that lie inside one slice, the kernel
+without its atomics or without any work; ROWMAX_VARIANTS: the row max's
+chunks a warp, its decode folded into the walk's last CTA, and without
 any work; built by torch_tools/cu_variants.py, one nvcc a variant, all
-started together, into _build/variants/).  Times are device ms
-(chip_smoke.device_ms) of the zeroing and the launch, K3's summed over its
-two calls.  Needs a CUDA device (exit 2 without one); prints no result
-line.
+started together, into _build/variants/).  Times are
+device ms (chip_smoke.device_ms) of the zeroing and the launches, K3's
+summed over its two calls.  Needs a CUDA device (exit 2 without one);
+prints no result line.
 """
 
 import functools
@@ -89,6 +93,42 @@ VARIANTS = {
     "no work (unchecked)": (False, [(_HEAD, "  if (num_edges >= 0) return;\n" + _HEAD)]),
 }
 
+_CHUNKS = "constexpr int RowmaxChunks = 2;"
+_MAX_HEAD = "// K12-online's row max on the walk by dst: key[d] = max max_key(act) over\n"
+_MAX_END = "  if (lane == 0 && cur < num_rows) atomicMax(key + cur, best);\n}\n"
+_DECODE = "  gat_rowmax_decode_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(key, num_rows);"
+_K0 = ("  const long long k0 = (((long long)blockIdx.x * kThreads + threadIdx.x) >> 5) "
+       "* (C * 32) + lane;\n")
+# the row max's variants, as VARIANTS: the chunks of 32 positions a warp
+# takes; the decode folded into the walk (its last CTA to finish decodes
+# every row: one launch in place of two); and a diagnostic without any
+# work (the zeroing and the two launches)
+ROWMAX_VARIANTS = {
+    **{f"rowmax chunks {k}": (True, [(_CHUNKS, f"constexpr int RowmaxChunks = {k};")])
+       for k in (1, 4, 8)},
+    "rowmax decode in the last CTA": (True, [
+        (_MAX_HEAD, "__device__ unsigned rowmax_done = 0;\n\n" + _MAX_HEAD),
+        (_MAX_END,
+         "  if (lane == 0 && cur < num_rows) atomicMax(key + cur, best);\n"
+         "  __shared__ bool last;\n"
+         "  __threadfence();\n"
+         "  __syncthreads();\n"
+         "  if (threadIdx.x == 0) last = atomicAdd(&rowmax_done, 1u) == gridDim.x - 1;\n"
+         "  __syncthreads();\n"
+         "  if (!last) return;\n"
+         "  __threadfence();\n"
+         "  volatile unsigned* vk = key;\n"
+         "  for (int r = threadIdx.x; r < num_rows; r += kThreads) {\n"
+         "    const unsigned k = vk[r];\n"
+         "    vk[r] = __float_as_uint(k == 0u ? 0.f : round_t<T>(gat::unordered(\n"
+         "        static_cast<int>(k ^ 0x80000000u))));\n"
+         "  }\n"
+         "  if (threadIdx.x == 0) rowmax_done = 0u;\n"
+         "}\n"),
+        (_DECODE, "(void)blocks;")]),
+    "rowmax no work (unchecked)": (False, [(_K0, "  if (num_edges >= 0) return;\n" + _K0)]),
+}
+
 
 def forward_calls(cs, plan, num_nodes, transport):
     """The flagship forward's calls on random inputs, as
@@ -120,17 +160,22 @@ def forward_calls(cs, plan, num_nodes, transport):
     return calls
 
 
-def alternatives(cs, plan, num_nodes):
+def alternatives(cs, plan, num_nodes, rowmax):
     """Per transport and kernel, the walk's alternatives at the flagship's
-    calls: each checked against the plain version, then timed."""
+    calls: each checked against the plain version, then timed; and where
+    `rowmax` (ROOT's row max walks by dst), the row max's."""
     import torch
 
     from graph_recsys_benchmark_tpu_torch.ops import _cuda
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
 
     t0 = time.perf_counter()
-    libs = build("gat_fwd.cu", {name: rules for name, (_, rules) in VARIANTS.items()})
+    libs = build("gat_fwd.cu", {name: rules for name, (_, rules)
+                                in {**VARIANTS, **(ROWMAX_VARIANTS if rowmax else {})}.items()})
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    if rowmax:
+        rowmax_alternatives(cs, plan, num_nodes,
+                            {name: libs.pop(name) for name in ROWMAX_VARIANTS})
     cands = [("default", _cuda.load("gat_fwd"), True, True),
              ("edge order", _cuda.load("gat_fwd"), False, True)]
     cands += [(name, entry(lib, "gat_fwd"), True, VARIANTS[name][0])
@@ -175,6 +220,47 @@ def alternatives(cs, plan, num_nodes):
                   f"{len(mine)} call{'s' if len(mine) > 1 else ''}): {res}", flush=True)
 
 
+def rowmax_alternatives(cs, plan, num_nodes, libs):
+    """Per transport, the row max's alternatives on the union graph: the
+    default, the edges' own order and ROWMAX_VARIANTS, each checked
+    bitwise against the plain version first unless marked a diagnostic,
+    then timed (the zeroing of m and the launches)."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.ops import _cuda
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+
+    cands = [("default", _cuda.load("gat_rowmax"), True, True),
+             ("edge order", _cuda.load("gat_rowmax"), False, True)]
+    cands += [(name, entry(lib, "gat_rowmax"), True, ROWMAX_VARIANTS[name][0])
+              for name, lib in libs.items()]
+    for transport in cs.TDT:
+        _, table, ad, _, g, rows, _, kz, _ = forward_calls(cs, plan, num_nodes, transport)[0]
+        want = fg.gat_rowmax_plain(table, ad[0], g.src, g.dst, rows, kz)
+        m = torch.zeros(rows, device=table.device)
+        res = []
+        for name, fn, walk, checked in cands:
+            perm, ids = ((g.dst_perm, g.dst_sorted) if walk else
+                         (torch.arange(g.dst.numel(), dtype=torch.int32, device=g.dst.device),
+                          g.dst))
+            args = (table.device.index, table.data_ptr(), int(table.dtype == torch.bfloat16),
+                    ad.data_ptr(), perm.data_ptr(), ids.data_ptr(), g.src.data_ptr(),
+                    m.data_ptr(), g.dst.numel(), rows, kz, 0.2)
+
+            def run():
+                m.zero_()
+                rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"rowmax {name}: CUDA error {rc} at launch")
+            run()
+            torch.cuda.synchronize()
+            if checked:
+                cs.check(torch.equal(m, want), f"rowmax {name} {transport}: m not bitwise "
+                         "the plain version's")
+            res.append((name, round(cs.device_ms(run), 5)))
+        print(f"K12-online row max {transport} alternatives (ms): {res}", flush=True)
+
+
 def without_walk(fn):
     """`fn` (a forward wrapper that takes no walk) taking the walk's
     keywords and dropping them."""
@@ -182,6 +268,20 @@ def without_walk(fn):
     def call(*args, dst_perm=None, dst_sorted=None):
         return fn(*args)
     return call
+
+
+def online_passes(fg, table, ad, g, rows, kz):
+    """K12-online's two passes on the step graph g, each () -> its output,
+    and their plain versions: (rowmax, walk, rowmax plain, walk plain), on
+    the walk by dst where ROOT's take it."""
+    walk = "dst_perm" in inspect.signature(fg.gat_rowmax).parameters
+    kw = dict(dst_perm=g.dst_perm, dst_sorted=g.dst_sorted) if walk else {}
+    m = fg.gat_rowmax_plain(table, ad, g.src, g.dst, rows, kz)
+    args = (table, ad, m, g.src, g.dst, rows, kz)
+    return (lambda: fg.gat_rowmax(table, ad, g.src, g.dst, rows, kz, **kw),
+            lambda: fg.flash_gat_fwd_online(*args, **kw),
+            lambda: fg.gat_rowmax_plain(table, ad, g.src, g.dst, rows, kz),
+            lambda: fg.flash_gat_fwd_plain(*args))
 
 
 def main(argv):
@@ -224,15 +324,17 @@ def main(argv):
               f"(share {r['bound_ms'] / r['ms']:.4f}, {r['bound_by']}) plain_ms "
               f"{r['plain_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}", flush=True)
     for transport in cs.TDT:
-        _, table, ad, mh, g, rows, _, kz, _ = forward_calls(
+        _, table, ad, _, g, rows, _, kz, _ = forward_calls(
             cs, plan, hin.num_nodes, transport)[0]
-        args = (table, ad[0], mh[0], g.src, g.dst, rows, kz)
-        cs.check_kernel("flash_gat_fwd_online", transport, [fg.flash_gat_fwd_online(*args)],
-                        [fg.flash_gat_fwd_plain(*args)])
-        print(f"K12-online flash_gat_fwd_online {transport}: ms "
-              f"{cs.device_ms(lambda: fg.flash_gat_fwd_online(*args)):.5f}", flush=True)
+        rowmax, walk, rowmax_plain, walk_plain = online_passes(fg, table, ad[0], g, rows, kz)
+        cs.check(torch.equal(rowmax(), rowmax_plain()),
+                 f"gat_rowmax {transport}: m not bitwise the plain version's")
+        cs.check_kernel("flash_gat_fwd_online", transport, [walk()], [walk_plain()])
+        print(f"K12-online {transport}: gat_rowmax ms {cs.device_ms(rowmax):.5f}, "
+              f"flash_gat_fwd_online ms {cs.device_ms(walk):.5f}", flush=True)
     if has_walk:
-        alternatives(cs, plan, hin.num_nodes)
+        alternatives(cs, plan, hin.num_nodes,
+                     "dst_perm" in inspect.signature(fg.gat_rowmax).parameters)
     return 0
 
 
