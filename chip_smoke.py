@@ -64,11 +64,12 @@
    a. mode_kernel_phase, per transport at the step-1 union graph's shapes
       (15,210 rows, 169,155 edges, kz 64): gat_rowmax (K12-online pass 1,
       its m bitwise the plain version's), flash_gat_fwd_online (pass 2,
-      the walk, <= KERNEL_TOL), flash_gat_bwd_glue (K13: each stored
-      cotangent element within one unit of the transport's last place of
-      the plain version's, padding rows exact zeros, da_dst <= KERNEL_TOL),
-      localized_scatter_add (K6) on K13's rows (sum_bound of the float64
-      sums of the same rows), flash_gat_bwd_onepass (K14, on the walk by
+      the walk, <= KERNEL_TOL), flash_gat_bwd_glue (K13, on the walk by
+      dst: each stored cotangent element within one unit of the
+      transport's last place of the plain version's, padding rows exact
+      zeros, da_dst row by row within sum_bound of the float64 sums of its
+      plain version's terms), localized_scatter_add (K6) on K13's rows
+      (sum_bound of the float64 sums of the same rows), flash_gat_bwd_onepass (K14, on the walk by
       source: dpk and da_dst row by row within sum_bound of the float64
       sums of its plain version's terms); device, plain, library ms and the
       bound of each.
@@ -985,14 +986,14 @@ def mode_kernel_phase(plan, num_nodes):
     (flash_gat_bwd_glue, then K6 localized_scatter_add on its rows) and K14
     (flash_gat_bwd_onepass) at the step-1 union graph's shapes (kz 64), per
     transport, on random tables from a numpy seed and the stats of the
-    forward on them, K12-online on the graph's walk by dst and K14 on its
-    walk by source: each against its plain version on the card
-    (gat_rowmax's m bitwise; the walk and K13's da_dst within KERNEL_TOL,
-    as K1, whose arithmetic the walk shares; K13's stored rows each within
-    one unit of the transport's last place of the plain version's, since
-    datt sums in another order, and its padding rows exact zeros; K6 on
-    them within sum_bound of the float64 sums of the same rows; K14's dpk
-    and da_dst row by row within sum_bound of the float64 sums of its
+    forward on them, K12-online and K13 on the graph's walk by dst and K14
+    on its walk by source: each against its plain version on the card
+    (gat_rowmax's m bitwise; the walk within KERNEL_TOL, as K1, whose
+    arithmetic the walk shares; K13's stored rows each within one unit of
+    the transport's last place of the plain version's, since datt may sum
+    in another order, and its padding rows exact zeros; K6 on them within
+    sum_bound of the float64 sums of the same rows; K13's da_dst and K14's
+    dpk and da_dst row by row within sum_bound of the float64 sums of the
     plain version's terms, k2_terms), device ms, plain ms, the bound, and
     the library call where one computes the function (scatter_reduce_ amax
     of the edge logits for the row max; index_add_ for K6)."""
@@ -1062,7 +1063,9 @@ def mode_kernel_phase(plan, num_nodes):
         g = randn(n_v, kz)
         gtab, logden = bwd_stats(acc, m, 1, kz, t_dtype, g[:, None])
         gargs = (table, gtab, logden[0], adst_r, src, dst, n_v, kz)
-        ct, da = fg.flash_gat_bwd_glue(*gargs)
+        # leave NaNs where ct's torch.empty will land: every row must be written
+        torch.full((dst.numel(), kz + 1), float("nan"), dtype=t_dtype, device=dev)
+        ct, da = fg.flash_gat_bwd_glue(*gargs, **fwalk)
         ct_p, da_p = fg.flash_gat_bwd_glue_plain(*gargs)
         torch.cuda.synchronize()
         check(ct.dtype == t_dtype and not ct[~real].any(),
@@ -1072,14 +1075,20 @@ def mode_kernel_phase(plan, num_nodes):
               f"flash_gat_bwd_glue {transport}: a stored row off the plain version's by more "
               f"than one unit in the last place")
         n_apart = int((diff > 0).sum())
-        err, _ = check_kernel("flash_gat_bwd_glue da_dst", transport, [da], [da_p])
-        err = max(err, float(diff.max()))
-        record("flash_bwd_glue", lambda: fg.flash_gat_bwd_glue(*gargs),
+        s_r, d_r = src[real].long(), dst[real].long()
+        dpre, dpre_err, _, _ = k2_terms(table, gtab, logden, adst_r[None], s_r, d_r, kz,
+                                        t_dtype)
+        ex_da = segment_sum(dpre, d_r, n_v)
+        da_share = check_sum(f"flash_gat_bwd_glue da_dst {transport}", da[:, None], ex_da,
+                             sum_bound(dpre, d_r, n_v, dpre_err))
+        err = max(float((da.double() - ex_da[:, 0]).abs().max()), float(diff.max()))
+        record("flash_bwd_glue", lambda: fg.flash_gat_bwd_glue(*gargs, **fwalk),
                lambda: fg.flash_gat_bwd_glue_plain(*gargs),
                # [z | a_src], [g | gout], logden, a_dst, ids; ct, da_dst
                n_v * (kz + 1) * (it + 4) + 2 * n_v * 4 + e * 8 + e * (kz + 1) * it + n_v * 4,
                e * (4 * kz + 14), err,
-               what=f" (ct elements not bitwise the plain version's: {n_apart})")
+               what=f" (ct elements not bitwise the plain version's: {n_apart}; da_dst "
+                    f"against the float64 sums, {da_share:.3f} of the rounding bound)")
         dpk = sk.localized_scatter_add(ct, src, n_v, transport)
         exact = segment_sum(ct.double(), src, n_v)
         share = check_sum(f"localized_scatter_add of K13's rows {transport}", dpk, exact,
@@ -1366,7 +1375,7 @@ STREAM_PIECES = (512, 1024, 2048, 4096, 8192)
 PTXAS_KERNELS = {"stream_gat": ("stream_gat_fwd_kernel", "stream_gat_bwd_dst_kernel",
                                 "stream_gat_bwd_src_kernel"),
                  "segment": ("softmax_block_kernel",),
-                 "gat_bwd": ("gat_bwd_walk_kernel",),
+                 "gat_bwd": ("gat_bwd_walk_kernel", "gat_bwd_glue_walk_kernel"),
                  "gat_fwd": ("gat_fwd_walk_kernel", "gat_rowmax_walk_kernel")}
 
 
@@ -1374,10 +1383,10 @@ def ptxas_summary(logs):
     """ptxas's registers, shared memory and spills of each kernel of the
     streaming GAT (K9, K10, K11), of K8 and of the GAT walks (the forwards
     K1/K12 and K3 and K12-online's row max by dst, the backwards K2, K4 and
-    K14 by source; their template's int arguments: K3's or K4's rounding,
-    lanes an edge, lanes a channel, columns a lane, the backward's wide
-    passes and K14's stat rows; the row max's chunks a warp), one line
-    each."""
+    K14 by source and K13 by dst; their template's int arguments: K3's or
+    K4's rounding, lanes an edge, lanes a channel, columns a lane, the
+    backward's wide passes and K14's stat rows; K13's columns a lane and
+    wide passes; the row max's chunks a warp), one line each."""
     out = {}
     for source, kernels in PTXAS_KERNELS.items():
         cur = None

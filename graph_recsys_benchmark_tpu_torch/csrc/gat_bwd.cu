@@ -109,18 +109,23 @@
 // not measured.
 //
 // K13, ops/flash_gat.py:_make_bwd_glue_kernel(fused_scatter=False) (the JAX
-// route when the fused tables exceed 13 MiB, flash_gat.py:1444-1479): K2's
-// per-edge math, one warp per edge in the edges' own order, as before the
-// design above (gat_bwd_glue_kernel).  Instead of a sum by src, each edge
-// STORES its cotangent row [round_T(g * att) | round_T(dpre)] into ct[e, :]
-// in the transport type T (half the bytes in bf16); da_dst keeps its
-// atomics by dst, as the TPU kernel reduces da_dst in-kernel
-// (flash_gat.py:968-979).  A padding edge's row is written as exact zeros
-// (the TPU contract, flash_gat.py:852-855): ct comes from torch.empty, and
-// the scatter that follows (segment.cu's scatter_add, the port's K6, by
-// src) adds every row.  Launched by ops/flash_gat.flash_gat_bwd_glue (one
-// channel, K2's rounding points).  Extra bytes over K2: the ct write,
-// E * (kz+1) * sizeof(T), and K6 reads it back.
+// route when the fused tables exceed 13 MiB, flash_gat.py:1444-1479),
+// launched by ops/flash_gat.flash_gat_bwd_glue: K2's per-edge math at K2's
+// rounding points, but instead of a sum by src each edge STORES its
+// cotangent row [round_T(g * att) | round_T(dpre)] into ct[e, :] in the
+// transport type T, at the edge's own index e, so that ct keeps the edges'
+// order and the scatter that follows (segment.cu's scatter_add, the port's
+// K6, by src) and the plain version see the same tensor.  A padding edge's
+// row is written as exact zeros (the TPU contract, flash_gat.py:852-855):
+// ct comes from torch.empty.  da_dst sums the unrounded dpre by dst, as the
+// TPU kernel reduces da_dst in-kernel (flash_gat.py:968-979).  The kernel
+// walks the graph's stable sort by dst (StepGraph.dst_perm / dst_sorted,
+// padding last), as K1/K12's forward does (gat_fwd.cu), so that a dst row's
+// edges are one run: its stat row loads once a run, and the run's dpre
+// reaches da_dst with one atomic (any walk order stays right).  datt sums
+// in the order of torch's sum at kz 64 (see gat_bwd_glue_walk_kernel), so
+// the stored rows stay within a unit of the plain version's last place.
+// Its design history and times are in PERF.md section 6.
 
 #include <stdint.h>
 
@@ -167,9 +172,7 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
   const int gw = StatRow ? kz + 3 : width;  // floats of a dst's row of gtab
   const int bw = gat::walk_row_floats(stride, kCols, Wide);
   float* buf = reinterpret_cast<float*>(smem) + (warp * kWorkers + wk) * bw;
-  // the worker's slice [k0, k0 + slice); every worker of the warp runs the
-  // same trip counts (positions past the walk read as padding), so that
-  // the shuffles see every lane
+  // the worker's slice [k0, k0 + slice) of the walk (gat::walk_slice)
   const long long k0 = (((long long)blockIdx.x * kWarps + warp) * kWorkers + wk) * slice;
   for (int base = 0; base < (Wide ? kz : 1); base += kCols) {
     // the last pass also writes dpre (column kz), the pad columns and da_dst
@@ -181,86 +184,72 @@ __global__ void __launch_bounds__(kThreads) gat_bwd_walk_kernel(
 #pragma unroll
     for (int j = 0; j < J; ++j) colv[j] = chv && base + gl + j * GC < kz;
     float acc[J], accd = 0.f;  // the run's sums
-    int cur = -1;  // the run's source; -1 before the slice's first real edge
 
     // the run's row of dpk: the worker's columns and dpre into its shared
     // row, then 16-byte atomics (the worker's lanes only: a run ends where
     // the worker's source changes)
-    auto flush = [&]() {
+    auto flush = [&](int s) {
 #pragma unroll
       for (int j = 0; j < J; ++j)
         if (colv[j]) buf[c * bz + gl + j * GC] = acc[j];
       if (last && chv && gl == 0) buf[c * bz + kz - base] = accd;
       __syncwarp(wmask);
-      float4* out = reinterpret_cast<float4*>(dpk + (long long)cur * stride + base);
+      float4* out = reinterpret_cast<float4*>(dpk + (long long)s * stride + base);
       const float4* b4 = reinterpret_cast<const float4*>(buf);
       for (int q = wl; q < span / 4; q += GE) atomicAdd(out + q, b4[q]);
       __syncwarp(wmask);
     };
-    for (int kb = 0; kb < slice; kb += GE) {
-      int my_s = 0, my_d = num_rows;  // positions past the slice read as padding
-      if (kb + wl < slice && k0 + kb + wl < num_edges) {
-        const long long k = k0 + kb + wl;
-        my_s = __ldg(ids + k);
-        my_d = __ldg(dst + __ldg(perm + k));
-      }
-      for (int i = 0; i < GE && i < slice; ++i) {
-        const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
-        const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
-        const bool real = d < num_rows;  // padding: no load
-        const float* grow = gtab + (long long)d * gw + c * bz;
-        const T* row = table + (long long)s * width + c * bz;
-        const long long cd = (long long)c * num_rows + d;
-        const bool v = real && chv;
-        float g[J], part = 0.f;
+    auto edge = [&](int, int s, int d, bool real, bool fresh) {
+      const float* grow = gtab + (long long)d * gw + c * bz;
+      const T* row = table + (long long)s * width + c * bz;
+      const long long cd = (long long)c * num_rows + d;
+      const bool v = real && chv;  // padding: no load
+      float g[J], part = 0.f;
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          g[j] = v && colv[j] ? __ldg(grow + base + gl + j * GC) : 0.f;
-          if (Wide) continue;  // datt below, over every pass's columns
-          const float z = v && colv[j] ? to_f32(row[gl + j * GC]) : 0.f;
-          // datt: the lane's columns in order, then a butterfly within the
-          // channel's lanes (every lane ends with the same sum)
-          float gz = __fmul_rn(g[j], z);
+      for (int j = 0; j < J; ++j) {
+        g[j] = v && colv[j] ? __ldg(grow + base + gl + j * GC) : 0.f;
+        if (Wide) continue;  // datt below, over every pass's columns
+        const float z = v && colv[j] ? to_f32(row[gl + j * GC]) : 0.f;
+        // datt: the lane's columns in order, then a butterfly within the
+        // channel's lanes (every lane ends with the same sum)
+        float gz = __fmul_rn(g[j], z);
+        if (RoundAttFirst) gz = round_t<T>(gz);
+        if (colv[j]) part = __fadd_rn(part, gz);
+      }
+      if (Wide && v) {  // the lane's columns of every pass, in order
+        for (int k = gl; k < kz; k += GC) {
+          float gz = __fmul_rn(__ldg(grow + k), to_f32(row[k]));
           if (RoundAttFirst) gz = round_t<T>(gz);
-          if (colv[j]) part = __fadd_rn(part, gz);
+          part = __fadd_rn(part, gz);
         }
-        if (Wide && v) {  // the lane's columns of every pass, in order
-          for (int k = gl; k < kz; k += GC) {
-            float gz = __fmul_rn(__ldg(grow + k), to_f32(row[k]));
-            if (RoundAttFirst) gz = round_t<T>(gz);
-            part = __fadd_rn(part, gz);
-          }
-        }
-        const float gout = v ? __ldg(grow + kz) : 0.f;
-        const float ld = v ? __ldg(StatRow ? grow + kz + 1 : logden + cd) : 0.f;
-        const float pre = v ? __ldg(StatRow ? grow + kz + 2 : adst + cd) + to_f32(row[kz]) : 0.f;
-#pragma unroll
-        for (int o = GC / 2; o > 0; o >>= 1)
-          part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-        if (!real) continue;  // uniform in the worker: neither adds nor ends a run
-        // _rn intrinsics keep nvcc from contracting into FMAs, so every
-        // product and difference rounds as the plain version's does
-        const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
-        const float att = expf(fminf(__fsub_rn(act, ld), 60.f));
-        const float dalpha = __fmul_rn(att, __fsub_rn(part, gout));
-        const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
-        const float dpre_t = round_t<T>(dpre);
-        if (last && chv && gl == 0)  // dadst by dst, then channel: an edge's channels share a sector
-          atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);
-        const float a = RoundAttFirst ? round_t<T>(att) : att;
-        // the sums by source, in walk order: a new source flushes the run
-        const bool fresh = s != cur;
-        if (fresh && cur >= 0) flush();
-        cur = s;
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const float t = round_t<T>(__fmul_rn(g[j], a));
-          acc[j] = fresh ? t : __fadd_rn(acc[j], t);
-        }
-        accd = fresh ? dpre_t : __fadd_rn(accd, dpre_t);
       }
-    }
-    if (cur >= 0) flush();
+      const float gout = v ? __ldg(grow + kz) : 0.f;
+      const float ld = v ? __ldg(StatRow ? grow + kz + 1 : logden + cd) : 0.f;
+      const float pre = v ? __ldg(StatRow ? grow + kz + 2 : adst + cd) + to_f32(row[kz]) : 0.f;
+#pragma unroll
+      for (int o = GC / 2; o > 0; o >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+      if (!real) return;  // uniform in the worker, after the warp's shuffles
+      // _rn intrinsics keep nvcc from contracting into FMAs, so every
+      // product and difference rounds as the plain version's does
+      const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
+      const float att = expf(fminf(__fsub_rn(act, ld), 60.f));
+      const float dalpha = __fmul_rn(att, __fsub_rn(part, gout));
+      const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
+      const float dpre_t = round_t<T>(dpre);
+      if (last && chv && gl == 0)  // dadst by dst, then channel: an edge's channels share a sector
+        atomicAdd(dadst + (long long)d * n_ch + c, RoundAttFirst ? dpre_t : dpre);
+      const float a = RoundAttFirst ? round_t<T>(att) : att;
+      // the sums by source, in walk order
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float t = round_t<T>(__fmul_rn(g[j], a));
+        acc[j] = fresh ? t : __fadd_rn(acc[j], t);
+      }
+      accd = fresh ? dpre_t : __fadd_rn(accd, dpre_t);
+    };
+    gat::walk_slice<GE, false, false>(perm, ids, dst, k0, slice, num_edges, num_rows, edge,
+                                      flush);
     __syncwarp(wmask);  // the next pass zeroes buf
   }
 }
@@ -355,76 +344,117 @@ int bwd_walk(int device, const void* table, int bf16, int round_att_first, bool 
   return (int)cudaGetLastError();
 }
 
-// K13: one warp per edge in the edges' own order (the design that K2 and
-// K4 ran before the walk above, kept as it was for the stored rows): per
-// channel, lanes over the kz columns form g * z and a shuffle reduction
-// sums them; lanes 0..n_ch-1 then form their channel's att and dpre, and
-// every lane takes its band's values by shuffle while the warp walks the
-// row in 32-wide passes (stepping its (channel, column) without a
-// division).  Each edge stores its cotangent row [round_T(g * att) |
-// round_T(dpre)] into ct[e] (zeros for a padding edge) and adds its
-// unrounded dpre into dadst (K2's rounding points).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gat_bwd_glue_kernel(
+// K13 on the graph's walk by dst (one channel, K2's rounding points), a
+// warp an edge.  Lane l sums datt's products of columns l, l + 32, ... in
+// order, then the warp's butterfly (xor 16 .. 1): at the flagship's kz 64
+// that is also the order of torch's own sum on the card, so the stored rows
+// match the plain version's bitwise there.  Per run of a dst row: its g
+// columns (J a lane, in registers; Wide, past 256 columns: read from gtab
+// an edge), gout, logden and a_dst, loaded once; per edge: the source row's
+// gather, att (which needs no datt, so the g * att columns are stored as
+// the row is read), the row of ct stored whole at the edge's own index e
+// (exact zeros with no load on a padding edge); per run: one atomic of its
+// f32 sum of dpre into dadst.
+template <typename T, int J, bool Wide>
+__global__ void __launch_bounds__(kThreads) gat_bwd_glue_walk_kernel(
     const T* __restrict__ table, const float* __restrict__ gtab,
     const float* __restrict__ logden, const float* __restrict__ adst,
-    const int* __restrict__ src, const int* __restrict__ dst, T* __restrict__ ct,
-    float* __restrict__ dadst, long long num_edges, int num_rows, int kz, int n_ch,
-    float slope) {
-  const int lane = threadIdx.x & 31;
-  const long long first = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
+    const int* __restrict__ perm, const int* __restrict__ ids, const int* __restrict__ src,
+    T* __restrict__ ct, float* __restrict__ dadst, long long num_edges, int num_rows, int kz,
+    int slice, float slope) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bz = kz + 1;
-  const int width = n_ch * bz;
-  const int c0 = lane / bz, f0 = lane - c0 * bz;
-  for (long long e = first; e < num_edges; e += step) {
-    const int d = dst[e];
-    if (d >= num_rows) {  // padding sentinel: skip before any load, but its
-      for (int j = lane; j < width; j += 32)  // cotangent row is exact zeros
-        ct[e * width + j] = gat::from_f32<T>(0.f);
-      continue;
+  bool colv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) colv[j] = lane + 32 * j < kz;
+  // the run's stats and sum: the lane's g columns, gout, logden, a_dst, dpre
+  float g[J], gout = 0.f, ld = 0.f, ad = 0.f, accd = 0.f;
+  auto run_end = [&](int d) {
+    if (lane == 0) atomicAdd(dadst + d, accd);
+  };
+  auto edge = [&](int e, int s, int d, bool real, bool fresh) {
+    if (e < 0) return;  // past the walk
+    T* out = ct + (long long)e * bz;
+    if (!real) {  // a padding edge's row: exact zeros, no load
+      for (int q = lane; q < bz; q += 32) out[q] = gat::from_f32<T>(0.f);
+      return;
     }
-    const long long s = src[e];
-    const T* row = table + s * width;
-    const float* grow = gtab + (long long)d * width;
-    // datt_c = g_c . z_c: lanes over the columns, a shuffle reduction;
-    // lane c keeps channel c's sum
-    float datt_mine = 0.f;
-    for (int c = 0; c < n_ch; ++c) {
-      float part = 0.f;
-      for (int f = lane; f < kz; f += 32)
-        part = __fadd_rn(part, __fmul_rn(grow[c * bz + f], to_f32(row[c * bz + f])));
-      for (int o = 16; o > 0; o >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-      if (lane == c) datt_mine = part;
-    }
-    float att_mine = 0.f, dpre_mine = 0.f;
-    if (lane < n_ch) {
-      const long long cd = (long long)lane * num_rows + d;
-      const float pre = adst[cd] + to_f32(row[lane * bz + kz]);
-      // _rn intrinsics keep nvcc from contracting into FMAs, so every
-      // product and difference rounds as the plain version's does
-      const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
-      const float att = expf(fminf(__fsub_rn(act, logden[cd]), 60.f));
-      const float dalpha = __fmul_rn(att, __fsub_rn(datt_mine, grow[lane * bz + kz]));
-      const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
-      atomicAdd(dadst + cd, dpre);
-      att_mine = att;
-      dpre_mine = round_t<T>(dpre);
-    }
-    // warp-uniform trip count: every lane reaches the shuffles
-    int c = c0, f = f0;
-    for (int j = lane; j - lane < width; j += 32) {
-      const int src_lane = min(c, n_ch - 1);
-      const float att = __shfl_sync(0xffffffffu, att_mine, src_lane);
-      const float dpre = __shfl_sync(0xffffffffu, dpre_mine, src_lane);
-      if (j < width) {
-        const float v = f < kz ? round_t<T>(__fmul_rn(grow[j], att)) : dpre;
-        ct[e * width + j] = gat::from_f32<T>(v);  // exact: v is T-valued
+    const float* grow = gtab + (long long)d * bz;
+    if (fresh) {  // the new run's stats
+      if constexpr (!Wide) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) g[j] = colv[j] ? __ldg(grow + lane + 32 * j) : 0.f;
       }
-      for (f += 32; f >= bz; f -= bz) ++c;
+      gout = __ldg(grow + kz);
+      ld = __ldg(logden + d);
+      ad = __ldg(adst + d);
     }
-  }
+    const T* row = table + (long long)s * bz;
+    const float pre = ad + to_f32(row[kz]);
+    // _rn intrinsics keep nvcc from contracting into FMAs, so every
+    // product and difference rounds as the plain version's does
+    const float act = pre > 0.f ? pre : __fmul_rn(slope, pre);
+    const float att = expf(fminf(__fsub_rn(act, ld), 60.f));
+    float part = 0.f;
+    if constexpr (Wide) {
+      for (int k = lane; k < kz; k += 32) {
+        const float gk = __ldg(grow + k);
+        part = __fadd_rn(part, __fmul_rn(gk, to_f32(row[k])));
+        out[k] = gat::from_f32<T>(__fmul_rn(gk, att));  // rounds: round_T
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (!colv[j]) continue;
+        const int col = lane + 32 * j;
+        part = __fadd_rn(part, __fmul_rn(g[j], to_f32(row[col])));
+        out[col] = gat::from_f32<T>(__fmul_rn(g[j], att));  // rounds: round_T
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    const float dalpha = __fmul_rn(att, __fsub_rn(part, gout));
+    const float dpre = pre > 0.f ? dalpha : __fmul_rn(dalpha, slope);
+    if (lane == 0) out[kz] = gat::from_f32<T>(dpre);  // round_T(dpre)
+    accd = fresh ? dpre : __fadd_rn(accd, dpre);  // da_dst sums the unrounded dpre
+  };
+  const long long k0 = ((long long)blockIdx.x * kWarps + warp) * slice;
+  gat::walk_slice<32, true, true>(perm, ids, src, k0, slice, num_edges, num_rows, edge,
+                                  run_end);
+}
+
+template <typename T, int J, bool Wide>
+void launch_glue(cudaStream_t s, const void* table, const void* gtab, const void* logden,
+                 const void* adst, const void* perm, const void* ids, const void* src, void* ct,
+                 void* dadst, long long num_edges, int num_rows, int kz, int slice,
+                 float slope) {
+  const long long warps = (num_edges + slice - 1) / slice;
+  const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
+  gat_bwd_glue_walk_kernel<T, J, Wide><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(table), static_cast<const float*>(gtab),
+      static_cast<const float*>(logden), static_cast<const float*>(adst),
+      static_cast<const int*>(perm), static_cast<const int*>(ids), static_cast<const int*>(src),
+      static_cast<T*>(ct), static_cast<float*>(dadst), num_edges, num_rows, kz, slice, slope);
+}
+
+// K13's layout for kz: J columns a lane, past 256 in passes of 32.  A warp
+// an edge read fastest at the flagship's kz 64 (torch_tools/gat_bwd_walk.py,
+// PERF.md section 6); the other widths take it unmeasured.
+template <typename T>
+void launch_glue(cudaStream_t s, const void* table, const void* gtab, const void* logden,
+                 const void* adst, const void* perm, const void* ids, const void* src, void* ct,
+                 void* dadst, long long num_edges, int num_rows, int kz, int slice,
+                 float slope) {
+#define GAT_BWD_GLUE(J, WIDE)                                                             \
+  launch_glue<T, J, WIDE>(s, table, gtab, logden, adst, perm, ids, src, ct, dadst,        \
+                          num_edges, num_rows, kz, slice, slope)
+  if (kz <= 32) GAT_BWD_GLUE(1, false);
+  else if (kz <= 64) GAT_BWD_GLUE(2, false);
+  else if (kz <= 128) GAT_BWD_GLUE(4, false);
+  else if (kz <= 256) GAT_BWD_GLUE(8, false);
+  else GAT_BWD_GLUE(1, true);
+#undef GAT_BWD_GLUE
 }
 
 }  // namespace
@@ -460,33 +490,29 @@ extern "C" int gat_bwd_onepass(int device, const void* table, int bf16, const vo
                   dadst, num_edges, num_rows, kz, 1, stride, slope, stream);
 }
 
-// K13.  As gat_bwd for one channel at K2's rounding points, in the edges'
-// own order, but ct: [num_edges, kz+1] T (bf16 when `bf16` else f32),
-// written whole (zeros for a padding edge), takes the cotangent rows in
-// place of dpk; dadst: f32[num_rows], zeroed by the caller.
+// K13.  As gat_bwd for one channel at K2's rounding points, but on the
+// walk by dst: for k = 0 .. num_edges-1 the edge perm[k] of dst row ids[k]
+// (ids = dst[perm], StepGraph.dst_perm / dst_sorted, padding ids >=
+// num_rows last), src: int32[num_edges] in the edges' order; ct:
+// [num_edges, kz+1] T (bf16 when `bf16` else f32), row e the cotangent
+// row of edge e, written whole (zeros for a padding edge), in place of
+// dpk; dadst: f32[num_rows], zeroed by the caller.  Any kz.
 extern "C" int gat_bwd_glue(int device, const void* table, int bf16, const void* gtab,
-                            const void* logden, const void* adst, const void* src,
-                            const void* dst, void* ct, void* dadst, long long num_edges,
-                            int num_rows, int kz, float slope, void* stream) {
+                            const void* logden, const void* adst, const void* perm,
+                            const void* ids, const void* src, void* ct, void* dadst,
+                            long long num_edges, int num_rows, int kz, float slope,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (kz < 1) return (int)cudaErrorInvalidValue;
-  if (num_edges > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned b = gat::warp_edge_blocks(num_edges);
-    if (bf16)
-      gat_bwd_glue_kernel<__nv_bfloat16><<<b, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(table), static_cast<const float*>(gtab),
-          static_cast<const float*>(logden), static_cast<const float*>(adst),
-          static_cast<const int*>(src), static_cast<const int*>(dst),
-          static_cast<__nv_bfloat16*>(ct), static_cast<float*>(dadst), num_edges, num_rows,
-          kz, 1, slope);
-    else
-      gat_bwd_glue_kernel<float><<<b, kThreads, 0, s>>>(
-          static_cast<const float*>(table), static_cast<const float*>(gtab),
-          static_cast<const float*>(logden), static_cast<const float*>(adst),
-          static_cast<const int*>(src), static_cast<const int*>(dst), static_cast<float*>(ct),
-          static_cast<float*>(dadst), num_edges, num_rows, kz, 1, slope);
-  }
+  if (kz < 1 || num_edges < 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
+  if (num_edges == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // positions of the walk a warp takes: torch_tools/gat_bwd_walk.py read 8
+  // fastest at the flagship's kz 64 in both transports (PERF.md section 6)
+  const int slice = 8;
+  if (bf16)
+    launch_glue<__nv_bfloat16>(s, table, gtab, logden, adst, perm, ids, src, ct, dadst, num_edges, num_rows, kz, slice, slope);
+  else
+    launch_glue<float>(s, table, gtab, logden, adst, perm, ids, src, ct, dadst, num_edges, num_rows, kz, slice, slope);
   return (int)cudaGetLastError();
 }

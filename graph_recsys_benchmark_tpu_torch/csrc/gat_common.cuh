@@ -1,7 +1,8 @@
 // gat_common: device helpers shared by the GAT kernels (gat_fwd.cu: K1/K12,
 // K3 and K12-online on the graph's walk by dst; gat_bwd.cu: K2, K4 and K14
-// on its walk by source, and K13; stream_gat.cu: K9-K11); segment.cu takes
-// the ordered-int image.
+// on its walk by source, K13 on its walk by dst; stream_gat.cu: K9-K11);
+// segment.cu takes the ordered-int image.  The walks' slice loop is
+// walk_slice below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,12 +62,55 @@ __host__ __device__ __forceinline__ int walk_row_floats(int stride, int cols, bo
   return passes && stride > cols + 4 ? cols + 4 : stride;
 }
 
-// Blocks for a one-warp-per-edge grid of 256-thread blocks (K13's glue
-// kernel, gat_bwd.cu), grid-stride past 64 blocks per SM.
-inline unsigned warp_edge_blocks(long long num_edges) {
-  long long blocks = (num_edges * 32 + 255) / 256;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;
-  return (unsigned)(blocks > 0 ? blocks : 1);
+// One worker's slice of a graph walk, shared by the GAT walks (gat_fwd.cu:
+// K1/K12 and K3 by dst; gat_bwd.cu: K2, K4 and K14 by source, K13 by dst).
+// Position k of the walk is edge e = perm[k], whose key ids[k] is its dst
+// where ByDst, else its source; other[e] is the edge's other end.  A worker
+// of GE lanes (32 / GE a warp) takes positions [k0, k0 + slice): its lanes
+// load GE of them at once, then shuffle each one's (e, s, d) to the whole
+// worker (e only where Edges; else -1).  For each position in order,
+// edge(e, s, d, real, fresh) runs, real being d < num_rows and fresh a real
+// edge whose key differs from the run before; run_end(key) closes a run
+// just before the next run's first edge, and after the slice.  Padding
+// edges (d >= num_rows) neither add to nor end a run and read no other end
+// where ByDst (they sort last there); positions past the walk come as
+// padding with e = -1.  Every worker of a warp runs the same trip counts,
+// so shuffles in `edge` see every lane.
+template <int GE, bool ByDst, bool Edges, typename Edge, typename RunEnd>
+__device__ __forceinline__ void walk_slice(const int* __restrict__ perm,
+                                           const int* __restrict__ ids,
+                                           const int* __restrict__ other, long long k0,
+                                           int slice, long long num_edges, int num_rows,
+                                           Edge&& edge, RunEnd&& run_end) {
+  const int wl = threadIdx.x & (GE - 1);
+  int cur = -1;  // the run's key; -1 before the slice's first real edge
+  for (int kb = 0; kb < slice; kb += GE) {
+    int my_e = -1, my_s = 0, my_d = num_rows;
+    if (kb + wl < slice && k0 + kb + wl < num_edges) {
+      const long long k = k0 + kb + wl;
+      const int key = __ldg(ids + k);
+      if (ByDst) {
+        my_d = key;
+        if (Edges) my_e = __ldg(perm + k);
+        if (key < num_rows) my_s = __ldg(other + (Edges ? my_e : __ldg(perm + k)));
+      } else {
+        my_s = key;
+        my_d = __ldg(other + __ldg(perm + k));
+      }
+    }
+    for (int i = 0; i < GE && i < slice; ++i) {
+      const int e = Edges ? __shfl_sync(0xffffffffu, my_e, i, GE) : -1;
+      const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
+      const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
+      const bool real = d < num_rows;  // uniform in the worker
+      const int key = ByDst ? d : s;
+      const bool fresh = real && key != cur;
+      if (fresh && cur >= 0) run_end(cur);
+      edge(e, s, d, real, fresh);
+      if (real) cur = key;
+    }
+  }
+  if (cur >= 0) run_end(cur);
 }
 
 }  // namespace gat

@@ -136,9 +136,7 @@ __global__ void __launch_bounds__(kThreads) gat_fwd_walk_kernel(
   const int bz = kz + 1, width = n_ch * bz;
   const int bw = gat::walk_row_floats(stride, kCols, n_ch == 1);
   float* buf = reinterpret_cast<float*>(smem) + (warp * kWorkers + wk) * bw;
-  // the worker's slice [k0, k0 + slice); every worker of the warp runs the
-  // same trip counts (positions past the walk read as padding), so that
-  // the shuffles see every lane
+  // the worker's slice [k0, k0 + slice) of the walk (gat::walk_slice)
   const long long k0 = (((long long)blockIdx.x * kWarps + warp) * kWorkers + wk) * slice;
   for (int base = 0; base < kz; base += kCols) {
     // the last pass also sums p (column kz) and writes the pad columns
@@ -151,58 +149,43 @@ __global__ void __launch_bounds__(kThreads) gat_fwd_walk_kernel(
     for (int j = 0; j < J; ++j) colv[j] = chv && base + gl + j * GC < kz;
     float accv[J], accp = 0.f;  // the run's sums
     float ad = 0.f, mh = 0.f;  // the run's a_dst and mhat of the lane's channel
-    int cur = -1;  // the run's row; -1 before the slice's first real edge
 
     // the run's row of acc: the worker's columns and p into its shared
     // row, then 16-byte atomics (the worker's lanes only: a run ends where
     // the worker's row changes)
-    auto flush = [&]() {
+    auto flush = [&](int d) {
 #pragma unroll
       for (int j = 0; j < J; ++j)
         if (colv[j]) buf[c * bz + gl + j * GC] = accv[j];
       if (last && chv && gl == 0) buf[c * bz + kz - base] = accp;
       __syncwarp(wmask);
-      float4* out = reinterpret_cast<float4*>(acc + (long long)cur * stride + base);
+      float4* out = reinterpret_cast<float4*>(acc + (long long)d * stride + base);
       const float4* b4 = reinterpret_cast<const float4*>(buf);
       for (int q = wl; q < span / 4; q += GE) atomicAdd(out + q, b4[q]);
       __syncwarp(wmask);
     };
-    for (int kb = 0; kb < slice; kb += GE) {
-      int my_s = 0, my_d = num_rows;  // positions past the slice read as padding
-      if (kb + wl < slice && k0 + kb + wl < num_edges) {
-        const long long k = k0 + kb + wl;
-        my_d = __ldg(ids + k);
-        if (my_d < num_rows) my_s = __ldg(src + __ldg(perm + k));
+    auto edge = [&](int, int s, int d, bool real, bool fresh) {
+      if (!real) return;  // padding: no load
+      if (fresh && chv) {  // the new run's row stats
+        const long long cd = (long long)c * num_rows + d;
+        ad = __ldg(adst + cd);
+        mh = __ldg(mhat + cd);
       }
-      for (int i = 0; i < GE && i < slice; ++i) {
-        const int s = __shfl_sync(0xffffffffu, my_s, i, GE);
-        const int d = __shfl_sync(0xffffffffu, my_d, i, GE);
-        if (d >= num_rows) continue;  // padding, uniform in the worker: no load
-        const bool fresh = d != cur;
-        if (fresh) {  // a new row ends the run before it
-          if (cur >= 0) flush();
-          cur = d;
-          if (chv) {
-            const long long cd = (long long)c * num_rows + d;
-            ad = __ldg(adst + cd);
-            mh = __ldg(mhat + cd);
-          }
-        }
-        const T* row = table + (long long)s * width + c * bz;
-        const float p = chv ? gat::edge_weight(ad + to_f32(row[kz]), mh, slope) : 0.f;
-        const float q = RoundPFirst ? round_t<T>(p) : p;
+      const T* row = table + (long long)s * width + c * bz;
+      const float p = chv ? gat::edge_weight(ad + to_f32(row[kz]), mh, slope) : 0.f;
+      const float q = RoundPFirst ? round_t<T>(p) : p;
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          // _rn: the product rounds as the plain version's, no FMA
-          const float t =
-              colv[j] ? round_t<T>(__fmul_rn(to_f32(row[base + gl + j * GC]), q)) : 0.f;
-          accv[j] = fresh ? t : __fadd_rn(accv[j], t);
-        }
-        const float pt = round_t<T>(p);
-        accp = fresh ? pt : __fadd_rn(accp, pt);
+      for (int j = 0; j < J; ++j) {
+        // _rn: the product rounds as the plain version's, no FMA
+        const float t =
+            colv[j] ? round_t<T>(__fmul_rn(to_f32(row[base + gl + j * GC]), q)) : 0.f;
+        accv[j] = fresh ? t : __fadd_rn(accv[j], t);
       }
-    }
-    if (cur >= 0) flush();
+      const float pt = round_t<T>(p);
+      accp = fresh ? pt : __fadd_rn(accp, pt);
+    };
+    gat::walk_slice<GE, true, false>(perm, ids, src, k0, slice, num_edges, num_rows, edge,
+                                     flush);
     __syncwarp(wmask);  // the next pass zeroes buf
   }
 }

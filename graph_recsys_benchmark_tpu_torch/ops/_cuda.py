@@ -49,9 +49,9 @@ _SIGNATURES = {
     # kz, slope, stream (K12-online, pass 1; pass 2 is gat_fwd)
     "gat_rowmax": ("gat_fwd", [_I, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I,
                                ctypes.c_float, _P]),
-    # device, table, bf16, gtab, logden, adst, src, dst, ct, dadst,
+    # device, table, bf16, gtab, logden, adst, perm, ids, src, ct, dadst,
     # num_edges, num_rows, kz, slope, stream (K13)
-    "gat_bwd_glue": ("gat_bwd", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    "gat_bwd_glue": ("gat_bwd", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _L, _I, _I, ctypes.c_float, _P]),
     # device, table, bf16, stat, perm, ids, dst, dpk, dadst, num_edges,
     # num_rows, kz, stride, slope, stream (K14)

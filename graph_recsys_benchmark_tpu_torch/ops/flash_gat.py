@@ -33,8 +33,9 @@ package's FLASH_SOFTMAX_SHIFT, FLASH_BWD_GLUE and FLASH_BWD_MEGA):
     exact row max m with ``gat_rowmax`` (csrc/gat_fwd.cu), then
     ``flash_gat_fwd_online`` runs the forward's walk with m as the shift;
     both walk the graph's sort by dst;
-  * ``bwd='glue'`` (K13): ``flash_gat_bwd_glue`` (csrc/gat_bwd.cu's StoreCt
-    mode) stores each edge's cotangent row and sums da_dst, then
+  * ``bwd='glue'`` (K13): ``flash_gat_bwd_glue`` (csrc/gat_bwd.cu's
+    ``gat_bwd_glue_walk_kernel``, on the graph's walk by dst) stores each
+    edge's cotangent row and sums da_dst, then
     ``segment_kernels.localized_scatter_add`` (K6) scatters the rows by src;
   * ``bwd='onepass'`` (K14): ``flash_gat_bwd_onepass`` (csrc/gat_bwd.cu's
     StatRow mode) runs the backward's walk by source on one stat table
@@ -402,11 +403,12 @@ def check_walk(src, src_perm, src_sorted):
     _check_walk("gat_bwd", src, src_perm, src_sorted, "src")
 
 
-def check_dst_walk(dst, dst_perm, dst_sorted):
-    """The forward kernel's walk validated against `dst`, as check_walk
-    validates the backward's: both given, each an int32 [E] contiguous
-    tensor on dst's device; dst_sorted must be dst[dst_perm] (not read)."""
-    _check_walk("gat_fwd", dst, dst_perm, dst_sorted, "dst")
+def check_dst_walk(dst, dst_perm, dst_sorted, kernel="gat_fwd"):
+    """The walk by dst of the forward kernel (or of `kernel`, K13's
+    gat_bwd_glue) validated against `dst`, as check_walk validates the
+    backward's: both given, each an int32 [E] contiguous tensor on dst's
+    device; dst_sorted must be dst[dst_perm] (not read)."""
+    _check_walk(kernel, dst, dst_perm, dst_sorted, "dst")
 
 
 def gat_bwd(counter, table, gtab, logden, adst_r, src, dst, num_rows, kz,
@@ -488,11 +490,14 @@ flash_gat_bwd.launches = 0
 
 
 def flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
-                             negative_slope=0.2):
+                             negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Plain PyTorch version of flash_gat_bwd_glue, same inputs and rounding
     points (K2's): (ct [E, kz+1] in the table's dtype, exact zeros on the
     padding edges' rows; da_dst f32[num_rows], the unrounded dpre summed by
-    dst)."""
+    dst).  The walk is accepted and not read: every edge's row is formed
+    at its own index and every real edge's dpre summed by its own dst, so
+    a walk that drops or repeats edges shows as a mismatch with the
+    kernel."""
     real = dst < num_rows
     s, d = src[real].long(), dst[real].long()
     ct_real, dpre = _bwd_edge_terms(table, gtab, logden[None], adst_r[None], s, d, kz,
@@ -503,14 +508,20 @@ def flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz
 
 
 def flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst, num_rows, kz,
-                       negative_slope=0.2):
+                       negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """K13 (``bwd='glue'``): (ct [E, kz+1] in the table's dtype, da_dst
     f32[num_rows]).  Edge e's row is its cotangent ``[round_T(g·att) |
     round_T(dpre)]`` (exact zeros for a padding edge) and da_dst sums dpre by
     dst, from K2's stat inputs (see flash_gat_bwd); the caller scatters ct
     by src with segment_kernels.localized_scatter_add (K6), as the JAX
-    route does (flash_gat.py:1444-1479).  Launches of csrc/gat_bwd.cu's
-    StoreCt mode counted in ``flash_gat_bwd_glue.launches``."""
+    route does (flash_gat.py:1444-1479).
+
+    dst_perm, dst_sorted: int32[E], the walk by dst (gat_fwd's; required on
+    a CUDA tensor, check_dst_walk): the kernel loads each dst row's stats
+    once a run of it and adds the run's dpre with one atomic; ct stays in
+    the edges' own order.  Any kz.  CPU tensors take the plain version;
+    CUDA tensors launch csrc/gat_bwd.cu's gat_bwd_glue_walk_kernel, counted
+    in ``flash_gat_bwd_glue.launches``, or raise."""
     if table.device.type == "cpu":
         return flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                                         negative_slope)
@@ -521,14 +532,16 @@ def flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     _cuda.require(adst_r, "adst_r", torch.float32, (num_rows,), dev)
     _cuda.require(src, "src", torch.int32, (e,), dev)
     _cuda.require(dst, "dst", torch.int32, (e,), dev)
+    check_dst_walk(dst, dst_perm, dst_sorted, "gat_bwd_glue")
     ct = torch.empty((e, width), dtype=table.dtype, device=dev)  # written whole
     da_dst = torch.zeros(num_rows, dtype=torch.float32, device=dev)
     if e == 0:
         return ct, da_dst
     _cuda.launch(
         "gat_bwd_glue", dev, table.data_ptr(), int(table.dtype == torch.bfloat16),
-        gtab.data_ptr(), logden.data_ptr(), adst_r.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        ct.data_ptr(), da_dst.data_ptr(), e, num_rows, kz, float(negative_slope),
+        gtab.data_ptr(), logden.data_ptr(), adst_r.data_ptr(), dst_perm.data_ptr(),
+        dst_sorted.data_ptr(), src.data_ptr(), ct.data_ptr(), da_dst.data_ptr(), e, num_rows,
+        kz, float(negative_slope),
     )
     flash_gat_bwd_glue.launches += 1
     return ct, da_dst
@@ -613,7 +626,8 @@ class FlashGAT(torch.autograd.Function):
     forward(table [n, kz+1] in the transport dtype, a_dst f32[num_rows],
     src, dst int32[E], src_perm, src_sorted (int32[E], the walk by source
     of the fused and one-pass backwards, K2 and K14), dst_perm, dst_sorted
-    (int32[E], the walk by dst of the forwards, K1/K12 and K12-online),
+    (int32[E], the walk by dst of the forwards, K1/K12 and K12-online, and
+    of the glue backward, K13),
     num_rows, kz, negative_slope, mode) -> out f32[num_rows, kz].  The
     shift is m̂ (bound_shift, K1/K12) or the row max m (online_shift,
     K12-online); it is a residual with no gradient, and logden = shift +
@@ -641,13 +655,15 @@ class FlashGAT(torch.autograd.Function):
                                 negative_slope, **fwalk)
         s = acc[:, kz]
         out = acc[:, :kz] / (s[:, None] + 1e-16)
-        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, src_perm, src_sorted)
+        ctx.save_for_backward(table, adst_r, shift, s, out, src, dst, src_perm, src_sorted,
+                              dst_perm, dst_sorted)
         ctx.consts = (num_rows, kz, negative_slope, mode)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        table, adst_r, shift, s, out, src, dst, src_perm, src_sorted = ctx.saved_tensors
+        (table, adst_r, shift, s, out, src, dst, src_perm, src_sorted, dst_perm,
+         dst_sorted) = ctx.saved_tensors
         num_rows, kz, negative_slope, mode = ctx.consts
         if dst.shape[0] == 0:  # JAX flash_gat.py:1354-1356
             return (torch.zeros_like(table), torch.zeros_like(adst_r), None, None, None,
@@ -666,7 +682,8 @@ class FlashGAT(torch.autograd.Function):
                 from .segment_kernels import localized_scatter_add  # imports this module
 
                 ct, da_dst = flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst,
-                                                num_rows, kz, negative_slope)
+                                                num_rows, kz, negative_slope,
+                                                dst_perm=dst_perm, dst_sorted=dst_sorted)
                 dpk = localized_scatter_add(
                     ct, src, table.shape[0], "bf16" if table.dtype == torch.bfloat16 else "f32")
             else:
@@ -688,7 +705,8 @@ def flash_gat_attention_rows(table, a_dst, src, dst, num_rows, kz,
     src_perm, src_sorted: the StepGraph's walk by source, for the fused and
     one-pass backwards (None = src_walk of `src`, a sort, for callers
     without a StepGraph); dst_perm, dst_sorted: its walk by dst, for the
-    forward in either shift (None = dst_walk of `dst`).  Returns
+    forward in either shift and the glue backward (None = dst_walk of
+    `dst`).  Returns
     [num_rows, kz] f32, differentiable in table and a_dst (FlashGAT).  The
     cast to the transport dtype stays outside the Function, so the table's
     gradient is rounded to it as the JAX VJP's is."""
@@ -713,8 +731,8 @@ def flash_gat_attention(packed_t, a_dst, src, dst, src_perm, src_sorted,
     (pack_gat_table), copied once to the row-major [n_src_pad, kz+1];
     src_perm/src_sorted: the StepGraph's src-sorted permutation, the walk
     of the fused and one-pass backwards (None, None: built with src_walk);
-    dst_perm/dst_sorted: its dst-sorted one, the forward's walk (None,
-    None: built with dst_walk)."""
+    dst_perm/dst_sorted: its dst-sorted one, the walk of the forward and of
+    the glue backward (None, None: built with dst_walk)."""
     _, k_pad, n_src_pad = _layout(num_rows, kz)
     if tuple(packed_t.shape) != (k_pad, n_src_pad):
         raise ValueError(

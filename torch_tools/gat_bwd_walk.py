@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The flagship's GAT backwards, K2 (flash_gat_bwd), K4 (batch_gat_bwd) and
-K14 (flash_gat_bwd_onepass, the one-pass route), on the port's package of a
-checkout, and csrc/gat_bwd.cu's walk against its alternatives:
+"""The flagship's GAT backwards, K2 (flash_gat_bwd), K4 (batch_gat_bwd), K14
+(flash_gat_bwd_onepass, the one-pass route) and K13 (flash_gat_bwd_glue,
+the glue route), on the port's package of a checkout, and csrc/gat_bwd.cu's
+walks against their alternatives:
 
     python3 torch_tools/gat_bwd_walk.py [ROOT]
 
@@ -13,23 +14,29 @@ kernels into ROOT's _build/, prints the card's name and power limit, then
 runs chip_smoke.kernel_phase on the flagship's PEAGAT plan (per transport:
 K1/K12 and K2 on the step-1 union graph, K3 and K4 on the step-2 shares of
 7 and 2 channels; each checked against its plain version, its ms, plain ms
-and bound; the id_runs of each graph's sources) and times K13
-(flash_gat_bwd_glue, the stored cotangent rows) and K14 on the union graph
-(K14 with g unrounded in its stat table).  A ROOT whose backwards take no
-walk (before csrc/gat_bwd.cu summed each source's run) is called without
-it, and a ROOT whose K14 takes the 128-row dst blocks' edge ranges (its
-design before the walk) is given the union graph's block_bounds.  On a
-ROOT whose K14 walks too (VARIANTS' lines are this tree's), it then times
-the alternatives at the same calls, each checked against the plain version
-first (KERNEL_TOL of the largest value) unless VARIANTS marks it a
-diagnostic: the edges' own order (the walk perm = arange, ids = src), and
+and bound; the id_runs of each graph's sources) and times K13 (the stored
+cotangent rows) and K14 on the union graph (K14 with g unrounded in its
+stat table).  A ROOT whose backwards take no walk (before csrc/gat_bwd.cu
+summed each source's run), or whose K13 takes none (before it walked by
+dst), is called without it, and a ROOT whose K14 takes the 128-row dst
+blocks' edge ranges (its design before the walk) is given the union
+graph's block_bounds.  On a ROOT whose K13 walks by dst too (VARIANTS'
+and GLUE_VARIANTS' lines are this tree's), it then times the alternatives
+at the same calls, each checked against the plain version first
+(KERNEL_TOL of the largest value; K13's stored rows within one unit of
+the transport's last place) unless marked a diagnostic: the edges' own
+order (the walk perm = arange, ids = src, K13 ids = dst), and
 csrc/gat_bwd.cu with some of its lines replaced (VARIANTS: the slice rule,
 the worker layouts, each of which K14 shares with K2, the kernel without
-its atomics or without any work; built by torch_tools/cu_variants.py, one
-nvcc a variant, all started together, into _build/variants/).  Times are
-device ms (chip_smoke.device_ms) of the zeroing and the launch, K4's
-summed over its two calls.  Needs a CUDA device (exit 2 without one);
-prints no result line.
+its atomics or without any work; GLUE_VARIANTS: K13's slice,
+da_dst's plain stores for whole runs, the kernel without its ct stores or
+without any work, on the union graph and on it with a 16,282-edge row;
+built by torch_tools/cu_variants.py, one nvcc a variant, all started
+together, into _build/variants/); and K6 on K13's rows in the edges' own
+order and on the walk by source.  Times are device ms
+(chip_smoke.device_ms) of the zeroing and the launch, K4's summed over
+its two calls.  Needs a CUDA device (exit 2 without one); prints no result
+line.
 """
 
 import functools
@@ -66,6 +73,38 @@ VARIANTS = {
         (_K4_7, "else if (kz <= 16) GAT_BWD_WALK(8, 1, 16, false);")]),
     "no atomics (unchecked)": (False, [(_DA, "(void)dpre_t;"), (_DPK, "(void)b4;")]),
     "no work (unchecked)": (False, [(_HEAD, "  if (num_edges >= 0) return;\n" + _HEAD)]),
+}
+
+_GSLICE = "const int slice = 8;"
+_GEND = ("  auto run_end = [&](int d) {\n"
+         "    if (lane == 0) atomicAdd(dadst + d, accd);\n"
+         "  };\n")
+_GFRESH = "    if (fresh) {  // the new run's stats\n"
+_GROW = "out[col] = gat::from_f32<T>(__fmul_rn(g[j], att));"
+_GDPRE = "if (lane == 0) out[kz] = gat::from_f32<T>(dpre);"
+_GHEAD = "  const int bz = kz + 1;\n"
+# K13's variants (gat_bwd_glue_walk_kernel), as VARIANTS: the slice, plain
+# stores of da_dst for the runs that lie inside one slice (the ids just
+# before and after the slice tell whether its first and last runs go on
+# there; right on a walk sorted by dst only), and diagnostics whose results
+# are wrong and not checked: the kernel without its ct stores, and without
+# any work
+_GSTORE = [
+    (_GEND, "  const long long k0s = ((long long)blockIdx.x * kWarps + warp) * slice;\n"
+            "  const int before = k0s > 0 && k0s - 1 < num_edges ? __ldg(ids + k0s - 1) : -1;\n"
+            "  const int after = k0s + slice < num_edges ? __ldg(ids + k0s + slice) : -1;\n"
+            "  int runs = 0;  // the runs begun in the slice\n"
+            "  auto run_end = [&](int d) {\n"
+            "    if (lane != 0) return;\n"
+            "    if ((runs > 1 || d != before) && d != after) dadst[d] = accd;\n"
+            "    else atomicAdd(dadst + d, accd);\n"
+            "  };\n"),
+    (_GFRESH, _GFRESH + "      ++runs;\n")]
+GLUE_VARIANTS = {
+    **{f"glue slice {k}": (True, [(_GSLICE, f"const int slice = {k};")]) for k in (4, 16)},
+    "glue da_dst stores for whole runs": (True, _GSTORE),
+    "glue no ct stores (unchecked)": (False, [(_GROW, "(void)att;"), (_GDPRE, "(void)out;")]),
+    "glue no work (unchecked)": (False, [(_GHEAD, _GHEAD + "  if (num_edges >= 0) return;\n")]),
 }
 
 
@@ -107,18 +146,15 @@ def backward_calls(cs, plan, num_nodes, transport):
     return calls
 
 
-def alternatives(cs, plan, num_nodes, kernels):
+def alternatives(cs, plan, num_nodes, kernels, libs):
     """Per transport and kernel of `kernels`, the walk's alternatives at the
-    flagship's calls: each checked against the plain version, then
-    timed."""
+    flagship's calls (libs: VARIANTS' builds): each checked against the
+    plain version, then timed."""
     import torch
 
     from graph_recsys_benchmark_tpu_torch.ops import _cuda
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
 
-    t0 = time.perf_counter()
-    libs = build("gat_bwd.cu", {name: rules for name, (_, rules) in VARIANTS.items()})
-    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for transport in cs.TDT:
         calls = backward_calls(cs, plan, num_nodes, transport)
         for kernel in kernels:
@@ -178,6 +214,105 @@ def alternatives(cs, plan, num_nodes, kernels):
                 res.append((name, round(cs.device_ms(run), 5)))
             print(f"{kernel} {transport} alternatives (ms of the step's "
                   f"{len(mine)} call{'s' if len(mine) > 1 else ''}): {res}", flush=True)
+
+
+def hot_row(g, rows, hot):
+    """(src, dst, dst_perm, dst_sorted) of the step graph g with `hot` of
+    its real edges moved to dst row 777 (an ML-25M u2t / i2t block holds
+    16,282 edges), in block order again, and its walk by dst."""
+    import numpy as np
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+
+    src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy().copy()
+    dst[:hot] = np.where(dst[:hot] < rows, 777, dst[:hot])
+    order = np.lexsort((dst, src, dst // 128))
+    src, dst = (torch.from_numpy(a[order].astype(np.int32)).to(g.src.device) for a in (src, dst))
+    return (src, dst) + fg.dst_walk(dst)
+
+
+def glue_alternatives(cs, plan, num_nodes, libs):
+    """Per transport, K13's alternatives on the union graph and on it with
+    a hot row (libs: GLUE_VARIANTS' builds): the default on the walk by
+    dst, the edges' own order (the walk perm = arange, ids = dst) and the
+    variants, each checked first unless marked a diagnostic (every stored
+    element within one unit of the transport's last place of the plain
+    version's, the padding rows zero, da_dst row by row within sum_bound
+    of the float64 sums of the plain version's terms), then timed
+    (the zeroing of da_dst and the launch); then K6 on K13's rows of the
+    union graph in the edges' own order and on the graph's walk by source
+    (order = src_perm, src_sorted), each checked against the float64 sums
+    (sum_bound) and timed."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.ops import _cuda
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+    from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
+
+    cands = [("default", _cuda.load("gat_bwd_glue"), True, True),
+             ("edge order", _cuda.load("gat_bwd_glue"), False, True)]
+    cands += [(name, entry(lib, "gat_bwd_glue"), True, GLUE_VARIANTS[name][0])
+              for name, lib in libs.items()]
+    for transport in cs.TDT:
+        _, table, gtab, logden, ad, g, _, kz, _ = backward_calls(cs, plan, num_nodes,
+                                                                 transport)[0]
+        rows, e = ad.shape[1], g.dst.numel()
+        graphs = [("union", (g.src, g.dst, g.dst_perm, g.dst_sorted)),
+                  ("hot row 16,282", hot_row(g, rows, 16282))]
+        for label, (src, dst, dst_perm, dst_sorted) in graphs:
+            want_ct, _ = fg.flash_gat_bwd_glue_plain(table, gtab, logden[0], ad[0], src, dst,
+                                                     rows, kz)
+            real = dst < rows
+            s_r, d_r = src[real].long(), dst[real].long()
+            dpre, dpre_err, _, _ = cs.k2_terms(table, gtab, logden, ad, s_r, d_r, kz,
+                                               table.dtype)
+            exact_da = segment_sum(dpre, d_r, rows)
+            da_bound = cs.sum_bound(dpre, d_r, rows, dpre_err)
+            ct = torch.empty((e, kz + 1), dtype=table.dtype, device=table.device)
+            da = torch.zeros(rows, device=table.device)
+            res = []
+            for name, fn, walk, checked in cands:
+                perm, ids = ((dst_perm, dst_sorted) if walk else
+                             (torch.arange(e, dtype=torch.int32, device=dst.device), dst))
+                args = (table.device.index, table.data_ptr(),
+                        int(table.dtype == torch.bfloat16), gtab.data_ptr(), logden.data_ptr(),
+                        ad.data_ptr(), perm.data_ptr(), ids.data_ptr(), src.data_ptr(),
+                        ct.data_ptr(), da.data_ptr(), e, rows, kz, 0.2)
+
+                def run():
+                    da.zero_()
+                    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"K13 {name}: CUDA error {rc} at launch")
+                ct.fill_(float("nan"))  # every row must be written
+                run()
+                torch.cuda.synchronize()
+                if checked:
+                    diff = (ct.float() - want_ct.float()).abs()
+                    cs.check(bool((diff <= torch.maximum(cs.ulp(ct, table.dtype),
+                                                         cs.ulp(want_ct, table.dtype))).all()),
+                             f"K13 {name} {label} {transport}: a stored element off the "
+                             "plain version's by more than one unit in the last place")
+                    cs.check(not ct[dst >= rows].any(),
+                             f"K13 {name} {label} {transport}: padding rows")
+                    cs.check_sum(f"K13 {name} {label} da_dst {transport}", da[:, None],
+                                 exact_da, da_bound)
+                res.append((name, round(cs.device_ms(run), 5)))
+            print(f"K13 {label} {transport} alternatives (ms): {res}", flush=True)
+        ct, _ = fg.flash_gat_bwd_glue(table, gtab, logden[0], ad[0], g.src, g.dst, rows, kz,
+                                      dst_perm=g.dst_perm, dst_sorted=g.dst_sorted)
+        exact = segment_sum(ct.double(), g.src, rows)
+        bound = cs.sum_bound(ct.double(), g.src, rows)
+        res = []
+        for name, order in (("edge order", None), ("src walk", (g.src_perm, g.src_sorted))):
+            def run():
+                return sk.localized_scatter_add(ct, g.src, rows, transport, order=order)
+            share = cs.check_sum(f"K6 on K13's rows, {name}, {transport}", run(), exact, bound)
+            res.append((name, round(cs.device_ms(run), 5), round(share, 3)))
+        print(f"K6 on K13's rows {transport} (ms, share of the rounding bound): {res}",
+              flush=True)
 
 
 def without_walk(fn):
@@ -246,19 +381,27 @@ def main(argv):
         _, table, gtab, logden, ad, g, _, kz, _ = backward_calls(
             cs, plan, hin.num_nodes, transport)[0]
         args = (table, gtab, logden[0], ad[0], g.src, g.dst, ad.shape[1], kz)
-        got = fg.flash_gat_bwd_glue(*args)
+        gwalk = (dict(dst_perm=g.dst_perm, dst_sorted=g.dst_sorted) if "dst_perm"
+                 in inspect.signature(fg.flash_gat_bwd_glue).parameters else {})
+        got = fg.flash_gat_bwd_glue(*args, **gwalk)
         cs.check_kernel("flash_gat_bwd_glue", transport, [got[1]],
                         [fg.flash_gat_bwd_glue_plain(*args)[1]])
-        print(f"K13 flash_gat_bwd_glue {transport}: ms "
-              f"{cs.device_ms(lambda: fg.flash_gat_bwd_glue(*args)):.5f}", flush=True)
+        print(f"K13 flash_gat_bwd_glue {transport}{' (walk by dst)' if gwalk else ''}: ms "
+              f"{cs.device_ms(lambda: fg.flash_gat_bwd_glue(*args, **gwalk)):.5f}", flush=True)
         _, table, stat, _, ad, g, _, kz, _ = backward_calls(
             cs, plan, hin.num_nodes, transport)[1]
         rows = ad.shape[1]
         run, plain = onepass_calls(fg, table, stat, g, rows, kz)
         cs.check_kernel("flash_gat_bwd_onepass", transport, run(), plain())
         print(f"K14 flash_gat_bwd_onepass {transport}: ms {cs.device_ms(run):.5f}", flush=True)
-    if "src_perm" in inspect.signature(fg.flash_gat_bwd_onepass).parameters:
-        alternatives(cs, plan, hin.num_nodes, ("K2", "K14", "K4"))
+    if "dst_perm" in inspect.signature(fg.flash_gat_bwd_glue).parameters:
+        t0 = time.perf_counter()
+        libs = build("gat_bwd.cu", {name: rules for name, (_, rules)
+                                    in {**VARIANTS, **GLUE_VARIANTS}.items()})
+        print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+        glue_alternatives(cs, plan, hin.num_nodes,
+                          {name: libs.pop(name) for name in GLUE_VARIANTS})
+        alternatives(cs, plan, hin.num_nodes, ("K2", "K14", "K4"), libs)
     return 0
 
 
