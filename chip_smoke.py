@@ -36,7 +36,7 @@
    the float64 sums), device ms of the kernel, the
    plain version and one PyTorch library call of the same function, and
    the bound; K5 and K6 walk the union graph's sorted orders as the path
-   does.
+   does.  (300 columns: cli_phase d.)
 6. PEAGAT eval phase, per transport: init(2020), then PEATrainer.evaluate --
    the hybrid GAT forward, the pair scorer, the 99-negative HR/NDCG/AUC --
    with every kernel's launch count set to 0 just before and read just
@@ -130,9 +130,35 @@
    d. One evaluation per transport: 40,000 users x (1 + 99) candidates in
       rejection mode, its launches (the forward's), its forward against
       the plain versions on the card, wall ms, HR@10, NDCG@10, AUC.
-11. Prints the kernels' JSON line (a GAT forward's launches are the
+11. CLI phases (cli_phase), through the port's entry point cli.main in
+   process, each call with every launch count set to 0 just before and
+   read just after, in a temporary directory:
+   a. the published recipe, `--model PEAGAT --dataset synthetic-ml
+      --entity_aware true` at the CLI's defaults (5 runs x 30 epochs, batch
+      1,024, f32): its launches against the hybrid plan's prediction (a
+      step's forward and backward launches x steps an epoch x 150 epochs,
+      plus a forward's x 155 evals), each run's initial and best HR@10 (the
+      best above the initial), the overall HR@10 within HR_BAND (JAX
+      0.3320 +- 0.05), NDCG@10, AUC, the wall and seconds an epoch;
+   b. a --runs 1 call, then --runs 2 into the same run directory: run 1 is
+      not trained again and run 2 is (its launches alone), run 1's summary
+      row kept; run 2's latest checkpoint loads onto the card bitwise;
+   c. bf16 with the metapath ablation and full-catalog ranking (1 run x 2
+      epochs): its launches; evaluate_full on its checkpoint launches the
+      forward's kernels and no more, and its ranks equal those over a CPU
+      copy of the cached representation but for near ties (1e-5);
+   d. PEAGCN at --hidden_size 300 per transport (K5 and K6 past MAX_COLS
+      in two passes, K7 in one launch): launches against the prediction
+      (K7 4, K5 3, K6 3 a step, K7 2, K5 3 an eval); then K5, K7 and K6 on
+      that call's step-1 union graph at 300 columns, as in phase 5, with
+      the seconds of the case;
+   e. `python -m graph_recsys_benchmark_tpu_torch` as a subprocess, 1 run x
+      1 epoch: exit 0 and the Overall line.
+12. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
-   timed epoch of its path, K8-K11's and the ML-25M entries of K5-K7 the
+   timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
+   the eval after it),
+   K8-K11's and the ML-25M entries of K5-K7 the
    8 timed ML-25M steps, a variant route's forward its mode's eval and its
    backward its mode's 20 steps),
    then {"ok": true, "device": {...}} last.
@@ -149,6 +175,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -703,7 +730,8 @@ def train_phase(hin, cfg, trainers):
 
 
 # message width per step of the union graphs: PEAGCN sums its projected z
-# (hidden 64, then repr 16), PEASage its un-projected input (emb 64, hidden 64)
+# (hidden 64, then repr 16), PEASage its un-projected input (emb 64, hidden
+# 64); cli_phase takes PEAGCN's step 1 at --hidden_size 300 (edge_cases)
 SEG_WIDTHS = {"gcn": (64, 16), "sage": (64, 64)}
 SEG_KERNELS = {"segsum": "sorted_segment_sum", "gather": "sorted_broadcast",
                "scatter": "localized_scatter_add"}
@@ -711,18 +739,31 @@ SEG_KERNELS = {"segsum": "sorted_segment_sum", "gather": "sorted_broadcast",
 
 def edge_kernel_phase(trainers):
     """K5, K7 and K6 against their plain versions at every shape the
-    PEAGCN and PEASage union graphs give them (the flagship's edge lists,
-    random rows from a numpy seed), per transport: the largest error
-    against the plain version (K7 a copy, equal bitwise; K5 and K6 sum in
-    f32 in another order than it, so each row is held to the same sums
-    taken in float64, within the rounding bound of an f32 sum in any order
-    (sum_bound): two f32 orders can differ by more than either differs from
-    the exact sum, and a fixed share of the largest value (1e-6, once) is
-    no bound: 1.0026e-6 was seen at PEAGCN step 1), device ms of
-    the wrapper, of the plain version and of one PyTorch call of the same
-    function (index_add_ for K5 and K6 into a zeroed table with a sentinel
-    row, in the inputs' dtype; index_select for K7 from a table with a zero
-    row), and the bound.
+    flagship's PEAGCN and PEASage union graphs give them (edge_cases), per
+    transport."""
+    rng = np.random.default_rng(1)
+    results = {}
+    for conv, widths in SEG_WIDTHS.items():
+        graphs = trainers[conv]["f32"].graphs
+        for step, (g, d) in enumerate(zip(graphs, widths), start=1):
+            edge_cases(g, d, f"{conv} step {step}", conv, rng, results)
+    return results
+
+
+def edge_cases(g, d, label, conv, rng, results):
+    """K5, K7 and K6 on a union graph g at message width d (the edge lists
+    a path hands them, random rows from rng), per transport: the largest
+    error against the plain version (K7 a copy, equal bitwise; K5 and K6
+    sum in f32 in another order than it, so each row is held to the same
+    sums taken in float64, within the rounding bound of an f32 sum in any
+    order (sum_bound): two f32 orders can differ by more than either
+    differs from the exact sum, and a fixed share of the largest value
+    (1e-6, once) is no bound: 1.0026e-6 was seen at PEAGCN step 1), device
+    ms of the wrapper, of the plain version and of one PyTorch call of the
+    same function (index_add_ for K5 and K6 into a zeroed table with a
+    sentinel row, in the inputs' dtype; index_select for K7 from a table
+    with a zero row), and the bound, summed into results[(kind, conv,
+    transport)].
     Bytes counted: K5 reads every dst id and the real edges' messages and
     writes the f32 table; K7 reads the ids and the table and writes every
     edge's row; K6 reads every edge's id and row (the padding edges' rows
@@ -731,80 +772,73 @@ def edge_kernel_phase(trainers):
     from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(1)
-    results = {}
-    for conv, widths in SEG_WIDTHS.items():
-        for step, (g, d) in enumerate(zip(trainers[conv]["f32"].graphs, widths), start=1):
-            n, e_pad, e = g.num_nodes, g.dst.numel(), g.num_edges
-            src64 = g.src.long()
-            dst64 = torch.clamp(g.dst.long(), max=n)
-            for transport, t_dtype in TDT.items():
-                it = torch.finfo(t_dtype).bits // 8
+    n, e_pad, e = g.num_nodes, g.dst.numel(), g.num_edges
+    src64 = g.src.long()
+    dst64 = torch.clamp(g.dst.long(), max=n)
+    for transport, t_dtype in TDT.items():
+        it = torch.finfo(t_dtype).bits // 8
 
-                def randn(*shape):
-                    return torch.from_numpy(
-                        rng.standard_normal(shape, dtype=np.float32)).to(dev).to(t_dtype)
+        def randn(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(dev).to(t_dtype)
 
-                msgs, table, ct = randn(e_pad, d), randn(n, d), randn(e_pad, d)
-                ct[e:] = 0  # padding edges carry zero cotangent (graph.py)
-                tpad = torch.cat([table, table.new_zeros(1, d)])
-                exact = {"segsum": segment_sum(msgs.double(), g.dst, n),
-                         "scatter": segment_sum(ct.double(), g.src, n)}
-                sbound = {"segsum": sum_bound(msgs.double(), g.dst, n),
-                          "scatter": sum_bound(ct.double(), g.src, n)}
-                # the kernels walk the edges as the path does (by dst for K5,
-                # by src for K6: the graph's sorted orders)
-                dst_walk, src_walk = (g.dst_perm, g.dst_sorted), (g.src_perm, g.src_sorted)
-                cases = {
-                    "segsum": (lambda: sk.sorted_segment_sum(msgs, g.dst, n, transport,
-                                                             dst_walk),
-                               lambda: sk.sorted_segment_sum_plain(msgs, g.dst, n, transport),
-                               lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
-                               .index_add_(0, dst64, msgs),
-                               e_pad * 4 + e * d * it + n * d * 4, e * d),
-                    "gather": (lambda: sk.sorted_broadcast(table, g.src, n),
-                               lambda: sk.sorted_broadcast_plain(table, g.src, n),
-                               lambda: torch.index_select(tpad, 0, src64),
-                               e_pad * 4 + n * d * it + e_pad * d * it, 0),
-                    "scatter": (lambda: sk.localized_scatter_add(ct, g.src, n, transport,
-                                                                 src_walk),
-                                lambda: sk.localized_scatter_add_plain(ct, g.src, n, transport),
-                                lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
-                                .index_add_(0, src64, ct),
-                                e_pad * 4 + e_pad * d * it + n * d * 4, e_pad * d),
-                }
-                for kind, (fn, plain, lib, nbytes, flops) in cases.items():
-                    got, want = fn(), plain()
-                    torch.cuda.synchronize()
-                    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-                          f"{kind} {conv} step {step} {transport}: shape or non-finite")
-                    err, rel = rel_err(got, want)
-                    if kind == "gather":
-                        check(torch.equal(got, want), f"gather {conv} step {step} {transport}: "
-                              f"not a bitwise copy (max abs {err})")
-                        exact_rel, share = rel, 0.0
-                    else:
-                        exact_rel = rel_err(got.double(), exact[kind])[1]
-                        share = check_sum(f"{kind} {conv} step {step} {transport}", got,
-                                          exact[kind], sbound[kind])
-                    ms = device_ms(fn)
-                    plain_ms = device_ms(plain, reps=10)
-                    lib_ms = device_ms(lib)
-                    b_ms, b_by = bound_ms(nbytes, flops)
-                    print(f"{SEG_KERNELS[kind]} {transport}: {conv} step {step} rows {n} D {d} "
-                          f"edges {e} (padded {e_pad}) rel_err {rel:.3e} (vs float64 "
-                          f"{exact_rel:.3e}, {share:.3f} of the rounding bound) ms {ms:.5f} plain_ms "
-                          f"{plain_ms:.5f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} "
-                          f"({b_by}; {nbytes} bytes)", flush=True)
-                    agg = results.setdefault((kind, conv, transport), dict(
-                        max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                        bound_by="bytes", shapes=[]))
-                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
-                    for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                                     ("library_ms", lib_ms)):
-                        agg[key] += val
-                    agg["shapes"].append(f"D {d} x {e} edges")
-    return results
+        msgs, table, ct = randn(e_pad, d), randn(n, d), randn(e_pad, d)
+        ct[e:] = 0  # padding edges carry zero cotangent (graph.py)
+        tpad = torch.cat([table, table.new_zeros(1, d)])
+        exact = {"segsum": segment_sum(msgs.double(), g.dst, n),
+                 "scatter": segment_sum(ct.double(), g.src, n)}
+        sbound = {"segsum": sum_bound(msgs.double(), g.dst, n),
+                  "scatter": sum_bound(ct.double(), g.src, n)}
+        # the kernels walk the edges as the path does (by dst for K5,
+        # by src for K6: the graph's sorted orders)
+        dst_walk, src_walk = (g.dst_perm, g.dst_sorted), (g.src_perm, g.src_sorted)
+        cases = {
+            "segsum": (lambda: sk.sorted_segment_sum(msgs, g.dst, n, transport, dst_walk),
+                       lambda: sk.sorted_segment_sum_plain(msgs, g.dst, n, transport),
+                       lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
+                       .index_add_(0, dst64, msgs),
+                       e_pad * 4 + e * d * it + n * d * 4, e * d),
+            "gather": (lambda: sk.sorted_broadcast(table, g.src, n),
+                       lambda: sk.sorted_broadcast_plain(table, g.src, n),
+                       lambda: torch.index_select(tpad, 0, src64),
+                       e_pad * 4 + n * d * it + e_pad * d * it, 0),
+            "scatter": (lambda: sk.localized_scatter_add(ct, g.src, n, transport, src_walk),
+                        lambda: sk.localized_scatter_add_plain(ct, g.src, n, transport),
+                        lambda: torch.zeros(n + 1, d, dtype=t_dtype, device=dev)
+                        .index_add_(0, src64, ct),
+                        e_pad * 4 + e_pad * d * it + n * d * 4, e_pad * d),
+        }
+        for kind, (fn, plain, lib, nbytes, flops) in cases.items():
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"{kind} {label} {transport}: shape or non-finite")
+            err, rel = rel_err(got, want)
+            if kind == "gather":
+                check(torch.equal(got, want), f"gather {label} {transport}: "
+                      f"not a bitwise copy (max abs {err})")
+                exact_rel, share = rel, 0.0
+            else:
+                exact_rel = rel_err(got.double(), exact[kind])[1]
+                share = check_sum(f"{kind} {label} {transport}", got, exact[kind],
+                                  sbound[kind])
+            ms = device_ms(fn)
+            plain_ms = device_ms(plain, reps=10)
+            lib_ms = device_ms(lib)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            print(f"{SEG_KERNELS[kind]} {transport}: {label} rows {n} D {d} "
+                  f"edges {e} (padded {e_pad}) rel_err {rel:.3e} (vs float64 "
+                  f"{exact_rel:.3e}, {share:.3f} of the rounding bound) ms {ms:.5f} plain_ms "
+                  f"{plain_ms:.5f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} "
+                  f"({b_by}; {nbytes} bytes)", flush=True)
+            agg = results.setdefault((kind, conv, transport), dict(
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                bound_by="bytes", shapes=[]))
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                             ("library_ms", lib_ms)):
+                agg[key] += val
+            agg["shapes"].append(f"D {d} x {e} edges")
 
 
 def fused_phase(hin, trainers, epochs):
@@ -1625,6 +1659,9 @@ def sum_alone(group):
     from graph_recsys_benchmark_tpu_torch.ops import _cuda
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
 
+    # the entry's row strides (ld_in, ld_out), which an older package's
+    # entry (torch_tools/segment_edges.py on a parent) does not take
+    strides = len(_cuda._SIGNATURES["scatter_add"][1]) == 13
     outs, args = {}, []
     for v, ids, n, order in group:
         d = v.shape[1]
@@ -1634,7 +1671,8 @@ def sum_alone(group):
         perm, walk = order if order is not None else (None, ids)
         args.append((v.device, v.data_ptr(), int(v.dtype == torch.bfloat16),
                      None if perm is None else perm.data_ptr(), walk.data_ptr(),
-                     outs[shape].data_ptr(), v.shape[0], n, d, shape[1]))
+                     outs[shape].data_ptr(), v.shape[0], n, d, shape[1])
+                    + ((d, shape[1]) if strides else ()))
 
     def run():
         for a in args:
@@ -1961,6 +1999,245 @@ def ml25m_phase(trainer, stream, composed):
     return dict(launches=launches, eval_launches=eval_launches)
 
 
+# the published recipe (JAX cli.py:47-54 defaults: 5 runs x 30 epochs, batch
+# 1,024, f32, Adam) and the JAX run it is held against
+RECIPE = ["--model", "PEAGAT", "--dataset", "synthetic-ml", "--entity_aware", "true"]
+JAX_RECIPE = "runs/recipe_a2a_r5/ml-synthetic/PEAGAT/eeae2acefb9d/logger_file.txt:161"
+JAX_HR10, JAX_AUC = 0.3320, 0.7452
+# chip_smoke.py fails outside this band of the overall HR@10: +-0.05 around the
+# JAX run's 0.3320, over four standard errors of a five-run mean of 150-user
+# hit rates, and far above a random scorer's 0.10
+HR_BAND = (0.28, 0.38)
+WIDE = 300  # a row width past the edge kernels' MAX_COLS (256 columns a launch)
+
+
+def _plan_launches(trainer):
+    """(a forward's, a backward's) launches of a PEAGAT trainer's hybrid plan:
+    one flash pass a step with a union graph, one batched pass a share."""
+    steps = trainer.graphs.steps
+    u = sum(union is not None for _, union, _ in steps)
+    b = sum(len(batched) for batched, _, _ in steps)
+    return dict(flash_fwd=u, batch_fwd=b), dict(flash_bwd=u, batch_bwd=b)
+
+
+def _predict(fwd, bwd, steps, forwards):
+    """Every wrapper's launches over `steps` training steps (a forward and a
+    backward each) and `forwards` evaluation forwards."""
+    counts = {k: v * (steps + forwards) for k, v in fwd.items()}
+    counts.update({k: v * steps for k, v in bwd.items()})
+    return expected(**counts)
+
+
+def _log_lines(out_root):
+    (path,) = [os.path.join(d, "logger_file.txt") for d, _, fs in os.walk(out_root)
+               if "logger_file.txt" in fs]
+    with open(path) as f:
+        return path, f.read().splitlines()
+
+
+def _near_tie_users(users, tables, score):
+    """For each test user index in `users` (dense tables), the smallest gap
+    |s(candidate) - s(positive)| / |s(positive)| over its unseen items."""
+    gaps = []
+    for k in users:
+        u, p = tables.test_users[k:k + 1], tables.test_items[k:k + 1]
+        cand = tables.cand[k, 1:1 + int(tables.neg_counts[k])]
+        s_pos = score(u, p)
+        s_c = score(u.repeat(cand.numel()), cand)
+        gaps.append(float(((s_c - s_pos).abs() / s_pos.abs().clamp_min(1e-30)).min()))
+    return gaps
+
+
+def cli_phase(tmp, recipe_extra=()):
+    """The port's CLI (cli.main, in process) on the card, each call with every
+    launch count set to 0 just before and read just after:
+    a. the published recipe (RECIPE, 5 runs x 30 epochs): launches against the
+       plan's prediction, each run's initial and best HR@10 (the best above
+       the initial), the overall HR@10 in HR_BAND, NDCG@10, AUC, the wall
+       seconds and seconds an epoch;
+    b. --epochs 2 --save_every_epoch 0 with --runs 1, then --runs 2 into the
+       same run directory: run 1 is not trained again, run 2 is; run 2's
+       latest checkpoint loads onto the card bitwise equal to the file;
+    c. bf16 transport, 1 run x 2 epochs with the metapath ablation and the
+       full-catalog ranking: launches over the call, then evaluate_full on
+       the run's checkpoint (the forward's launches and no more) and its
+       ranks against the same ranking over a CPU copy of the cached
+       representation (a user may differ only where its positive's score
+       lies within 1e-5, relative, of a candidate's);
+    d. PEAGCN at --hidden_size 300 per transport, 1 run x 1 epoch (K5 and K6
+       at 300 columns on step 1 in two passes a call, K7 in one launch), then
+       edge_cases on the same configuration's step-1 union graph at 300
+       columns (its seconds printed);
+    e. python -m graph_recsys_benchmark_tpu_torch as a subprocess, 1 run x 1
+       epoch: exit 0 and the Overall line.
+    recipe_extra: arguments added to every call (none on the card)."""
+    from graph_recsys_benchmark_tpu_torch import cli
+    from graph_recsys_benchmark_tpu_torch.eval.full_ranking import evaluate_full_ranking
+    from graph_recsys_benchmark_tpu_torch.models.pea import pea_predict
+    from graph_recsys_benchmark_tpu_torch.train.sampling import build_device_tables
+    from graph_recsys_benchmark_tpu_torch.utils.checkpoint import load_checkpoint
+
+    extra = list(recipe_extra)
+    cache = os.path.join(tmp, "cache")
+
+    def argv_of(argv, out):
+        return list(argv) + extra + ["--out_dir", os.path.join(tmp, out), "--cache_dir", cache]
+
+    def trainer_of(argv, out):
+        """The trainer and HIN that cli.main builds for these arguments."""
+        args = cli.build_parser().parse_args(argv_of(argv, out))
+        hin, mp_edges = cli.load_hin(args)
+        return cli.build_trainer(args, hin, mp_edges)[0], hin
+
+    def run(argv, out):
+        full = argv_of(argv, out)
+        print(f"cli: main({' '.join(full)})", flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        overall = cli.main(full)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        path, lines = _log_lines(os.path.join(tmp, out))
+        return overall, launches, wall, path, lines
+
+    out = {}
+    # a. the recipe
+    trainer, hin = trainer_of(RECIPE, "recipe")
+    check(trainer.device.type == "cuda", f"the CLI's trainer is on {trainer.device}")
+    fwd, bwd = _plan_launches(trainer)
+    runs, epochs, s = trainer.tcfg.runs, trainer.tcfg.epochs, trainer.num_batches
+    overall, launches, wall, path, lines = run(RECIPE, "recipe")
+    want = _predict(fwd, bwd, runs * epochs * s, runs * (epochs + 1))
+    check(launches == want, f"recipe launches {launches}, predicted {want}")
+    inits = [float(re.search(r"HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
+             if ln.startswith("Initial performance")]
+    done = [re.search(r"Duration: ([0-9.]+)s, best HR@10: ([0-9.]+)", ln).groups()
+            for ln in lines if ", Duration: " in ln]
+    check(len(inits) == runs and len(done) == runs, f"recipe log {path}: {len(inits)} "
+          f"initial and {len(done)} run lines for {runs} runs")
+    bests = [float(b) for _, b in done]
+    for r, (i, b) in enumerate(zip(inits, bests), start=1):
+        check(b > i, f"recipe run {r}: best HR@10 {b} not above its initial {i}")
+    hr10, ndcg10 = float(overall["HR"][5]), float(overall["NDCG"][5])
+    auc = float(np.ravel(overall["AUC"])[0])
+    check(HR_BAND[0] <= hr10 <= HR_BAND[1], f"recipe overall HR@10 {hr10} outside {HR_BAND}")
+    run_s = [float(d) for d, _ in done]
+    print(f"recipe ({hin.name}: {hin.num_nodes} nodes, {hin.num_users} test users, "
+          f"{hin.train_pos.shape[0]} train interactions, {s} steps an epoch; {runs} runs x "
+          f"{epochs} epochs): initial HR@10 {inits} best HR@10 {bests} overall HR@10 "
+          f"{hr10:.4f} NDCG@10 {ndcg10:.4f} AUC {auc:.4f} (JAX {JAX_RECIPE}: HR@10 "
+          f"{JAX_HR10}, AUC {JAX_AUC}; HR@10 {hr10 - JAX_HR10:+.4f}, AUC "
+          f"{auc - JAX_AUC:+.4f}); wall {wall:.2f} s, runs {run_s} s, "
+          f"{sum(run_s) / (runs * epochs):.4f} s an epoch; launches {launches}", flush=True)
+    out["recipe"] = dict(hr10=hr10, ndcg10=ndcg10, auc=auc, wall=wall, launches=launches)
+
+    # b. run-level resume: --runs 1, then --runs 2 in the same run directory
+    base = RECIPE + ["--epochs", "2", "--save_every_epoch", "0"]
+    o1, _, _, path1, _ = run(base + ["--runs", "1"], "resume")
+    o2, l2, _, path2, lines2 = run(base + ["--runs", "2"], "resume")
+    check(path1 == path2, f"resume: {path2} is not {path1}")
+    trained = [ln for ln in lines2 if ", epoch: " in ln and "exclude" not in ln]
+    check([ln.split(",")[0] for ln in trained] == ["Run: 1"] * 2 + ["Run: 2"] * 2,
+          f"resume: epoch lines {trained}")
+    want = _predict(fwd, bwd, 2 * s, 3)  # run 2 alone: its init eval and 2 epochs
+    check(l2 == want, f"resume launches {l2}, predicted {want}")
+    with np.load(os.path.join(os.path.dirname(path2), "global_logger.npz")) as g:
+        check(g["HR"].shape[0] == 2 and np.array_equal(g["HR"][0], o1["HR"]),
+              "resume: run 1's summary row changed")
+    ckpt = os.path.join(os.path.dirname(path2), "run_2", "latest.ckpt")
+    params = trainer.init(0)
+    opt = trainer.optimizer(params)
+    load_checkpoint(ckpt, params, opt)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    for k, v in params.state_dict().items():
+        check(v.device.type == "cuda" and torch.equal(v.cpu(), saved["params"][k]),
+              f"resume: {k} not on the card or not the checkpoint's")
+    for st in opt.state_dict()["state"].values():
+        check(st["exp_avg"].device.type == "cuda", "resume: Adam's moments not on the card")
+    print(f"resume: run 1 kept (HR@10 {float(o1['HR'][5]):.4f}), run 2 trained; overall "
+          f"HR@10 {float(o2['HR'][5]):.4f}; launches {l2}; run 2's latest checkpoint "
+          f"(epoch {saved['epoch']}) loaded onto the card bitwise", flush=True)
+
+    # c. bf16, the ablation and the full-catalog ranking
+    bf = RECIPE + ["--message_dtype", "bf16", "--runs", "1", "--epochs", "2",
+                   "--save_every_epoch", "0", "--metapath_test", "true", "--full_ranking", "true"]
+    tb, hin = trainer_of(bf, "bf16")
+    n_mp = tb.cfg.num_channels
+    ob, lb, wall_b, path_b, lines_b = run(bf, "bf16")
+    want = _predict(fwd, bwd, 2 * s, 1 + 2 + 2 * n_mp + 1)
+    check(lb == want, f"bf16 launches {lb}, predicted {want}")
+    check(sum("exclude path:" in ln for ln in lines_b) == 2 * n_mp
+          and sum(", full-ranking HR@10" in ln for ln in lines_b) == 1,
+          "bf16: the ablation or full-ranking lines are missing")
+    params = tb.init(0)
+    load_checkpoint(os.path.join(os.path.dirname(path_b), "run_1", "latest.ckpt"), params,
+                    tb.optimizer(params))
+    reset_launches()
+    full = tb.evaluate_full(params)
+    torch.cuda.synchronize()
+    lf = read_launches()
+    check(lf == expected(**fwd), f"evaluate_full launches {lf}, expected the forward's {fwd}")
+    check(tb.tables.mode == "dense", "the near-tie check reads dense tables")
+    with torch.no_grad():
+        rep = tb.eval_forward(params, torch.ones(n_mp, device=tb.device))
+        ranks = evaluate_full_ranking(
+            lambda u, i: pea_predict(params, rep, u.long(), i.long()), tb.tables)["ranks"]
+        p_cpu, rep_cpu = copy.deepcopy(params).cpu(), rep.cpu()
+
+        def score_cpu(u, i):
+            return pea_predict(p_cpu, rep_cpu, u.long(), i.long())
+
+        tables_cpu = build_device_tables(hin, "cpu")
+        ranks_cpu = evaluate_full_ranking(score_cpu, tables_cpu)["ranks"]
+        differ = torch.nonzero(ranks.cpu() != ranks_cpu).flatten().tolist()
+        gaps = _near_tie_users(differ, tables_cpu, score_cpu)
+    check(all(g <= 1e-5 for g in gaps),
+          f"full ranking: users {differ} rank apart on the card and the CPU, gaps {gaps}")
+    print(f"bf16 call: overall HR@10 {float(ob['HR'][5]):.4f}, wall {wall_b:.2f} s, launches "
+          f"{lb}; evaluate_full HR@10 {float(full['HR'][5]):.4f} NDCG@10 "
+          f"{float(full['NDCG'][5]):.4f}, launches {lf}; ranks on the card vs a CPU copy: "
+          f"{len(differ)} of {ranks.numel()} users differ (near ties {gaps})", flush=True)
+
+    # d. PEAGCN with 300-column rows on step 1
+    out["wide"], out["wide_steps"] = {}, {}
+    for t in TDT:
+        wide = ["--model", "PEAGCN", "--hidden_size", str(WIDE), "--runs", "1", "--epochs",
+                "1", "--init_eval", "false", "--message_dtype", t]
+        tw, _ = trainer_of(wide, f"wide-{t}")
+        sw = tw.num_batches
+        ow, lw, wall_w, _, _ = run(wide, f"wide-{t}")
+        # K5 and K6 take two passes at 300 columns, one at repr 16; K7 one
+        # launch at either: a step gathers twice (the forward and K5's
+        # backward), sums once and scatters once (K7's backward) a conv
+        # step; the eval after the epoch gathers and sums once a conv step
+        want = expected(gather=4 * sw + 2, segsum=3 * sw + 3, scatter=3 * sw)
+        check(lw == want, f"PEAGCN hidden {WIDE} {t}: launches {lw}, predicted {want}")
+        check(all(np.isfinite(v).all() for v in ow.values()), f"PEAGCN {WIDE} {t}: not finite")
+        print(f"PEAGCN hidden {WIDE} {t}: HR@10 {float(ow['HR'][5]):.4f}, wall {wall_w:.2f} s, "
+              f"launches {lw} ({sw} steps and one eval)", flush=True)
+        out["wide"][t], out["wide_steps"] = lw, sw
+    # K5, K7 and K6 at the shapes that call gave them on step 1
+    t0 = time.perf_counter()
+    out["wide_kernels"] = {}
+    edge_cases(tw.graphs[0], WIDE, f"PEAGCN --hidden_size {WIDE} step 1", "gcn-wide",
+               np.random.default_rng(1), out["wide_kernels"])
+    print(f"edge kernels at {WIDE} columns {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # e. the entry point as a user runs it
+    cmd = [sys.executable, "-m", "graph_recsys_benchmark_tpu_torch"] + argv_of(
+        RECIPE + ["--runs", "1", "--epochs", "1"], "module")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0 and "Overall HR@10:" in proc.stdout,
+          f"python -m graph_recsys_benchmark_tpu_torch: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    last = [ln for ln in proc.stdout.splitlines() if ln.startswith("Overall")]
+    print(f"python -m graph_recsys_benchmark_tpu_torch: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; {last[-1]}", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2005,12 +2282,18 @@ def main():
           f"{[(c, [(g.num_nodes, g.num_edges, g.dst.numel()) for g in all_trainers[c]['f32'].graphs]) for c in ('gcn', 'sage')]}"
           f"; host build {time.perf_counter() - t0:.1f} s", flush=True)
 
-    kres = kernel_phase(plan, hin.num_nodes)
-    eres = edge_kernel_phase(all_trainers)
-    sres = slice_phase(cfg, trainers)
-    tres = train_phase(hin, cfg, trainers)
-    fres = {"gcn": fused_phase(hin, all_trainers["gcn"], epochs=2),
-            "sage": fused_phase(hin, all_trainers["sage"], epochs=1)}
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        print(f"{label} phase {time.perf_counter() - t:.1f} s", flush=True)
+        return res
+
+    kres = timed("GAT kernel", kernel_phase, plan, hin.num_nodes)
+    eres = timed("edge kernel", edge_kernel_phase, all_trainers)
+    sres = timed("PEAGAT eval", slice_phase, cfg, trainers)
+    tres = timed("PEAGAT training", train_phase, hin, cfg, trainers)
+    fres = {"gcn": timed("PEAGCN", fused_phase, hin, all_trainers["gcn"], epochs=2),
+            "sage": timed("PEASage", fused_phase, hin, all_trainers["sage"], epochs=1)}
     t_modes = time.perf_counter()
     mkres_modes = mode_kernel_phase(plan, hin.num_nodes)
     mres_modes = mode_slice_phase(hin, cfg, trainers)
@@ -2030,6 +2313,13 @@ def main():
               f"in one step, {steps} launches a timed step")
     print(f"ml25m phases {time.perf_counter() - t_m:.1f} s (earlier phases "
           f"{t_m - t_start:.1f} s)", flush=True)
+    del hin25, trainers25
+    torch.cuda.empty_cache()
+
+    t_c = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cres = cli_phase(tmp)
+    print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
 
     repo = "graph_recsys_benchmark_tpu"
     csrc = "graph_recsys_benchmark_tpu_torch/csrc"
@@ -2060,14 +2350,19 @@ def main():
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     replaces = {"segsum": "77", "gather": "426", "scatter": "636"}
-    path = {"gcn": "PEAGCN steps 1+2", "sage": "PEASage steps 1+2"}
-    for (kind, conv, transport), r in eres.items():
+    path = {"gcn": "PEAGCN steps 1+2", "sage": "PEASage steps 1+2",
+            "gcn-wide": f"the CLI's PEAGCN --hidden_size {WIDE} step 1, launches over its "
+                        f"{cres['wide_steps']} steps and one eval"}
+    for (kind, conv, transport), r in list(eres.items()) + list(cres["wide_kernels"].items()):
+        # the path's last timed epoch; at 300 columns the CLI's call, whose
+        # graph edge_cases measured
+        launches = (cres["wide"][transport][kind] if conv == "gcn-wide"
+                    else fres[conv][transport]["launches"][kind])
         kernels.append(dict(
             name=f"{SEG_KERNELS[kind]} ({transport}; {path[conv]}: {' + '.join(r['shapes'])})",
             route="cuda", source=f"{csrc}/segment.cu",
             replaces=f"{repo}/ops/pallas_segment.py:{replaces[kind]}",
-            # the path's last timed epoch
-            launches=fres[conv][transport]["launches"][kind], max_abs_err=r["max_abs_err"],
+            launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))

@@ -98,8 +98,11 @@
 //     f32 reduction is native.  Each thread loads kSoftmaxUnroll
 //     edges before it uses them, so the busiest block's loads overlap.
 // Sums are f32 whatever the input type (bf16 inputs are widened exactly),
-// in an order that changes from run to run.  Columns: d <= 256, rows of at
-// most 4 KB for row_gather; the wrappers check.
+// in an order that changes from run to run.  Columns: scatter_add takes
+// d <= 256 a launch and reads and writes rows of a row stride of its own,
+// so its wrappers take a wider row in passes of at most 256 columns, one
+// launch a pass; row_gather takes rows of at most 4 KB at any alignment,
+// and its wrapper gathers a wider row as pieces of it in one launch.
 
 #include <stdint.h>
 
@@ -150,14 +153,16 @@ __device__ __forceinline__ void add_cols(float* o, const float (&a)[V]) {
 }
 
 // K5, K6: out[ids[k]] += rows[perm ? perm[k] : k] over the walk k = 0 ..
-// num_edges-1.  A group of G = stride / V lanes takes `slice` consecutive
+// num_edges-1, d columns of rows ld_in apart into rows of out ld_out
+// apart.  A group of G = stride / V lanes takes `slice` consecutive
 // positions of the walk, each lane V columns; it sums a run of equal ids in
 // registers and adds the sum with one atomic when the id changes (and at
 // the slice's end).  ids outside [0, num_rows) are dropped.
 template <typename T, int V, bool kVec>
 __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
     const T* __restrict__ rows, const int* __restrict__ perm, const int* __restrict__ ids,
-    float* __restrict__ out, long long num_edges, int num_rows, int d, int stride, int slice) {
+    float* __restrict__ out, long long num_edges, int num_rows, int d, int stride, int slice,
+    int ld_in, int ld_out) {
   const int group = stride / V;
   const int n_groups = kThreads / group;
   const int grp = threadIdx.x / group;
@@ -182,13 +187,13 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
 #pragma unroll
     for (int u = 0; u < kRunUnroll; ++u) {
       if ((unsigned)id[u] < (unsigned)num_rows)
-        load_cols<T, V, kVec>(rows + e[u] * d, c, d, x[u]);
+        load_cols<T, V, kVec>(rows + e[u] * ld_in, c, d, x[u]);
     }
 #pragma unroll
     for (int u = 0; u < kRunUnroll; ++u) {
       if ((unsigned)id[u] >= (unsigned)num_rows) continue;
       if (id[u] != cur) {
-        if (cur >= 0) add_cols<V>(out + (long long)cur * stride + c, acc);
+        if (cur >= 0) add_cols<V>(out + (long long)cur * ld_out + c, acc);
         cur = id[u];
 #pragma unroll
         for (int t = 0; t < V; ++t) acc[t] = x[u][t];
@@ -198,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
       }
     }
   }
-  if (cur >= 0) add_cols<V>(out + (long long)cur * stride + c, acc);
+  if (cur >= 0) add_cols<V>(out + (long long)cur * ld_out + c, acc);
 }
 
 // K7: the output [num_edges, words] W is one flat array, cut into tiles of
@@ -328,13 +333,13 @@ bool aligned(const void* p, unsigned bytes) {
 template <typename T, int V>
 void launch_scatter_add(cudaStream_t s, const void* rows, bool vec, const void* perm,
                         const void* ids, void* out, long long num_edges, int num_rows, int d,
-                        int stride, int slice) {
+                        int stride, int slice, int ld_in, int ld_out) {
   const long long per = (long long)(kThreads / (stride / V)) * slice;  // edges a CTA
   const unsigned grid = (unsigned)((num_edges + per - 1) / per);
   auto kernel = vec ? scatter_add_kernel<T, V, true> : scatter_add_kernel<T, V, false>;
   kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(rows), static_cast<const int*>(perm),
                                    static_cast<const int*>(ids), static_cast<float*>(out),
-                                   num_edges, num_rows, d, stride, slice);
+                                   num_edges, num_rows, d, stride, slice, ld_in, ld_out);
 }
 
 // The slice: a group of one lane (d <= 2) takes 4 positions, so that a
@@ -344,16 +349,20 @@ void launch_scatter_add(cudaStream_t s, const void* rows, bool vec, const void* 
 // (torch_tools/segment_variants.py; PERF.md).
 template <typename T>
 void launch_scatter_add(cudaStream_t s, const void* rows, const void* perm, const void* ids,
-                        void* out, long long num_edges, int num_rows, int d, int stride) {
+                        void* out, long long num_edges, int num_rows, int d, int stride,
+                        int ld_in, int ld_out) {
   const int slice = d <= 2 ? 4 : num_edges > 4LL * num_rows ? 16 : 8;
   const int v = stride % 4 == 0 ? 4 : stride;  // stride is 1, 2 or a multiple of 4
-  const bool vec = d % v == 0 && aligned(rows, v * (unsigned)sizeof(T));
+  const bool vec = d % v == 0 && ld_in % v == 0 && aligned(rows, v * (unsigned)sizeof(T));
   if (v == 4)
-    launch_scatter_add<T, 4>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+    launch_scatter_add<T, 4>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice,
+                             ld_in, ld_out);
   else if (v == 2)
-    launch_scatter_add<T, 2>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+    launch_scatter_add<T, 2>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice,
+                             ld_in, ld_out);
   else
-    launch_scatter_add<T, 1>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice);
+    launch_scatter_add<T, 1>(s, rows, vec, perm, ids, out, num_edges, num_rows, d, stride, slice,
+                             ld_in, ld_out);
 }
 
 // One CTA a tile, up to kMaxCtas; past that the CTAs loop over the tiles.
@@ -393,27 +402,33 @@ void launch_row_gather(cudaStream_t s, const void* v, const void* idx, void* out
 // int32 ids.  The vector paths are taken when the row width and the
 // pointers allow them.
 
-// rows: [num_edges, d], bf16 when `bf16` else f32; out: [num_rows, stride]
-// f32, zeroed by the caller, stride = d for d <= 2, else d rounded up to a
-// multiple of 4 (the sum is out[:, :d]); the walk: for k = 0 ..
-// num_edges-1, rows[perm[k]] (rows[k] where perm is NULL) is added to row
-// ids[k], so with a perm, ids must be the caller's ids permuted by it;
-// runs of equal ids in the walk are summed before their atomic; ids
-// outside [0, num_rows) dropped.
+// rows: d columns of rows ld_in elements apart (ld_in >= d), bf16 when
+// `bf16` else f32; out: f32 rows ld_out apart, zeroed by the caller, of
+// which the call adds to the first `stride` columns: stride = d for d <= 2,
+// else d rounded up to a multiple of 4 (the sum is out[:, :d]; a wider
+// row's wrapper points rows and out at a pass's first column); the walk:
+// for k = 0 .. num_edges-1, rows[perm[k]] (rows[k] where perm is NULL) is
+// added to row ids[k], so with a perm, ids must be the caller's ids
+// permuted by it; runs of equal ids in the walk are summed before their
+// atomic; ids outside [0, num_rows) dropped.
 extern "C" int scatter_add(int device, const void* rows, int bf16, const void* perm,
                            const void* ids, void* out, long long num_edges, int num_rows, int d,
-                           int stride, void* stream) {
+                           int stride, int ld_in, int ld_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > kMaxCols || num_edges < 0 ||
-      stride != (d <= 2 ? d : (d + 3) / 4 * 4) || !aligned(out, 16))
+  const int v = stride % 4 == 0 ? 4 : stride;
+  if (d < 1 || d > kMaxCols || num_edges < 0 || ld_in < d || ld_out < stride ||
+      ld_out % v != 0 || stride != (d <= 2 && stride == d ? d : (d + 3) / 4 * 4) ||
+      !aligned(out, 4 * v))
     return (int)cudaErrorInvalidValue;
   if (num_edges == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch_scatter_add<__nv_bfloat16>(s, rows, perm, ids, out, num_edges, num_rows, d, stride);
+    launch_scatter_add<__nv_bfloat16>(s, rows, perm, ids, out, num_edges, num_rows, d, stride,
+                                      ld_in, ld_out);
   else
-    launch_scatter_add<float>(s, rows, perm, ids, out, num_edges, num_rows, d, stride);
+    launch_scatter_add<float>(s, rows, perm, ids, out, num_edges, num_rows, d, stride, ld_in,
+                              ld_out);
   return (int)cudaGetLastError();
 }
 

@@ -30,12 +30,23 @@ from collections import Counter
 import numpy as np
 import pandas as pd
 
-from .hin import CandidateTables, EntityFeatureTables, HINData, pad_ragged
+from .hin import (
+    CandidateTables,
+    EntityFeatureTables,
+    HINData,
+    RejectionCandidates,
+    pad_ragged,
+)
 
 
-def build_candidates(ratings, test_u, test_i, num_users, num_items, type_accs):
-    """Per-user padded unseen-item table (col 0 = test item) — O(U*I)
-    memory, exact-gather sampling; right for ml-small/yelp scale."""
+def build_candidates(ratings, test_u, test_i, num_users, num_items, type_accs, mode):
+    """Per-user candidate structures for negative sampling + eval.
+
+    mode='dense': padded unseen-item table (col 0 = test item) — O(U*I)
+      memory, exact-gather sampling; right for ml-small/yelp scale.
+    mode='rejection': padded SEEN table (col 0 = test item) — O(U*K)
+      memory; sampling rejects seen items; right for ml-25m scale.
+    """
     order = np.argsort(test_u, kind="stable")
     test_u, test_i = test_u[order], test_i[order]
     if test_u.shape[0] != num_users:
@@ -43,17 +54,31 @@ def build_candidates(ratings, test_u, test_i, num_users, num_items, type_accs):
     test_users = (np.arange(num_users) + type_accs["uid"]).astype(np.int32)
 
     seen = ratings.groupby("uid").iid.apply(set)
-    all_items = set(range(num_items))
-    neg_lists = [
-        np.fromiter(
-            (i + type_accs["iid"] for i in sorted(all_items - seen[u])),
-            dtype=np.int64,
-        )
-        for u in range(num_users)
-    ]
-    neg_table, neg_counts = pad_ragged(neg_lists)
-    cand = np.concatenate([test_i[:, None].astype(np.int32), neg_table], axis=1)
-    return CandidateTables(test_users=test_users, cand=cand, neg_counts=neg_counts)
+    if mode == "dense":
+        all_items = set(range(num_items))
+        neg_lists = [
+            np.fromiter(
+                (i + type_accs["iid"] for i in sorted(all_items - seen[u])),
+                dtype=np.int64,
+            )
+            for u in range(num_users)
+        ]
+        neg_table, neg_counts = pad_ragged(neg_lists)
+        cand = np.concatenate([test_i[:, None].astype(np.int32), neg_table], axis=1)
+        return CandidateTables(test_users=test_users, cand=cand, neg_counts=neg_counts)
+
+    if mode != "rejection":
+        raise ValueError(f"candidate mode {mode!r}: expected 'dense' or 'rejection'")
+    seen_lists = []
+    for u in range(num_users):
+        ti = int(test_i[u])
+        rest = [i + type_accs["iid"] for i in sorted(seen[u])]
+        rest.remove(ti)
+        seen_lists.append(np.asarray([ti] + rest, dtype=np.int64))
+    seen_table, seen_counts = pad_ragged(seen_lists)
+    return RejectionCandidates(
+        test_users=test_users, seen=seen_table, seen_counts=seen_counts
+    )
 
 
 def drop_infrequent_concepts(series, min_occs):
@@ -140,7 +165,7 @@ def _concept_lists(series):
 
 def build_mlsmall_hin(
     movies, ratings, tagging, num_core=10, num_feat_core=10, name="ml-synthetic",
-    genre_columns=None,
+    genre_columns=None, candidate_mode="dense",
 ) -> HINData:
     """Filter + build the heterogeneous graph, split, and sampling tables."""
     movies, ratings, tagging = filter_mlsmall(
@@ -241,7 +266,7 @@ def build_mlsmall_hin(
     num_users = num_nodes_dict["uid"]
     num_items = num_nodes_dict["iid"]
     candidates = build_candidates(
-        ratings, test_u, test_i, num_users, num_items, type_accs
+        ratings, test_u, test_i, num_users, num_items, type_accs, candidate_mode
     )
 
     # ---------------- entity-aware feature tables (movielens.py:942-991)

@@ -27,7 +27,7 @@ def rank_candidates(score_fn, test_users, test_pos, neg_items):
 def eval_loss_per_user(pos_scores, neg_scores):
     """Per-user eval loss of the graph models, GraphRecsysModel.loss
     (base.py:43-48): -Σ_j log σ(pos - neg_j).  The other families' forms
-    come with those families (ROADMAP Queue 1, item 9)."""
+    come with those families (ROADMAP Queue 1, "Baselines")."""
     return torch.sum(F.softplus(-(pos_scores[:, None] - neg_scores)), dim=1)
 
 

@@ -244,7 +244,7 @@ def build_metapath_graphs(
     if conv not in _BUILDERS:
         raise NotImplementedError(
             f"conv {conv!r}: only GCN, GAT and SAGE graphs are ported (NGCF and "
-            "the KG graphs come with the baselines, ROADMAP Queue 1 item 9)"
+            "the KG graphs come with the baselines, ROADMAP Queue 1, \"Baselines\")"
         )
     build = _BUILDERS[conv]
     if conv == "gat":

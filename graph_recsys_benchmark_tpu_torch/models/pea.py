@@ -253,7 +253,7 @@ def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
         raise NotImplementedError(
             "the hybrid plan needs GAT channels of one depth (GCN and SAGE "
             "take graph.build_fused_metapath_graphs; mixed depths are ROADMAP "
-            "Queue 1 item 3b)"
+            "Queue 1, \"Per-channel GCN/SAGE and mixed metapath depths\")"
         )
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -416,7 +416,7 @@ def pea_forward(model: PEA, graphs, cfg: PEAConfig,
         raise NotImplementedError(
             "per-channel graphs of mixed metapath depth, or of GCN and SAGE, "
             "run the ungrouped per-channel forward, which is not ported: "
-            "ROADMAP Queue 1 item 3b"
+            "ROADMAP Queue 1, \"Per-channel GCN/SAGE and mixed metapath depths\""
         )
     if channel_mask is not None:
         h = h * channel_mask[None, :, None]
@@ -471,8 +471,8 @@ def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
     epoch's last batch."""
     if cfg.conv == "gat" and cfg.dropout > 0.0:
         raise NotImplementedError(
-            "GAT attention dropout in training is not ported: ROADMAP Queue 1 "
-            "item 3a (its RNG)"
+            "GAT attention dropout in training is not ported: ROADMAP Queue 1, "
+            "\"Training options left out of slice 2\" (its RNG)"
         )
     if row_mask is None:
         row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)

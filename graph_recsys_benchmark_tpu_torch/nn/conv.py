@@ -62,10 +62,11 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
     (gather_dst: K7, backward K5), leaky ReLU, the per-dst softmax
     (segment_softmax: K8 stats), the messages in the transport dtype and
     their segment-sum (_aggregate: K5).  Attention dropout is not ported:
-    ROADMAP Queue 1 item 3a."""
+    ROADMAP Queue 1, "Training options left out of slice 2"."""
     if dropout > 0.0:
         raise NotImplementedError(
-            "GAT attention dropout is not ported: ROADMAP Queue 1 item 3a (its RNG)")
+            "GAT attention dropout is not ported: ROADMAP Queue 1, \"Training options "
+            "left out of slice 2\" (its RNG)")
     n = g.num_nodes
     h = (x[:n] @ params["w"]).reshape(n, heads, -1)  # [N, H, C]
     att = params["att"][0]  # [H, 2C]: x_i (target) first, then x_j

@@ -58,8 +58,8 @@ _SIGNATURES = {
     "gat_bwd_onepass": ("gat_bwd", [_I, _P, _I, _P, _P, _P, _P, _P, _P, _L,
                                     _I, _I, _I, ctypes.c_float, _P]),
     # device, rows, bf16, perm, ids, out, num_edges, num_rows, d, stride,
-    # stream
-    "scatter_add": ("segment", [_I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P]),
+    # ld_in, ld_out, stream
+    "scatter_add": ("segment", [_I, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]),
     # device, v, idx, out, num_edges, num_rows, row_bytes, stream
     "row_gather": ("segment", [_I, _P, _P, _P, _L, _I, _I, _P]),
     # device, alpha, dst, bounds, stats, num_edges, n_blocks, num_rows,

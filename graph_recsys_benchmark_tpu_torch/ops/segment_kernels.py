@@ -42,9 +42,13 @@ CUDA tensor launches the kernel, counted in the wrapper's ``launches``, or
 raises; a CPU tensor takes the ``*_plain`` version in this module.  The
 JAX package's dispatch gates (65,536 edges, ``GATHER_SPAN_MAX``,
 ``scatter_fits_vmem``, k <= 128) are TPU facts and are not copied: every
-call on a CUDA tensor reaches its kernel.  Columns: at most ``MAX_COLS``.
-Ids are int32 and non-negative, as the port's graphs hold them; ids >=
-num_rows are the padding sentinel.
+call on a CUDA tensor reaches its kernel.  Columns: any number.  K5 and
+K6 take a row wider than ``MAX_COLS`` in passes of at most that many
+columns, one counted launch a pass (the kernel reads and writes rows of a
+stride of its own); K7 copies a row of up to ``GATHER_ROW_BYTES`` in one
+launch and a wider one as equal pieces of it, also in one launch
+(_gather_pieces).  Ids are int32 and non-negative, as the port's graphs
+hold them; ids >= num_rows are the padding sentinel.
 """
 
 from __future__ import annotations
@@ -55,17 +59,25 @@ from . import _cuda
 from .flash_gat import t_dtype_of
 from .segment import segment_max, segment_sum
 
-# the kernels' column limit (a row is at most 256 threads' work)
+# the columns of one launch of K5 or K6 (a row is at most 256 threads'
+# work); a wider row takes passes of at most this many columns
 MAX_COLS = 256
+# the bytes of a row that K7 copies whatever its alignment (row_gather: 256
+# threads of at most 8 words, of at least 2 bytes)
+GATHER_ROW_BYTES = 4096
 
 
 def _as_2d(name, x):
-    """[E] -> [E, 1]; [E, D] as is; D checked against MAX_COLS."""
+    """[E] -> [E, 1]; [E, D] as is (D >= 1, any width); contiguous."""
     x2 = x[:, None] if x.dim() == 1 else x
-    if x2.dim() != 2 or not 1 <= x2.shape[1] <= MAX_COLS:
-        raise ValueError(f"{name}: need [E] or [E, D] with 1 <= D <= {MAX_COLS}, "
-                         f"got {tuple(x.shape)}")
+    if x2.dim() != 2 or x2.shape[1] < 1:
+        raise ValueError(f"{name}: need [E] or [E, D] with D >= 1, got {tuple(x.shape)}")
     return x2.contiguous()
+
+
+def _passes(d):
+    """(first column, columns) of each launch over a row of d columns."""
+    return [(c, min(MAX_COLS, d - c)) for c in range(0, d, MAX_COLS)]
 
 
 def _check_launch(name, data, ids, num_ids):
@@ -101,24 +113,30 @@ def _sum_by_id(counter, rows, ids, num_rows, order=None):
     runs are shorter).  The accumulator's rows are
     acc_width(D) wide: for D % 4 != 0 (65, 17) the result is a view of its
     first D columns, no copy; the padding costs (acc_width(D) - D) / D
-    more zeroed bytes.  A launch is counted in ``counter.launches`` (the
-    calling wrapper)."""
+    more zeroed bytes.  A row wider than MAX_COLS takes one launch a pass
+    of at most MAX_COLS columns (_passes), each adding into its columns of
+    the one accumulator, in 16-byte pieces (a pass's width rounded up to 4
+    columns: the last pass of 257 adds 4, three of them zeros into the
+    padding).  Each launch is counted in ``counter.launches`` (the calling
+    wrapper)."""
     e, d = rows.shape
     name = counter.__name__
     dev, bf16 = _check_launch(name, rows, ids, e)
-    stride = acc_width(d)
-    out = torch.zeros((num_rows, stride), dtype=torch.float32, device=dev)
+    ld_out = acc_width(d)
+    out = torch.zeros((num_rows, ld_out), dtype=torch.float32, device=dev)
     perm, walk = None, ids
     if order is not None:
         perm, walk = order
         _cuda.require(perm, f"{name} perm", torch.int32, (e,), dev)
         _cuda.require(walk, f"{name} sorted ids", torch.int32, (e,), dev)
     if e > 0 and num_rows > 0:
-        _cuda.launch("scatter_add", dev, rows.data_ptr(), bf16,
-                     None if perm is None else perm.data_ptr(), walk.data_ptr(),
-                     out.data_ptr(), e, num_rows, d, stride)
-        counter.launches += 1
-    return out if stride == d else out[:, :d]
+        for c0, dp in _passes(d):
+            stride = d if d <= 2 else -(-dp // 4) * 4
+            _cuda.launch("scatter_add", dev, rows.data_ptr() + c0 * rows.element_size(), bf16,
+                         None if perm is None else perm.data_ptr(), walk.data_ptr(),
+                         out.data_ptr() + c0 * 4, e, num_rows, dp, stride, d, ld_out)
+            counter.launches += 1
+    return out if ld_out == d else out[:, :d]
 
 
 def _refuse_grad(name, t):
@@ -187,8 +205,29 @@ def sorted_broadcast_plain(v, idx, num_rows):
     return pad[torch.clamp(idx.long(), max=num_rows)]
 
 
+def _gather_pieces(k, elem_bytes):
+    """m, the pieces a row of k columns is gathered as: the fewest that
+    divide k into pieces of at most GATHER_ROW_BYTES (1 for every row of
+    at most that many bytes)."""
+    return next(m for m in range(1, k + 1)
+                if k % m == 0 and k // m * elem_bytes <= GATHER_ROW_BYTES)
+
+
+def _piece_ids(idx, num_rows, m):
+    """The ids of idx's rows cut into m pieces: the table [num_rows, k] seen
+    as [num_rows * m, k / m], piece j of row r is row r * m + j, so that the
+    gather of these ids is the gather of idx's rows, [E * m, k / m] =
+    [E, k]; a padding id gives m ids past the table."""
+    if (num_rows + 1) * m > torch.iinfo(torch.int32).max:
+        raise ValueError(f"sorted_broadcast: {num_rows} rows of {m} pieces overflow int32 ids")
+    r = torch.clamp(idx.long(), max=num_rows) * m
+    return (r[:, None] + torch.arange(m, device=idx.device)).flatten().to(torch.int32)
+
+
 def _gather(v, idx, num_rows):
-    """K7's forward: the plain version for a CPU tensor, else the kernel."""
+    """K7's forward: the plain version for a CPU tensor, else the kernel,
+    one counted launch; a row wider than GATHER_ROW_BYTES is gathered as
+    _gather_pieces(k) pieces of it (_piece_ids)."""
     if v.device.type == "cpu":
         return sorted_broadcast_plain(v, idx, num_rows)
     v2 = _as_2d("sorted_broadcast", v)
@@ -196,8 +235,10 @@ def _gather(v, idx, num_rows):
     dev, _ = _check_launch("sorted_broadcast", v2, idx, e)
     out = torch.empty((e, k), dtype=v2.dtype, device=dev)
     if e > 0:
-        _cuda.launch("row_gather", dev, v2.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                     e, num_rows, k * v2.element_size())
+        m = _gather_pieces(k, v2.element_size())
+        ids = idx if m == 1 else _piece_ids(idx, num_rows, m)
+        _cuda.launch("row_gather", dev, v2.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                     e * m, num_rows * m, k // m * v2.element_size())
         sorted_broadcast.launches += 1
     return out[:, 0] if v.dim() == 1 else out
 

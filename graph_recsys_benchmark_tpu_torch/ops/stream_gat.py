@@ -33,8 +33,8 @@ raises; a CPU tensor takes the ``*_plain`` version in this module, which
 sums every real edge whatever the work split.  ``StreamGAT`` (a
 ``torch.autograd.Function``) builds the tables, adds the loop term and
 normalizes, as ``_fwd_common`` / ``_stream_bwd`` do; the edge-parallel
-``psum_axis`` contract waits for the parallel port (ROADMAP Queue 1 item
-11).
+``psum_axis`` contract waits for the parallel port (ROADMAP Queue 1,
+"Parallel, last").
 """
 
 from __future__ import annotations
@@ -447,11 +447,12 @@ def stream_gat_reference(z, a_src, a_dst, src, dst, num_rows, self_loops=True,
     """Plain f32 oracle with the exact-max softmax (JAX
     stream_gat_reference): GAT over the loop-free list plus, when
     `self_loops`, the analytic loop.  Attention dropout (the keep masks)
-    is not ported: ROADMAP Queue 1 item 3a."""
+    is not ported: ROADMAP Queue 1, "Training options left out of slice
+    2"."""
     if dropout > 0.0 or edge_keep is not None or loop_keep is not None:
         raise NotImplementedError(
             "attention dropout (edge_keep / loop_keep) is not ported: ROADMAP "
-            "Queue 1 item 3a, the dropout RNG")
+            "Queue 1, \"Training options left out of slice 2\" (the dropout RNG)")
     real = dst < num_rows
     safe_src = torch.clamp(src, max=num_rows - 1).long()
     safe_dst = torch.clamp(dst, max=num_rows - 1).long()

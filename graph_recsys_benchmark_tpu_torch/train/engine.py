@@ -11,9 +11,10 @@ loss as JAX's (train/engine.py:158-194) and a later PR can capture the step
 in a CUDA graph.  Losses stay on the device; nothing syncs with the host
 inside the epoch.
 
-Families plug in ``batch_loss(params, batch, row_mask) -> scalar``.  Only
+Families plug in ``batch_loss(params, batch, row_mask) -> scalar`` and, for
+the full-catalog eval, a method ``scorer(params) -> score(u, i)``.  Only
 the 'bpr' loss mode is ported (the flagship's); bce, mse and kg come with
-the baseline families (ROADMAP Queue 1 item 9).
+the baseline families (ROADMAP Queue 1, "Baselines").
 """
 
 from __future__ import annotations
@@ -77,3 +78,13 @@ class GraphEpochEngine:
             losses[b] = self.train_step(params, optimizer, perm[window], mask_all[window],
                                         generator)
         return losses.mean()
+
+    @torch.no_grad()
+    def evaluate_full(self, params: torch.nn.Module):
+        """Full-catalog ranking (every unseen item per test user) over one
+        forward with every channel on, the north-star extension of the
+        99-negative protocol (JAX train/engine.py:243-248); HR and NDCG
+        vectors and per-user ranks, on the device."""
+        from ..eval.full_ranking import evaluate_full_ranking
+
+        return evaluate_full_ranking(self.scorer(params), self.tables)

@@ -7,7 +7,7 @@ before the moment updates, which is exactly the JAX chain
 ``add_decayed_weights`` then ``scale_by_adam`` then ``scale(-lr)``
 (train/optim.py:65-72).  Defaults as torch: b1=0.9, b2=0.999, eps=1e-8.
 The SparseAdam variant (:16-26) is not on the flagship path and is not
-ported yet (ROADMAP Queue 1 item 2).
+ported yet (ROADMAP Queue 1, "Training options left out of slice 2").
 """
 
 from __future__ import annotations
@@ -28,5 +28,6 @@ def make_optimizer(opt: str = "adam", lr: float = 1e-3, weight_decay: float = 0.
     if opt == "sgd":
         return functools.partial(torch.optim.SGD, lr=lr, weight_decay=weight_decay)
     if opt == "sparseadam":
-        raise NotImplementedError("sparseadam is not ported (ROADMAP Queue 1 item 2)")
+        raise NotImplementedError("sparseadam is not ported (ROADMAP Queue 1, \"Training "
+                                  "options left out of slice 2\")")
     raise ValueError(f"unknown optimizer {opt!r}")

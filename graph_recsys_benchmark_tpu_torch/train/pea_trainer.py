@@ -15,7 +15,9 @@ sampling tables move to `device`.
 regularizer, reference models/base.py:43-80) with the optimizer from
 ``optimizer(params)``; ``evaluate`` makes one forward pass that caches every
 node's representation and ranks 1 held-out positive against 99 sampled
-negatives per test user.
+negatives per test user; ``evaluate_full`` (train/engine.py) ranks it
+against every unseen item.  ``train/solver.Solver`` drives them over runs
+and epochs.
 """
 
 from __future__ import annotations
@@ -48,9 +50,7 @@ from .sampling import build_device_tables
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Reference defaults: experiments/pea*_solver_bpr.py:28-55.  The
-    solver's fields (epochs, runs) come with the solver (ROADMAP Queue 1
-    item 6)."""
+    """Reference defaults: experiments/pea*_solver_bpr.py:28-55."""
 
     batch_size: int = 1024
     lr: float = 1e-3
@@ -59,6 +59,8 @@ class TrainConfig:
     num_negative_samples: int = 4
     num_neg_candidates: int = 99
     sampling_strategy: str = "unseen"  # ml-small; 'random' for 25m/yelp
+    epochs: int = 30
+    runs: int = 5
 
 
 class PEATrainer(GraphEpochEngine):
@@ -93,7 +95,8 @@ class PEATrainer(GraphEpochEngine):
         if len(set(cfg.meta_path_steps)) != 1:
             raise NotImplementedError(
                 "metapaths of mixed depth run the per-channel path, which is "
-                "not ported (ROADMAP Queue 1 item 3b)"
+                "not ported (ROADMAP Queue 1, \"Per-channel GCN/SAGE and mixed "
+                "metapath depths\")"
             )
         if cfg.conv == "gat":
             per_channel = build_metapath_graphs(
@@ -135,10 +138,9 @@ class PEATrainer(GraphEpochEngine):
         return pea_forward(params, self.graphs, self.cfg, channel_mask=channel_mask,
                            transport=self.transport, flash_mode=self.flash_mode)
 
-    @torch.no_grad()
-    def evaluate(self, params: PEA, generator: torch.Generator,
-                 metapath_idx: Optional[int] = None):
-        """99-negative ranking eval; metapath_idx ablates one channel."""
+    def scorer(self, params: PEA, metapath_idx: Optional[int] = None):
+        """score(u, i) -> float[B]: the pair scorer over one forward's cached
+        representation, every channel on but `metapath_idx` (ablated)."""
         mask = torch.ones(self.cfg.num_channels, dtype=torch.float32, device=self.device)
         if metapath_idx is not None:
             mask[metapath_idx] = 0.0
@@ -147,7 +149,13 @@ class PEATrainer(GraphEpochEngine):
         def score(u, i):
             return pea_predict(params, cached, u.long(), i.long())
 
+        return score
+
+    @torch.no_grad()
+    def evaluate(self, params: PEA, generator: torch.Generator,
+                 metapath_idx: Optional[int] = None):
+        """99-negative ranking eval; metapath_idx ablates one channel."""
         return evaluate_ranking(
-            generator, score, self.tables,
+            generator, self.scorer(params, metapath_idx), self.tables,
             num_candidates=self.tcfg.num_neg_candidates,
         )

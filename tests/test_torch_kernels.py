@@ -711,6 +711,43 @@ def test_segment_kernels_odd_widths(cuda, k):
                            tsk.sorted_broadcast_plain(vec, src, n))
 
 
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [257, 300, 512, 1031, 2100])
+def test_segment_kernels_past_max_cols(cuda, d, transport, walk):
+    """K5, K6 and K7 on rows wider than MAX_COLS: K5 and K6 one counted
+    launch a pass of at most MAX_COLS columns, each row within _sum_bound
+    of the float64 sums, with and without the graph's walk by id; K7 one
+    launch, a bitwise copy, from a table view that is not 16-byte aligned
+    (past GATHER_ROW_BYTES in f32, 1031 and 2100, as pieces of the row:
+    1031 of one column, 3 of 700)."""
+    rng = np.random.default_rng(7)
+    n = 300
+    src, dst, rows = _seg_inputs(rng, n, 2900, 3072, d, cuda, empty_block=1)
+    passes = -(-d // tsk.MAX_COLS)
+    t_dtype = TDT[transport]
+    counters = (tsk.sorted_segment_sum, tsk.sorted_broadcast, tsk.localized_scatter_add)
+    before = [c.launches for c in counters]
+    dst_order = tfg.dst_walk(dst) if walk else None
+    src_order = tfg.src_walk(src) if walk else None
+    got = tsk.sorted_segment_sum(rows, dst, n, transport, dst_order)
+    torch.cuda.synchronize()
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    terms = rows.to(t_dtype).double()
+    assert ((got.double() - _exact(rows, dst, n, transport)).abs()
+            <= _sum_bound(terms, dst, n)).all()
+    ct = rows.to(t_dtype)
+    got = tsk.localized_scatter_add(ct, src, n, transport, src_order)
+    torch.cuda.synchronize()
+    assert got.shape == (n, d)
+    assert ((got.double() - _exact(ct, src, n, transport)).abs()
+            <= _sum_bound(ct.double(), src, n)).all()
+    table = rows[: n + 1].to(t_dtype)[1:]  # offset by one row
+    got = tsk.sorted_broadcast(table, src, n)
+    assert torch.equal(got, tsk.sorted_broadcast_plain(table, src, n))
+    assert [c.launches - b for c, b in zip(counters, before)] == [passes, 1, passes]
+
+
 def test_segment_kernels_reject_bad_inputs(cuda):
     ids = torch.zeros(16, dtype=torch.int32, device=cuda)
     rows = torch.zeros((16, 8), device=cuda)
@@ -722,8 +759,8 @@ def test_segment_kernels_reject_bad_inputs(cuda):
         tsk.localized_scatter_add(rows, ids.cpu(), 10)
     with pytest.raises(ValueError):  # f16 table
         tsk.sorted_broadcast(rows[:10].half(), ids, 10)
-    with pytest.raises(ValueError):  # too wide
-        tsk.localized_scatter_add(torch.zeros((16, tsk.MAX_COLS + 1), device=cuda), ids, 10)
+    with pytest.raises(ValueError):  # rows of no column (any width >= 1 is taken)
+        tsk.localized_scatter_add(torch.zeros((16, 0), device=cuda), ids, 10)
     with pytest.raises(ValueError):  # one id short
         tsk.sorted_segment_sum(rows, ids[:15], 10)
     after = (tsk.sorted_segment_sum.launches, tsk.sorted_broadcast.launches,
@@ -1287,7 +1324,7 @@ def test_glue_kernel_matches_plain(cuda, transport, graph, kz):
     da_dst row by row within _sum_bound of the float64 sums of the plain
     version's terms; K6 on the rows within _sum_bound of the float64 sums
     of the same rows (and on the union at kz 64, as before, within 1e-6 of
-    the largest) where K6 takes the width (kz + 1 <= MAX_COLS); one launch
+    the largest), past MAX_COLS columns too (K6's passes); one launch
     a call, none without edges."""
     rng = np.random.default_rng(11)
     t_dtype = TDT[transport]
@@ -1322,8 +1359,6 @@ def test_glue_kernel_matches_plain(cuda, transport, graph, kz):
             + ct_err).all()
     assert ((da[:, None].double() - segment_sum(da_t, d, n)).abs()
             <= _sum_bound(da_t, d, n, da_err)).all()
-    if kz + 1 > tsk.MAX_COLS:  # K6's column limit: the route stops there, K13 does not
-        return
     dpk = tsk.localized_scatter_add(ct, src, n, transport)
     exact = segment_sum(ct.double(), src, n)
     assert ((dpk.double() - exact).abs() <= _sum_bound(ct.double(), src, n)).all()

@@ -2,7 +2,11 @@
 """One ML-25M training step's K7, K5 and K6 calls, replayed per width group
 (chip_smoke.ml25m_edge_kernel_phase), on the port's package of a checkout:
 
-    python3 torch_tools/segment_edges.py [ROOT]
+    python3 torch_tools/segment_edges.py [--wide] [ROOT]
+
+With --wide, K5, K7 and K6 at 300 columns on the flagship's PEAGCN step-1
+union graph (chip_smoke.edge_cases on chip_smoke.build_flagship's graph:
+15,210 rows, 169,155 edges), in place of the ML-25M step.
 
 ROOT is the root of this repo (the default) or of another checkout of it,
 such as a parent commit's ``git archive``, so that two trees can be read
@@ -48,6 +52,8 @@ def edge_order_sum_alone(group):
 
 
 def main(argv):
+    wide = "--wide" in argv
+    argv = [a for a in argv if a != "--wide"]
     root = os.path.abspath(argv[1] if len(argv) > 1 else HERE)
     sys.path.insert(0, root)
     import torch
@@ -68,6 +74,15 @@ def main(argv):
     t0 = time.perf_counter()
     logs = _cuda.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if wide:
+        import numpy as np
+
+        _, trainers = cs.build_flagship()
+        t0 = time.perf_counter()
+        cs.edge_cases(trainers["gcn"]["f32"].graphs[0], 300, "PEAGCN hidden 300 step 1",
+                      "gcn", np.random.default_rng(1), {})
+        print(f"wide edge cases {time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
     if len(_cuda._SIGNATURES["scatter_add"][1]) == 9:  # the entry without a walk
         cs.sum_alone = edge_order_sum_alone
     _, trainers = cs.build_ml25m()

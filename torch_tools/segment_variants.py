@@ -77,7 +77,7 @@ def runner(fn, kind, group, sorted_walk, shared):
             perm, walk = rec[3] if sorted_walk else (None, ids)
             args.append((v.data_ptr(), int(v.dtype == torch.bfloat16),
                          None if perm is None else perm.data_ptr(), walk.data_ptr(),
-                         out.data_ptr(), v.shape[0], n, d, out.shape[1]))
+                         out.data_ptr(), v.shape[0], n, d, out.shape[1], d, out.shape[1]))
             outs.append(out[:, :d])
     dev = group[0][0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
