@@ -82,6 +82,12 @@
       backward; onepass: 1 flash_gat_bwd_onepass), every step's loss and
       the forward after them (FORWARD_TOL), one eval's launches; step ms,
       train examples/s, a profiled step.
+   c. dropout_phase, f32: PEAGAT with attention dropout 0.1, one step's
+      loss and every gradient on the card against a CPU copy under the same
+      keep masks (drawn once on the CPU, models/pea.DropoutMasks.to),
+      train_phase's rules with kink_rows; the step's launches those of the
+      per-channel route (18 composed convs: K8 18, K7 90, K5 54, K6 18; no
+      K1-K4).
 10. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
    configuration: synthetic_ml25m_hin() (seed 0: 68,830 nodes, 2.13 M
    train interactions, 40,000 test users, rejection candidates), 13
@@ -130,6 +136,24 @@
    d. One evaluation per transport: 40,000 users x (1 + 99) candidates in
       rejection mode, its launches (the forward's), its forward against
       the plain versions on the card, wall ms, HR@10, NDCG@10, AUC.
+10'. The Yelp regime (yelp_phases), tools/bench_yelp.py:38-64's
+   configuration built by the port's builders: synthetic_yelp_raw (seed 0,
+   60,000 users, 8,000 items), build_yelp_hin(num_core 10, rejection):
+   64,568 nodes, 755,962 train interactions, 57,144 test users; 11
+   two-step channels, 64 -> 64 -> 16, entity-aware, batch 1,024, 'random'
+   negatives, Adam; one PEATrainer per transport. The build's host
+   seconds and the HIN's md5 (hin_digest: train_pos and every edge_index
+   array); the grouped forward's groups ([[1] x 11, [6, 5]]); phases 10a-d
+   at its shapes (ml25m_describe: 4 streaming calls, (1, 64) on u2i and
+   i2u, (6, 16) on i2u, (5, 16) on u2i, and 9 composed convs;
+   ml25m_kernel_phase without the piece sweep; ml25m_edge_kernel_phase:
+   45 K7, 27 K5, 9 K6 calls a step; ml25m_phase per transport: launches
+   K9 4, K10 4, K11 4, K8 9, K7 45, K5 27, K6 9, the step against
+   plain_on_card, 2 + 8 timed steps, one eval over every test user, its
+   HR@10 and AUC reported, not held); then one f32 step through the
+   trainer with attention dropout 0.1 (yelp_dropout_step): no K9-K11
+   launch (stream_gat_reference on the card), the composed convs' kernels,
+   a finite loss and finite gradients.
 11. CLI phases (cli_phase), through the port's entry point cli.main in
    process, each call with every launch count set to 0 just before and
    read just after, in a temporary directory:
@@ -154,12 +178,23 @@
       the seconds of the case;
    e. `python -m graph_recsys_benchmark_tpu_torch` as a subprocess, 1 run x
       1 epoch: exit 0 and the Overall line.
+   f. cli_datasets_phase: the published Yelp recipe (`--dataset
+      synthetic-yelp`, 3 runs x 20 epochs, batch 1,024) and ML-25M recipe
+      (`--dataset synthetic-ml25m`, 5 runs x 30 epochs, batch 4,096,
+      rejection candidates), 'random' negatives: launches against the
+      hybrid plan's prediction, the overall HR@10 in HR_BANDS around the
+      JAX CLI's CPU result (JAX_CPU), each Yelp run's best HR@10 in the
+      band and each ML-25M run's at least its initial; `--dropout 0.1`, 1
+      run x 5 epochs per transport (a step's launches the per-channel
+      route's, an eval's the hybrid plan's; the train loss falls); `--opt
+      sparseadam`, 1 run x 3 epochs (launches, the loss falls; one step's
+      untouched rows of x stay bitwise as they were, their count printed).
 12. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
    timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
    the eval after it),
-   K8-K11's and the ML-25M entries of K5-K7 the
-   8 timed ML-25M steps, a variant route's forward its mode's eval and its
+   K8-K11's and the ML-25M and Yelp entries of K5-K7 their regime's
+   8 timed steps, a variant route's forward its mode's eval and its
    backward its mode's 20 steps),
    then {"ok": true, "device": {...}} last.
 
@@ -1365,13 +1400,17 @@ def ml25m_calls(graphs, kzs):
     return stream, composed
 
 
-def ml25m_describe(hin, trainer):
+def ml25m_describe(hin, trainer, label="ml25m", names=None, want=(4, 15)):
+    """Print the grouped forward's step graphs and calls (ml25m_calls) of
+    `trainer` and check their count against `want` (streaming calls,
+    composed convs); names: the relations of each channel's steps."""
+    names = ML25M_STEPS if names is None else names
     graphs = trainer.graphs
     stream, composed = ml25m_calls(graphs, (64, 16))
     seen = {}
     for c, ch in enumerate(graphs):
         for k, g in enumerate(ch):
-            seen.setdefault(id(g), [g, ML25M_STEPS[c][k], []])[2].append((c, k + 1))
+            seen.setdefault(id(g), [g, names[c][k], []])[2].append((c, k + 1))
 
     def skew(g):
         """The streaming graphs' skew, which K10's and K11's pieces meet:
@@ -1388,17 +1427,17 @@ def ml25m_describe(hin, trainer):
     rows = [f"{name} rows {g.num_nodes} edges {g.num_edges} padded {g.dst.numel()} "
             f"{'implicit loops' if g.gat_loops else 'loop edges'} (channel, step) {uses}"
             f"{skew(g)}" for g, name, uses in seen.values()]
-    print(f"ml25m: {hin.num_nodes} nodes, {hin.train_pos.shape[0]} train interactions, "
+    print(f"{label}: {hin.num_nodes} nodes, {hin.train_pos.shape[0]} train interactions, "
           f"{hin.candidates.seen.shape[0]} test users (seen lists {hin.candidates.seen.shape}); "
           f"{len(seen)} distinct step graphs:\n  " + "\n  ".join(rows), flush=True)
     for k in range(2):
-        print(f"ml25m step {k + 1}: streaming calls "
+        print(f"{label} step {k + 1}: streaming calls "
               f"{[(len(ch), kz) for kk, _, ch, kz in stream if kk == k]} (channels "
               f"{[ch for kk, _, ch, _ in stream if kk == k]}); composed convs on channels "
               f"{[c for kk, _, c in composed if kk == k]}", flush=True)
-    check(len(stream) == 4 and len(composed) == 15,
-          f"ml25m: {len(stream)} streaming calls and {len(composed)} composed convs, "
-          "expected 4 and 15")
+    check((len(stream), len(composed)) == want,
+          f"{label}: {len(stream)} streaming calls and {len(composed)} composed convs, "
+          f"expected {want}")
     return stream, composed
 
 
@@ -1440,10 +1479,13 @@ def ptxas_summary(logs):
         print(f"ptxas {name}: {'; '.join(lines)}", flush=True)
 
 
-def ml25m_kernel_phase(trainer, stream, composed):
+def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
     """K8 on every composed graph (weighted by its uses in one forward) and
     K9-K11 at the four streaming calls, per transport, against their plain
-    versions on the card (atomic sums against float64 sums)."""
+    versions on the card (atomic sums against float64 sums); with `sweep`
+    K9-K11 also at pieces of STREAM_PIECES edges.  Lines of another label
+    than ML-25M's start with it."""
+    pre = "" if label == "ml25m" else f"{label} "
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
     from graph_recsys_benchmark_tpu_torch.ops import stream_gat as sg
@@ -1474,7 +1516,8 @@ def ml25m_kernel_phase(trainer, stream, composed):
             plain = sk.softmax_stats_plain(alpha, g.dst, n)
             exact = sk.softmax_stats_plain(alpha.double(), g.dst, n)
             torch.cuda.synchronize()
-            check(torch.equal(got[:, 0], plain[:, 0]), f"softmax_stats {transport}: max differs")
+            check(torch.equal(got[:, 0], plain[:, 0]),
+                  f"{pre}softmax_stats {transport}: max differs")
             err, rel = rel_err(got[:, 1].double(), exact[:, 1])
             # each term exp(a - max) carries the f32 subtraction's rounding
             # (at most U_SUM of |a - max|, as a factor exp of it) and expf's
@@ -1484,8 +1527,8 @@ def ml25m_kernel_phase(trainer, stream, composed):
             t = torch.exp(d)
             t_err = t * (torch.expm1(U_SUM * d.abs()) * (1 + EXPF_REL) + EXPF_REL)
             bound = sum_bound(t, g.dst, n, t_err)
-            share = check_sum(f"softmax_stats {transport} ({e} edges)", got[:, 1], exact[:, 1],
-                              bound)
+            share = check_sum(f"{pre}softmax_stats {transport} ({e} edges)", got[:, 1],
+                              exact[:, 1], bound)
             # the busiest 128-row block alone (every other block's range
             # empty): the time of the CTA that sets the call's
             hot = int(torch.argmax(torch.diff(bb)))
@@ -1514,7 +1557,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
             # a max, a subtract, an exp and an add per real edge
             nbytes, flops = 8 * e_pad + 8 * n, 4 * e
             b_ms, _ = bound_ms(nbytes, flops)
-            print(f"softmax_stats {transport}: rows {n} edges {e} (padded {e_pad}) x{m} a "
+            print(f"{pre}softmax_stats {transport}: rows {n} edges {e} (padded {e_pad}) x{m} a "
                   f"forward; launches a call {launches}; sums vs float64 {rel:.3e} "
                   f"({share:.3f} of the rounding bound); ms {ms:.5f} plain_ms {plain_ms:.5f} "
                   f"library_ms {lib_ms:.5f} bound_ms {b_ms:.6f}; busiest block {hot} "
@@ -1579,7 +1622,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
                 ms = device_ms(lambda: fn(*a, **kw))
                 plain_ms = device_ms(lambda: plain(*a), reps=5)
                 b_ms, b_by = bound_ms(nbytes, flops)
-                print(f"{key} {transport}: n_ch {n_ch} kz {kz} rows {n} edges {e} (padded "
+                print(f"{pre}{key} {transport}: n_ch {n_ch} kz {kz} rows {n} edges {e} (padded "
                       f"{g.dst.numel()}) rel_err vs float64 {rel:.3e} vs plain {rel_plain:.3e} "
                       f"ms {ms:.5f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}; "
                       f"{nbytes} bytes, {flops} flops)", flush=True)
@@ -1588,7 +1631,7 @@ def ml25m_kernel_phase(trainer, stream, composed):
                 for k2, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                                 ("nbytes", nbytes), ("flops", flops)):
                     agg[k2] += val
-                if key in sweeps:
+                if sweep:
                     # the piece-size sweep: each size held to the float64 sums too
                     for piece in STREAM_PIECES:
                         got = fn(*a, piece_edges=piece, **kw)
@@ -1604,10 +1647,11 @@ def ml25m_kernel_phase(trainer, stream, composed):
         defaults = {"stream_fwd": sg.STREAM_FWD_PIECE_EDGES,
                     "stream_bwd_dst": sg.STREAM_DST_PIECE_EDGES,
                     "stream_bwd_src": sg.STREAM_SRC_PIECE_EDGES}
-        for key, sweep in sweeps.items():
-            print(f"{key} {transport}: (piece edges, ms of the 4 calls) "
-                  f"{[(p, round(ms, 5)) for p, ms in sweep.items()]}; default "
-                  f"{defaults[key]}", flush=True)
+        for key, pieces in sweeps.items():
+            if sweep:
+                print(f"{key} {transport}: (piece edges, ms of the 4 calls) "
+                      f"{[(p, round(ms, 5)) for p, ms in pieces.items()]}; default "
+                      f"{defaults[key]}", flush=True)
         torch.cuda.empty_cache()
     return results
 
@@ -1701,7 +1745,7 @@ def id_runs(ids, n):
     return (e / runs, e / distinct(32), e / distinct(2048), e / torch.unique(r).numel()), e
 
 
-def ml25m_edge_kernel_phase(trainers):
+def ml25m_edge_kernel_phase(trainers, label="ml25m"):
     """K7, K5 and K6 at the shapes one ML-25M training step gives them (the
     15 composed convs' gathers and sums and their backwards), per
     transport: the wrappers' calls of one step recorded (their arguments
@@ -1735,7 +1779,7 @@ def ml25m_edge_kernel_phase(trainers):
                     v2 = v.reshape(n, -1)
                     got, want = gather(*rec), sk.sorted_broadcast_plain(v, ids, n)
                     torch.cuda.synchronize()
-                    check(torch.equal(got, want), f"ml25m gather {transport}: not a bitwise "
+                    check(torch.equal(got, want), f"{label} gather {transport}: not a bitwise "
                           f"copy at rows {n}, width {v2.shape[1]}")
                     row_bytes = v2.shape[1] * v2.element_size()
                     call_bytes, call_flops = e * 4 + n * row_bytes + e * row_bytes, 0
@@ -1749,11 +1793,11 @@ def ml25m_edge_kernel_phase(trainers):
                     if len(rec) > 3 and rec[3] is not None:  # the walk sums by its own ids
                         perm, walk = rec[3]
                         check(torch.equal(walk, ids[perm.long()]),
-                              f"ml25m {kind} {transport}: a walk that is not ids[perm]")
+                              f"{label} {kind} {transport}: a walk that is not ids[perm]")
                     got = sum_by_id(counter, *rec)
                     exact = segment_sum(v.double(), ids, n)
                     torch.cuda.synchronize()
-                    check_sum(f"ml25m {kind} {transport} (rows {n}, width {v.shape[1]})", got,
+                    check_sum(f"{label} {kind} {transport} (rows {n}, width {v.shape[1]})", got,
                               exact, sum_bound(v.double(), ids, n))
                     err = max(err, rel_err(got.double(), exact)[0])
                     width = v.shape[1]
@@ -1806,7 +1850,7 @@ def ml25m_edge_kernel_phase(trainers):
             plain_ms = device_ms(plain, reps=3)
             lib_ms = device_ms(lib, reps=10)
             b_ms, b_by = bound_ms(nbytes, flops)
-            print(f"ml25m {SEG_KERNELS[kind]} {transport}: {len(recs)} calls in one step "
+            print(f"{label} {SEG_KERNELS[kind]} {transport}: {len(recs)} calls in one step "
                   f"((rows, width, dtype, edges) x calls: "
                   f"{sorted(shapes.items(), key=lambda kv: -kv[1])}); ms {ms:.5f} plain_ms "
                   f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by}; "
@@ -1815,7 +1859,7 @@ def ml25m_edge_kernel_phase(trainers):
                     groups.items(), key=lambda kv: -kv[1][1]):
                 g_ms = device_ms(replay(group), reps=10)
                 g_bound = bound_ms(g_bytes, g_flops)[0]
-                line = (f"ml25m {SEG_KERNELS[kind]} {transport} width {width} {dtype}: "
+                line = (f"{label} {SEG_KERNELS[kind]} {transport} width {width} {dtype}: "
                         f"{len(group)} calls ms {g_ms:.5f} bound_ms {g_bound:.5f} (share "
                         f"{g_bound / g_ms:.3f})")
                 if kind != "gather":
@@ -1873,7 +1917,7 @@ def plain_on_card():
             setattr(mod, name, fn)
 
 
-def ml25m_phase(trainer, stream, composed):
+def ml25m_phase(trainer, stream, composed, label="ml25m"):
     """Per transport: one step's launches, one step's loss and gradients
     against the plain versions on the card, 2 warm-up and 8 timed steps
     (counts over them), a profiled step, one evaluation (launches, forward
@@ -1881,7 +1925,7 @@ def ml25m_phase(trainer, stream, composed):
     from graph_recsys_benchmark_tpu_torch.models.pea import pea_loss
 
     transport, cfg = trainer.transport, trainer.cfg
-    label = f"ml25m {transport}"
+    label = f"{label} {transport}"
     bs, n_rows = trainer.tcfg.batch_size, trainer.n_rows
     n_s, n_c = len(stream), len(composed)
     fwd = dict(stream_fwd=n_s, softmax=n_c, gather=3 * n_c, segsum=n_c)
@@ -1999,6 +2043,210 @@ def ml25m_phase(trainer, stream, composed):
     return dict(launches=launches, eval_launches=eval_launches)
 
 
+# the Yelp regime (tools/bench_yelp.py:38-64): the relations of each
+# channel's steps (yelp_metapath_edges), for the printout
+YELP_STEPS = (("u2i", "i2u"), ("i2u", "u2i"), ("st2i", "i2u"), ("rc2i", "i2u"),
+              ("at2i", "i2u"), ("ca2i", "i2u"), ("ck2i", "i2u"), ("rc2u", "u2i"),
+              ("fc2u", "u2i"), ("fa2u", "u2i"), ("st2u", "u2i"))
+# the grouped forward's groups a step (channels sharing one graph), as the
+# JAX package's own Yelp record reads them (BENCH_yelp.json "gates")
+YELP_GROUPS = [[1] * 11, [6, 5]]
+# GAT attention dropout of the dropout phases
+DROPOUT = 0.1
+
+
+def hin_digest(hin):
+    """md5 of train_pos and of every edge_index array (name -> hex digest),
+    and one md5 over all of them in that order."""
+    import hashlib
+
+    parts = {"train_pos": hin.train_pos}
+    parts.update(hin.edge_index)
+    out = {k: hashlib.md5(np.ascontiguousarray(v).tobytes()).hexdigest()
+           for k, v in parts.items()}
+    out["all"] = hashlib.md5("".join(out.values()).encode()).hexdigest()
+    return out
+
+
+def build_yelp():
+    """tools/bench_yelp.py:38-64's configuration built by the port's code:
+    synthetic_yelp_raw(seed 0, 60,000 users, 8,000 items, num_core 10, 80
+    attributes, 60 categories), build_yelp_hin(num_core 10, rejection
+    candidates), 11 two-step channels, 64 -> 64 -> 16, entity-aware, batch
+    1,024, 'random' negatives, Adam; one PEATrainer per transport.  Host
+    seconds printed, outside every timed window."""
+    from graph_recsys_benchmark_tpu_torch.data import (
+        build_yelp_hin, synthetic_yelp_raw, yelp_metapath_edges)
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
+
+    t0 = time.perf_counter()
+    raw = synthetic_yelp_raw(seed=0, num_users=60_000, num_items=8_000, num_core=10,
+                             num_attributes=80, num_categories=60)
+    t_raw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hin = build_yelp_hin(*raw, num_core=10, candidate_mode="rejection")
+    t_hin = time.perf_counter() - t0
+    cfg = PEAConfig(conv="gat", num_nodes=hin.num_nodes, meta_path_steps=(2,) * 11,
+                    emb_dim=64, hidden_size=64, repr_dim=16, entity_aware=True)
+    tcfg = TrainConfig(batch_size=1024, sampling_strategy="random")
+    edges = yelp_metapath_edges(hin)
+    trainers, secs = {}, {}
+    for t in TDT:
+        t0 = time.perf_counter()
+        trainers[t] = PEATrainer(hin, cfg, tcfg, edges, device="cuda", transport=t)
+        torch.cuda.synchronize()
+        secs[t] = time.perf_counter() - t0
+    digest = hin_digest(hin)
+    print(f"yelp build: raw frames {t_raw:.1f} s, HIN {t_hin:.1f} s host; trainer (graphs + "
+          f"tables, to the card) {' / '.join(f'{secs[t]:.1f}' for t in TDT)} s host (f32 / "
+          f"bf16); {hin.num_nodes} nodes ({hin.num_users} users, {hin.num_items} items); HIN "
+          f"md5 {digest['all']} ({json.dumps(digest)})", flush=True)
+    groups = []
+    for k in range(2):
+        shared = {}
+        for ch in trainers["f32"].graphs:
+            shared[id(ch[k])] = shared.get(id(ch[k]), 0) + 1
+        groups.append(sorted(shared.values(), reverse=True))
+    print(f"yelp grouped forward: channels sharing a graph, per step {groups}", flush=True)
+    check(groups == YELP_GROUPS, f"yelp groups {groups}, expected {YELP_GROUPS}")
+    return hin, trainers
+
+
+def _per_channel_step(graphs):
+    """A training step's launches on per-channel graphs under attention
+    dropout: each composed conv its K8, K7 x5, K5 x3 and K6 (the ML-25M
+    phase's counts a conv); a `gat_loops` conv runs stream_gat_reference
+    (plain torch ops) and launches nothing."""
+    n_c = sum(not g.gat_loops for ch in graphs for g in ch)
+    return dict(softmax=n_c, gather=5 * n_c, segsum=3 * n_c, scatter=n_c)
+
+
+def dropout_phase(hin, trainer):
+    """PEAGAT f32 at the flagship with attention dropout DROPOUT: one
+    training step's loss and every gradient on the card against a CPU copy
+    under the same masks (drawn once on the CPU, DropoutMasks.to), through
+    pea_loss with the trainer's hybrid plan, which hands the forward to its
+    per-channel graphs: the launches of the per-channel route (no K1-K4),
+    the loss and gradient rules of train_phase with kink_rows."""
+    import dataclasses
+
+    from graph_recsys_benchmark_tpu_torch.models.pea import DropoutMasks, pea_forward, pea_loss
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer
+
+    cfg = dataclasses.replace(trainer.cfg, dropout=DROPOUT)
+    bs = trainer.tcfg.batch_size
+    cpu = PEATrainer(hin, cfg, trainer.tcfg, device="cpu")
+    params = trainer.init(2020)
+    with torch.no_grad():
+        params.x.mul_(10.0)
+        params.fc1["b"].mul_(0.1)
+    cpu_params = copy.deepcopy(params).cpu()
+    cgen = torch.Generator().manual_seed(3)
+    batch = cpu._build_batch(torch.randperm(cpu.n_rows, generator=cgen)[:bs], cgen)
+    masks = DropoutMasks(DROPOUT, torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        pea_forward(cpu_params, cpu.graphs, cfg, masks=masks)  # draws every conv's masks
+    card_masks = masks.to("cuda")
+    kinks = kink_rows("dropout f32", batch,
+                      (params, lambda m: pea_forward(m, trainer.graphs, cfg, masks=card_masks)),
+                      (cpu_params, lambda m: pea_forward(m, cpu.graphs, cfg, masks=masks)))
+    rmask = ((torch.arange(bs) < bs - 100) & ~kinks).float()
+    reset_launches()
+    loss = pea_loss(params, trainer.graphs, cfg, batch.cuda(), rmask.cuda(), masks=card_masks)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cpu_loss = pea_loss(cpu_params, cpu.graphs, cfg, batch, rmask, masks=masks)
+    cpu_loss.backward()
+    want = expected(**_per_channel_step(trainer.graphs.per_channel))
+    check(launches == want, f"dropout step: launches {launches}, expected {want}")
+    tol = FORWARD_TOL["f32"]
+    _, rel = rel_err(loss.detach().cpu(), cpu_loss.detach())
+    check(rel <= tol, f"dropout step loss vs CPU: relative error {rel} > {tol}")
+    errs = leaf_errors("dropout f32", params, cpu_params)
+    median, worst = errs[len(errs) // 2], errs[-1]
+    check(median[0] <= tol and worst[0] <= KINK_TOL,
+          f"dropout grads vs CPU: median {median} > {tol} or worst {worst} > {KINK_TOL}")
+    kept = torch.cat([m.flatten() for m in masks._drawn.values()]).float().mean()
+    print(f"dropout {DROPOUT} f32 (flagship, the per-channel route): one step launches "
+          f"{launches}; masks of {len(masks._drawn)} convs, kept share {float(kept):.4f}; loss "
+          f"{float(loss.detach()):.6f} vs CPU {float(cpu_loss.detach()):.6f} (rel {rel:.3e}); "
+          f"gradients vs CPU: median {median[1]} rel {median[0]:.3e}, worst {worst[1]} rel "
+          f"{worst[0]:.3e}; {int(kinks.sum())} kink row(s) left out", flush=True)
+    return launches
+
+
+def yelp_dropout_step(trainer):
+    """One Yelp-regime training step through the trainer with attention
+    dropout DROPOUT (its cfg swapped for the step): the `gat_loops` convs
+    run stream_gat_reference on the card, so no K9-K11 launch; the composed
+    convs launch their kernels; the loss and every gradient finite."""
+    import dataclasses
+
+    cfg0 = trainer.cfg
+    bs = trainer.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    trainer.cfg = dataclasses.replace(cfg0, dropout=DROPOUT)
+    try:
+        params = trainer.init(2020)
+        opt = trainer.optimizer(params)
+        rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        trainer.cfg = cfg0
+    want = expected(**_per_channel_step(trainer.graphs))
+    check(launches == want, f"yelp dropout step: launches {launches}, expected {want}")
+    check(bool(torch.isfinite(loss)), f"yelp dropout step: loss {float(loss)}")
+    for name, p in params.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"yelp dropout step: grad {name} missing or not finite")
+    print(f"yelp dropout {DROPOUT} {trainer.transport}: one step launches {launches} (no "
+          f"K9-K11); loss {float(loss):.6f}; every gradient finite; step wall {secs * 1e3:.1f} "
+          f"ms (the first, with stream_gat_reference's plain ops)", flush=True)
+    return launches
+
+
+def yelp_phases():
+    """The Yelp regime (build_yelp), after the ML-25M phases: the build and
+    the grouped forward's calls (4 streaming calls, 9 composed convs), K8
+    and K9-K11 at the path's shapes (ml25m_kernel_phase, no piece sweep),
+    K7, K5 and K6 replayed from one step (ml25m_edge_kernel_phase), per
+    transport the step's launches, the step against plain_on_card, 2 + 8
+    timed steps and one eval over every test user (ml25m_phase), then one
+    step with attention dropout (yelp_dropout_step)."""
+    hin, trainers = build_yelp()
+    stream, composed = ml25m_describe(hin, trainers["f32"], "yelp", YELP_STEPS, (4, 9))
+    kres = ml25m_kernel_phase(trainers["f32"], stream, composed, "yelp", sweep=False)
+    eres = ml25m_edge_kernel_phase(trainers, "yelp")
+    res = {t: ml25m_phase(trainers[t], stream, composed, "yelp") for t in TDT}
+    for (kind, transport), r in eres.items():
+        steps = res[transport]["launches"][kind] / 8
+        check(r["calls"] == steps, f"yelp {kind} {transport}: {r['calls']} calls recorded "
+              f"in one step, {steps} launches a timed step")
+    drop = yelp_dropout_step(trainers["f32"])
+    return kres, eres, res, drop
+
+
+# the published Yelp and ML-25M recipes (JAX cli.py:165-212 and the dataset
+# defaults: 3 runs x 20 epochs, batch 1,024 / 5 runs x 30 epochs, batch
+# 4,096, 'random' negatives, f32, Adam) and the JAX CLI's results for them
+# on a CPU (JAX_PLATFORMS=cpu; not a TPU's or the card's numbers, PERF.md
+# section 2): (HR@10, NDCG@10, AUC)
+YELP_RECIPE = ["--model", "PEAGAT", "--dataset", "synthetic-yelp", "--entity_aware", "true"]
+ML25M_RECIPE = ["--model", "PEAGAT", "--dataset", "synthetic-ml25m", "--entity_aware", "true"]
+JAX_CPU = {"synthetic-yelp": (0.1783, 0.1086, 0.4586),
+           "synthetic-ml25m": (0.3173, 0.1719, 0.7423)}
+# chip_smoke.py fails outside these bands of the overall HR@10: the JAX CPU
+# result +- 4 standard errors of the difference of two independent R-run
+# means of U-user hit rates, 4 * sqrt(2 * p (1 - p) / (U R)): Yelp p 0.1783,
+# U 314, R 3 -> +-0.0706; ML-25M p 0.3173, U 150, R 5 -> +-0.0961
+HR_BANDS = {"synthetic-yelp": (0.1077, 0.2489), "synthetic-ml25m": (0.2212, 0.4134)}
 # the published recipe (JAX cli.py:47-54 defaults: 5 runs x 30 epochs, batch
 # 1,024, f32, Adam) and the JAX run it is held against
 RECIPE = ["--model", "PEAGAT", "--dataset", "synthetic-ml", "--entity_aware", "true"]
@@ -2048,6 +2296,169 @@ def _near_tie_users(users, tables, score):
     return gaps
 
 
+def cli_calls(tmp, extra=()):
+    """(argv_of, trainer_of, run) over cli.main in the temporary directory
+    `tmp`: argv_of(argv, out) -> the arguments with `extra`, the call's
+    own --out_dir and one shared --cache_dir; trainer_of(argv, out) -> (the
+    trainer and HIN that cli.main builds for these arguments); run(argv,
+    out) -> (overall, launches, wall s, log path, log lines), every launch
+    count set to 0 just before the call and read just after."""
+    from graph_recsys_benchmark_tpu_torch import cli
+
+    cache = os.path.join(tmp, "cache")
+
+    def argv_of(argv, out):
+        return list(argv) + list(extra) + ["--out_dir", os.path.join(tmp, out),
+                                           "--cache_dir", cache]
+
+    def trainer_of(argv, out):
+        args = cli.build_parser().parse_args(argv_of(argv, out))
+        hin, mp_edges = cli.load_hin(args)
+        return cli.build_trainer(args, hin, mp_edges)[0], hin
+
+    def run(argv, out):
+        full = argv_of(argv, out)
+        print(f"cli: main({' '.join(full)})", flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        overall = cli.main(full)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        path, lines = _log_lines(os.path.join(tmp, out))
+        return overall, launches, wall, path, lines
+
+    return argv_of, trainer_of, run
+
+
+def recipe_call(trainer_of, run, label, argv, band, ref, per_run):
+    """One published recipe through cli.main (cli_phase's `run`): its
+    launches against the hybrid plan's prediction (a step's forward and
+    backward launches x steps, plus a forward's x evals), each run's best
+    HR@10 held by `per_run`: "above" its initial, "at_least" its initial,
+    or in "band" (where an untrained scorer can beat the trained one: on
+    synthetic-yelp the JAX CLI's own run 2 reads initial 0.3376, best
+    0.1688), the overall HR@10 in `band`, printed beside `ref` (HR@10,
+    NDCG@10 or None, AUC, its source).
+    Returns (the trainer cli.main builds, a forward's launches, a
+    backward's, steps an epoch, the call's numbers)."""
+    trainer, hin = trainer_of(argv, label)
+    check(trainer.device.type == "cuda", f"the CLI's trainer is on {trainer.device}")
+    fwd, bwd = _plan_launches(trainer)
+    runs, epochs, s = trainer.tcfg.runs, trainer.tcfg.epochs, trainer.num_batches
+    overall, launches, wall, path, lines = run(argv, label)
+    want = _predict(fwd, bwd, runs * epochs * s, runs * (epochs + 1))
+    check(launches == want, f"{label} launches {launches}, predicted {want}")
+    inits = [float(re.search(r"HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
+             if ln.startswith("Initial performance")]
+    done = [re.search(r"Duration: ([0-9.]+)s, best HR@10: ([0-9.]+)", ln).groups()
+            for ln in lines if ", Duration: " in ln]
+    check(len(inits) == runs and len(done) == runs, f"{label} log {path}: {len(inits)} "
+          f"initial and {len(done)} run lines for {runs} runs")
+    bests = [float(b) for _, b in done]
+    for r, (i, b) in enumerate(zip(inits, bests), start=1):
+        ok = {"above": b > i, "at_least": b >= i, "band": band[0] <= b <= band[1]}[per_run]
+        check(ok, f"{label} run {r}: best HR@10 {b}, initial {i}: not {per_run} "
+              f"({'the band ' + str(band) if per_run == 'band' else 'its initial'})")
+    hr10, ndcg10 = float(overall["HR"][5]), float(overall["NDCG"][5])
+    auc = float(np.ravel(overall["AUC"])[0])
+    check(band[0] <= hr10 <= band[1], f"{label} overall HR@10 {hr10} outside {band}")
+    run_s = [float(d) for d, _ in done]
+    r_hr, r_ndcg, r_auc, r_src = ref
+    print(f"{label} ({hin.name}: {hin.num_nodes} nodes, {hin.num_users} test users, "
+          f"{hin.train_pos.shape[0]} train interactions, {s} steps an epoch of "
+          f"{trainer.tcfg.batch_size}, {trainer.tcfg.sampling_strategy} negatives, "
+          f"{trainer.tables.mode} candidates; {runs} runs x {epochs} epochs): initial HR@10 "
+          f"{inits} best HR@10 {bests} overall HR@10 {hr10:.4f} NDCG@10 {ndcg10:.4f} AUC "
+          f"{auc:.4f} ({r_src}: HR@10 {r_hr}"
+          + ("" if r_ndcg is None else f", NDCG@10 {r_ndcg}")
+          + f", AUC {r_auc}; HR@10 {hr10 - r_hr:+.4f}, AUC {auc - r_auc:+.4f}; band {band}); "
+          f"wall {wall:.2f} s, runs {run_s} s, {sum(run_s) / (runs * epochs):.4f} s an epoch; "
+          f"launches {launches}", flush=True)
+    return trainer, fwd, bwd, s, dict(hr10=hr10, ndcg10=ndcg10, auc=auc, wall=wall,
+                                      launches=launches)
+
+
+def _train_losses(lines):
+    return [float(re.search(r"train loss: ([0-9.eE+-]+)", ln).group(1)) for ln in lines
+            if ", epoch: " in ln and "exclude" not in ln]
+
+
+def cli_datasets_phase(tmp):
+    """The CLI choices this slice ports, through cli.main in process (each
+    call with every launch count set to 0 just before and read just after):
+    a. the published Yelp and ML-25M recipes (recipe_call, HR_BANDS; each
+       Yelp run's best HR@10 in the band, each ML-25M run's at least its
+       initial);
+    b. --dropout 0.1 on the flagship recipe, 1 run x 5 epochs, per
+       transport: a training step takes the per-channel route
+       (_per_channel_step: no K1-K4), an eval the hybrid plan (1 flash
+       forward, 2 batched forwards); launches against that prediction, the
+       train loss falling over the epochs;
+    c. --opt sparseadam, 1 run x 3 epochs: launches, the loss falling; then
+       one step from init(0): the rows of x that it leaves untouched (a
+       zero gradient row) stay bitwise as they were."""
+    _, trainer_of, run = cli_calls(tmp)
+    out = {}
+    # a. the Yelp and ML-25M recipes
+    for argv, per_run in ((YELP_RECIPE, "band"), (ML25M_RECIPE, "at_least")):
+        ds = argv[3]
+        r_hr, r_ndcg, r_auc = JAX_CPU[ds]
+        *_, out[ds] = recipe_call(trainer_of, run, ds, argv, HR_BANDS[ds],
+                                  (r_hr, r_ndcg, r_auc, "the JAX CLI on a CPU"), per_run)
+
+    # b. attention dropout through the CLI
+    out["dropout"] = {}
+    for t in TDT:
+        argv = RECIPE + ["--dropout", str(DROPOUT), "--runs", "1", "--epochs", "5",
+                         "--message_dtype", t]
+        tr, _ = trainer_of(argv, f"dropout-{t}")
+        fwd, _ = _plan_launches(tr)
+        steps = 5 * tr.num_batches
+        want = {k: v * steps for k, v in _per_channel_step(tr.graphs.per_channel).items()}
+        want.update({k: v * 6 for k, v in fwd.items()})  # the init eval and 5 epochs' evals
+        want = expected(**want)
+        overall, launches, wall, _, lines = run(argv, f"dropout-{t}")
+        check(launches == want, f"dropout {t}: launches {launches}, predicted {want}")
+        losses = _train_losses(lines)
+        check(len(losses) == 5 and losses[-1] < losses[0], f"dropout {t}: losses {losses}")
+        print(f"dropout {DROPOUT} {t} (1 run x 5 epochs, {steps} steps): train loss {losses}; "
+              f"HR@10 {float(overall['HR'][5]):.4f}; wall {wall:.2f} s; launches {launches} "
+              f"(K1-K4 only the 6 evals' forwards)", flush=True)
+        out["dropout"][t] = launches
+
+    # c. SparseAdam through the CLI, then its untouched rows
+    argv = RECIPE + ["--opt", "sparseadam", "--runs", "1", "--epochs", "3"]
+    tr, hin = trainer_of(argv, "sparseadam")
+    fwd, bwd = _plan_launches(tr)
+    overall, launches, wall, _, lines = run(argv, "sparseadam")
+    want = _predict(fwd, bwd, 3 * tr.num_batches, 4)
+    check(launches == want, f"sparseadam: launches {launches}, predicted {want}")
+    losses = _train_losses(lines)
+    check(len(losses) == 3 and losses[-1] < losses[0], f"sparseadam: losses {losses}")
+    params = tr.init(0)
+    opt = tr.optimizer(params)
+    check(type(opt).__name__ == "SparseAdam", f"--opt sparseadam built {type(opt).__name__}")
+    before = params.x.detach().clone()
+    bs = tr.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr.train_step(params, opt, torch.arange(bs, device="cuda"), torch.ones(bs, device="cuda"),
+                  gen)
+    untouched = ~(params.x.grad != 0).any(dim=1)
+    n_real = int(untouched[:hin.num_nodes].sum())
+    check(torch.equal(params.x.detach()[untouched], before[untouched]),
+          "sparseadam: an untouched row of x moved")
+    check(not torch.equal(params.x.detach()[~untouched], before[~untouched]),
+          "sparseadam: no touched row of x moved")
+    print(f"sparseadam (1 run x 3 epochs): train loss {losses}; HR@10 "
+          f"{float(overall['HR'][5]):.4f}; wall {wall:.2f} s; launches {launches}; one step "
+          f"leaves {n_real} of the {hin.num_nodes} node rows of x untouched (and the "
+          f"{params.x.shape[0] - hin.num_nodes} padding rows), each bitwise as it was",
+          flush=True)
+    out["sparseadam"] = launches
+    return out
+
+
 def cli_phase(tmp, recipe_extra=()):
     """The port's CLI (cli.main, in process) on the card, each call with every
     launch count set to 0 just before and read just after:
@@ -2071,66 +2482,18 @@ def cli_phase(tmp, recipe_extra=()):
     e. python -m graph_recsys_benchmark_tpu_torch as a subprocess, 1 run x 1
        epoch: exit 0 and the Overall line.
     recipe_extra: arguments added to every call (none on the card)."""
-    from graph_recsys_benchmark_tpu_torch import cli
     from graph_recsys_benchmark_tpu_torch.eval.full_ranking import evaluate_full_ranking
     from graph_recsys_benchmark_tpu_torch.models.pea import pea_predict
     from graph_recsys_benchmark_tpu_torch.train.sampling import build_device_tables
     from graph_recsys_benchmark_tpu_torch.utils.checkpoint import load_checkpoint
 
-    extra = list(recipe_extra)
-    cache = os.path.join(tmp, "cache")
-
-    def argv_of(argv, out):
-        return list(argv) + extra + ["--out_dir", os.path.join(tmp, out), "--cache_dir", cache]
-
-    def trainer_of(argv, out):
-        """The trainer and HIN that cli.main builds for these arguments."""
-        args = cli.build_parser().parse_args(argv_of(argv, out))
-        hin, mp_edges = cli.load_hin(args)
-        return cli.build_trainer(args, hin, mp_edges)[0], hin
-
-    def run(argv, out):
-        full = argv_of(argv, out)
-        print(f"cli: main({' '.join(full)})", flush=True)
-        reset_launches()
-        t0 = time.perf_counter()
-        overall = cli.main(full)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        path, lines = _log_lines(os.path.join(tmp, out))
-        return overall, launches, wall, path, lines
+    argv_of, trainer_of, run = cli_calls(tmp, recipe_extra)
 
     out = {}
     # a. the recipe
-    trainer, hin = trainer_of(RECIPE, "recipe")
-    check(trainer.device.type == "cuda", f"the CLI's trainer is on {trainer.device}")
-    fwd, bwd = _plan_launches(trainer)
-    runs, epochs, s = trainer.tcfg.runs, trainer.tcfg.epochs, trainer.num_batches
-    overall, launches, wall, path, lines = run(RECIPE, "recipe")
-    want = _predict(fwd, bwd, runs * epochs * s, runs * (epochs + 1))
-    check(launches == want, f"recipe launches {launches}, predicted {want}")
-    inits = [float(re.search(r"HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
-             if ln.startswith("Initial performance")]
-    done = [re.search(r"Duration: ([0-9.]+)s, best HR@10: ([0-9.]+)", ln).groups()
-            for ln in lines if ", Duration: " in ln]
-    check(len(inits) == runs and len(done) == runs, f"recipe log {path}: {len(inits)} "
-          f"initial and {len(done)} run lines for {runs} runs")
-    bests = [float(b) for _, b in done]
-    for r, (i, b) in enumerate(zip(inits, bests), start=1):
-        check(b > i, f"recipe run {r}: best HR@10 {b} not above its initial {i}")
-    hr10, ndcg10 = float(overall["HR"][5]), float(overall["NDCG"][5])
-    auc = float(np.ravel(overall["AUC"])[0])
-    check(HR_BAND[0] <= hr10 <= HR_BAND[1], f"recipe overall HR@10 {hr10} outside {HR_BAND}")
-    run_s = [float(d) for d, _ in done]
-    print(f"recipe ({hin.name}: {hin.num_nodes} nodes, {hin.num_users} test users, "
-          f"{hin.train_pos.shape[0]} train interactions, {s} steps an epoch; {runs} runs x "
-          f"{epochs} epochs): initial HR@10 {inits} best HR@10 {bests} overall HR@10 "
-          f"{hr10:.4f} NDCG@10 {ndcg10:.4f} AUC {auc:.4f} (JAX {JAX_RECIPE}: HR@10 "
-          f"{JAX_HR10}, AUC {JAX_AUC}; HR@10 {hr10 - JAX_HR10:+.4f}, AUC "
-          f"{auc - JAX_AUC:+.4f}); wall {wall:.2f} s, runs {run_s} s, "
-          f"{sum(run_s) / (runs * epochs):.4f} s an epoch; launches {launches}", flush=True)
-    out["recipe"] = dict(hr10=hr10, ndcg10=ndcg10, auc=auc, wall=wall, launches=launches)
+    trainer, fwd, bwd, s, out["recipe"] = recipe_call(
+        trainer_of, run, "recipe", RECIPE, HR_BAND,
+        (JAX_HR10, None, JAX_AUC, f"JAX {JAX_RECIPE}"), per_run="above")
 
     # b. run-level resume: --runs 1, then --runs 2 in the same run directory
     base = RECIPE + ["--epochs", "2", "--save_every_epoch", "0"]
@@ -2298,6 +2661,7 @@ def main():
     mkres_modes = mode_kernel_phase(plan, hin.num_nodes)
     mres_modes = mode_slice_phase(hin, cfg, trainers)
     print(f"flash-GAT mode phases {time.perf_counter() - t_modes:.1f} s", flush=True)
+    timed("PEAGAT dropout", dropout_phase, hin, trainers["f32"])
     del hin, all_trainers, trainers, plan, union
     torch.cuda.empty_cache()
 
@@ -2316,9 +2680,13 @@ def main():
     del hin25, trainers25
     torch.cuda.empty_cache()
 
+    ykres, yeres, yres, _ = timed("yelp", yelp_phases)
+    torch.cuda.empty_cache()
+
     t_c = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         cres = cli_phase(tmp)
+        timed("cli datasets", cli_datasets_phase, tmp)
     print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
 
     repo = "graph_recsys_benchmark_tpu"
@@ -2374,27 +2742,34 @@ def main():
                                    "stream_gat_bwd_dst", "4 calls of one backward"),
                 "stream_bwd_src": ("stream_gat.py:364", "stream_gat.cu",
                                    "stream_gat_bwd_src", "4 calls of one backward")}
-    for (kind, transport), r in mkres.items():
-        where, src_file, name, calls = replaces[kind]
-        kernels.append(dict(
-            name=f"{name} ({transport}; ML-25M, {calls})", route="cuda",
-            source=f"{csrc}/{src_file}", replaces=f"{repo}/ops/{where}",
-            # the 8 timed ML-25M steps
-            launches=mres[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-        ))
+    composed_calls = {"ML-25M": "15 composed convs of one forward",
+                      "Yelp": "9 composed convs of one forward"}
+    for regime, kres_, steps_ in (("ML-25M", mkres, mres), ("Yelp", ykres, yres)):
+        for (kind, transport), r in kres_.items():
+            where, src_file, name, calls = replaces[kind]
+            if kind == "softmax":
+                calls = composed_calls[regime]
+            kernels.append(dict(
+                name=f"{name} ({transport}; {regime}, {calls})", route="cuda",
+                source=f"{csrc}/{src_file}", replaces=f"{repo}/ops/{where}",
+                # the regime's 8 timed steps
+                launches=steps_[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ))
     replaces = {"segsum": "77", "gather": "426", "scatter": "636"}
-    for (kind, transport), r in meres.items():
-        kernels.append(dict(
-            name=f"{SEG_KERNELS[kind]} ({transport}; ML-25M, {r['calls']} calls of one step)",
-            route="cuda", source=f"{csrc}/segment.cu",
-            replaces=f"{repo}/ops/pallas_segment.py:{replaces[kind]}",
-            # the 8 timed ML-25M steps
-            launches=mres[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-        ))
+    for regime, eres_, steps_ in (("ML-25M", meres, mres), ("Yelp", yeres, yres)):
+        for (kind, transport), r in eres_.items():
+            kernels.append(dict(
+                name=f"{SEG_KERNELS[kind]} ({transport}; {regime}, {r['calls']} calls of one "
+                     "step)",
+                route="cuda", source=f"{csrc}/segment.cu",
+                replaces=f"{repo}/ops/pallas_segment.py:{replaces[kind]}",
+                # the regime's 8 timed steps
+                launches=steps_[transport]["launches"][kind], max_abs_err=r["max_abs_err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ))
     # the variant routes: a forward's launches are its mode's eval's, a
     # backward's the mode's MODE_STEPS steps'
     modes = {"rowmax": ("online-fused", "eval_launches", "gat_fwd.cu", "129",

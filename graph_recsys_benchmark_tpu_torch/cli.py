@@ -11,10 +11,12 @@ plain versions).  Defaults reproduce the published recipes
     python -m graph_recsys_benchmark_tpu_torch --model PEAGCN --dataset ml-latest-small \\
         --raw_dir /data/ml-latest-small --entity_aware true --device cpu
 
-Ported: PEAGCN, PEAGAT and PEASage on ``synthetic-ml`` and
-``ml-latest-small`` (raw files already on disk: nothing is downloaded),
-both candidate modes, f32 or bf16 message transport (``--message_dtype``,
-the trainer's ``transport``), Adam or SGD.  The other choices raise
+Ported: PEAGCN, PEAGAT and PEASage on all six datasets (``ml-latest-small``,
+``ml-25m`` and ``yelp`` read raw files already on disk: nothing is
+downloaded), both candidate modes (ML-25M defaults to rejection), f32 or
+bf16 message transport (``--message_dtype``, the trainer's ``transport``),
+GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD.  The
+baselines, the walk flags and the parallel layer raise
 ``NotImplementedError`` before any work, naming the ROADMAP Queue 1 item
 that ports them.
 
@@ -38,11 +40,10 @@ import numpy as np
 
 PACKAGE = "graph_recsys_benchmark_tpu_torch"
 PEA_MODELS = ("PEAGCN", "PEAGAT", "PEASage")
-PORTED_DATASETS = ("synthetic-ml", "ml-latest-small")
+PORTED_DATASETS = ("synthetic-ml", "synthetic-ml25m", "synthetic-yelp",
+                   "ml-latest-small", "ml-25m", "yelp")
 # ROADMAP Queue 1 items by title
-DATASETS_ITEM = 'ROADMAP Queue 1, "The remaining datasets"'
 BASELINES_ITEM = 'ROADMAP Queue 1, "Baselines"'
-OPTIONS_ITEM = 'ROADMAP Queue 1, "Training options left out of slice 2"'
 PARALLEL_ITEM = 'ROADMAP Queue 1, "Parallel, last"'
 
 
@@ -133,10 +134,6 @@ def check_ported(args):
     """NotImplementedError for every choice the port does not run yet,
     naming the ROADMAP Queue 1 item that ports it."""
     defaults = build_parser().parse_args([])
-    if args.dataset not in PORTED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported (ported: "
-            f"{', '.join(PORTED_DATASETS)}): {DATASETS_ITEM}")
     if args.model not in PEA_MODELS:
         raise NotImplementedError(
             f"--model {args.model} is not ported (ported: {', '.join(PEA_MODELS)}): "
@@ -146,11 +143,6 @@ def check_ported(args):
         raise NotImplementedError(
             f"--{', --'.join(changed)}: read by the walk models only, which are not "
             f"ported: {BASELINES_ITEM}")
-    if args.dropout > 0:
-        raise NotImplementedError(f"--dropout {args.dropout}: attention dropout is not "
-                                  f"ported: {OPTIONS_ITEM}")
-    if args.opt.lower() == "sparseadam":
-        raise NotImplementedError(f"--opt sparseadam is not ported: {OPTIONS_ITEM}")
     dist = [f"--{f}" for f in ("dist_coordinator", "dist_nprocs", "dist_rank", "mesh_mp")
             if getattr(args, f) is not None]
     if args.parallel != "none" or dist:
@@ -161,10 +153,13 @@ def check_ported(args):
 
 
 def load_hin(args):
-    """Build (or load cached) HINData + metapath edge list for the dataset.
-    The cache's file name hashes the dataset arguments under the package's
-    name, so no JAX package pickle is ever read here."""
+    """Build (or load cached) HINData + metapath edge list for the dataset,
+    the table picked by the HIN's name as the JAX CLI does: Yelp's 11,
+    ML-25M's 13, ml-small's 9.  The cache's file name hashes the dataset
+    arguments under the package's name, so no JAX package pickle is ever
+    read here."""
     from .data import movielens as ML
+    from .data import yelp as Y
 
     key = json.dumps(
         [PACKAGE, args.dataset, args.raw_dir, args.num_core, args.num_feat_core,
@@ -183,6 +178,10 @@ def load_hin(args):
         hin = _build_hin(args)
         with open(cache, "wb") as f:
             pickle.dump(hin, f, protocol=4)
+    if hin.name.startswith("yelp"):
+        return hin, Y.yelp_metapath_edges(hin)
+    if "25m" in hin.name:
+        return hin, ML.ml25m_metapath_edges(hin)
     return hin, ML.mlsmall_metapath_edges(hin)
 
 
@@ -202,26 +201,53 @@ def _require_raw_files(args, required_files):
 
 
 def _build_hin(args):
+    """The dataset's HINData, with the JAX CLI's clamps and candidate modes
+    (``--candidate_mode`` else dense, rejection for ML-25M)."""
     from .data import movielens as ML
     from .data import synthetic as S
+    from .data import yelp as Y
 
     nc, nfc = args.num_core, args.num_feat_core
-    cm = getattr(args, "candidate_mode", None) or "dense"
+    cm = getattr(args, "candidate_mode", None)
+
+    def _cm(default):
+        return {"candidate_mode": cm or default}
 
     if args.dataset == "synthetic-ml":
         movies, ratings, tagging = S.synthetic_mlsmall_raw(seed=0)
         return ML.build_mlsmall_hin(
-            movies, ratings, tagging, min(nc, 3), min(nfc, 2), candidate_mode=cm
+            movies, ratings, tagging, min(nc, 3), min(nfc, 2), **_cm("dense")
         )
+    if args.dataset == "synthetic-ml25m":
+        raw = S.synthetic_ml25m_raw(seed=0)
+        return ML.build_ml25m_hin(*raw, min(nc, 3), min(nfc, 2), **_cm("rejection"))
+    if args.dataset == "synthetic-yelp":
+        b, u, rt = S.synthetic_yelp_raw(seed=0)
+        return Y.build_yelp_hin(b, u, rt, num_core=4, **_cm("dense"))
     if args.dataset == "ml-latest-small":
         from .data.ml_raw import ML_FILES, parse_ml_dir
 
         _require_raw_files(args, ML_FILES)
         movies, ratings, tagging = parse_ml_dir(args.raw_dir)
         return ML.build_mlsmall_hin(
-            movies, ratings, tagging, nc, nfc, name="ml-latest-small", candidate_mode=cm
+            movies, ratings, tagging, nc, nfc, name="ml-latest-small", **_cm("dense")
         )
-    raise NotImplementedError(f"--dataset {args.dataset} is not ported: {DATASETS_ITEM}")
+    if args.dataset == "ml-25m":
+        from .data.ml_raw import ML25M_FILES, parse_ml25m_extras, parse_ml_dir
+
+        _require_raw_files(args, ML25M_FILES)
+        movies, ratings, tagging = parse_ml_dir(args.raw_dir)
+        gs, gt = parse_ml25m_extras(args.raw_dir)
+        return ML.build_ml25m_hin(movies, ratings, tagging, gs, gt, nc, nfc,
+                                  **_cm("rejection"))
+    if args.dataset == "yelp":
+        from .data.yelp_raw import YELP_FILES, parse_yelp_dir, preprocess_yelp_raw
+
+        _require_raw_files(args, YELP_FILES)
+        b, u, rv, tp, ck = parse_yelp_dir(args.raw_dir)
+        b2, u2, rt = preprocess_yelp_raw(b, u, rv, tp, ck)
+        return Y.build_yelp_hin(b2, u2, rt, num_core=nc, **_cm("dense"))
+    raise ValueError(args.dataset)
 
 
 def build_trainer(args, hin, mp_edges):

@@ -6,9 +6,9 @@ files: ratings/tags/movies CSVs -> the dataframes the HIN builders consume,
 including the title-year extraction and genre-column expansion
 (reference parser/ml.py:9-52).  Crew columns are read from a cached
 `raw_movies.csv` side file when present and otherwise left empty, as there.
-The ML-25M genome extras (``parse_ml25m_extras``) come with the ML-25M raw
-pipeline (ROADMAP Queue 1, "The remaining datasets").  Nothing is fetched:
-the caller checks that the files are on disk.
+``parse_ml25m_extras`` reads ML-25M's genome scores and tags (reference
+parser/ml.py:192-200; ``ML25M_FILES`` lists the five files the two readers
+open).  Nothing is fetched: the caller checks that the files are on disk.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from os.path import isfile, join
 import pandas as pd
 
 ML_FILES = ("movies.csv", "ratings.csv", "tags.csv")
+ML25M_FILES = ML_FILES + ("genome-scores.csv", "genome-tags.csv")
 
 
 def _extract_year(title):
@@ -67,3 +68,12 @@ def parse_ml_dir(raw_dir, raw_movies_csv=None):
         movies["actors"] = ""
         movies["writers"] = ""
     return movies, ratings, tagging
+
+
+def parse_ml25m_extras(raw_dir):
+    """genome-scores.csv / genome-tags.csv -> builder schema (parser/ml.py:192-200)."""
+    genome_scores = pd.read_csv(join(raw_dir, "genome-scores.csv")).dropna()
+    genome_scores = genome_scores.rename(columns={"movieId": "iid", "tagId": "genome_tid"})
+    genome_tags = pd.read_csv(join(raw_dir, "genome-tags.csv")).dropna()
+    genome_tags = genome_tags.rename(columns={"tagId": "genome_tid"})
+    return genome_scores, genome_tags

@@ -1,13 +1,17 @@
 """Deterministic synthetic MovieLens-style data.
 
-Copies of the JAX package's ``synthetic_mlsmall_raw`` and
-``synthetic_ml25m_hin``, drawn from one numpy seed in the same order, so
-both packages build the same data from the same arguments:
+Copies of the JAX package's generators, drawn from one numpy seed in the
+same order, so both packages build the same data from the same arguments:
 
   * ``synthetic_mlsmall_raw``: dataframes with the schema the raw
     ml-latest-small parser produces (movies: iid/title/year/<genre
     bools>/directors/actors/writers; ratings: uid/iid/rating/timestamp;
     tagging: uid/iid/tag/timestamp);
+  * ``synthetic_ml25m_raw``: the ml-small trio past the 2018 cutoff plus
+    genome scores and tags, for ``data/movielens.build_ml25m_hin``;
+  * ``synthetic_yelp_raw``: (business, user, reviewtip) frames in the
+    schema of ``data/yelp_raw.preprocess_yelp_raw``, for
+    ``data/yelp.build_yelp_hin``;
   * ``synthetic_ml25m_hin``: the HIN at the ML-25M post-filter scale built
     straight from numpy (9 node types, 10 relations, rejection candidates,
     entity-feature tables), structure only.
@@ -95,6 +99,36 @@ def synthetic_mlsmall_raw(
     tagging = pd.DataFrame(t_rows).drop_duplicates()
 
     return movies, ratings, tagging
+
+
+def synthetic_ml25m_raw(seed=0, num_users=150, num_items=120, num_genome_tags=30, **kw):
+    """Raw frames for the ML-25M pipeline: the ml-small trio plus
+    genome_scores/genome_tags, timestamps placed beyond the 2018 cutoff the
+    reference filters on (movielens.py:673)."""
+    rng = np.random.default_rng(seed + 77)
+    movies, ratings, tagging = synthetic_mlsmall_raw(
+        seed=seed, num_users=num_users, num_items=num_items, **kw
+    )
+    ratings = ratings.copy()
+    ratings["timestamp"] = ratings["timestamp"] + 1_514_764_800
+    tagging = tagging.copy()
+    tagging["timestamp"] = tagging["timestamp"] + 1_514_764_800
+
+    gs_rows = []
+    for iid in movies.iid:
+        for gt in rng.choice(num_genome_tags, size=rng.integers(2, 8), replace=False):
+            gs_rows.append(
+                {
+                    "iid": int(iid),
+                    "genome_tid": int(gt) + 1,
+                    "relevance": float(rng.random()),
+                }
+            )
+    genome_scores = pd.DataFrame(gs_rows)
+    genome_tags = pd.DataFrame(
+        {"genome_tid": np.arange(1, num_genome_tags + 1), "tag": [f"gtag{i}" for i in range(num_genome_tags)]}
+    )
+    return movies, ratings, tagging, genome_scores, genome_tags
 
 
 def synthetic_ml25m_hin(
@@ -239,3 +273,145 @@ def synthetic_ml25m_hin(
         ent_lo=lo, ent_hi=hi,
     )
     return hin
+
+
+def synthetic_yelp_raw(
+    seed=0,
+    num_users=320,
+    num_items=36,
+    num_core=4,
+    num_attributes=20,
+    num_categories=15,
+):
+    """Synthetic (business, user, reviewtip) frames in the post-parse schema
+    of data/yelp_raw.preprocess_yelp_raw, shaped to survive the reference's
+    band filters (bus_count > num_core+40 needs popular businesses;
+    num_core < user_count <= num_core+10 needs narrow user histories)."""
+    rng = np.random.default_rng(seed)
+
+    # latent taste clusters shared between interactions and item attributes
+    # so the HIN carries learnable signal (categories/attributes correlate
+    # with which users visit the business)
+    n_clusters = 4
+    item_cluster = rng.integers(0, n_clusters, size=num_items)
+    cat_pool = [
+        rng.choice(num_categories, size=max(2, num_categories // n_clusters), replace=False)
+        for _ in range(n_clusters)
+    ]
+    b_rows = []
+    for bid in range(1, num_items + 1):
+        c = item_cluster[bid - 1]
+        attrs = rng.choice(num_attributes, size=rng.integers(1, 5), replace=False)
+        cats = rng.choice(cat_pool[c], size=min(2, len(cat_pool[c])), replace=False)
+        b_rows.append(
+            {
+                "business_id": f"b{bid}",
+                "stars": float(rng.choice([2.5, 3.0, 3.5, 4.0, 4.5, 5.0])),
+                "review_count": int(rng.integers(10, 3000)),
+                "is_open": 1,
+                "attributes": ",".join(f"Attr{a}" for a in attrs),
+                "categories": ", ".join(f"Cat{c}" for c in cats),
+                "checkin_count": int(rng.integers(0, 5000)),
+            }
+        )
+    business = pd.DataFrame(b_rows)
+
+    u_rows = []
+    for uid in range(1, num_users + 1):
+        u_rows.append(
+            {
+                "user_id": f"u{uid}",
+                "review_count": int(rng.integers(1, 900)),
+                "friends_count": int(rng.integers(0, 2500)),
+                "fans": int(rng.integers(0, 400)),
+                "average_stars": float(rng.choice(np.arange(1.0, 5.01, 0.25))),
+            }
+        )
+    user = pd.DataFrame(u_rows)
+
+    # mildly skewed popularity + latent taste clusters: with a tiny catalog,
+    # heavy skew makes the leave-most-reviewed-out split pathological (every
+    # user's test item is the same global hub whose train count then
+    # collapses), and cluster affinity gives the models a real collaborative
+    # signal to learn.
+    pop = rng.dirichlet(np.ones(num_items) * 5.0)
+    rt_rows = []
+    for uid in range(1, num_users + 1):
+        c = rng.integers(0, n_clusters)
+        w = pop * np.where(item_cluster == c, 10.0, 1.0)
+        w = w / w.sum()
+        k = int(rng.integers(num_core + 1, num_core + 9))
+        for bid in rng.choice(np.arange(1, num_items + 1), size=min(k, num_items), replace=False, p=w):
+            rt_rows.append({"user_id": f"u{uid}", "business_id": f"b{int(bid)}"})
+    reviewtip = pd.DataFrame(rt_rows)
+    return business, user, reviewtip
+
+
+def synthetic_mlsmall_raw(
+    seed=0,
+    num_users=150,
+    num_items=120,
+    min_ratings_per_user=8,
+    max_ratings_per_user=30,
+    num_directors=25,
+    num_actors=60,
+    num_writers=30,
+    num_tags=40,
+    tagging_rows=400,
+):
+    """Returns (movies, ratings, tagging) dataframes in raw-parser schema."""
+    rng = np.random.default_rng(seed)
+
+    # movies: popularity-skewed genre/crew assignment
+    rows = []
+    for iid in range(1, num_items + 1):
+        year = int(rng.integers(1930, 2020))
+        row = {"iid": iid, "title": f"Movie {iid}", "year": year}
+        for gname in GENRES:
+            row[gname] = bool(rng.random() < 0.18)
+        row["directors"] = ",".join(
+            f"Director{int(x)}" for x in rng.choice(num_directors, size=rng.integers(1, 3), replace=False)
+        )
+        row["actors"] = ",".join(
+            f"Actor{int(x)}" for x in rng.choice(num_actors, size=rng.integers(1, 5), replace=False)
+        )
+        row["writers"] = ",".join(
+            f"Writer{int(x)}" for x in rng.choice(num_writers, size=rng.integers(1, 3), replace=False)
+        )
+        rows.append(row)
+    movies = pd.DataFrame(rows).fillna(False)
+
+    # ratings: zipf-ish item popularity, per-user leave-one-out-able histories
+    item_pop = rng.dirichlet(np.ones(num_items) * 0.3)
+    r_rows = []
+    ts = 1_000_000
+    for uid in range(1, num_users + 1):
+        k = int(rng.integers(min_ratings_per_user, max_ratings_per_user + 1))
+        iids = rng.choice(np.arange(1, num_items + 1), size=min(k, num_items), replace=False, p=item_pop)
+        for iid in iids:
+            ts += int(rng.integers(1, 50))
+            r_rows.append(
+                {
+                    "uid": uid,
+                    "iid": int(iid),
+                    "rating": float(rng.choice([2.0, 3.0, 3.5, 4.0, 4.5, 5.0])),
+                    "timestamp": ts,
+                }
+            )
+    ratings = pd.DataFrame(r_rows)
+
+    # tagging
+    t_rows = []
+    for _ in range(tagging_rows):
+        r = ratings.iloc[int(rng.integers(0, len(ratings)))]
+        t_rows.append(
+            {
+                "uid": int(r.uid),
+                "iid": int(r.iid),
+                "tag": f"tag{int(rng.integers(0, num_tags))}",
+                "timestamp": int(r.timestamp) + 1,
+            }
+        )
+    tagging = pd.DataFrame(t_rows).drop_duplicates()
+
+    return movies, ratings, tagging

@@ -32,8 +32,17 @@ peasage.py):
 
 Every op on the way is differentiable and its backward a kernel too.
 ``pea_loss`` is BPR plus the entity-aware regularizer (base.py:43-80).
-GAT attention dropout and the per-channel path for mixed depths come in
-later slices (ROADMAP Queue 1).
+
+GAT attention dropout (``cfg.dropout``) takes its keep masks from the
+caller: ``pea_loss(..., masks=DropoutMasks(p, generator))``.  A training
+forward with masks runs the per-channel graphs (a HybridGATPlan's
+``per_channel``) through the grouped forward with nothing batched, each
+conv with its own masks (``nn/conv.gat_apply``: the composed convs drop
+the normalized alphas; a `gat_loops` graph runs
+``ops/stream_gat.stream_gat_reference`` per head, never the streaming
+kernels), as the JAX package does (models/pea.py:338-396, :555-558).  An
+eval forward never drops.  The per-channel path for mixed depths comes in
+a later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -56,6 +65,50 @@ from ..ops.gather import gather_src
 from ..ops.stream_gat import stream_gat_attention_batched, stream_gat_enabled
 
 
+class DropoutMasks:
+    """The keep masks of GAT attention dropout for one training forward.
+
+    ``gat(c, k, g, heads)`` gives channel c's step-k conv over graph g its
+    masks: a composed graph's bool [E, heads] (one per edge and head, the
+    padding edges included), a `gat_loops` graph's tuple of one
+    ``(edge_keep [E], loop_keep [N])`` pair a head.  Here they are drawn
+    from `generator` (on its device), each kept with probability 1 - p;
+    a conv's masks are drawn once, so the same object replays them, on
+    another device through ``to``.  A subclass may draw them otherwise
+    (``draw``): the tests hand the port the JAX package's own masks."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.generator = generator
+        self._drawn: dict = {}
+
+    def gat(self, c, k, g: StepGraph, heads):
+        if (c, k) not in self._drawn:
+            self._drawn[(c, k)] = self.draw(c, k, g, heads)
+        return self._drawn[(c, k)]
+
+    def draw(self, c, k, g: StepGraph, heads):
+        gen = self.generator
+
+        def keep(*shape):
+            return torch.rand(shape, generator=gen, device=gen.device) < 1.0 - self.p
+
+        num_edges = g.dst.shape[0]
+        if g.gat_loops:
+            return tuple((keep(num_edges), keep(g.num_nodes)) for _ in range(heads))
+        return keep(num_edges, heads)
+
+    def to(self, device) -> "DropoutMasks":
+        """The masks drawn so far, on `device` (nothing more is drawn)."""
+        out = DropoutMasks(self.p)
+        for key, m in self._drawn.items():
+            if isinstance(m, torch.Tensor):
+                out._drawn[key] = m.to(device)
+            else:
+                out._drawn[key] = tuple((e.to(device), l.to(device)) for e, l in m)
+        return out
+
+
 @dataclasses.dataclass(frozen=True)
 class PEAConfig:
     conv: str  # 'gcn' | 'gat' | 'sage'
@@ -66,7 +119,7 @@ class PEAConfig:
     repr_dim: int = 16
     num_heads: int = 1  # GAT only
     channel_aggr: str = "att"  # 'att' | 'mean' | 'concat'
-    dropout: float = 0.0  # GAT attention dropout; > 0 in training is not ported
+    dropout: float = 0.0  # GAT attention dropout (training with DropoutMasks)
     entity_aware: bool = False
     entity_aware_coff: float = 0.1
 
@@ -223,21 +276,32 @@ class HybridGATPlan:
     Per step: (batched: tuple[(StepGraph, chans)], union: StepGraph | None,
     union_chans: tuple[int, ...]).  Channels sharing one StepGraph are
     batched through ops/batch_gat; the rest run as ONE union graph through
-    ops/flash_gat."""
+    ops/flash_gat.  `per_channel` keeps the ungrouped graphs (tuple[channel]
+    of tuple[step]) for a training forward with attention dropout."""
 
     steps: tuple
+    per_channel: tuple
     num_channels: int
 
     def to(self, device) -> "HybridGATPlan":
+        moved = {}
+
+        def move(g):
+            if id(g) not in moved:
+                moved[id(g)] = g.to(device)
+            return moved[id(g)]
+
+        per_channel = tuple(tuple(move(g) for g in ch) for ch in self.per_channel)
         steps = tuple(
             (
-                tuple((g.to(device), chans) for g, chans in batched),
+                tuple((move(g), chans) for g, chans in batched),
                 None if union is None else union.to(device),
                 rest,
             )
             for batched, union, rest in self.steps
         )
-        return HybridGATPlan(steps=steps, num_channels=self.num_channels)
+        return HybridGATPlan(steps=steps, per_channel=per_channel,
+                             num_channels=self.num_channels)
 
 
 def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
@@ -278,7 +342,8 @@ def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
         if rest:
             union = fuse_step_graphs([per_channel_graphs[c][k] for c in rest], num_nodes)
         steps.append((tuple(batched), union, tuple(rest)))
-    return HybridGATPlan(steps=tuple(steps), num_channels=len(per_channel_graphs))
+    return HybridGATPlan(steps=tuple(steps), per_channel=tuple(per_channel_graphs),
+                         num_channels=len(per_channel_graphs))
 
 
 def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
@@ -348,12 +413,14 @@ def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
     return h.permute(1, 0, 2)  # [N, C, R]
 
 
-def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
+def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32",
+                         masks: Optional[DropoutMasks] = None):
     """Per-channel GAT forward (models/pea.py:323-411) that batches the
     channels sharing one `gat_loops` step graph (graph.build_metapath_graphs
     dedupes identical lists, so object identity is the key) through one
     streaming pass, in chunks of at most 8; every other conv runs
-    nn/conv.gat_apply on its channel's graph -> [N, C, R]."""
+    nn/conv.gat_apply on its channel's graph -> [N, C, R].  With dropout
+    `masks` nothing batches: every conv runs gat_apply with its own."""
     n = cfg.num_nodes
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -370,11 +437,14 @@ def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
                 chans = shared[i : i + MAX_CHANNELS]
                 g = graphs[chans[0]][k]
                 batchable = (len(chans) > 1 and heads == 1 and g.gat_loops
-                             and stream_gat_enabled(kz=dout, n_ch=len(chans)))
+                             and stream_gat_enabled(kz=dout, n_ch=len(chans),
+                                                    dropout_active=masks is not None))
                 if not batchable:
                     for c in chans:
+                        keep = None if masks is None else masks.gat(c, k, g, heads)
                         new_hs[c] = gat_apply(model.channels[c][k], hs[c], g, heads=heads,
-                                              concat=True, transport=transport)
+                                              concat=True, dropout=cfg.dropout, keep=keep,
+                                              transport=transport)
                     continue
                 sp = _stacked_step_params(model, k, chans)
                 att = sp["att"][:, 0, 0]  # [Cg, 2*dout] (one head)
@@ -397,7 +467,7 @@ def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32"):
 
 def pea_forward(model: PEA, graphs, cfg: PEAConfig,
                 channel_mask: Optional[torch.Tensor] = None, transport="f32",
-                flash_mode=FlashGATMode()):
+                flash_mode=FlashGATMode(), masks: Optional[DropoutMasks] = None):
     """Full-graph forward -> cached representation [num_nodes, repr-like].
 
     graphs: a HybridGATPlan (the hybrid GAT forward), a tuple of union
@@ -405,13 +475,21 @@ def pea_forward(model: PEA, graphs, cfg: PEAConfig,
     (tuple[channel] of tuple[step]) for GAT channels of one depth (the
     grouped forward).  flash_mode: the routes of the union flash-GAT passes
     (ops/config.FlashGATMode); the batched and streaming GATs ignore it, as
-    the JAX switches leave them alone."""
+    the JAX switches leave them alone.  masks: GAT attention dropout's keep
+    masks (a training forward); a HybridGATPlan then hands the forward to
+    its per-channel graphs."""
+    if masks is not None:
+        if isinstance(graphs, HybridGATPlan):
+            graphs = graphs.per_channel
+        if cfg.conv != "gat" or (len(graphs) > 0 and isinstance(graphs[0], StepGraph)):
+            raise ValueError("attention dropout runs GAT's per-channel graphs or a "
+                             "HybridGATPlan, not union graphs")
     if isinstance(graphs, HybridGATPlan):
         h = pea_forward_hybrid(model, graphs, cfg, transport, flash_mode)
     elif len(graphs) > 0 and isinstance(graphs[0], StepGraph):
         h = pea_forward_fused(model, graphs, cfg, transport, flash_mode)
     elif cfg.conv == "gat" and len(set(cfg.meta_path_steps)) == 1:
-        h = _grouped_gat_forward(model, graphs, cfg, transport)
+        h = _grouped_gat_forward(model, graphs, cfg, transport, masks)
     else:
         raise NotImplementedError(
             "per-channel graphs of mixed metapath depth, or of GCN and SAGE, "
@@ -462,21 +540,19 @@ def entity_reg_loss(x_table, batch, row_mask):
 
 
 def pea_loss(model: PEA, graphs, cfg: PEAConfig, batch, row_mask=None,
-             transport="f32", flash_mode=FlashGATMode()):
+             transport="f32", flash_mode=FlashGATMode(),
+             masks: Optional[DropoutMasks] = None):
     """Training loss: BPR with the optional entity-aware regularizer
     (base.py:43-80).
 
     batch: int64[B, 3] or [B, 9] (entity-aware columns, see
     entity_reg_loss); row_mask: float[B], 0 for the padding rows of an
-    epoch's last batch."""
-    if cfg.conv == "gat" and cfg.dropout > 0.0:
-        raise NotImplementedError(
-            "GAT attention dropout in training is not ported: ROADMAP Queue 1, "
-            "\"Training options left out of slice 2\" (its RNG)"
-        )
+    epoch's last batch; masks: GAT attention dropout's keep masks (None:
+    no dropout), dropping at rate cfg.dropout."""
     if row_mask is None:
         row_mask = torch.ones(batch.shape[0], dtype=torch.float32, device=batch.device)
-    cached = pea_forward(model, graphs, cfg, transport=transport, flash_mode=flash_mode)
+    cached = pea_forward(model, graphs, cfg, transport=transport, flash_mode=flash_mode,
+                         masks=masks)
     pos = pea_predict(model, cached, batch[:, 0], batch[:, 1])
     neg = pea_predict(model, cached, batch[:, 0], batch[:, 2])
     cf_loss = torch.sum(-_log_sigmoid(pos - neg) * row_mask)

@@ -3,8 +3,8 @@
 Ported: GATConv's, GCNConv's and SAGEConv's initializers, ``_aggregate``
 (the segment-sum of edge messages into destination rows,
 ops/segment_kernels K5) and the per-channel ``gat_apply`` (the grouped GAT
-forward's conv, models/pea.py), without attention dropout.  The fused
-forwards live in models/pea.py; ``gcn_apply`` and ``sage_apply`` are still
+forward's conv, models/pea.py), with attention dropout under keep masks
+that the caller draws.  The fused forwards live in models/pea.py; ``gcn_apply`` and ``sage_apply`` are still
 to port (ROADMAP Queue 1).
 
 Semantics (PyG 1.5.0, the reference's pin), with the degree and self-loop
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..ops.flash_gat import msg_cast
 from ..ops.gather import gather_dst, gather_src
 from ..ops.segment_kernels import segment_softmax, sorted_segment_sum
-from ..ops.stream_gat import stream_gat_attention
+from ..ops.stream_gat import stream_gat_attention, stream_gat_reference
 from .init import glorot, torch_linear_bias, torch_linear_weight
 
 
@@ -49,7 +49,7 @@ def gat_init(generator, in_dim, out_dim, heads=1):
 
 
 def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.0,
-              transport="f32"):
+              transport="f32", keep=None):
     """GATConv over StepGraph `g` (nn/conv.py:76-162): x [>= g.num_nodes,
     din] (rows past num_nodes are layout padding that no edge reads) ->
     [num_nodes, heads*C] (concat) or [num_nodes, C].
@@ -61,19 +61,30 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
     the transport dtype (gather_src: K7, backward K6), a_dst gathered by dst
     (gather_dst: K7, backward K5), leaky ReLU, the per-dst softmax
     (segment_softmax: K8 stats), the messages in the transport dtype and
-    their segment-sum (_aggregate: K5).  Attention dropout is not ported:
-    ROADMAP Queue 1, "Training options left out of slice 2"."""
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "GAT attention dropout is not ported: ROADMAP Queue 1, \"Training options "
-            "left out of slice 2\" (its RNG)")
+    their segment-sum (_aggregate: K5).
+
+    Attention dropout at rate `dropout` takes its keep masks from `keep`
+    (None: no dropout; models/pea.DropoutMasks draws them): on a composed
+    graph a bool [E, heads] that drops the normalized alphas before the
+    transport cast, kept ones scaled by 1 / (1 - dropout) (JAX
+    nn/conv.py:153-156); on a `gat_loops` graph one (edge_keep [E],
+    loop_keep [N]) pair a head, run through stream_gat_reference (plain
+    torch ops, on the card too), never the streaming kernels."""
     n = g.num_nodes
     h = (x[:n] @ params["w"]).reshape(n, heads, -1)  # [N, H, C]
     att = params["att"][0]  # [H, 2C]: x_i (target) first, then x_j
     c = att.shape[-1] // 2
     alpha_dst = torch.sum(h * att[None, :, :c], dim=-1)  # [N, H]
     alpha_src = torch.sum(h * att[None, :, c:], dim=-1)
-    if g.gat_loops:
+    if g.gat_loops and keep is not None:
+        head_outs = [
+            stream_gat_reference(h[:, hh], alpha_src[:, hh], alpha_dst[:, hh], g.src, g.dst,
+                                 n, True, negative_slope, edge_keep=ek, loop_keep=lk,
+                                 dropout=dropout)
+            for hh, (ek, lk) in enumerate(keep)
+        ]
+        out = torch.stack(head_outs, dim=1)  # [N, H, C]
+    elif g.gat_loops:
         head_outs = [
             stream_gat_attention(h[:, hh], alpha_src[:, hh], alpha_dst[:, hh], g.src, g.dst,
                                  g.src_perm, g.src_sorted, n, True, negative_slope,
@@ -89,6 +100,8 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
         alpha = gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float()
         alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport,
                                 g.block_bounds, (g.dst_perm, g.dst_sorted))
+        if keep is not None:
+            alpha = torch.where(keep, alpha / (1.0 - dropout), torch.zeros_like(alpha))
         msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
         out = _aggregate(msgs.reshape(-1, heads * c), g, transport).reshape(n, heads, c)
     out = out.reshape(n, heads * c) if concat else out.mean(dim=1)

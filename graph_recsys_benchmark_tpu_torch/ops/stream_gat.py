@@ -446,13 +446,14 @@ def stream_gat_reference(z, a_src, a_dst, src, dst, num_rows, self_loops=True,
                          dropout=0.0):
     """Plain f32 oracle with the exact-max softmax (JAX
     stream_gat_reference): GAT over the loop-free list plus, when
-    `self_loops`, the analytic loop.  Attention dropout (the keep masks)
-    is not ported: ROADMAP Queue 1, "Training options left out of slice
-    2"."""
-    if dropout > 0.0 or edge_keep is not None or loop_keep is not None:
-        raise NotImplementedError(
-            "attention dropout (edge_keep / loop_keep) is not ported: ROADMAP "
-            "Queue 1, \"Training options left out of slice 2\" (the dropout RNG)")
+    `self_loops`, the analytic loop.  It is also the route of a `gat_loops`
+    conv under attention dropout, on the card too (plain torch ops, as the
+    JAX package runs its XLA version there): edge_keep bool [E] and
+    loop_keep bool [N] are the keep masks (PyG drops each alpha on its own;
+    with loops as edges their alphas were dropped too, so the analytic loop
+    has its own mask).  The softmax's denominator sums the un-dropped p,
+    loop term included; the normalized alphas are then dropped and scaled
+    by 1 / (1 - dropout), with no renormalizing (PyG 1.5 GATConv order)."""
     real = dst < num_rows
     safe_src = torch.clamp(src, max=num_rows - 1).long()
     safe_dst = torch.clamp(dst, max=num_rows - 1).long()
@@ -469,17 +470,24 @@ def stream_gat_reference(z, a_src, a_dst, src, dst, num_rows, self_loops=True,
         p_l = torch.exp(act_l - m_safe)
         s = s + p_l
     att = p / (s + 1e-16)[safe_dst]
+    if dropout > 0.0 and edge_keep is not None:
+        att = torch.where(edge_keep, att / (1.0 - dropout), torch.zeros_like(att))
     msgs = att[:, None] * torch.where(real[:, None], z[safe_src], torch.zeros_like(z[safe_src]))
     out = segment_sum(msgs, safe_dst, num_rows)
     if self_loops:
-        out = out + (p_l / (s + 1e-16))[:, None] * z
+        att_l = p_l / (s + 1e-16)
+        if dropout > 0.0 and loop_keep is not None:
+            att_l = torch.where(loop_keep, att_l / (1.0 - dropout), torch.zeros_like(att_l))
+        out = out + att_l[:, None] * z
     return out
 
 
-def stream_gat_enabled(kz=None, n_ch=1):
+def stream_gat_enabled(kz=None, n_ch=1, dropout_active=False):
     """Whether channels of a `gat_loops` graph may stream batched: the
-    kernels' layout limits (kz <= 125, <= 8 channels).  The JAX predicate
-    also asks for a TPU, a large edge list and no attention dropout; here
-    every `gat_loops` graph streams (the edge threshold chose the layout in
-    graph.build_gat_graph) and dropout is not ported (ROADMAP 3a)."""
-    return n_ch <= MAX_CHANNELS and (kz is None or kz <= MAX_KZ)
+    kernels' layout limits (kz <= 125, <= 8 channels) and no attention
+    dropout (which runs stream_gat_reference with its masks).  The JAX
+    predicate also asks for a TPU and a large edge list; here every
+    `gat_loops` graph streams (the edge threshold chose the layout in
+    graph.build_gat_graph)."""
+    return (not dropout_active and n_ch <= MAX_CHANNELS
+            and (kz is None or kz <= MAX_KZ))

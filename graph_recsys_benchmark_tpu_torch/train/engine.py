@@ -11,8 +11,10 @@ loss as JAX's (train/engine.py:158-194) and a later PR can capture the step
 in a CUDA graph.  Losses stay on the device; nothing syncs with the host
 inside the epoch.
 
-Families plug in ``batch_loss(params, batch, row_mask) -> scalar`` and, for
-the full-catalog eval, a method ``scorer(params) -> score(u, i)``.  Only
+Families plug in ``batch_loss(params, batch, row_mask, generator) -> scalar``
+(the generator the step samples with, for a family that draws more, such
+as attention dropout's masks) and, for the full-catalog eval, a method
+``scorer(params) -> score(u, i)``.  Only
 the 'bpr' loss mode is ported (the flagship's); bce, mse and kg come with
 the baseline families (ROADMAP Queue 1, "Baselines").
 """
@@ -56,7 +58,7 @@ class GraphEpochEngine:
         optimizer step.  Returns the batch loss, detached, on the device."""
         batch = self._build_batch(rows, generator)
         optimizer.zero_grad()
-        loss = self._batch_loss(params, batch, row_mask)
+        loss = self._batch_loss(params, batch, row_mask, generator)
         loss.backward()
         optimizer.step()
         return loss.detach()

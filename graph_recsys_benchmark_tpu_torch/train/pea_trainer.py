@@ -13,7 +13,10 @@ mixed depths need the per-channel path, which is not ported.  Graphs and
 sampling tables move to `device`.
 ``run_epoch`` trains one BPR epoch (``pea_loss``: BPR + the entity-aware
 regularizer, reference models/base.py:43-80) with the optimizer from
-``optimizer(params)``; ``evaluate`` makes one forward pass that caches every
+``optimizer(params)``; with GAT attention dropout (``cfg.dropout > 0``)
+each step draws its keep masks from the epoch's generator (on the
+trainer's device; ``models/pea.DropoutMasks``), and its forward runs the
+per-channel graphs; ``evaluate`` makes one forward pass that caches every
 node's representation and ranks 1 held-out positive against 99 sampled
 negatives per test user; ``evaluate_full`` (train/engine.py) ranks it
 against every unseen item.  ``train/solver.Solver`` drives them over runs
@@ -34,6 +37,7 @@ from ..eval.ranking import evaluate_ranking
 from ..graph import build_fused_metapath_graphs, build_metapath_graphs, graphs_to
 from ..models.pea import (
     PEA,
+    DropoutMasks,
     PEAConfig,
     build_hybrid_gat_plan,
     pea_forward,
@@ -127,11 +131,16 @@ class PEATrainer(GraphEpochEngine):
         `params`; its state lives with the parameters."""
         return self._make_optimizer(params.parameters())
 
-    def batch_loss(self, params: PEA, batch, row_mask):
+    def batch_loss(self, params: PEA, batch, row_mask, generator=None):
         """Summed BPR (+ entity) loss of one batch over the full-graph
-        forward (train/pea_trainer.py:84-88)."""
+        forward (train/pea_trainer.py:84-88).  A GAT with attention dropout
+        draws the step's keep masks from `generator` (None: no dropout, as
+        the JAX loss without a dropout key)."""
+        masks = None
+        if self.cfg.conv == "gat" and self.cfg.dropout > 0.0 and generator is not None:
+            masks = DropoutMasks(self.cfg.dropout, generator)
         return pea_loss(params, self.graphs, self.cfg, batch, row_mask=row_mask,
-                        transport=self.transport, flash_mode=self.flash_mode)
+                        transport=self.transport, flash_mode=self.flash_mode, masks=masks)
 
     def eval_forward(self, params: PEA, channel_mask=None):
         """Cached representation of every node [num_nodes, R]."""

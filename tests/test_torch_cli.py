@@ -2,11 +2,15 @@
 
 * build_parser: the same argv parses to the same values in both packages,
   the port's own ``--device`` aside.
-* _build_hin: ``synthetic-ml`` in both candidate modes and
-  ``ml-latest-small`` from grouplens-layout CSVs that the test writes;
-  each HIN and its tables bitwise the JAX package's.
+* _build_hin: ``synthetic-ml`` in both candidate modes,
+  ``synthetic-ml25m``, ``synthetic-yelp``, and ``ml-latest-small``,
+  ``ml-25m`` and ``yelp`` from raw files that the test writes; each HIN and
+  its tables bitwise the JAX package's.  A missing raw file is named in the
+  error.  load_hin picks the metapath table by the HIN's name as the JAX
+  CLI does (Yelp 11, ML-25M 13, ml-small 9).
 * main(... --device cpu): PEAGAT and PEAGCN at emb 8 / hidden 8 / repr 4,
-  1 run x 2 epochs, finite metrics; a second call resumes at run level
+  1 run x 2 epochs, finite metrics (PEAGAT on synthetic-yelp and
+  synthetic-ml25m 1 run x 1 epoch, with dropout and SparseAdam); a second call resumes at run level
   (no epoch is trained again) to the same summary; with ``--metapath_test
   true --full_ranking true`` the log holds the ablation and full-ranking
   lines.
@@ -24,6 +28,7 @@ import torch
 
 from graph_recsys_benchmark_tpu import cli as jcli
 from graph_recsys_benchmark_tpu_torch import cli as tcli
+from torch_raw_files import write_ml25m_csvs, write_yelp_json
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--emb_dim", "8", "--hidden_size", "8", "--repr_dim", "4", "--entity_aware", "true",
@@ -101,12 +106,16 @@ def _write_ml_csvs(folder, seed=0, num_users=60, num_movies=70):
                     f"tag{rng.integers(0, 12)},{rng.integers(9e8, 1.5e9)}\n")
 
 
-@pytest.mark.parametrize("case", ["synthetic-dense", "synthetic-rejection", "ml-latest-small"])
+@pytest.mark.parametrize("case", ["synthetic-dense", "synthetic-rejection", "ml-latest-small",
+                                  "synthetic-ml25m", "synthetic-yelp", "ml-25m", "yelp"])
 def test_build_hin_matches_jax(case, tmp_path):
-    if case == "ml-latest-small":
-        _write_ml_csvs(str(tmp_path / "raw"))
-        argv = ["--dataset", "ml-latest-small", "--raw_dir", str(tmp_path / "raw"),
-                "--num_core", "2", "--num_feat_core", "2"]
+    raw = str(tmp_path / "raw")
+    if case in ("ml-latest-small", "ml-25m", "yelp"):
+        {"ml-latest-small": _write_ml_csvs, "ml-25m": write_ml25m_csvs,
+         "yelp": write_yelp_json}[case](raw)
+        argv = ["--dataset", case, "--raw_dir", raw, "--num_core", "2", "--num_feat_core", "2"]
+    elif case in ("synthetic-ml25m", "synthetic-yelp"):
+        argv = ["--dataset", case]
     else:
         argv = ["--candidate_mode", case.split("-")[1]]
     thin = tcli._build_hin(tcli.build_parser().parse_args(argv))
@@ -123,6 +132,41 @@ def test_missing_raw_files_name_them(tmp_path):
                                            str(tmp_path / "raw")])
     with pytest.raises(FileNotFoundError, match=r"ratings\.csv.*tags\.csv"):
         tcli._build_hin(args)
+
+
+@pytest.mark.parametrize("dataset", ["ml-25m", "yelp"])
+def test_missing_raw_files_name_them_for_ml25m_and_yelp(dataset, tmp_path):
+    raw = str(tmp_path / "raw")
+    if dataset == "ml-25m":
+        _write_ml_csvs(raw)  # the three ML files, no genome files
+        want = r"\['genome-scores\.csv', 'genome-tags\.csv'\]"
+    else:
+        os.makedirs(raw)
+        (tmp_path / "raw" / "yelp_academic_dataset_user.json").write_text("")
+        want = (r"\['yelp_academic_dataset_business\.json', 'yelp_academic_dataset_review"
+                r"\.json', 'yelp_academic_dataset_tip\.json', "
+                r"'yelp_academic_dataset_checkin\.json'\]")
+    args = tcli.build_parser().parse_args(["--dataset", dataset, "--raw_dir", raw])
+    with pytest.raises(FileNotFoundError, match=want):
+        tcli._build_hin(args)
+    with pytest.raises(FileNotFoundError, match="pass --raw_dir"):
+        tcli._build_hin(tcli.build_parser().parse_args(["--dataset", dataset]))
+
+
+@pytest.mark.parametrize("dataset,channels", [("synthetic-yelp", 11), ("synthetic-ml25m", 13),
+                                              ("synthetic-ml", 9)])
+def test_load_hin_picks_the_metapaths_as_jax(dataset, channels, tmp_path):
+    argv = ["--dataset", dataset]
+    thin, tm = tcli.load_hin(tcli.build_parser().parse_args(
+        argv + ["--cache_dir", str(tmp_path / "t")]))
+    jhin, jm = jcli.load_hin(jcli.build_parser().parse_args(
+        argv + ["--cache_dir", str(tmp_path / "j")]))
+    assert thin.name == jhin.name
+    assert len(tm) == len(jm) == channels
+    for tc, jc in zip(tm, jm, strict=True):
+        for (ts, td), (js, jd) in zip(tc, jc, strict=True):
+            np.testing.assert_array_equal(ts, js)
+            np.testing.assert_array_equal(td, jd)
 
 
 def _log_lines(out_root):
@@ -163,14 +207,32 @@ def test_main_trains_and_resumes(model, tmp_path, capsys):
     assert not any(ln.startswith("Initial") for ln in lines2[len(lines):])
 
 
+@pytest.mark.parametrize("dataset,extra", [
+    ("synthetic-yelp", ["--dropout", "0.1"]),
+    ("synthetic-ml25m", ["--opt", "sparseadam"]),
+])
+def test_main_runs_the_new_datasets(dataset, extra, tmp_path, capsys):
+    """The Yelp and ML-25M recipes (their batch sizes and 'random'
+    sampling), 1 run x 1 epoch at a tiny width, with attention dropout and
+    SparseAdam."""
+    argv = ["--model", "PEAGAT", "--dataset", dataset, "--emb_dim", "8", "--hidden_size", "8",
+            "--repr_dim", "4", "--entity_aware", "true", "--runs", "1", "--epochs", "1",
+            "--device", "cpu", "--out_dir", str(tmp_path / "runs"),
+            "--cache_dir", str(tmp_path / "cache")] + extra
+    overall = tcli.main(argv)
+    assert np.isfinite(np.ravel(overall["HR"])).all() and 0.0 <= overall["HR"][5] <= 1.0
+    hin, mp = tcli.load_hin(tcli.build_parser().parse_args(argv))
+    trainer, n = tcli.build_trainer(tcli.build_parser().parse_args(argv), hin, mp)
+    assert n == {"synthetic-yelp": 11, "synthetic-ml25m": 13}[dataset]
+    assert trainer.tcfg.sampling_strategy == "random"
+    assert trainer.tcfg.batch_size == {"synthetic-yelp": 1024, "synthetic-ml25m": 4096}[dataset]
+    assert "Overall HR@10:" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--dataset", "synthetic-ml25m"], "The remaining datasets"),
-    (["--dataset", "yelp"], "The remaining datasets"),
     (["--model", "NGCF"], "Baselines"),
     (["--model", "MetaPath2Vec"], "Baselines"),
     (["--walk_length", "10"], "Baselines"),
-    (["--dropout", "0.1"], "Training options left out of slice 2"),
-    (["--opt", "sparseadam"], "Training options left out of slice 2"),
     (["--parallel", "a2a"], "Parallel, last"),
     (["--dist_coordinator", "localhost:1234"], "Parallel, last"),
     (["--mesh_mp", "2"], "Parallel, last"),

@@ -834,6 +834,56 @@ def test_segment_kernels_at_ml25m_shapes(cuda, ml25m_graph, transport, d):
                 <= _sum_bound(c.double(), idx, n)).all()
 
 
+YELP_ROWS, YELP_USERS = 64568, 57144
+
+
+@pytest.fixture(scope="module")
+def user_entity_graph(cuda):
+    """A Yelp user-entity graph (reviewcount2user and its kin): every one of
+    57,144 users fed by one of only 9 source rows (skewed: the top source
+    holds about half the edges), with a loop edge a row, as the composed
+    GAT's step 1 takes it; padded."""
+    rng = np.random.default_rng(15)
+    n = YELP_ROWS
+    ents = YELP_USERS + 100 + np.arange(9)
+    pop = 1.0 / np.arange(1, 10) ** 1.5
+    src = np.concatenate([np.arange(n), rng.choice(ents, YELP_USERS, p=pop / pop.sum())])
+    dst = np.concatenate([np.arange(n), np.arange(YELP_USERS)])
+    return tgraph.build_sage_graph(src, dst, n).to(cuda)
+
+
+@pytest.mark.parametrize("d", [17, 65])
+@pytest.mark.parametrize("transport", ["f32", "bf16"])
+def test_segment_kernels_on_a_user_entity_graph(cuda, user_entity_graph, transport, d):
+    """K7 (gather by source) bitwise and K6 (scatter by source) row by row
+    within _sum_bound where 57,144 edges leave 9 rows: on the graph's walk
+    by source (as the path) and on the edges' own order."""
+    g = user_entity_graph
+    n, e = g.num_nodes, g.dst.numel()
+    real = g.src[: g.num_edges]
+    hot = torch.bincount(real.long(), minlength=n)
+    assert int((hot > 1).sum()) == 9 and int(hot.max()) > 20_000
+    rng = np.random.default_rng(d)
+    t_dtype = TDT[transport]
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+
+    table = randn(n, d).to(t_dtype)
+    got = tsk.sorted_broadcast(table, g.src, n)
+    assert got.dtype == t_dtype and torch.equal(got, tsk.sorted_broadcast_plain(table, g.src, n))
+    ct = randn(e, d).to(t_dtype)
+    ct[g.num_edges:] = 0  # padding edges carry zero cotangent (graph.py)
+    for order in ((g.src_perm, g.src_sorted), None):
+        if order is not None:
+            assert torch.equal(order[1], g.src[order[0].long()])
+        got = tsk.localized_scatter_add(ct, g.src, n, transport, order)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (n, d)
+        assert ((got.double() - _exact(ct, g.src, n, transport)).abs()
+                <= _sum_bound(ct.double(), g.src, n)).all()
+
+
 @pytest.mark.parametrize("d,e_real", [(2, 2900), (17, 2900), (17, 9000)])
 def test_scatter_add_walks_at_each_slice(cuda, d, e_real):
     """scatter_add picks its slice from the call's shape: 4 positions a
@@ -966,7 +1016,7 @@ def _bwd_terms(table, stat, s, d, kz, t_dtype):
     return dpre_t, err, ct.reshape(len(s), -1), ct_err.reshape(len(s), -1)
 
 
-@pytest.mark.parametrize("n_ch,kz", [(1, 64), (7, 16), (2, 16), (8, 125)])
+@pytest.mark.parametrize("n_ch,kz", [(1, 64), (7, 16), (2, 16), (8, 125), (6, 16), (5, 16)])
 @pytest.mark.parametrize("transport", ["f32", "bf16"])
 @pytest.mark.parametrize("graph", ["popular", "skewed"])
 def test_stream_kernels_match_plain(cuda, stream_graph, skewed_graph, graph, transport, n_ch,

@@ -290,7 +290,11 @@ def test_train_steps_and_eval_on_cpu(world, transport):
     assert res["HR"].shape == (16,)
     assert all(torch.isfinite(res[k]).all() for k in ("HR", "NDCG", "AUC", "eval_loss"))
     assert 0.0 <= float(res["AUC"]) <= 1.0
-    with pytest.raises(NotImplementedError):  # attention dropout: ROADMAP 3a
-        tpea.pea_loss(params, trainer.graphs,
-                      tpea.PEAConfig(conv="gat", num_nodes=th.num_nodes, dropout=0.1, **SMALL),
-                      torch.zeros((4, 9), dtype=torch.long))
+    # attention dropout on the streaming layout: stream_gat_reference per conv
+    with torch.no_grad():
+        loss = tpea.pea_loss(params, trainer.graphs,
+                             tpea.PEAConfig(conv="gat", num_nodes=th.num_nodes, dropout=0.1,
+                                            **SMALL),
+                             torch.zeros((4, 9), dtype=torch.long),
+                             masks=tpea.DropoutMasks(0.1, torch.Generator().manual_seed(0)))
+    assert torch.isfinite(loss)

@@ -198,9 +198,12 @@ def test_stream_plain_kernels_drop_padding_and_match_reference(graphs):
     dpk = tsg.stream_gat_bwd_src(table, stat, torch.arange(64, dtype=torch.int32), zero_ids,
                                  pad, N, 16)
     assert not dpk.any()
-    with pytest.raises(NotImplementedError):  # attention dropout: ROADMAP 3a
-        tsg.stream_gat_reference(rz, rs, rd, tg.src, tg.dst, N, dropout=0.1,
-                                 edge_keep=torch.ones(tg.dst.shape[0], dtype=torch.bool))
+    # attention dropout keeping every alpha scales the output by 1 / (1 - p)
+    with torch.no_grad():
+        kept = tsg.stream_gat_reference(rz, rs, rd, tg.src, tg.dst, N, dropout=0.1,
+                                        edge_keep=torch.ones(tg.dst.shape[0], dtype=torch.bool),
+                                        loop_keep=torch.ones(N, dtype=torch.bool))
+    assert _rel(kept * 0.9, ref.detach()) <= 1e-6
     with pytest.raises(ValueError):  # past the kernels' layout limits
         tsg.stream_gat_attention_batched(torch.zeros(9, N, 4), torch.zeros(9, N),
                                          torch.zeros(9, N), tg.src, tg.dst, tg.src_perm,
