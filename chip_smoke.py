@@ -88,6 +88,31 @@
       train_phase's rules with kink_rows; the step's launches those of the
       per-channel route (18 composed convs: K8 18, K7 90, K5 54, K6 18; no
       K1-K4).
+   d. per_channel_phase, the per-channel forwards at the flagship's full
+      width and depth, per transport: PEAGCN, PEASage and PEAGAT on the
+      mixed table (meta_path_steps (1,) + (2,) * 8, channel 0 its first
+      step only: 17 convs) and PEAGCN, PEASage with fused=False on the
+      uniform table (18 convs), each on its trainer's per-channel graphs:
+      an eval forward's and a step's launches against
+      per_channel_launches (the code's count: a GCN/SAGE conv K7 2, K5 1,
+      K6 1 a step; a composed GAT conv of H heads K7 3 + 2H, K8 H, K5 2 +
+      H, K6 1), two steps on one batch (the loss falls), one step against
+      the plain versions on the card and a CPU copy (step_vs_references:
+      the loss and the median leaf within the CPU tests' bars PC_TOL /
+      PC_MEDIAN, every leaf KINK_TOL); on the mixed table each K7, K5, K6
+      call of a step replayed against its plain version and timed
+      (ml25m_edge_kernel_phase) and, for PEAGAT, each K8 call
+      (softmax_calls_phase). Then ROADMAP Queue 3's card checks, PEAGAT
+      per transport, one step each against plain_on_card with its
+      launches: num_heads 2 on the hybrid plan (K12 2, K3 2, K2 2, K4 2)
+      and on the mixed table, channel_aggr 'mean' and 'concat'.
+   e. profiling_phase, one flagship PEAGAT step per transport: in f32 a
+      utils/profiling.trace (a StepTimer range around the step) whose
+      trace file must list gat_fwd_walk_kernel and gat_bwd_walk_kernel;
+      utils/roofline.count_cost of the step (aten ops and the kernel
+      wrappers' declared terms), profiling.timed (20 steps after 3) and
+      roofline_report: hbm_util and mfu each in (0, 1], printed beside the
+      card's name and power limit.
 10. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
    configuration: synthetic_ml25m_hin() (seed 0: 68,830 nodes, 2.13 M
    train interactions, 40,000 test users, rejection candidates), 13
@@ -178,6 +203,11 @@
       the seconds of the case;
    e. `python -m graph_recsys_benchmark_tpu_torch` as a subprocess, 1 run x
       1 epoch: exit 0 and the Overall line.
+   e'. archive_cli_phase: `--dataset ml-latest-small --dataset_url
+      file://...` to a grouplens-layout zip written from
+      tests/torch_raw_files.py's generator, into a fresh raw dir: the
+      three CSVs extracted, PEAGCN 1 run x 1 epoch on the card, a finite
+      Overall line.
    f. cli_datasets_phase: the published Yelp recipe (`--dataset
       synthetic-yelp`, 3 runs x 20 epochs, batch 1,024) and ML-25M recipe
       (`--dataset synthetic-ml25m`, 5 runs x 30 epochs, batch 4,096,
@@ -194,7 +224,8 @@
    timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
    the eval after it),
    K8-K11's and the ML-25M and Yelp entries of K5-K7 their regime's
-   8 timed steps, a variant route's forward its mode's eval and its
+   8 timed steps, the per-channel entries of K5-K8 one step of the mixed
+   table, a variant route's forward its mode's eval and its
    backward its mode's 20 steps),
    then {"ok": true, "device": {...}} last.
 
@@ -217,8 +248,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOP_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 KERNEL_TOL = 1e-5
 # f32 sums in atomic order against the same sums in float64
 # (edge_kernel_phase, ml25m_kernel_phase) are held to sum_bound, row by
@@ -332,29 +361,23 @@ def kink_rows(label, batch, *runs):
 
 
 def device_ms(fn, reps=30, batches=2):
-    """Median device time of one fn() call, by CUDA events around each call.
-    A long sleep kernel goes first so the host enqueues every call while
-    the card is busy: the calls then run back to back and the events time
-    the card, not the host's launch overhead."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        torch.cuda._sleep(100_000_000)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-        ev[0].record()
-        for i in range(reps):
-            fn()
-            ev[i + 1].record()
-        torch.cuda.synchronize()
-        times += [ev[i].elapsed_time(ev[i + 1]) for i in range(reps)]
-    return statistics.median(times)
+    """Median device time of one fn() call by CUDA events
+    (utils/profiling.device_ms)."""
+    from graph_recsys_benchmark_tpu_torch.utils.profiling import device_ms as events_ms
+
+    return events_ms(fn, reps, batches)
 
 
 def bound_ms(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    """The least time of the work: its bytes over the H100's HBM rate or
+    its f32 operations over its f32 peak (utils/roofline), the larger."""
+    from graph_recsys_benchmark_tpu_torch.utils.roofline import (
+        H100_F32_FLOPS,
+        H100_HBM_BYTES_PER_S,
+    )
+
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S
+    t_ops = flops / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1479,6 +1502,28 @@ def ptxas_summary(logs):
         print(f"ptxas {name}: {'; '.join(lines)}", flush=True)
 
 
+def check_softmax(label, got, alpha, dst, n):
+    """K8's output `got` against its plain version on the same inputs: the
+    max bitwise, each row's sum within sum_bound of the float64 sum (each
+    term exp(a - max) carrying the f32 subtraction's rounding, at most
+    U_SUM of |a - max| as a factor exp of it, and expf's).  Returns (plain,
+    float64 stats, the bound, the largest share of it taken)."""
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    plain = sk.softmax_stats_plain(alpha, dst, n)
+    exact = sk.softmax_stats_plain(alpha.double(), dst, n)
+    torch.cuda.synchronize()
+    check(torch.equal(got[:, 0], plain[:, 0]), f"{label}: max differs")
+    a64 = alpha.double()
+    shift = torch.cat([torch.nan_to_num(exact[:, 0], neginf=0.0), a64.new_zeros(1)])
+    d = a64 - shift[torch.clamp(dst.long(), max=n)]
+    t = torch.exp(d)
+    t_err = t * (torch.expm1(U_SUM * d.abs()) * (1 + EXPF_REL) + EXPF_REL)
+    bound = sum_bound(t, dst, n, t_err)
+    share = check_sum(label, got[:, 1], exact[:, 1], bound)
+    return plain, exact, bound, share
+
+
 def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
     """K8 on every composed graph (weighted by its uses in one forward) and
     K9-K11 at the four streaming calls, per transport, against their plain
@@ -1513,22 +1558,9 @@ def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
             before = sk.softmax_stats.launches
             got = sk.softmax_stats(alpha, g.dst, n, bb)
             launches = sk.softmax_stats.launches - before
-            plain = sk.softmax_stats_plain(alpha, g.dst, n)
-            exact = sk.softmax_stats_plain(alpha.double(), g.dst, n)
-            torch.cuda.synchronize()
-            check(torch.equal(got[:, 0], plain[:, 0]),
-                  f"{pre}softmax_stats {transport}: max differs")
+            plain, exact, bound, share = check_softmax(
+                f"{pre}softmax_stats {transport} ({e} edges)", got, alpha, g.dst, n)
             err, rel = rel_err(got[:, 1].double(), exact[:, 1])
-            # each term exp(a - max) carries the f32 subtraction's rounding
-            # (at most U_SUM of |a - max|, as a factor exp of it) and expf's
-            a64 = alpha.double()
-            shift = torch.cat([torch.nan_to_num(exact[:, 0], neginf=0.0), a64.new_zeros(1)])
-            d = a64 - shift[dst64]
-            t = torch.exp(d)
-            t_err = t * (torch.expm1(U_SUM * d.abs()) * (1 + EXPF_REL) + EXPF_REL)
-            bound = sum_bound(t, g.dst, n, t_err)
-            share = check_sum(f"{pre}softmax_stats {transport} ({e} edges)", got[:, 1],
-                              exact[:, 1], bound)
             # the busiest 128-row block alone (every other block's range
             # empty): the time of the CTA that sets the call's
             hot = int(torch.argmax(torch.diff(bb)))
@@ -2601,6 +2633,405 @@ def cli_phase(tmp, recipe_extra=()):
     return out
 
 
+# ---------------------------------------------------------------- the
+# per-channel forwards (mixed metapath depths, fused=False), the profiling
+# and roofline utilities, a local dataset archive
+
+MIXED_STEPS = (1,) + (2,) * 8
+# (conv, table): 'mixed' = MIXED_STEPS with channel 0 cut to its first
+# step; 'unfused' = the uniform table with PEAConfig(fused=False)
+PER_CHANNEL = (("gcn", "mixed"), ("sage", "mixed"), ("gat", "mixed"), ("gcn", "unfused"),
+               ("sage", "unfused"))
+# the per-channel bars of the CPU tests (tests/torch_per_channel_world.py):
+# the loss, and the median gradient leaf (GAT in bf16: half a bf16 ulp,
+# tests/test_torch_per_channel_grouped.py); every leaf at KINK_TOL
+PC_TOL = {"f32": 1e-5, "bf16": 1e-3}
+PC_MEDIAN = {("f32", False): 1e-5, ("bf16", False): 1e-3, ("f32", True): 1e-5,
+             ("bf16", True): 2e-3}
+# the port's CUDA kernels by symbol (csrc/*.cu), as a trace names them
+PORT_KERNELS = ("gat_fwd_walk_kernel", "gat_bwd_walk_kernel", "gat_bwd_glue_walk_kernel",
+                "gat_rowmax_walk_kernel", "gat_rowmax_decode_kernel", "row_gather_kernel",
+                "scatter_add_kernel", "softmax_block_kernel", "stream_gat_fwd_kernel",
+                "stream_gat_bwd_dst_kernel", "stream_gat_bwd_src_kernel")
+
+
+def per_channel_launches(cfg, graphs, step=True):
+    """The launches of one training step (step) or one eval forward on
+    per-channel graphs (no `gat_loops` graph), from the code: a GCN or
+    SAGE conv (nn/conv.propagate) gathers its source rows (K7) and sums the
+    messages by dst (K5), backward the gather's K6 and the sum's K7; a
+    composed GAT conv (nn/conv.gat_apply) of H heads gathers [h | a_src]
+    and a_dst (K7 2), per head the softmax's K8 and its stats' gather (K7),
+    and sums the messages (K5); backward the sum's K7, per head the
+    softmax's K5 and K7, a_dst's K5 and the source rows' K6."""
+    from graph_recsys_benchmark_tpu_torch.models.pea import _channel_layer_dims
+
+    counts = {}
+    for ch in graphs:
+        for (_, _, heads), g in zip(_channel_layer_dims(cfg, len(ch)), ch):
+            check(not g.gat_loops, "per_channel_launches: a gat_loops graph")
+            if cfg.conv == "gat":
+                parts = [dict(gather=2 + heads, softmax=heads, segsum=1),
+                         dict(gather=1 + heads, segsum=1 + heads, scatter=1)]
+            else:
+                parts = [dict(gather=1, segsum=1), dict(gather=1, scatter=1)]
+            for part in parts if step else parts[:1]:
+                for k, v in part.items():
+                    counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def _cpu_graphs(graphs):
+    """A trainer's graphs on the CPU: a HybridGATPlan, union graphs or
+    per-channel graphs."""
+    from graph_recsys_benchmark_tpu_torch.graph import StepGraph, graphs_to
+
+    if hasattr(graphs, "per_channel"):
+        return graphs.to("cpu")
+    if isinstance(graphs[0], StepGraph):
+        return tuple(g.to("cpu") for g in graphs)
+    return graphs_to(graphs, "cpu")
+
+
+def step_vs_references(trainer, label, cpu=True):
+    """One step's loss and every gradient on the card against the same
+    step with every kernel's plain version on the card (plain_on_card) and,
+    with `cpu`, on a CPU copy: weights off the init regime, a seeded batch,
+    a partial row mask without the kink_rows of the card and the CPU (or
+    the plain run); the loss within PC_TOL, the median leaf within
+    PC_MEDIAN, every leaf within KINK_TOL."""
+    from graph_recsys_benchmark_tpu_torch.models.pea import pea_forward, pea_loss
+
+    cfg, transport, bs = trainer.cfg, trainer.transport, trainer.tcfg.batch_size
+    params = trainer.init(2020)
+    with torch.no_grad():
+        params.x.mul_(10.0)
+        params.fc1["b"].mul_(0.1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = trainer._build_batch(torch.randperm(trainer.n_rows, device="cuda",
+                                                generator=gen)[:bs], gen)
+    refs = [("plain on the card", copy.deepcopy(params), trainer.graphs, "cuda")]
+    if cpu:
+        refs.append(("CPU", copy.deepcopy(params).cpu(), _cpu_graphs(trainer.graphs), "cpu"))
+
+    def ref_forward(graphs):
+        return lambda m: pea_forward(m, graphs, cfg, transport=transport,
+                                     flash_mode=trainer.flash_mode)
+
+    if cpu:
+        kinks = kink_rows(label, batch, (params, trainer.eval_forward),
+                          (refs[1][1], ref_forward(refs[1][2])))
+    else:
+        def plain_forward(m):
+            with plain_on_card():
+                return ref_forward(trainer.graphs)(m)
+
+        kinks = kink_rows(label, batch, (params, trainer.eval_forward),
+                          (refs[0][1], plain_forward))
+    rmask = ((torch.arange(bs) < bs - 100) & ~kinks).float()
+    loss = trainer.batch_loss(params, batch, rmask.cuda())
+    loss.backward()
+    tol, median_tol = PC_TOL[transport], PC_MEDIAN[(transport, cfg.conv == "gat")]
+    line = []
+    for name, ref_params, graphs, dev in refs:
+        with plain_on_card() if dev == "cuda" else contextlib.nullcontext():
+            ref_loss = pea_loss(ref_params, graphs, cfg, batch.to(dev), row_mask=rmask.to(dev),
+                                transport=transport, flash_mode=trainer.flash_mode)
+            ref_loss.backward()
+        torch.cuda.synchronize()
+        _, rel = rel_err(loss.detach().cpu(), ref_loss.detach().cpu())
+        check(rel <= tol, f"{label} step loss vs {name}: relative error {rel} > {tol}")
+        errs = leaf_errors(label, params, ref_params)
+        median, worst = errs[len(errs) // 2], errs[-1]
+        check(median[0] <= median_tol and worst[0] <= KINK_TOL,
+              f"{label} grads vs {name}: median {median} > {median_tol} or worst {worst} > "
+              f"{KINK_TOL}")
+        line.append(f"vs {name}: loss rel {rel:.3e}, gradients median {median[1]} "
+                    f"{median[0]:.3e}, worst {worst[1]} {worst[0]:.3e}")
+    print(f"{label}: one step ({int(kinks.sum())} kink row(s) left out) " + "; ".join(line),
+          flush=True)
+
+
+def softmax_calls_phase(trainer, label):
+    """K8 at the shapes one training step gives it: the step's
+    softmax_stats calls recorded (their arguments kept), each replayed
+    against its plain version (check_softmax), then all of them timed back
+    to back beside the plain versions, the library composition
+    (scatter_reduce_ amax + index_add_ of the exps) and the bound (every
+    logit and id read once, the [N, 2] table written once; 4 operations a
+    real edge)."""
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    real = sk.softmax_stats
+    calls = []
+
+    def rec(alpha, dst, n, block_bounds=None):
+        calls.append((alpha.detach().clone(), dst, n, block_bounds))
+        return real(alpha, dst, n, block_bounds)
+
+    rec.launches = 0
+    bs = trainer.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = trainer.init(2020)
+    opt = trainer.optimizer(params)
+    rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+    sk.softmax_stats = rec
+    try:
+        trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
+    finally:
+        sk.softmax_stats = real
+    nbytes = flops = 0
+    worst = 0.0
+    for alpha, dst, n, bb in calls:
+        got = real(alpha, dst, n, bb)
+        _, exact, _, _ = check_softmax(f"{label} softmax_stats ({dst.numel()} edges)", got,
+                                       alpha, dst, n)
+        worst = max(worst, rel_err(got[:, 1].double(), exact[:, 1])[0])
+        nbytes += 8 * dst.numel() + 8 * n
+        flops += 4 * int((dst < n).sum())
+
+    def kernel():
+        for a, d, n, bb in calls:
+            real(a, d, n, bb)
+
+    def plain():
+        for a, d, n, _ in calls:
+            sk.softmax_stats_plain(a, d, n)
+
+    ids = [torch.clamp(d.long(), max=n) for _, d, n, _ in calls]
+
+    def lib():
+        for (a, _, n, _), d64 in zip(calls, ids):
+            mx = torch.full((n + 1,), float("-inf"), device="cuda").scatter_reduce_(
+                0, d64, a, "amax")
+            torch.zeros(n + 1, device="cuda").index_add_(0, d64, torch.exp(a - mx[d64]))
+
+    ms, plain_ms, lib_ms = device_ms(kernel, reps=10), device_ms(plain, reps=3), device_ms(
+        lib, reps=10)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"{label} softmax_stats: {len(calls)} calls in one step (rows, edges) "
+          f"{sorted({(n, d.numel()) for _, d, n, _ in calls})}; ms {ms:.5f} plain_ms "
+          f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, calls=len(calls))
+
+
+def per_channel_phase(hin):
+    """The per-channel forwards at the flagship's full width (64 -> 64 ->
+    16, 9 channels, batch 1,024, entity-aware), per transport: PEAGCN,
+    PEASage and PEAGAT on the mixed table (channel 0 its first step only),
+    PEAGCN and PEASage with fused=False on the uniform table.  Each: an
+    eval forward's and a step's launches against per_channel_launches, two
+    steps on one batch (the loss falls), one step against the plain
+    versions on the card and a CPU copy (step_vs_references); on the mixed
+    table every K7, K5 and K6 call of a step (ml25m_edge_kernel_phase) and
+    every K8 call (softmax_calls_phase) against its plain version, timed.
+    Then the card checks of ROADMAP Queue 3, PEAGAT per transport, one step
+    each against plain_on_card with its launches: num_heads 2 on the
+    hybrid plan and on the mixed table, channel_aggr 'mean' and 'concat' on
+    the hybrid plan."""
+    from graph_recsys_benchmark_tpu_torch.data import mlsmall_metapath_edges
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
+
+    edges = list(mlsmall_metapath_edges(hin))
+    tables = {"mixed": (MIXED_STEPS, [edges[0][:1]] + edges[1:]), "unfused": ((2,) * 9, edges)}
+
+    def make(conv, table, transport, **kw):
+        steps, mp = tables[table]
+        cfg = PEAConfig(conv=conv, num_nodes=hin.num_nodes, meta_path_steps=steps, emb_dim=64,
+                        hidden_size=64, repr_dim=16, entity_aware=True,
+                        fused=table == "mixed", **kw)
+        return PEATrainer(hin, cfg, TrainConfig(), metapath_edges=mp, device="cuda",
+                          transport=transport)
+
+    kernels, launches = {}, {}
+    for conv, table in PER_CHANNEL:
+        for transport in TDT:
+            t0 = time.perf_counter()
+            trainer = make(conv, table, transport)
+            label = f"per-channel {conv} {table} {transport}"
+            graphs, cfg, bs = trainer.graphs, trainer.cfg, trainer.tcfg.batch_size
+            check(isinstance(graphs[0], tuple) and [len(ch) for ch in graphs] ==
+                  list(cfg.meta_path_steps), f"{label}: not the per-channel graphs")
+            params = trainer.init(2020)
+            reset_launches()
+            with torch.no_grad():
+                rep = trainer.eval_forward(params)
+            torch.cuda.synchronize()
+            eval_launches, want = read_launches(), expected(**per_channel_launches(cfg, graphs,
+                                                                                   False))
+            check(eval_launches == want, f"{label} eval: launches {eval_launches}, want {want}")
+            check(rep.shape == (cfg.num_nodes, cfg.repr_dim) and bool(torch.isfinite(rep).all()),
+                  f"{label}: repr {tuple(rep.shape)} or not finite")
+            opt = trainer.optimizer(params)
+            rows = torch.randint(0, trainer.n_rows, (bs,), device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+            mask = torch.ones(bs, device="cuda")
+            reset_launches()
+            first = trainer.train_step(params, opt, rows, mask,
+                                       torch.Generator(device="cuda").manual_seed(5))
+            torch.cuda.synchronize()
+            step_launches, want = read_launches(), expected(**per_channel_launches(cfg, graphs))
+            check(step_launches == want, f"{label} step: launches {step_launches}, want {want}")
+            second = trainer.train_step(params, opt, rows, mask,
+                                        torch.Generator(device="cuda").manual_seed(5))
+            check(np.isfinite(float(first)) and float(second) < float(first),
+                  f"{label}: the loss on one batch went {float(first)} -> {float(second)}")
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                trainer.train_step(params, opt, rows, mask, gen)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) / 5 * 1e3
+            print(f"{label}: {sum(len(ch) for ch in graphs)} convs, "
+                  f"{len({id(g) for ch in graphs for g in ch})} distinct graphs; eval "
+                  f"launches {eval_launches}; step launches {step_launches}; the loss on one "
+                  f"batch {float(first):.6f} -> {float(second):.6f}; step ms {step_ms:.4f} "
+                  "(5 steps after 2)", flush=True)
+            step_vs_references(trainer, label)
+            if table == "mixed":
+                for (kind, t), r in ml25m_edge_kernel_phase({transport: trainer},
+                                                            label=label).items():
+                    check(r["calls"] == step_launches[kind],
+                          f"{label} {kind}: {r['calls']} calls recorded, "
+                          f"{step_launches[kind]} launches a step")
+                    kernels[(kind, conv, t)] = r
+                if conv == "gat":
+                    kernels[("softmax", conv, transport)] = softmax_calls_phase(trainer, label)
+            launches[(conv, table, transport)] = step_launches
+            print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+            del trainer, params, opt
+            torch.cuda.empty_cache()
+
+    # ROADMAP Queue 3's card checks
+    checks = (("hybrid heads 2", "unfused", dict(num_heads=2, fused=True)),
+              ("mixed heads 2", "mixed", dict(num_heads=2)),
+              ("hybrid channel_aggr mean", "unfused", dict(channel_aggr="mean", fused=True)),
+              ("hybrid channel_aggr concat", "unfused", dict(channel_aggr="concat", fused=True)))
+    for name, table, kw in checks:
+        for transport in TDT:
+            steps, mp = tables[table]
+            cfg = PEAConfig(conv="gat", num_nodes=hin.num_nodes, meta_path_steps=steps,
+                            emb_dim=64, hidden_size=64, repr_dim=16, entity_aware=True, **kw)
+            trainer = PEATrainer(hin, cfg, TrainConfig(), metapath_edges=mp, device="cuda",
+                                 transport=transport)
+            label = f"PEAGAT {name} {transport}"
+            if hasattr(trainer.graphs, "per_channel"):
+                heads = cfg.num_heads
+                want = expected(flash_fwd=heads, batch_fwd=2, flash_bwd=heads, batch_bwd=2)
+            else:
+                want = expected(**per_channel_launches(cfg, trainer.graphs))
+            params = trainer.init(2020)
+            opt = trainer.optimizer(params)
+            bs = trainer.tcfg.batch_size
+            reset_launches()
+            loss = trainer.train_step(params, opt, torch.arange(bs, device="cuda"),
+                                      torch.ones(bs, device="cuda"),
+                                      torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            got = read_launches()
+            check(got == want and np.isfinite(float(loss)),
+                  f"{label}: launches {got}, want {want}; loss {float(loss)}")
+            print(f"{label}: step launches {got}", flush=True)
+            step_vs_references(trainer, label, cpu=False)
+            del trainer, params, opt
+            torch.cuda.empty_cache()
+    return dict(kernels=kernels, launches=launches)
+
+
+def profiling_phase(trainers, smi):
+    """utils/profiling and utils/roofline on one flagship PEAGAT training
+    step, per transport: in f32 a trace (profiling.trace, a StepTimer range
+    around the step) that must list the port's kernels by name; then the
+    step's cost counted (roofline.count_cost: aten ops plus the kernel
+    wrappers' declared terms), its mean seconds (profiling.timed, 20 steps
+    after 3) and its roofline_report, hbm_util and mfu each in (0, 1]
+    beside the card's name and power limit."""
+    from graph_recsys_benchmark_tpu_torch.utils import profiling, roofline
+
+    out = {}
+    for transport, trainer in trainers.items():
+        params = trainer.init(2020)
+        opt = trainer.optimizer(params)
+        bs = trainer.tcfg.batch_size
+        rows, mask = torch.arange(bs, device="cuda"), torch.ones(bs, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step():
+            return trainer.train_step(params, opt, rows, mask, gen)
+
+        step()
+        if transport == "f32":
+            with tempfile.TemporaryDirectory() as d:
+                with profiling.trace(d) as prof:
+                    with profiling.StepTimer("pea_step") as timer:
+                        timer.block_on(step())
+                (name,) = os.listdir(d)
+                with open(os.path.join(d, name)) as f:
+                    events = json.load(f)["traceEvents"]
+            names = {e.get("name", "") for e in events}
+            found = sorted({k for k in PORT_KERNELS for n in names if k in n})
+            check("pea_step" in names, "trace: no pea_step range")
+            for k in ("gat_fwd_walk_kernel", "gat_bwd_walk_kernel"):
+                check(k in found, f"trace: the flagship step's {k} not listed ({found})")
+            device_us = sum(getattr(e, "self_device_time_total", 0.0)
+                            for e in prof.key_averages()
+                            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                            and not getattr(e, "is_user_annotation", False))
+            print(f"trace of one flagship PEAGAT f32 step: {name}, {len(events)} events, the "
+                  f"port's kernels listed {found}; step {timer.elapsed * 1e3:.4f} ms (StepTimer), "
+                  f"device time {device_us / 1e3:.4f} ms", flush=True)
+        count = roofline.count_cost(step)
+        secs = profiling.timed(step, iters=20, warmup=3)
+        rep = roofline.roofline_report((count.flops, count.bytes), secs)
+        check(0 < rep["hbm_util"] <= 1 and 0 < rep["mfu"] <= 1,
+              f"roofline {transport}: hbm_util {rep['hbm_util']} or mfu {rep['mfu']} "
+              "outside (0, 1]")
+        declared = sorted(((v[1], k, v[2]) for k, v in count.by_name.items()
+                           if not k.startswith("aten.")), reverse=True)
+        aten = sorted(((v[1], k, v[2]) for k, v in count.by_name.items()
+                       if k.startswith("aten.")), reverse=True)[:6]
+        print(f"roofline flagship PEAGAT {transport} step ({smi}): {json.dumps(rep)}; step ms "
+              f"{secs * 1e3:.4f} (timed, 20 after 3); declared (bytes, wrapper, calls) "
+              f"{declared}; largest aten (bytes, op, calls) {aten}", flush=True)
+        out[transport] = dict(rep, step_ms=secs * 1e3)
+    return out
+
+
+def archive_cli_phase(tmp):
+    """The CLI with --dataset_url file:// to a grouplens-layout zip written
+    from tests/torch_raw_files.py's generator, into a fresh raw dir: the
+    archive extracted, PEAGCN 1 run x 1 epoch on the card at a small width,
+    a finite Overall line."""
+    from graph_recsys_benchmark_tpu_torch import cli
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_raw_files import write_ml_zip
+
+    zpath = write_ml_zip(os.path.join(tmp, "ml-latest-small.zip"))
+    raw = os.path.join(tempfile.mkdtemp(dir=tmp), "ml-latest-small")
+    t0 = time.perf_counter()
+    reset_launches()
+    overall = cli.main(["--model", "PEAGCN", "--dataset", "ml-latest-small", "--raw_dir", raw,
+                        "--dataset_url", "file://" + zpath, "--num_core", "2",
+                        "--num_feat_core", "2", "--runs", "1", "--epochs", "1", "--emb_dim",
+                        "16", "--hidden_size", "16", "--repr_dim", "8",
+                        "--out_dir", os.path.join(tmp, "archive-runs"),
+                        "--cache_dir", os.path.join(tmp, "archive-hin")])
+    torch.cuda.synchronize()
+    got = read_launches()
+    files = sorted(os.listdir(raw))  # the archive's copy beside its files, as in JAX
+    check({"movies.csv", "ratings.csv", "tags.csv"} <= set(files),
+          f"archive: extracted {files}")
+    check(bool(np.isfinite(overall["HR"]).all()) and got["gather"] > 0 and got["segsum"] > 0,
+          f"archive: HR {overall['HR']}, launches {got}")
+    print(f"cli --dataset_url file:// (ml-latest-small layout, 1 run x 1 epoch): raw dir "
+          f"{files}; HR@10 {overall['HR'][5]:.4f}; launches {got}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2662,6 +3093,8 @@ def main():
     mres_modes = mode_slice_phase(hin, cfg, trainers)
     print(f"flash-GAT mode phases {time.perf_counter() - t_modes:.1f} s", flush=True)
     timed("PEAGAT dropout", dropout_phase, hin, trainers["f32"])
+    pres = timed("per-channel", per_channel_phase, hin)
+    timed("profiling and roofline", profiling_phase, trainers, smi)
     del hin, all_trainers, trainers, plan, union
     torch.cuda.empty_cache()
 
@@ -2686,6 +3119,7 @@ def main():
     t_c = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         cres = cli_phase(tmp)
+        timed("cli archive", archive_cli_phase, tmp)
         timed("cli datasets", cli_datasets_phase, tmp)
     print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
 
@@ -2770,6 +3204,20 @@ def main():
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
             ))
+    # the per-channel path (mixed table): launches those of one step
+    pea = {"gcn": "PEAGCN", "sage": "PEASage", "gat": "PEAGAT"}
+    lines = {"segsum": "77", "gather": "426", "scatter": "636", "softmax": "244"}
+    for (kind, conv, transport), r in pres["kernels"].items():
+        name = SEG_KERNELS.get(kind, "softmax_stats")
+        kernels.append(dict(
+            name=f"{name} ({transport}; per-channel {pea[conv]}, meta_path_steps (1,) + "
+                 f"(2,) * 8, {r['calls']} calls of one step)",
+            route="cuda", source=f"{csrc}/segment.cu",
+            replaces=f"{repo}/ops/pallas_segment.py:{lines[kind]}",
+            launches=pres["launches"][(conv, "mixed", transport)][kind],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
     # the variant routes: a forward's launches are its mode's eval's, a
     # backward's the mode's MODE_STEPS steps'
     modes = {"rowmax": ("online-fused", "eval_launches", "gat_fwd.cu", "129",

@@ -18,7 +18,10 @@ data.movielens.ml25m_metapath_edges(hin)``) the grouped per-channel
 forward: the large graphs' implicit self-loops through ``ops/stream_gat``
 and the rest through the composed ``nn/conv.gat_apply``.  PEAGCN and
 PEASage run one union graph a step: a row gather (``ops/gather``) and a
-segment-sum (``ops/segment_kernels``).  The forwards and backwards of all
+segment-sum (``ops/segment_kernels``).  Metapaths of mixed depth, or
+``PEAConfig(fused=False)``, run each channel on its own graphs (the
+per-channel forwards of ``models/pea.py``).  ``utils/profiling`` and
+``utils/roofline`` trace a step and count its bytes and flops.  The forwards and backwards of all
 of them are CUDA kernels in ``csrc/`` (built with nvcc at first use,
 ``ops/_cuda.py``).  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the plain PyTorch versions of

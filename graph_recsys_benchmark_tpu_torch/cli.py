@@ -12,15 +12,19 @@ plain versions).  Defaults reproduce the published recipes
         --raw_dir /data/ml-latest-small --entity_aware true --device cpu
 
 Ported: PEAGCN, PEAGAT and PEASage on all six datasets (``ml-latest-small``,
-``ml-25m`` and ``yelp`` read raw files already on disk: nothing is
-downloaded), both candidate modes (ML-25M defaults to rejection), f32 or
+``ml-25m`` and ``yelp`` read raw files under ``--raw_dir``; for the two
+MovieLens sets ``--dataset_url file:///.../x.zip`` extracts a local
+archive there first, data/download.py), both candidate modes (ML-25M defaults to rejection), f32 or
 bf16 message transport (``--message_dtype``, the trainer's ``transport``),
 GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD.  The
 baselines, the walk flags and the parallel layer raise
 ``NotImplementedError`` before any work, naming the ROADMAP Queue 1 item
 that ports them.
 
-Differences from the JAX CLI: the HIN cache's file names carry the
+Differences from the JAX CLI: nothing is fetched over the network (an
+http(s) ``--dataset_url`` raises NotImplementedError, and without one the
+grouplens default is only quoted when raw files are missing); the HIN
+cache's file names carry the
 package's name, so the port never unpickles a JAX ``HINData`` (which would
 import the JAX package), even in the JAX CLI's cache directory; the run
 directory's hash leaves out ``--runs``, so a later call with more runs
@@ -57,8 +61,9 @@ def build_parser():
                             "ml-latest-small", "ml-25m", "yelp"])
     p.add_argument("--raw_dir", default=None, help="raw data directory for real datasets")
     p.add_argument("--dataset_url", default=None,
-                   help="archive URL of the JAX CLI's auto-download; the port "
-                        "downloads nothing and only names it when files are missing")
+                   help="a file:// URL of the dataset's archive (ml-latest-small, "
+                        "ml-25m), extracted into --raw_dir when its files are missing; "
+                        "the port fetches nothing over the network")
     p.add_argument("--out_dir", default="runs")
     p.add_argument("--num_core", type=int, default=10)
     p.add_argument("--num_feat_core", type=int, default=10)
@@ -185,19 +190,42 @@ def load_hin(args):
     return hin, ML.mlsmall_metapath_edges(hin)
 
 
-def _require_raw_files(args, required_files):
-    """The raw files must be on disk: the port downloads nothing."""
+def _require_raw_files(args, required_files, default_url=None):
+    """The raw files must be on disk under --raw_dir; the message of a
+    missing one names --dataset_url's archive, or the dataset's default
+    archive (`default_url`), which the port does not fetch."""
     if args.raw_dir is None:
         raise FileNotFoundError(
             f"--dataset {args.dataset} reads raw files: pass --raw_dir, the directory "
             f"that directly contains {list(required_files)}")
     missing = [f for f in required_files if not os.path.exists(os.path.join(args.raw_dir, f))]
     if missing:
-        url = f" (for example, extracted from {args.dataset_url})" if args.dataset_url else ""
+        if args.dataset_url:
+            hint = f" after extracting {args.dataset_url}"
+        elif default_url:
+            name = default_url.rpartition("/")[2]
+            hint = (f"; the port fetches nothing over the network: get {default_url} "
+                    f"and pass --dataset_url file:///path/to/{name}")
+        else:
+            hint = ""
         raise FileNotFoundError(
-            f"raw dataset files missing under {args.raw_dir!r}: {missing}. The port "
-            f"downloads nothing: put the files there{url}, or point --raw_dir at the "
-            "directory that directly contains them.")
+            f"raw dataset files missing under {args.raw_dir!r}{hint}: {missing}. Point "
+            "--raw_dir at the directory that directly contains these files.")
+
+
+def _maybe_download(args, required_files):
+    """The JAX CLI's ``_maybe_download`` (cli.py:138-165) for a local
+    archive: with --dataset_url and the raw files missing under --raw_dir,
+    extract the archive there (data/download.ensure_raw_dataset; a URL other
+    than file:// raises NotImplementedError before any connection); then
+    the files must be there.  Without --dataset_url nothing is fetched: the
+    JAX CLI would download the grouplens default, which the message
+    quotes."""
+    from .data.download import DATASET_URLS, ensure_raw_dataset
+
+    if args.raw_dir is not None and args.dataset_url:
+        ensure_raw_dataset(args.raw_dir, required_files, args.dataset_url)
+    _require_raw_files(args, required_files, DATASET_URLS.get(args.dataset))
 
 
 def _build_hin(args):
@@ -227,7 +255,7 @@ def _build_hin(args):
     if args.dataset == "ml-latest-small":
         from .data.ml_raw import ML_FILES, parse_ml_dir
 
-        _require_raw_files(args, ML_FILES)
+        _maybe_download(args, ML_FILES)
         movies, ratings, tagging = parse_ml_dir(args.raw_dir)
         return ML.build_mlsmall_hin(
             movies, ratings, tagging, nc, nfc, name="ml-latest-small", **_cm("dense")
@@ -235,7 +263,7 @@ def _build_hin(args):
     if args.dataset == "ml-25m":
         from .data.ml_raw import ML25M_FILES, parse_ml25m_extras, parse_ml_dir
 
-        _require_raw_files(args, ML25M_FILES)
+        _maybe_download(args, ML25M_FILES)
         movies, ratings, tagging = parse_ml_dir(args.raw_dir)
         gs, gt = parse_ml25m_extras(args.raw_dir)
         return ML.build_ml25m_hin(movies, ratings, tagging, gs, gt, nc, nfc,

@@ -309,8 +309,8 @@ def build_fused_metapath_graphs(
     if len(n_steps) != 1:
         raise ValueError(
             "fused metapath graphs require every metapath to have the same "
-            f"number of steps; got step counts {sorted(n_steps)} (the "
-            "per-channel path for mixed depths is not ported)"
+            f"number of steps; got step counts {sorted(n_steps)} (mixed depths "
+            "run the per-channel graphs of build_metapath_graphs)"
         )
     return tuple(
         fuse_step_graphs([ch[k] for ch in per_channel], num_nodes, pad_to)

@@ -24,11 +24,17 @@ peasage.py):
     one row gather (``ops/gather``, K7 forward / K6 backward) and one
     segment-sum (``nn/conv._aggregate``, K5 forward / K7 backward) a step.
     This is PEAGCN's and PEASage's path; GAT runs its union flash pass;
-  * per-channel graphs (tuple[channel] of tuple[step]; GAT channels of
-    one depth): the grouped forward (``_grouped_gat_forward``), which the
-    trainer picks when a graph carries implicit self-loops (ML-25M scale).
-    Channels sharing a `gat_loops` graph run batched through
-    ``ops/stream_gat``; every other conv runs ``nn/conv.gat_apply``.
+  * per-channel graphs (tuple[channel] of tuple[step]) of GAT channels of
+    one depth: the grouped forward (``_grouped_gat_forward``), which the
+    trainer picks when a graph carries implicit self-loops (ML-25M scale)
+    or ``cfg.fused`` is off.  Channels sharing a `gat_loops` graph run
+    batched through ``ops/stream_gat``; every other conv runs
+    ``nn/conv.gat_apply``;
+  * per-channel graphs otherwise (GCN and SAGE, or metapaths of mixed
+    depth): the ungrouped forward (``_channel_forward``, JAX
+    models/pea.py:115-137, :571-580), one conv a channel and step
+    (``nn/conv.gcn_apply`` / ``sage_apply``: K7 and K5 forward, K6 and K7
+    backward; ``gat_apply``: the composed GAT, K7, K8, K5 and K6).
 
 Every op on the way is differentiable and its backward a kernel too.
 ``pea_loss`` is BPR plus the entity-aware regularizer (base.py:43-80).
@@ -41,8 +47,8 @@ conv with its own masks (``nn/conv.gat_apply``: the composed convs drop
 the normalized alphas; a `gat_loops` graph runs
 ``ops/stream_gat.stream_gat_reference`` per head, never the streaming
 kernels), as the JAX package does (models/pea.py:338-396, :555-558).  An
-eval forward never drops.  The per-channel path for mixed depths comes in
-a later slice (ROADMAP Queue 1).
+eval forward never drops.  A GAT channel on the ungrouped forward takes
+its masks the same way, per channel, step and head.
 """
 
 from __future__ import annotations
@@ -56,12 +62,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import StepGraph, fuse_step_graphs
-from ..nn.conv import _aggregate, gat_apply, gat_init, gcn_init, sage_init
+from ..nn.conv import (
+    gat_apply,
+    gat_init,
+    gcn_apply,
+    gcn_init,
+    propagate,
+    sage_apply,
+    sage_init,
+)
 from ..nn.init import glorot, linear, torch_linear_params, uniform
 from ..ops.batch_gat import MAX_CHANNELS, MAX_KZ, batch_gat_attention
 from ..ops.config import FlashGATMode
-from ..ops.flash_gat import flash_gat_attention_rows, msg_cast
-from ..ops.gather import gather_src
+from ..ops.flash_gat import flash_gat_attention_rows
 from ..ops.stream_gat import stream_gat_attention_batched, stream_gat_enabled
 
 
@@ -122,6 +135,9 @@ class PEAConfig:
     dropout: float = 0.0  # GAT attention dropout (training with DropoutMasks)
     entity_aware: bool = False
     entity_aware_coff: float = 0.1
+    # channels of one depth share union graphs (GCN, SAGE) or the hybrid
+    # plan (GAT); False runs the per-channel graphs (PEATrainer)
+    fused: bool = True
 
     @property
     def num_channels(self):
@@ -218,10 +234,7 @@ def _fused_gcn_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
         z = torch.einsum("nd,cde->cne", h[:num_nodes], sp["w"])
     else:
         z = torch.einsum("cnd,cde->cne", h, sp["w"])
-    z = z.reshape(num_channels * num_nodes, -1)
-    z, w = msg_cast(z, g.w, transport=transport)
-    msgs = w[:, None] * gather_src(z, g, transport)
-    out = _aggregate(msgs, g, transport)
+    out = propagate(z.reshape(num_channels * num_nodes, -1), g, transport)
     return out.reshape(num_channels, num_nodes, -1) + sp["b"][:, None, :]
 
 
@@ -232,9 +245,7 @@ def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
         hc = h[None, :num_nodes].expand((num_channels,) + h[:num_nodes].shape)
     else:
         hc = h
-    flat = hc.reshape(num_channels * num_nodes, -1)
-    flat, w = msg_cast(flat, g.w, transport=transport)
-    mean_agg = _aggregate(w[:, None] * gather_src(flat, g, transport), g, transport)
+    mean_agg = propagate(hc.reshape(num_channels * num_nodes, -1), g, transport)
     mean_agg = mean_agg.reshape(num_channels, num_nodes, -1)
     out = torch.einsum("cnd,cde->cne", mean_agg, sp["w_rel"]) + sp["b_rel"][:, None, :]
     return out + torch.einsum("cnd,cde->cne", hc, sp["w_root"])
@@ -314,10 +325,10 @@ def build_hybrid_gat_plan(per_channel_graphs, num_nodes, cfg: PEAConfig):
     means nothing on the H100 and is dropped.  The `max_per` split is kept
     so that both packages build the same plan."""
     if cfg.conv != "gat" or len(set(cfg.meta_path_steps)) != 1:
-        raise NotImplementedError(
-            "the hybrid plan needs GAT channels of one depth (GCN and SAGE "
-            "take graph.build_fused_metapath_graphs; mixed depths are ROADMAP "
-            "Queue 1, \"Per-channel GCN/SAGE and mixed metapath depths\")"
+        raise ValueError(
+            "the hybrid plan needs GAT channels of one depth: GCN and SAGE take "
+            "graph.build_fused_metapath_graphs, mixed depths the per-channel "
+            "graphs (graph.build_metapath_graphs) and pea_forward's ungrouped forward"
         )
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -465,6 +476,33 @@ def _grouped_gat_forward(model: PEA, graphs, cfg: PEAConfig, transport="f32",
     return torch.stack(hs, dim=1)  # [N, C, R]
 
 
+def _channel_forward(model: PEA, c, steps, cfg: PEAConfig, transport="f32",
+                     masks: Optional[DropoutMasks] = None):
+    """Channel c over its own step graphs (JAX models/pea.py:115-137,
+    PEABaseChannel.forward, base.py:134-140): one conv a step on the dims
+    of _channel_layer_dims for its depth, ReLU between steps -> [num_nodes,
+    dout of the last step].  A GAT conv drops attention with masks.gat(c,
+    k, g, heads) when `masks` is given."""
+    layers = model.channels[c]
+    dims = _channel_layer_dims(cfg, len(layers))
+    h = model.x
+    for k, (lp, g) in enumerate(zip(layers, steps)):
+        heads = dims[k][2]
+        if cfg.conv == "gcn":
+            h = gcn_apply(lp, h, g, transport)
+        elif cfg.conv == "sage":
+            h = sage_apply(lp, h, g, transport)
+        elif cfg.conv == "gat":
+            keep = None if masks is None else masks.gat(c, k, g, heads)
+            h = gat_apply(lp, h, g, heads=heads, concat=True, dropout=cfg.dropout,
+                          keep=keep, transport=transport)
+        else:
+            raise ValueError(cfg.conv)
+        if k < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
 def pea_forward(model: PEA, graphs, cfg: PEAConfig,
                 channel_mask: Optional[torch.Tensor] = None, transport="f32",
                 flash_mode=FlashGATMode(), masks: Optional[DropoutMasks] = None):
@@ -472,10 +510,11 @@ def pea_forward(model: PEA, graphs, cfg: PEAConfig,
 
     graphs: a HybridGATPlan (the hybrid GAT forward), a tuple of union
     StepGraphs, one per step (the fused forward), or per-channel graphs
-    (tuple[channel] of tuple[step]) for GAT channels of one depth (the
-    grouped forward).  flash_mode: the routes of the union flash-GAT passes
-    (ops/config.FlashGATMode); the batched and streaming GATs ignore it, as
-    the JAX switches leave them alone.  masks: GAT attention dropout's keep
+    (tuple[channel] of tuple[step]): the grouped forward for GAT channels
+    of one depth, else the ungrouped one (_channel_forward a channel).
+    flash_mode: the routes of the union flash-GAT passes
+    (ops/config.FlashGATMode); the batched, streaming and composed GATs
+    ignore it, as the JAX switches leave them alone.  masks: GAT attention dropout's keep
     masks (a training forward); a HybridGATPlan then hands the forward to
     its per-channel graphs."""
     if masks is not None:
@@ -491,11 +530,8 @@ def pea_forward(model: PEA, graphs, cfg: PEAConfig,
     elif cfg.conv == "gat" and len(set(cfg.meta_path_steps)) == 1:
         h = _grouped_gat_forward(model, graphs, cfg, transport, masks)
     else:
-        raise NotImplementedError(
-            "per-channel graphs of mixed metapath depth, or of GCN and SAGE, "
-            "run the ungrouped per-channel forward, which is not ported: "
-            "ROADMAP Queue 1, \"Per-channel GCN/SAGE and mixed metapath depths\""
-        )
+        h = torch.stack([_channel_forward(model, c, steps, cfg, transport, masks)
+                         for c, steps in enumerate(graphs)], dim=1)  # [N, C, R]
     if channel_mask is not None:
         h = h * channel_mask[None, :, None]
     if cfg.channel_aggr == "concat":

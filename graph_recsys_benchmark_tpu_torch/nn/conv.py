@@ -2,10 +2,13 @@
 
 Ported: GATConv's, GCNConv's and SAGEConv's initializers, ``_aggregate``
 (the segment-sum of edge messages into destination rows,
-ops/segment_kernels K5) and the per-channel ``gat_apply`` (the grouped GAT
-forward's conv, models/pea.py), with attention dropout under keep masks
-that the caller draws.  The fused forwards live in models/pea.py; ``gcn_apply`` and ``sage_apply`` are still
-to port (ROADMAP Queue 1).
+ops/segment_kernels K5), ``propagate`` (the weighted sum of source rows
+that GCN and SAGE share: K7 forward and K6 backward for the gather, K5
+forward and K7 backward for the sum), and the per-channel convs
+``gcn_apply``, ``sage_apply`` and ``gat_apply`` (the per-channel forwards
+of models/pea.py), the last with attention dropout under keep masks that
+the caller draws.  The fused forwards (models/pea.py) run ``propagate`` on
+union graphs.
 
 Semantics (PyG 1.5.0, the reference's pin), with the degree and self-loop
 work precomputed into StepGraph.w (graph.py):
@@ -34,9 +37,26 @@ def _aggregate(msgs, g, transport="f32"):
     return sorted_segment_sum(msgs, g.dst, g.num_nodes, transport, (g.dst_perm, g.dst_sorted))
 
 
+def propagate(z, g, transport="f32"):
+    """Σ over g's edges (j, i) of w_e z_j into row i -> f32 [g.num_nodes,
+    D]: z [>= g.num_nodes, D] and g.w cast to the transport dtype (JAX
+    ``msg_cast``), their product rounded there, f32 sums.  The source rows
+    ride gather_src (K7, backward K6), the sum _aggregate (K5, backward
+    K7)."""
+    z, w = msg_cast(z, g.w, transport=transport)
+    return _aggregate(w[:, None] * gather_src(z, g, transport), g, transport)
+
+
 def gcn_init(generator, in_dim, out_dim):
     return {"w": glorot(generator, (in_dim, out_dim)),
             "b": torch.zeros(out_dim, dtype=torch.float32)}
+
+
+def gcn_apply(params, x, g, transport="f32"):
+    """GCNConv over StepGraph `g` (JAX nn/conv.py:56-60): x [>= g.num_nodes,
+    din] (rows past num_nodes are layout padding that no edge reads) ->
+    [num_nodes, dout]; the normalization is g.w."""
+    return propagate(x[: g.num_nodes] @ params["w"], g, transport) + params["b"]
 
 
 def gat_init(generator, in_dim, out_dim, heads=1):
@@ -114,3 +134,13 @@ def sage_init(generator, in_dim, out_dim):
         "b_rel": torch_linear_bias(generator, in_dim, out_dim),
         "w_root": torch_linear_weight(generator, in_dim, out_dim),
     }
+
+
+def sage_apply(params, x, g, transport="f32"):
+    """SAGEConv over StepGraph `g` (JAX nn/conv.py:178-185): the mean of the
+    transport-rounded source rows (g.w = 1 / indeg(dst)), then w_rel and
+    b_rel, plus the root term from the un-rounded input.  x [>= g.num_nodes,
+    din] -> [num_nodes, dout]."""
+    xn = x[: g.num_nodes]
+    mean_agg = propagate(xn, g, transport)
+    return mean_agg @ params["w_rel"] + params["b_rel"] + xn @ params["w_root"]

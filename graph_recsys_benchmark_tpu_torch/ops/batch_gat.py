@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .cost import batch_bwd_cost, batch_fwd_cost, declares
 from .flash_gat import (
     bound_shift,
     dst_walk,
@@ -71,6 +72,9 @@ def batch_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                          negative_slope)
 
 
+@declares("batch_gat_fwd", lambda table, adst_r, mhat, src, dst, num_rows, kz, *a, **k:
+          batch_fwd_cost(dst.shape[0], kz, adst_r.shape[0], num_rows, table.shape[0],
+                         table.element_size()))
 def batch_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
                   negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Unnormalized accumulator ``[num_rows, n_ch*(kz+1)]`` f32 (band column
@@ -100,6 +104,9 @@ def batch_gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                          negative_slope)
 
 
+@declares("batch_gat_bwd", lambda table, gtab, logden, adst_r, src, dst, num_rows, kz, *a,
+          **k: batch_bwd_cost(dst.shape[0], kz, adst_r.shape[0], num_rows, table.shape[0],
+                              table.element_size()))
 def batch_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                   negative_slope=0.2, src_perm=None, src_sorted=None):
     """(dpk f32[n, n_ch*(kz+1)], da_dst f32[n_ch, num_rows]):

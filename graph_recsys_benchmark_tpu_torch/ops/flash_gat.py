@@ -59,8 +59,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda
+from . import _cuda, cost
 from .config import FlashGATMode
+from .cost import declares
 from .segment import segment_max, segment_softmax, segment_sum
 
 _BR = 128
@@ -218,6 +219,8 @@ def flash_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                          False, negative_slope)
 
 
+@declares("flash_gat_fwd", lambda table, adst_r, mhat, src, dst, num_rows, kz, *a, **k:
+          cost.flash_fwd_cost(dst.shape[0], kz, num_rows, table.shape[0], table.element_size()))
 def flash_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz,
                   negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """Unnormalized accumulator ``[num_rows, kz+1]`` f32 (column kz = s):
@@ -248,6 +251,8 @@ def gat_rowmax_plain(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2,
     return m.to(table.dtype).float()
 
 
+@declares("gat_rowmax", lambda table, adst_r, src, dst, num_rows, kz, *a, **k:
+          cost.rowmax_cost(dst.shape[0], num_rows, table.shape[0], table.element_size()))
 def gat_rowmax(table, adst_r, src, dst, num_rows, kz, negative_slope=0.2,
                dst_perm=None, dst_sorted=None):
     """K12-online's shift f32[num_rows]: the exact row max of the logits,
@@ -295,6 +300,8 @@ def online_shift(table, a_dst, src, dst, num_rows, kz, negative_slope=0.2,
                               dst_perm=dst_perm, dst_sorted=dst_sorted)
 
 
+@declares("flash_gat_fwd_online", lambda table, adst_r, m, src, dst, num_rows, kz, *a, **k:
+          cost.flash_fwd_online_cost(dst.shape[0], kz, num_rows, table.element_size()))
 def flash_gat_fwd_online(table, adst_r, m, src, dst, num_rows, kz, negative_slope=0.2,
                          dst_perm=None, dst_sorted=None):
     """K12-online's walk: flash_gat_fwd with the row max m as the shift, the
@@ -470,6 +477,9 @@ def flash_gat_bwd_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz,
     return dpk, da_dst[0]
 
 
+@declares("flash_gat_bwd", lambda table, gtab, logden, adst_r, src, dst, num_rows, kz, *a,
+          **k: cost.flash_bwd_cost(dst.shape[0], kz, num_rows, table.shape[0],
+                                   table.element_size(), True))
 def flash_gat_bwd(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                   negative_slope=0.2, src_perm=None, src_sorted=None):
     """(dpk f32[n, kz+1], da_dst f32[num_rows]): gat_bwd for one channel at
@@ -507,6 +517,9 @@ def flash_gat_bwd_glue_plain(table, gtab, logden, adst_r, src, dst, num_rows, kz
     return ct, segment_sum(dpre[:, 0], d, num_rows)
 
 
+@declares("flash_gat_bwd_glue", lambda table, gtab, logden, adst_r, src, dst, num_rows, kz,
+          *a, **k: cost.flash_bwd_cost(dst.shape[0], kz, num_rows, table.shape[0],
+                                       table.element_size(), False))
 def flash_gat_bwd_glue(table, gtab, logden, adst_r, src, dst, num_rows, kz,
                        negative_slope=0.2, dst_perm=None, dst_sorted=None):
     """K13 (``bwd='glue'``): (ct [E, kz+1] in the table's dtype, da_dst
@@ -576,6 +589,9 @@ def flash_gat_bwd_onepass_plain(table, stat, src, dst, num_rows, kz, negative_sl
     return dpk, da_dst[0]
 
 
+@declares("flash_gat_bwd_onepass", lambda table, stat, src, dst, num_rows, kz, *a, **k:
+          cost.flash_bwd_onepass_cost(dst.shape[0], kz, num_rows, table.shape[0],
+                                      table.element_size()))
 def flash_gat_bwd_onepass(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
                           src_perm=None, src_sorted=None):
     """K14 (``bwd='onepass'``): (dpk f32[n, kz+1], da_dst f32[num_rows]),

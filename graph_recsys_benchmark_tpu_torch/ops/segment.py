@@ -39,6 +39,15 @@ def segment_max(data, segment_ids, num_segments):
     return out.scatter_reduce_(0, ids, data[keep], "amax", include_self=True)
 
 
+def segment_mean(data, segment_ids, num_segments):
+    """Mean-reduce; empty segments produce 0 (PyG ``aggr='mean'``
+    semantics, JAX ops/segment.py:45-51)."""
+    total = segment_sum(data, segment_ids, num_segments)
+    ones = torch.ones(data.shape[:1], dtype=data.dtype, device=data.device)
+    count = torch.clamp(segment_sum(ones, segment_ids, num_segments), min=1.0)
+    return total / count.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
 def segment_softmax(logits, segment_ids, num_segments):
     """Per-segment softmax over edge logits (PyG `softmax` parity, incl. the
     +1e-16 denominator guard).  Sentinel edges get a finite placeholder

@@ -56,6 +56,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .cost import declares, gather_cost, scatter_cost, segsum_cost, softmax_stats_cost
 from .flash_gat import t_dtype_of
 from .segment import segment_max, segment_sum
 
@@ -157,6 +158,16 @@ def sorted_segment_sum_plain(msgs, dst, num_rows, transport="f32"):
     return segment_sum(msgs.float(), dst, num_rows)
 
 
+@declares("sorted_segment_sum", lambda msgs, dst, num_rows, transport, order: segsum_cost(
+    dst.shape[0], msgs.shape[1], num_rows, t_dtype_of(transport).itemsize))
+def _segment_sum(msgs, dst, num_rows, transport, order):
+    """K5's forward: the plain version for a CPU tensor, else the kernel."""
+    if msgs.device.type == "cpu":
+        return sorted_segment_sum_plain(msgs, dst, num_rows, transport)
+    return _sum_by_id(sorted_segment_sum, msgs.to(t_dtype_of(transport)).contiguous(),
+                      dst, num_rows, order)
+
+
 class SegmentSum(torch.autograd.Function):
     """K5 forward on the messages rounded to the transport dtype; K7
     backward: d msgs[e] = g[dst[e]] (zeros for the padding sentinel), cast
@@ -167,10 +178,7 @@ class SegmentSum(torch.autograd.Function):
         ctx.save_for_backward(dst)
         ctx.num_rows = num_rows
         ctx.msg_dtype = msgs.dtype
-        if msgs.device.type == "cpu":
-            return sorted_segment_sum_plain(msgs, dst, num_rows, transport)
-        return _sum_by_id(sorted_segment_sum, msgs.to(t_dtype_of(transport)).contiguous(),
-                          dst, num_rows, order)
+        return _segment_sum(msgs, dst, num_rows, transport, order)
 
     @staticmethod
     def backward(ctx, g):
@@ -224,6 +232,8 @@ def _piece_ids(idx, num_rows, m):
     return (r[:, None] + torch.arange(m, device=idx.device)).flatten().to(torch.int32)
 
 
+@declares("sorted_broadcast", lambda v, idx, num_rows: gather_cost(
+    idx.shape[0], v[0].numel() if v.dim() > 1 else 1, num_rows, v.element_size()))
 def _gather(v, idx, num_rows):
     """K7's forward: the plain version for a CPU tensor, else the kernel,
     one counted launch; a row wider than GATHER_ROW_BYTES is gathered as
@@ -287,6 +297,9 @@ def localized_scatter_add_plain(ct, idx, num_rows, transport="f32"):
     return sorted_segment_sum_plain(ct, idx, num_rows, transport)
 
 
+@declares("localized_scatter_add", lambda ct, idx, num_rows, transport="f32", order=None:
+          scatter_cost(idx.shape[0], ct[0].numel() if ct.dim() > 1 else 1, num_rows,
+                       t_dtype_of(transport).itemsize))
 def localized_scatter_add(ct, idx, num_rows, transport="f32", order=None):
     """``out[i] = Σ_{idx[e]=i} ct[e]`` for ct ``[E]`` or ``[E, K]`` (f32 or
     bf16, rounded to the transport dtype first) and int32 idx in any order;
@@ -321,6 +334,8 @@ def softmax_stats_plain(alpha, dst, num_rows):
     return torch.stack([m, segment_sum(ex, dst, num_rows)], dim=1)
 
 
+@declares("softmax_stats", lambda alpha, dst, num_rows, block_bounds=None:
+          softmax_stats_cost(dst.shape[0], num_rows))
 def softmax_stats(alpha, dst, num_rows, block_bounds=None):
     """Per-dst softmax statistics of f32 edge logits ``alpha`` [E] by int32
     ``dst`` [E] (padding ``dst >= num_rows`` dropped): f32 ``[num_rows, 2]``

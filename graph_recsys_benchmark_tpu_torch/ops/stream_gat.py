@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .cost import declares, stream_cost
 from .flash_gat import _check_table, bound_shift, dst_block_bounds, gat_fwd_plain, t_dtype_of
 from .segment import segment_max, segment_sum
 
@@ -115,6 +116,8 @@ def stream_gat_fwd_plain(table, adst_r, mhat, src, dst, num_rows, kz,
                          negative_slope, acc_dtype)
 
 
+@declares("stream_gat_fwd", lambda table, adst_r, mhat, src, dst, num_rows, kz, *a, **k:
+          stream_cost("fwd", dst.shape[0], kz, adst_r.shape[0], num_rows, table.element_size()))
 def stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope=0.2,
                    block_bounds=None, piece_edges=None):
     """Unnormalized accumulator ``[num_rows, n_ch*(kz+1)]`` f32 (band c =
@@ -223,6 +226,9 @@ def stream_gat_bwd_dst_plain(table, stat, src, dst, num_rows, kz, negative_slope
     return segment_sum(dpre, d, num_rows).t().contiguous()
 
 
+@declares("stream_gat_bwd_dst", lambda table, stat, src, dst, num_rows, kz, *a, **k:
+          stream_cost("bwd_dst", dst.shape[0], kz, table.shape[1] // (kz + 1), num_rows,
+                      table.element_size()))
 def stream_gat_bwd_dst(table, stat, src, dst, num_rows, kz, negative_slope=0.2,
                        block_bounds=None, piece_edges=None):
     """da_dst f32[n_ch, num_rows]: Σ round_T(dpre) by dst over the block
@@ -276,6 +282,9 @@ def stream_gat_bwd_src_plain(table, stat, src_perm, src_sorted, dst, num_rows, k
     return dpk.index_add_(0, s, ct.reshape(-1, n_ch * (kz + 1)).to(acc_dtype))
 
 
+@declares("stream_gat_bwd_src", lambda table, stat, src_perm, src_sorted, dst, num_rows, kz,
+          *a, **k: stream_cost("bwd_src", dst.shape[0], kz, table.shape[1] // (kz + 1),
+                               num_rows, table.element_size()))
 def stream_gat_bwd_src(table, stat, src_perm, src_sorted, dst, num_rows, kz,
                        negative_slope=0.2, src_block_bounds=None, piece_edges=None):
     """dpk f32[n, n_ch*(kz+1)], band c = ``[dz_c | da_src_c]``: Σ

@@ -3,14 +3,22 @@
 
 The constructor builds the metapath channel graphs once on the host, as
 the JAX trainer does (its train/pea_trainer.py:38-80), from
-`metapath_edges` (default: the ml-latest-small table of the HIN):
-GAT channels of one depth get per-channel graphs with implicit
-self-loops past the streaming threshold (``_analytic_gat_loops``); if any
-graph carries them the grouped forward runs the per-channel graphs
-(ML-25M), else the channels go into the hybrid plan.  GCN and SAGE
-channels of one depth go into one union graph a step (the fused path);
-mixed depths need the per-channel path, which is not ported.  Graphs and
-sampling tables move to `device`.
+`metapath_edges` (default: the ml-latest-small table of the HIN), routed
+as there:
+
+  * GAT channels of one depth with ``cfg.fused`` get per-channel graphs
+    with implicit self-loops past the streaming threshold
+    (``_analytic_gat_loops``); if any graph carries them the grouped
+    forward runs the per-channel graphs (ML-25M), else the channels go
+    into the hybrid plan;
+  * GCN and SAGE channels of one depth with ``cfg.fused`` go into one
+    union graph a step (the fused path);
+  * everything else (metapaths of mixed depth, or ``cfg.fused`` off) runs
+    the per-channel graphs (graph.build_metapath_graphs): GAT of one depth
+    on the grouped forward, the rest on the ungrouped forward, one conv a
+    channel and step (models/pea.py).
+
+Graphs (each distinct one once) and sampling tables move to `device`.
 ``run_epoch`` trains one BPR epoch (``pea_loss``: BPR + the entity-aware
 regularizer, reference models/base.py:43-80) with the optimizer from
 ``optimizer(params)``; with GAT attention dropout (``cfg.dropout > 0``)
@@ -96,13 +104,12 @@ class PEATrainer(GraphEpochEngine):
             metapath_edges = mlsmall_metapath_edges(hin)
         if len(metapath_edges) != cfg.num_channels:
             raise ValueError("one metapath per channel expected")
-        if len(set(cfg.meta_path_steps)) != 1:
-            raise NotImplementedError(
-                "metapaths of mixed depth run the per-channel path, which is "
-                "not ported (ROADMAP Queue 1, \"Per-channel GCN/SAGE and mixed "
-                "metapath depths\")"
-            )
-        if cfg.conv == "gat":
+        depths = tuple(len(steps) for steps in metapath_edges)
+        if depths != tuple(cfg.meta_path_steps):
+            raise ValueError(f"metapath depths {depths} differ from meta_path_steps "
+                             f"{tuple(cfg.meta_path_steps)}")
+        uniform = len(set(cfg.meta_path_steps)) == 1
+        if cfg.fused and uniform and cfg.conv == "gat":
             per_channel = build_metapath_graphs(
                 metapath_edges, hin.num_nodes, cfg.conv,
                 analytic_gat_loops=self._analytic_gat_loops,
@@ -112,11 +119,16 @@ class PEATrainer(GraphEpochEngine):
             else:
                 self.graphs = build_hybrid_gat_plan(per_channel, hin.num_nodes,
                                                     cfg).to(self.device)
-        else:
+        elif cfg.fused and uniform:
             self.graphs = tuple(
                 g.to(self.device) for g in
                 build_fused_metapath_graphs(metapath_edges, hin.num_nodes, cfg.conv)
             )
+        else:  # the grouped (GAT of one depth) or the ungrouped forward
+            self.graphs = graphs_to(build_metapath_graphs(
+                metapath_edges, hin.num_nodes, cfg.conv,
+                analytic_gat_loops=self._analytic_gat_loops,
+            ), self.device)
         super().__init__(build_device_tables(hin, self.device), tcfg,
                          batch_loss=self.batch_loss, entity_aware=cfg.entity_aware)
         self._make_optimizer = make_optimizer(tcfg.opt, tcfg.lr, tcfg.weight_decay)

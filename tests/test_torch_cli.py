@@ -28,7 +28,7 @@ import torch
 
 from graph_recsys_benchmark_tpu import cli as jcli
 from graph_recsys_benchmark_tpu_torch import cli as tcli
-from torch_raw_files import write_ml25m_csvs, write_yelp_json
+from torch_raw_files import write_ml25m_csvs, write_ml_csvs, write_yelp_json
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--emb_dim", "8", "--hidden_size", "8", "--repr_dim", "4", "--entity_aware", "true",
@@ -82,36 +82,12 @@ def _assert_hin_equal(thin, jhin):
             assert a == b, f.name
 
 
-def _write_ml_csvs(folder, seed=0, num_users=60, num_movies=70):
-    """Grouplens-layout movies.csv / ratings.csv / tags.csv from a seed."""
-    rng = np.random.default_rng(seed)
-    genres = ["Action", "Comedy", "Drama", "Horror", "Romance", "Sci-Fi"]
-    os.makedirs(folder, exist_ok=True)
-    with open(os.path.join(folder, "movies.csv"), "w") as f:
-        f.write("movieId,title,genres\n")
-        for m in range(num_movies):
-            g = rng.choice(genres, size=rng.integers(1, 4), replace=False)
-            title = f"Movie {m}, The ({rng.integers(1930, 2019)})" if m % 3 else f"Film {m}"
-            f.write(f'{m + 1},"{title}",{"|".join(g)}\n')
-    with open(os.path.join(folder, "ratings.csv"), "w") as f:
-        f.write("userId,movieId,rating,timestamp\n")
-        for u in range(num_users):
-            for m in rng.choice(num_movies, size=rng.integers(6, 20), replace=False):
-                f.write(f"{u + 1},{m + 1},{rng.integers(1, 11) / 2},"
-                        f"{rng.integers(9e8, 1.5e9)}\n")
-    with open(os.path.join(folder, "tags.csv"), "w") as f:
-        f.write("userId,movieId,tag,timestamp\n")
-        for _ in range(300):
-            f.write(f"{rng.integers(1, num_users + 1)},{rng.integers(1, num_movies + 1)},"
-                    f"tag{rng.integers(0, 12)},{rng.integers(9e8, 1.5e9)}\n")
-
-
 @pytest.mark.parametrize("case", ["synthetic-dense", "synthetic-rejection", "ml-latest-small",
                                   "synthetic-ml25m", "synthetic-yelp", "ml-25m", "yelp"])
 def test_build_hin_matches_jax(case, tmp_path):
     raw = str(tmp_path / "raw")
     if case in ("ml-latest-small", "ml-25m", "yelp"):
-        {"ml-latest-small": _write_ml_csvs, "ml-25m": write_ml25m_csvs,
+        {"ml-latest-small": write_ml_csvs, "ml-25m": write_ml25m_csvs,
          "yelp": write_yelp_json}[case](raw)
         argv = ["--dataset", case, "--raw_dir", raw, "--num_core", "2", "--num_feat_core", "2"]
     elif case in ("synthetic-ml25m", "synthetic-yelp"):
@@ -138,7 +114,7 @@ def test_missing_raw_files_name_them(tmp_path):
 def test_missing_raw_files_name_them_for_ml25m_and_yelp(dataset, tmp_path):
     raw = str(tmp_path / "raw")
     if dataset == "ml-25m":
-        _write_ml_csvs(raw)  # the three ML files, no genome files
+        write_ml_csvs(raw)  # the three ML files, no genome files
         want = r"\['genome-scores\.csv', 'genome-tags\.csv'\]"
     else:
         os.makedirs(raw)

@@ -19,7 +19,8 @@ gradient 1e-5 of its largest value.  bf16 transport, against the JAX package's o
 leaf 1e-3 and every leaf 5e-2 (sums in another order can move one bf16
 rounding of a scattered gradient row, and a ReLU input at 0 its node's
 contribution).  The GAT conv on the fused graphs is held in f32 (forward).
-A tiny epoch runs on the CPU for each conv.
+A tiny epoch runs on the CPU for each conv, and one of metapaths of mixed
+depth (the per-channel graphs).
 """
 
 import jax
@@ -225,7 +226,15 @@ def test_run_epoch_on_cpu(world, conv):
     assert float(second) < float(first)
     res = trainer.evaluate(params, torch.Generator().manual_seed(0))
     assert all(torch.isfinite(res[k]).all() for k in ("HR", "NDCG", "AUC"))
+    # metapaths of mixed depth (the last channel takes its first step
+    # only) train on the per-channel graphs: a finite epoch loss
     mixed = tpea.PEAConfig(conv=conv, num_nodes=th.num_nodes,
                            **dict(SMALL, meta_path_steps=(2,) * 8 + (1,)))
-    with pytest.raises(NotImplementedError):  # the per-channel path
-        PEATrainer(th, mixed, TrainConfig(), device="cpu")
+    edges = tml.mlsmall_metapath_edges(th)
+    trainer = PEATrainer(th, mixed, TrainConfig(batch_size=1000, num_negative_samples=1,
+                                                lr=1e-2),
+                         metapath_edges=list(edges[:8]) + [edges[8][:1]], device="cpu")
+    assert [len(ch) for ch in trainer.graphs] == [2] * 8 + [1]
+    params = trainer.init(0)
+    loss = trainer.run_epoch(params, trainer.optimizer(params), torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss)

@@ -1,11 +1,50 @@
-"""Small raw dataset files that the port's tests write: the ML-25M CSVs
-(the grouplens layout plus genome scores and tags) and the five Yelp
-JSON-lines files, each drawn from a numpy seed."""
+"""Small raw dataset files that the port's tests (and chip_smoke.py's CLI
+archive phase) write: the ml-latest-small CSVs (the grouplens layout), the
+ML-25M CSVs (plus genome scores and tags) and the five Yelp JSON-lines
+files, each drawn from a numpy seed."""
 
 import json
 import os
+import zipfile
 
 import numpy as np
+
+
+def write_ml_csvs(folder, seed=0, num_users=60, num_movies=70):
+    """Grouplens-layout movies.csv / ratings.csv / tags.csv from a seed."""
+    rng = np.random.default_rng(seed)
+    genres = ["Action", "Comedy", "Drama", "Horror", "Romance", "Sci-Fi"]
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "movies.csv"), "w") as f:
+        f.write("movieId,title,genres\n")
+        for m in range(num_movies):
+            g = rng.choice(genres, size=rng.integers(1, 4), replace=False)
+            title = f"Movie {m}, The ({rng.integers(1930, 2019)})" if m % 3 else f"Film {m}"
+            f.write(f'{m + 1},"{title}",{"|".join(g)}\n')
+    with open(os.path.join(folder, "ratings.csv"), "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        for u in range(num_users):
+            for m in rng.choice(num_movies, size=rng.integers(6, 20), replace=False):
+                f.write(f"{u + 1},{m + 1},{rng.integers(1, 11) / 2},"
+                        f"{rng.integers(9e8, 1.5e9)}\n")
+    with open(os.path.join(folder, "tags.csv"), "w") as f:
+        f.write("userId,movieId,tag,timestamp\n")
+        for _ in range(300):
+            f.write(f"{rng.integers(1, num_users + 1)},{rng.integers(1, num_movies + 1)},"
+                    f"tag{rng.integers(0, 12)},{rng.integers(9e8, 1.5e9)}\n")
+
+
+def write_ml_zip(zip_path, wrapper="ml-latest-small", seed=0):
+    """A grouplens-layout archive of write_ml_csvs's files: each under
+    ``<wrapper>/`` (a flat archive for wrapper None), written beside
+    `zip_path` in a staging folder first.  Returns zip_path."""
+    stage = os.path.join(os.path.dirname(os.path.abspath(zip_path)), "stage-" + str(seed))
+    write_ml_csvs(stage, seed=seed)
+    with zipfile.ZipFile(zip_path, "w") as zf:
+        for name in sorted(os.listdir(stage)):
+            zf.write(os.path.join(stage, name),
+                     arcname=name if wrapper is None else f"{wrapper}/{name}")
+    return zip_path
 
 
 def write_ml25m_csvs(folder, seed=0, num_users=60, num_movies=40, num_genome_tags=12):
