@@ -113,6 +113,24 @@
       wrappers' declared terms), profiling.timed (20 steps after 3) and
       roofline_report: hbm_util and mfu each in (0, 1], printed beside the
       card's name and power limit.
+   f. baselines_phase, the graph baselines on the flagship HIN at the
+      CLI's published widths (emb 64, hidden 64: convs 64 -> 64 -> 32 ->
+      16) and TrainConfig's defaults: NGCF, KGAT, KGCN per transport, CFKG
+      and NFM in f32. K7, K5 and K6 at the NGCF graph's (143,842 edges)
+      and the KG graph's (164,048 edges, 8 relations and their reverses)
+      shapes, D 64 and 32, per transport (edge_cases), and K8 on the KG
+      graph at KGAT's and KGCN's attention logits (check_softmax), each
+      with its device, plain and library ms and its bound; per model one
+      step (KGAT/KGCN: a CF step under the attention snapshot) against
+      plain_on_card and a CPU copy (loss and median leaf within PC_TOL /
+      PC_MEDIAN, every leaf KINK_TOL; NFM's new BatchNorm statistics; the
+      attention map within 1e-5); one step's and one eval's launches
+      against the code's count (an NGCF step K7 9, K5 6, K6 3; a KG CF
+      step K7 6, K5 3, K6 3; an attention snapshot K8 1, K7 1; the KG
+      phase, CFKG and NFM none; an eval NGCF K7 6, K5 3, KG K8 1, K7 4,
+      K5 3); then 2 warm-up and 8 timed steps, a KG epoch (KGAT/KGCN) and
+      an eval with the counts read over them, step ms, epoch s, eval ms
+      and the card's busy share over 8 profiled steps.
 10. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
    configuration: synthetic_ml25m_hin() (seed 0: 68,830 nodes, 2.13 M
    train interactions, 40,000 test users, rejection candidates), 13
@@ -219,13 +237,21 @@
       route's, an eval's the hybrid plan's; the train loss falls); `--opt
       sparseadam`, 1 run x 3 epochs (launches, the loss falls; one step's
       untouched rows of x stay bitwise as they were, their count printed).
+   g. baselines_cli_phase: `--model M --dataset synthetic-ml --runs 5
+      --epochs 10` (the published recipe cut to 10 of its 30 epochs) for
+      NGCF, KGAT, KGCN, CFKG and NFM, and KGAT with `--message_dtype bf16`: launches against the code's
+      count, each run's best HR@10 above its initial, the overall HR@10
+      within hr_band of the JAX CLI's CPU result (BASELINE_JAX_CPU); then
+      an NFM run stopped after epoch 1 and resumed at epoch 2 by a second
+      Solver, its BatchNorm buffers restored bitwise from `latest`.
 12. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
    timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
    the eval after it),
    K8-K11's and the ML-25M and Yelp entries of K5-K7 their regime's
    8 timed steps, the per-channel entries of K5-K8 one step of the mixed
-   table, a variant route's forward its mode's eval and its
+   table, the baselines' entries of K5-K8 their model's timed run (9f), a
+   variant route's forward its mode's eval and its
    backward its mode's 20 steps),
    then {"ok": true, "device": {...}} last.
 
@@ -320,19 +346,25 @@ def check_sum(name, got, exact, bound):
     return share
 
 
-def leaf_errors(label, params, ref):
+def leaf_errors(label, params, ref, zero_floor=0.0):
     """Every gradient leaf of `params` against the same leaf of `ref` (a
     model of the same layout, on any device), relative to the ref leaf's
     largest value, sorted; every gradient present and finite, and exact
-    zeros where ref's are (fc2's bias cancels in pos - neg)."""
+    zeros where ref's are (fc2's bias cancels in pos - neg).  With
+    `zero_floor`, a ref leaf no larger than that share of the largest
+    gradient of all is a zero but for rounding noise (NFM's fc1.b and
+    bn0_bias, whose shifts the next BatchNorm removes): the leaf is held
+    to the same share instead."""
+    floor = zero_floor * max(float(r.grad.abs().max()) for r in ref.parameters())
     errs = []
     for (name, p), r in zip(params.named_parameters(), ref.parameters()):
         check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
               f"{label} grad {name}: missing or not finite")
-        if r.grad.any():
+        if float(r.grad.abs().max()) > floor:
             errs.append((rel_err(p.grad.to(r.grad.device), r.grad)[1], name))
         else:
-            check(not p.grad.any(), f"{label} grad {name}: expected exact zeros")
+            check(float(p.grad.abs().max()) <= floor,
+                  f"{label} grad {name}: expected {'exact zeros' if floor == 0 else 'noise'}")
     return sorted(errs)
 
 
@@ -381,12 +413,9 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def build_flagship():
-    """The HIN and, per conv (gat, gcn, sage) and transport, a PEATrainer on
-    the card with bench.py:42-59's configuration."""
+def flagship_hin():
+    """bench.py:42-59's synthetic ml-latest-small HIN (seed 7)."""
     from graph_recsys_benchmark_tpu_torch.data import build_mlsmall_hin, synthetic_mlsmall_raw
-    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
-    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
 
     movies, ratings, tagging = synthetic_mlsmall_raw(
         seed=7, num_users=600, num_items=900,
@@ -394,7 +423,16 @@ def build_flagship():
         num_directors=120, num_actors=320, num_writers=160,
         num_tags=180, tagging_rows=3000,
     )
-    hin = build_mlsmall_hin(movies, ratings, tagging, num_core=10, num_feat_core=5)
+    return build_mlsmall_hin(movies, ratings, tagging, num_core=10, num_feat_core=5)
+
+
+def build_flagship():
+    """The HIN and, per conv (gat, gcn, sage) and transport, a PEATrainer on
+    the card with bench.py:42-59's configuration."""
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
+
+    hin = flagship_hin()
     trainers = {}
     for conv in ("gat", "gcn", "sage"):
         cfg = PEAConfig(
@@ -3032,6 +3070,426 @@ def archive_cli_phase(tmp):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- baselines
+
+BASELINES = (("NGCF", "f32"), ("NGCF", "bf16"), ("KGAT", "f32"), ("KGAT", "bf16"),
+             ("KGCN", "f32"), ("KGCN", "bf16"), ("CFKG", "f32"), ("NFM", "f32"))
+# the baselines' launches by the code (train/baseline_trainers.py): an NGCF
+# conv gathers by src and by dst (K7 2) and sums (K5 1), its backward K7 1
+# (the sum), K6 1 (the src gather), K5 1 (the dst gather); a KG conv gathers
+# by src only; the attention snapshot is K8 and the K7 of its stats; the KG
+# phase, CFKG and NFM launch none
+BASELINE_STEP = {"NGCF": dict(gather=9, segsum=6, scatter=3),
+                 "KGAT": dict(gather=6, segsum=3, scatter=3)}
+BASELINE_STEP["KGCN"] = BASELINE_STEP["KGAT"]
+BASELINE_ATT = dict(softmax=1, gather=1)
+BASELINE_EVAL = {"NGCF": dict(gather=6, segsum=3),
+                 "KGAT": dict(softmax=1, gather=4, segsum=3)}
+BASELINE_EVAL["KGCN"] = BASELINE_EVAL["KGAT"]
+# message widths of the three convs (emb 64 -> 64 -> 32 -> 16): the gathers
+# and their backwards take the convs' inputs (64, 64, 32); NGCF sums its
+# outputs (64, 32, 16), the KG convs their inputs (64, 64, 32)
+BASELINE_WIDTHS = (64, 32)
+
+
+def _times(counts, k):
+    return {name: v * k for name, v in counts.items()}
+
+
+def _add(*counts):
+    out = {}
+    for c in counts:
+        for name, v in c.items():
+            out[name] = out.get(name, 0) + v
+    return out
+
+
+def baseline_epoch_launches(model, trainer):
+    """One epoch's launches: NGCF's steps; KGAT/KGCN's attention snapshot
+    and CF steps (the KG phase launches none); none for CFKG and NFM."""
+    if model == "NGCF":
+        return _times(BASELINE_STEP[model], trainer.num_batches)
+    if model in ("KGAT", "KGCN"):
+        return _add(BASELINE_ATT, _times(BASELINE_STEP[model], trainer.num_batches))
+    return {}
+
+
+def build_baseline(hin, model, transport, device="cuda"):
+    """A baseline trainer on `hin` at the CLI's published widths (emb 64,
+    hidden 64; NFM's dropout 0.3) and TrainConfig's defaults (batch 1,024,
+    4 'unseen' negatives, Adam lr 1e-3, L2 1e-3)."""
+    from graph_recsys_benchmark_tpu_torch.models.cfkg import CFKGConfig
+    from graph_recsys_benchmark_tpu_torch.models.kg import KGConfig
+    from graph_recsys_benchmark_tpu_torch.models.nfm import NFMConfig
+    from graph_recsys_benchmark_tpu_torch.models.ngcf import NGCFConfig
+    from graph_recsys_benchmark_tpu_torch.train import baseline_trainers as B
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    tcfg = TrainConfig()
+    if model == "NGCF":
+        return B.NGCFTrainer(hin, NGCFConfig(hin.num_nodes, 64, 64), tcfg, device=device,
+                             transport=transport)
+    if model in ("KGAT", "KGCN"):
+        cfg = KGConfig(model.lower(), hin.num_nodes, hin.num_edge_types, 64, 64)
+        return B.KGTrainer(hin, cfg, tcfg, device=device, transport=transport)
+    if model == "CFKG":
+        cfg = CFKGConfig(hin.num_nodes, hin.num_edge_types, hin.edge_type_dict["user2item"], 64)
+        return B.CFKGTrainer(hin, cfg, tcfg, device=device)
+    return B.NFMTrainer(hin, NFMConfig(hin.num_users, hin.num_items, 64, 64), tcfg,
+                        device=device)
+
+
+def baseline_loss(trainer, params, batch, mask, att=None):
+    """The loss (with NFM, and its new statistics) of one step of the
+    family's main phase without dropout: KGAT/KGCN's CF loss under `att`
+    (None: the snapshot of `params`)."""
+    if hasattr(trainer, "att_snapshot"):
+        if att is None:
+            att = trainer.att_snapshot(params)
+        return trainer._cf_loss(params, att, batch, mask, None)
+    if hasattr(trainer, "batch_loss"):  # NGCF, NFM: the method, on this trainer's graph
+        return trainer.batch_loss(params, batch, mask)
+    return trainer._batch_loss(params, batch, mask, None)  # CFKG: no graph
+
+
+def baseline_step_vs_references(model, trainer, label):
+    """One step's loss and every gradient on the card against the same step
+    with every kernel's plain version on the card (plain_on_card) and on a
+    CPU copy (the trainer's graph moved to the CPU): init(2020), a seeded
+    batch, the last 100 rows padding; the loss within PC_TOL, the median
+    leaf within PC_MEDIAN, every leaf within KINK_TOL; NFM's new BatchNorm
+    statistics within PC_TOL; KGAT/KGCN's attention map within 1e-5 of its
+    largest value.  Leaves the loss does not reach get zero gradients
+    (train/engine.fill_grads), as every step gives them; a leaf whose exact
+    gradient is 0 is held to 1e-6 of the largest (leaf_errors' zero_floor)."""
+    from graph_recsys_benchmark_tpu_torch.train.engine import fill_grads
+
+    transport, bs = trainer.transport, trainer.tcfg.batch_size
+    params = trainer.init(2020)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = trainer._build_batch(torch.randperm(trainer.n_rows, device="cuda",
+                                                generator=gen)[:bs], gen)
+    rmask = (torch.arange(bs, device="cuda") < bs - 100).float()
+    cpu = copy.copy(trainer)
+    if hasattr(trainer, "graph"):
+        cpu.graph = trainer.graph.to("cpu")
+    refs = [("plain on the card", copy.deepcopy(params), trainer, "cuda"),
+            ("CPU", copy.deepcopy(params).cpu(), cpu, "cpu")]
+    kg = hasattr(trainer, "att_snapshot")
+    att = trainer.att_snapshot(params) if kg else None
+    out = baseline_loss(trainer, params, batch, rmask, att)
+    loss, state = out if trainer.has_state else (out, None)
+    loss.backward()
+    fill_grads(params)
+    tol, median_tol = PC_TOL[transport], PC_MEDIAN[(transport, False)]
+    line = []
+    for name, ref_params, ref_tr, dev in refs:
+        with plain_on_card() if dev == "cuda" else contextlib.nullcontext():
+            ref_att = ref_tr.att_snapshot(ref_params) if kg else None
+            if kg:
+                _, rel = rel_err(att.cpu(), ref_att.cpu())
+                check(rel <= 1e-5, f"{label} attention map vs {name}: {rel}")
+            ref_out = baseline_loss(ref_tr, ref_params, batch.to(dev), rmask.to(dev), ref_att)
+            ref_loss, ref_state = ref_out if trainer.has_state else (ref_out, None)
+            ref_loss.backward()
+            fill_grads(ref_params)
+        torch.cuda.synchronize()
+        _, rel = rel_err(loss.detach().cpu(), ref_loss.detach().cpu())
+        check(rel <= tol, f"{label} step loss vs {name}: relative error {rel} > {tol}")
+        if state is not None:
+            for k, v in state.items():
+                _, srel = rel_err(v.cpu(), ref_state[k].cpu())
+                check(srel <= tol, f"{label} {k} vs {name}: relative error {srel}")
+        errs = leaf_errors(label, params, ref_params, zero_floor=1e-6)
+        median, worst = errs[len(errs) // 2], errs[-1]
+        check(median[0] <= median_tol and worst[0] <= KINK_TOL,
+              f"{label} grads vs {name}: median {median} > {median_tol} or worst {worst} > "
+              f"{KINK_TOL}")
+        line.append(f"vs {name}: loss rel {rel:.3e}, gradients median {median[1]} "
+                    f"{median[0]:.3e}, worst {worst[1]} {worst[0]:.3e}")
+    print(f"{label}: one step, loss {float(loss.detach()):.6f}; " + "; ".join(line), flush=True)
+
+
+def baseline_launch_checks(model, trainer, label):
+    """The launches of one step of each phase and of one eval, each with
+    every count set to 0 just before and read just after, against
+    BASELINE_STEP / BASELINE_ATT / BASELINE_EVAL."""
+    bs = trainer.tcfg.batch_size
+    params = trainer.init(2020)
+    opt = trainer.optimizer(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, mask = torch.arange(bs, device="cuda"), torch.ones(bs, device="cuda")
+
+    def counted(fn, want, what):
+        reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(got == expected(**want), f"{label} {what}: launches {got}, expected {want}")
+        return res
+
+    if model in ("KGAT", "KGCN"):
+        counted(lambda: trainer.kg_step(params, opt, rows, mask, gen), {}, "KG-phase step")
+        att = counted(lambda: trainer.att_snapshot(params), BASELINE_ATT, "attention snapshot")
+        batch = trainer._build_batch(rows, gen)
+        counted(lambda: trainer._step(params, opt, lambda: trainer._cf_loss(
+            params, att, batch, mask, gen)), BASELINE_STEP[model], "CF step")
+    else:
+        counted(lambda: trainer.train_step(params, opt, rows, mask, gen),
+                BASELINE_STEP.get(model, {}), "step")
+    counted(lambda: trainer.evaluate(params, gen), BASELINE_EVAL.get(model, {}), "eval")
+
+
+def baseline_timed_run(model, trainer, label):
+    """2 warm-up and 8 timed steps of the family's main phase (KGAT/KGCN:
+    CF steps under one snapshot), one KG epoch (KGAT/KGCN) and one eval,
+    from init(2020), every count set to 0 before and read after against
+    the prediction; step ms, epoch s, eval ms, the loss finite, and the
+    card's busy share over 8 profiled steps (device_breakdown).  Returns
+    the launches."""
+    bs = trainer.tcfg.batch_size
+    params = trainer.init(2020)
+    opt = trainer.optimizer(params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kg = model in ("KGAT", "KGCN")
+    reset_launches()
+    att = trainer.att_snapshot(params) if kg else None
+
+    def step():
+        rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+        mask = torch.ones(bs, device="cuda")
+        if kg:
+            batch = trainer._build_batch(rows, gen)
+            return trainer._step(params, opt, lambda: trainer._cf_loss(params, att, batch,
+                                                                       mask, gen))
+        return trainer.train_step(params, opt, rows, mask, gen)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(8)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    check(all(bool(torch.isfinite(v)) for v in losses), f"{label}: step losses {losses}")
+    epoch_s = None
+    if kg:
+        t0 = time.perf_counter()
+        out = trainer.run_epoch(params, opt, gen)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        check(set(out) == {"train_loss", "kg_train_loss"} and all(
+            np.isfinite(float(v)) for v in out.values()), f"{label} epoch: {out}")
+    t0 = time.perf_counter()
+    m = trainer.evaluate(params, gen)
+    hr10 = float(m["HR"][5])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    want = _add(_times(BASELINE_STEP.get(model, {}), 10), BASELINE_EVAL.get(model, {}))
+    if kg:
+        want = _add(want, BASELINE_ATT, baseline_epoch_launches(model, trainer))
+    check(launches == expected(**want), f"{label} timed run: launches {launches}, "
+          f"predicted {expected(**want)}")
+    check(np.isfinite(hr10), f"{label}: HR@10 {hr10}")
+    print(f"{label}: step ms {step_ms:.4f} ({bs} rows, train examples/s "
+          f"{bs / step_ms * 1e3:.1f}); " + (f"one epoch ({trainer.kg_batches} KG + "
+          f"{trainer.num_batches} CF steps) {epoch_s:.3f} s; " if kg else "")
+          + f"eval ({trainer.tables.test_users.numel()} users) ms {eval_ms:.3f}, HR@10 "
+          f"{hr10:.4f}; launches over 10 steps{', an epoch' if kg else ''} and an eval "
+          f"{launches}", flush=True)
+    device_breakdown(lambda: [step() for _ in range(8)], f"{label} 8 steps", 8 * step_ms)
+    return launches
+
+
+def baseline_kernel_phase(trainers):
+    """K7, K5 and K6 at the NGCF and KG graphs' shapes (edge_cases: each
+    against its plain version, K5 and K6 row by row within sum_bound, with
+    the device, plain and library ms and the bound), per transport; K8 on
+    the KG graph at KGAT's and KGCN's attention logits of init(2020)
+    (check_softmax), with its device, plain and library ms and the bound
+    (every logit and id read once, the [N, 2] table written once; 4
+    operations a real edge)."""
+    from graph_recsys_benchmark_tpu_torch.models.kg import att_logits
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    rng = np.random.default_rng(4)
+    eres = {}
+    for conv, model in (("ngcf", "NGCF"), ("kg", "KGAT")):
+        g = trainers[(model, "f32")].graph
+        print(f"baselines {model} graph: {g.num_nodes} rows, {g.num_edges} edges (padded "
+              f"{g.dst.numel()})", flush=True)
+        for d in BASELINE_WIDTHS:
+            edge_cases(g, d, f"{conv} D {d}", conv, rng, eres)
+    kres = {}
+    for model in ("KGAT", "KGCN"):
+        tr = trainers[(model, "f32")]
+        g, n = tr.graph, tr.graph.num_nodes
+        alpha = att_logits(tr.init(2020), g, tr.cfg)
+
+        def kernel():
+            return sk.softmax_stats(alpha, g.dst, n, g.block_bounds)
+
+        got = kernel()
+        _, exact, _, share = check_softmax(f"{model} softmax_stats", got, alpha, g.dst, n)
+        d64 = torch.clamp(g.dst.long(), max=n)
+
+        def lib():
+            mx = torch.full((n + 1,), float("-inf"), device="cuda").scatter_reduce_(
+                0, d64, alpha, "amax")
+            return torch.zeros(n + 1, device="cuda").index_add_(0, d64,
+                                                                torch.exp(alpha - mx[d64]))
+
+        ms = device_ms(kernel)
+        plain_ms = device_ms(lambda: sk.softmax_stats_plain(alpha, g.dst, n), reps=10)
+        lib_ms = device_ms(lib)
+        b_ms, b_by = bound_ms(8 * g.dst.numel() + 8 * n, 4 * g.num_edges)
+        err = rel_err(got[:, 1].double(), exact[:, 1])[0]
+        print(f"softmax_stats f32: {model} attention map, rows {n} edges {g.num_edges} "
+              f"(padded {g.dst.numel()}) sum err vs float64 {err:.3e} ({share:.3f} of the "
+              f"rounding bound) ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms:.5f} "
+              f"bound_ms {b_ms:.5f} ({b_by})", flush=True)
+        kres[model] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+    return eres, kres
+
+
+def baselines_phase(hin):
+    """The baselines (NGCF, KGAT, KGCN per transport; CFKG, NFM in f32) on
+    the flagship HIN at the CLI's published widths: the kernels at their
+    graphs' shapes (baseline_kernel_phase), then per model one step against
+    plain_on_card and a CPU copy, the launches of each phase's step and of
+    an eval, and a timed run.  Returns (edge kernel results, K8 results,
+    each run's launches)."""
+    t0 = time.perf_counter()
+    trainers = {key: build_baseline(hin, *key) for key in BASELINES}
+    print(f"baselines: {len(trainers)} trainers built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    eres, kres = baseline_kernel_phase(trainers)
+    launches = {}
+    for (model, transport), tr in trainers.items():
+        label = f"{model} {transport}"
+        check(tr.device.type == "cuda", f"{label}: trainer on {tr.device}")
+        baseline_step_vs_references(model, tr, label)
+        baseline_launch_checks(model, tr, label)
+        launches[(model, transport)] = baseline_timed_run(model, tr, label)
+    return eres, kres, launches
+
+
+BASELINE_MODELS = ("NGCF", "KGAT", "KGCN", "CFKG", "NFM")
+# the published recipe's settings but 10 of its 30 epochs (batch 1,024,
+# 'unseen' negatives, f32, Adam), which keeps the five models' calls near a
+# minute on the card
+BASELINE_ARGV = ["--dataset", "synthetic-ml", "--runs", "5", "--epochs", "10"]
+# the JAX CLI's results on a CPU (JAX_PLATFORMS=cpu; not a TPU's or the
+# card's numbers, PERF.md section 2) for `--model M` + BASELINE_ARGV:
+# (HR@10, NDCG@10, AUC)
+BASELINE_JAX_CPU = {"NGCF": (0.2893, 0.1516, 0.7127), "KGAT": (0.2960, 0.1616, 0.7169),
+                    "KGCN": (0.2867, 0.1589, 0.7345), "CFKG": (0.2640, 0.1324, 0.7116),
+                    "NFM": (0.2693, 0.1402, 0.6823)}
+
+
+def hr_band(p, users, runs, ref_runs=5):
+    """The JAX CPU result p (a mean of ref_runs runs) +- 4 standard errors of
+    the difference of two independent run means of U-user hit rates, 4
+    sqrt(p (1 - p) / U (1 / R + 1 / ref_runs)): 4 sqrt(2 p (1 - p) / (U R))
+    for R = ref_runs."""
+    w = 4.0 * (p * (1.0 - p) / users * (1.0 / runs + 1.0 / ref_runs)) ** 0.5
+    return (p - w, p + w)
+
+
+class _Stop(Exception):
+    """Stops a Solver's run where a crash would."""
+
+
+def baselines_cli_phase(tmp):
+    """The five baselines through cli.main in process (cli_calls, each call
+    with every launch count set to 0 just before and read just after):
+    `--model M` + BASELINE_ARGV (5 runs x 10 epochs), and KGAT once more
+    with `--message_dtype bf16`: the launches against the prediction (an
+    epoch's x 50 epochs, plus an eval's x 55 evals), each run's best HR@10
+    above its initial, the overall HR@10 within hr_band of the JAX CLI's
+    CPU result; then an NFM run that stops
+    after epoch 1 of 2 and a second Solver that resumes it at epoch 2 from
+    its `latest` checkpoint, the BatchNorm buffers restored bitwise."""
+    from graph_recsys_benchmark_tpu_torch.models.nfm import STATE
+    from graph_recsys_benchmark_tpu_torch.train.solver import Solver
+
+    argv_of, trainer_of, run = cli_calls(tmp)
+    out = {}
+    for model, extra in [(m, []) for m in BASELINE_MODELS] + [("KGAT", ["--message_dtype",
+                                                                        "bf16"])]:
+        label = f"cli {model}" + (" bf16" if extra else "")
+        argv = ["--model", model] + BASELINE_ARGV + extra
+        tr, hin = trainer_of(argv, label)
+        check(tr.device.type == "cuda", f"{label}: the CLI's trainer is on {tr.device}")
+        runs, epochs = tr.tcfg.runs, tr.tcfg.epochs
+        overall, launches, wall, path, lines = run(argv, label)
+        want = expected(**_add(_times(baseline_epoch_launches(model, tr), runs * epochs),
+                               _times(BASELINE_EVAL.get(model, {}), runs * (epochs + 1))))
+        check(launches == want, f"{label}: launches {launches}, predicted {want}")
+        inits = [float(re.search(r"HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
+                 if ln.startswith("Initial performance")]
+        bests = [float(re.search(r"best HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
+                 if ", Duration: " in ln]
+        check(len(inits) == len(bests) == runs and all(b > i for i, b in zip(inits, bests)),
+              f"{label} {path}: initial {inits}, best {bests}")
+        r_hr, r_ndcg, r_auc = BASELINE_JAX_CPU[model]
+        band = hr_band(r_hr, hin.candidates.test_users.shape[0], runs)
+        hr10, auc = float(overall["HR"][5]), float(np.ravel(overall["AUC"])[0])
+        check(band[0] <= hr10 <= band[1], f"{label}: overall HR@10 {hr10} outside {band}")
+        print(f"{label} ({runs} runs x {epochs} epochs, {tr.num_batches} steps an epoch"
+              + (f" + {tr.kg_batches} KG steps" if hasattr(tr, "kg_batches") else "")
+              + f"): initial HR@10 {inits} best {bests} overall HR@10 {hr10:.4f} NDCG@10 "
+              f"{float(overall['NDCG'][5]):.4f} AUC {auc:.4f} (the JAX CLI on a CPU: HR@10 "
+              f"{r_hr}, NDCG@10 {r_ndcg}, AUC {r_auc}; HR@10 {hr10 - r_hr:+.4f}; band "
+              f"({band[0]:.4f}, {band[1]:.4f})); wall {wall:.2f} s; launches {launches}",
+              flush=True)
+        out[label] = dict(hr10=hr10, auc=auc, wall=wall, launches=launches)
+
+    # NFM: a run stopped after epoch 1, resumed at epoch 2 from `latest`
+    argv = ["--model", "NFM", "--dataset", "synthetic-ml", "--runs", "1", "--epochs", "2",
+            "--save_every_epoch", "0"]
+    tr, _ = trainer_of(argv, "nfm-resume")
+    folder = os.path.join(tmp, "nfm-resume", "solver")
+    real, seen = tr.run_epoch, []
+
+    def stop_at_2(params, opt, gen):
+        if len(seen) == 1:
+            raise _Stop("stopped before epoch 2")
+        seen.append(None)
+        return real(params, opt, gen)
+
+    tr.run_epoch = stop_at_2
+    try:
+        Solver(tr, folder, runs=1, epochs=2, save_every_epoch=0).run()
+        check(False, "nfm-resume: the run was not stopped")
+    except _Stop:
+        pass
+    saved = torch.load(os.path.join(folder, "run_1", "latest.ckpt"), map_location="cpu",
+                       weights_only=True)
+    check(saved["epoch"] == 1, f"nfm-resume: latest at epoch {saved['epoch']}")
+    resumed = {}
+
+    def first(params, opt, gen):
+        resumed.setdefault("state", {k: getattr(params, k).detach().clone() for k in STATE})
+        return real(params, opt, gen)
+
+    tr.run_epoch = first
+    Solver(tr, folder, runs=1, epochs=2, save_every_epoch=0).run()
+    fresh = tr.init(2020)
+    for k in STATE:
+        check(torch.equal(resumed["state"][k].cpu(), saved["params"][k])
+              and not torch.equal(getattr(fresh, k), resumed["state"][k]),
+              f"nfm-resume: {k} not restored from the checkpoint")
+    _, lines = _log_lines(folder)
+    epochs_logged = [int(re.search(r"epoch: (\d+)", ln).group(1)) for ln in lines
+                     if ", epoch: " in ln]
+    check(epochs_logged == [1, 2], f"nfm-resume: epochs logged {epochs_logged}")
+    print(f"nfm-resume: stopped after epoch 1, resumed at epoch 2 with the BatchNorm buffers "
+          f"of the checkpoint ({', '.join(STATE)}), bitwise", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3095,6 +3553,7 @@ def main():
     timed("PEAGAT dropout", dropout_phase, hin, trainers["f32"])
     pres = timed("per-channel", per_channel_phase, hin)
     timed("profiling and roofline", profiling_phase, trainers, smi)
+    beres, bkres, blaunch = timed("baselines", baselines_phase, hin)
     del hin, all_trainers, trainers, plan, union
     torch.cuda.empty_cache()
 
@@ -3121,6 +3580,7 @@ def main():
         cres = cli_phase(tmp)
         timed("cli archive", archive_cli_phase, tmp)
         timed("cli datasets", cli_datasets_phase, tmp)
+        timed("cli baselines", baselines_cli_phase, tmp)
     print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
 
     repo = "graph_recsys_benchmark_tpu"
@@ -3217,6 +3677,30 @@ def main():
             launches=pres["launches"][(conv, "mixed", transport)][kind],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # the baselines: launches those of the model's timed run (10 steps, for
+    # KGAT a KG epoch, and an eval; the KG graph's entries KGAT's run)
+    bpath = {"ngcf": ("NGCF", "NGCF"), "kg": ("KGAT", "KGAT and KGCN")}
+    for (kind, conv, transport), r in beres.items():
+        model, what = bpath[conv]
+        kernels.append(dict(
+            name=f"{SEG_KERNELS[kind]} ({transport}; {what} on the flagship's {conv.upper()} "
+                 f"graph: {' + '.join(r['shapes'])}; launches of {model}'s timed run)",
+            route="cuda", source=f"{csrc}/segment.cu",
+            replaces=f"{repo}/ops/pallas_segment.py:{lines[kind]}",
+            launches=blaunch[(model, transport)][kind], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    for model, r in bkres.items():
+        kernels.append(dict(
+            name=f"softmax_stats (f32; {model} attention map on the flagship's KG graph; "
+                 f"launches of {model}'s timed run)",
+            route="cuda", source=f"{csrc}/segment.cu",
+            replaces=f"{repo}/ops/pallas_segment.py:{lines['softmax']}",
+            launches=blaunch[(model, "f32")]["softmax"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     # the variant routes: a forward's launches are its mode's eval's, a
     # backward's the mode's MODE_STEPS steps'

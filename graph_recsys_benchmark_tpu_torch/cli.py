@@ -1,4 +1,5 @@
-"""Unified CLI of the port: one entry point for the PEA models.
+"""Unified CLI of the port: one entry point for the PEA models and the
+graph baselines.
 
 Port of the JAX package's ``cli.py`` with the same flags, defaults and
 choices, plus ``--device`` (default: the card; ``cpu`` runs the kernels'
@@ -16,8 +17,10 @@ Ported: PEAGCN, PEAGAT and PEASage on all six datasets (``ml-latest-small``,
 MovieLens sets ``--dataset_url file:///.../x.zip`` extracts a local
 archive there first, data/download.py), both candidate modes (ML-25M defaults to rejection), f32 or
 bf16 message transport (``--message_dtype``, the trainer's ``transport``),
-GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD.  The
-baselines, the walk flags and the parallel layer raise
+GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD; the
+baselines NGCF, KGAT, KGCN, CFKG and NFM (train/baseline_trainers.py; NFM's
+dropout defaults to 0.3, as in the JAX CLI).  The walk models
+(MetaPath2Vec, HeRec), the walk flags and the parallel layer raise
 ``NotImplementedError`` before any work, naming the ROADMAP Queue 1 item
 that ports them.
 
@@ -44,6 +47,8 @@ import numpy as np
 
 PACKAGE = "graph_recsys_benchmark_tpu_torch"
 PEA_MODELS = ("PEAGCN", "PEAGAT", "PEASage")
+BASELINE_MODELS = ("NGCF", "KGAT", "KGCN", "CFKG", "NFM")
+WALK_MODELS = ("MetaPath2Vec", "HeRec")
 PORTED_DATASETS = ("synthetic-ml", "synthetic-ml25m", "synthetic-yelp",
                    "ml-latest-small", "ml-25m", "yelp")
 # ROADMAP Queue 1 items by title
@@ -139,10 +144,10 @@ def check_ported(args):
     """NotImplementedError for every choice the port does not run yet,
     naming the ROADMAP Queue 1 item that ports it."""
     defaults = build_parser().parse_args([])
-    if args.model not in PEA_MODELS:
+    if args.model in WALK_MODELS:
         raise NotImplementedError(
-            f"--model {args.model} is not ported (ported: {', '.join(PEA_MODELS)}): "
-            f"{BASELINES_ITEM}")
+            f"--model {args.model}: the walk models are not ported (ported: "
+            f"{', '.join(PEA_MODELS + BASELINE_MODELS)}): {BASELINES_ITEM}")
     changed = [f for f in _WALK_FLAGS if getattr(args, f) != getattr(defaults, f)]
     if changed:
         raise NotImplementedError(
@@ -279,9 +284,9 @@ def _build_hin(args):
 
 
 def build_trainer(args, hin, mp_edges):
-    """(PEATrainer on args.device, number of metapaths)."""
-    from .models.pea import PEAConfig
-    from .train.pea_trainer import PEATrainer, TrainConfig
+    """(the model's trainer on args.device, number of metapaths), as the JAX
+    CLI builds them (cli.py:242-319); the baselines have no metapaths."""
+    from .train.pea_trainer import TrainConfig
 
     check_ported(args)
     defaults = _dataset_defaults(args.dataset)
@@ -296,6 +301,11 @@ def build_trainer(args, hin, mp_edges):
         epochs=args.epochs or defaults["epochs"],
         runs=args.runs or defaults["runs"],
     )
+    if args.model in BASELINE_MODELS:
+        return _build_baseline(args, hin, tcfg), 0
+    from .models.pea import PEAConfig
+    from .train.pea_trainer import PEATrainer
+
     conv = {"PEAGCN": "gcn", "PEAGAT": "gat", "PEASage": "sage"}[args.model]
     cfg = PEAConfig(
         conv=conv, num_nodes=hin.num_nodes,
@@ -309,6 +319,48 @@ def build_trainer(args, hin, mp_edges):
     trainer = PEATrainer(hin, cfg, tcfg, metapath_edges=mp_edges, device=args.device,
                          transport=args.message_dtype)
     return trainer, len(mp_edges)
+
+
+def _build_baseline(args, hin, tcfg):
+    """NGCF, KGAT/KGCN (f32 or bf16 message transport), CFKG or NFM."""
+    from .train import baseline_trainers as B
+
+    model, device = args.model, args.device
+    if model == "NGCF":
+        from .models.ngcf import NGCFConfig
+
+        cfg = NGCFConfig(
+            num_nodes=hin.num_nodes, emb_dim=args.emb_dim,
+            hidden_size=args.hidden_size, dropout=args.dropout,
+            entity_aware=_bool(args.entity_aware),
+            entity_aware_coff=args.entity_aware_coff,
+        )
+        return B.NGCFTrainer(hin, cfg, tcfg, device=device, transport=args.message_dtype)
+    if model in ("KGAT", "KGCN"):
+        from .models.kg import KGConfig
+
+        cfg = KGConfig(
+            variant=model.lower(), num_nodes=hin.num_nodes,
+            num_relations=hin.num_edge_types, emb_dim=args.emb_dim,
+            hidden_size=args.hidden_size, dropout=args.dropout,
+        )
+        return B.KGTrainer(hin, cfg, tcfg, device=device, transport=args.message_dtype)
+    if model == "CFKG":
+        from .models.cfkg import CFKGConfig
+
+        cfg = CFKGConfig(
+            num_nodes=hin.num_nodes, num_relations=hin.num_edge_types,
+            user2item_rel=hin.edge_type_dict["user2item"], emb_dim=args.emb_dim,
+        )
+        return B.CFKGTrainer(hin, cfg, tcfg, device=device)
+    from .models.nfm import NFMConfig
+
+    cfg = NFMConfig(
+        num_users=hin.num_users, num_items=hin.num_items,
+        emb_dim=args.emb_dim, hidden_size=args.hidden_size,
+        dropout=args.dropout if args.dropout else 0.3,
+    )
+    return B.NFMTrainer(hin, cfg, tcfg, device=device)
 
 
 def run_dir(args, hin):

@@ -1,6 +1,7 @@
 """Static graph tensors: padded, block-sorted edge lists per metapath step.
 
-Port of the JAX package's ``graph.py`` for the GAT, GCN and SAGE convs.
+Port of the JAX package's ``graph.py`` for the GAT, GCN, SAGE, NGCF and
+KG (KGAT/KGCN) convs.
 Every array is built with numpy exactly as there, so both packages run on
 bitwise-equal edge lists (``w`` too: f64 math rounded once to f32):
 
@@ -21,6 +22,9 @@ bitwise-equal edge lists (``w`` too: f64 math rounded once to f32):
              list, padded to a multiple of 2048, whose consumers add the
              loop term analytically, ops/stream_gat.py);
       SAGE — mean aggregation, w = 1/indeg(dst), no loops,
+      NGCF — loops removed, w = (deg_src deg_dst)^-1/2 with the
+             reference's integer-halved degrees,
+      KG   — loops removed, w = 1, ``rel`` the signed relation ids,
   * arrays are padded to a multiple of ``pad_to`` with destination sentinel
     ``dst == num_nodes`` (src 0, w 0); every consumer drops such edges.
 
@@ -219,10 +223,44 @@ def build_sage_graph(src, dst, num_nodes, pad_to=PAD_TO) -> StepGraph:
     return _sort_pad(src, dst, w, rel, num_nodes, pad_to)
 
 
+def build_ngcf_graph(src, dst, num_nodes, pad_to=PAD_TO) -> StepGraph:
+    """Reference NGCFConv degree scheme (nn/ngcf_conv.py:35-44): self-loops
+    removed first, deg_i = (occurrences of i in either edge row) // 2, the
+    integer division of torch 1.5's LongTensor '/', and w_e = 1 /
+    sqrt(deg_dst * deg_src), 0 where that product is 0."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    count = np.bincount(src, minlength=num_nodes) + np.bincount(dst, minlength=num_nodes)
+    deg = (count // 2).astype(np.float64)
+    prod = deg[src] * deg[dst]
+    w = np.zeros(src.shape[0], dtype=np.float64)
+    nz = prod > 0
+    w[nz] = 1.0 / np.sqrt(prod[nz])
+    rel = np.zeros_like(src)
+    return _sort_pad(src, dst, w.astype(np.float32), rel, num_nodes, pad_to)
+
+
+def build_kg_graph(src, dst, rel, num_nodes, pad_to=PAD_TO) -> StepGraph:
+    """KGAT/KGCN typed graph: the raw edges with their signed relation ids
+    (``rel`` keeps its sign through the sort), w = 1, self-loops removed
+    (reference KGATConv/KGCNConv forward); the attention map is computed
+    per epoch over (src, dst, rel) in this block order."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    rel = np.asarray(rel, dtype=np.int64)
+    keep = src != dst
+    src, dst, rel = src[keep], dst[keep], rel[keep]
+    w = np.ones(src.shape[0], dtype=np.float32)
+    return _sort_pad(src, dst, w, rel, num_nodes, pad_to)
+
+
 _BUILDERS = {
     "gcn": build_gcn_graph,
     "gat": build_gat_graph,
     "sage": build_sage_graph,
+    "ngcf": build_ngcf_graph,
 }
 
 
@@ -231,7 +269,8 @@ def build_metapath_graphs(
     analytic_gat_loops=False,
 ) -> Tuple[Tuple[StepGraph, ...], ...]:
     """Compile a metapath list (list of lists of (src, dst) numpy edge pairs)
-    into per-step StepGraphs for the given conv ('gcn', 'gat', 'sage').
+    into per-step StepGraphs for the given conv ('gcn', 'gat', 'sage',
+    'ngcf'); the KG graphs are typed, and come from build_kg_graph.
 
     Identical (src, dst) step lists return the SAME StepGraph object: the
     reference's metapath tables reuse one edge list across several channels
@@ -242,10 +281,7 @@ def build_metapath_graphs(
     analytic_gat_loops (GAT only): see build_gat_graph; must stay False
     for graphs that will be fused into union graphs."""
     if conv not in _BUILDERS:
-        raise NotImplementedError(
-            f"conv {conv!r}: only GCN, GAT and SAGE graphs are ported (NGCF and "
-            "the KG graphs come with the baselines, ROADMAP Queue 1, \"Baselines\")"
-        )
+        raise ValueError(f"conv {conv!r}: expected one of {sorted(_BUILDERS)}")
     build = _BUILDERS[conv]
     if conv == "gat":
         build = functools.partial(build_gat_graph, analytic_loops=analytic_gat_loops)

@@ -1,9 +1,13 @@
-"""Carry PEA weights between the JAX package and the port.
+"""Carry model weights between the JAX package and the port.
 
-The port keeps the JAX parameter layout and names (models/pea.PEA), so the
-conversion is a copy in both directions: ``from_jax_numpy`` takes the
-``pea_init`` pytree with numpy leaves (``jax.tree_util.tree_map(np.asarray,
-params)``) and ``to_numpy`` returns that structure.
+The port keeps the JAX parameter layout and names (models/pea.PEA and the
+baselines' ``nn/init.ParamTree`` modules), so the conversion is a copy in
+both directions: ``from_jax_numpy`` takes the ``pea_init`` pytree with
+numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and
+``to_numpy`` returns that structure; ``ngcf_*``, ``kg_*`` (KGAT and KGCN),
+``cfkg_*`` and ``nfm_*`` do the same for the baselines' ``*_init`` trees,
+NFM's as ``{"params", "state"}`` with the BatchNorm running statistics as
+the module's buffers.
 """
 
 from __future__ import annotations
@@ -11,11 +15,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cfkg import CFKG
+from .kg import KG
+from .nfm import NFM, STATE
+from .ngcf import NGCF
 from .pea import PEA
 
 
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _a(p):
+    return p.detach().cpu().numpy().copy()
+
+
+def _tensors(tree):
+    return {k: ({kk: _t(vv) for kk, vv in v.items()} if isinstance(v, dict) else _t(v))
+            for k, v in tree.items()}
+
+
+def _arrays(module):
+    return {k: ({kk: _a(vv) for kk, vv in v.items()} if isinstance(v, dict) else _a(v))
+            for k, v in module.tree().items()}
 
 
 def from_jax_numpy(tree) -> PEA:
@@ -35,19 +57,53 @@ def from_jax_numpy(tree) -> PEA:
 
 def to_numpy(module: PEA) -> dict:
     """The JAX ``pea_init`` pytree layout with numpy leaves."""
-
-    def a(p):
-        return p.detach().cpu().numpy().copy()
-
     tree = {
-        "x": a(module.x),
+        "x": _a(module.x),
         "channels": tuple(
-            tuple({k: a(v) for k, v in layer.items()} for layer in ch)
+            tuple({k: _a(v) for k, v in layer.items()} for layer in ch)
             for ch in module.channels
         ),
     }
     if module.att is not None:
-        tree["att"] = a(module.att)
-    tree["fc1"] = {k: a(v) for k, v in module.fc1.items()}
-    tree["fc2"] = {k: a(v) for k, v in module.fc2.items()}
+        tree["att"] = _a(module.att)
+    tree["fc1"] = {k: _a(v) for k, v in module.fc1.items()}
+    tree["fc2"] = {k: _a(v) for k, v in module.fc2.items()}
     return tree
+
+
+def ngcf_from_jax_numpy(tree) -> NGCF:
+    """NGCF module from the JAX ``ngcf_init`` pytree as numpy arrays."""
+    return NGCF(_tensors(tree))
+
+
+def ngcf_to_numpy(module: NGCF) -> dict:
+    return _arrays(module)
+
+
+def kg_from_jax_numpy(tree) -> KG:
+    """KGAT/KGCN module from the JAX ``kg_init`` pytree as numpy arrays."""
+    return KG(_tensors(tree))
+
+
+def kg_to_numpy(module: KG) -> dict:
+    return _arrays(module)
+
+
+def cfkg_from_jax_numpy(tree) -> CFKG:
+    """CFKG module from the JAX ``cfkg_init`` pytree as numpy arrays."""
+    return CFKG(_tensors(tree))
+
+
+def cfkg_to_numpy(module: CFKG) -> dict:
+    return _arrays(module)
+
+
+def nfm_from_jax_numpy(tree) -> NFM:
+    """NFM module from the JAX ``nfm_init`` tree {"params", "state"} as
+    numpy arrays; the state becomes the module's buffers."""
+    return NFM(_tensors(tree["params"]), {k: _t(tree["state"][k]) for k in STATE})
+
+
+def nfm_to_numpy(module: NFM) -> dict:
+    """The JAX {"params", "state"} tree with numpy leaves."""
+    return {"params": _arrays(module), "state": {k: _a(v) for k, v in module.state().items()}}

@@ -1,6 +1,7 @@
 """Graph conv layers: initializers and the edge aggregation.
 
-Ported: GATConv's, GCNConv's and SAGEConv's initializers, ``_aggregate``
+Ported: GATConv's, GCNConv's, SAGEConv's, NGCFConv's, KGATConv's and
+KGCNConv's initializers, ``_aggregate``
 (the segment-sum of edge messages into destination rows,
 ops/segment_kernels K5), ``propagate`` (the weighted sum of source rows
 that GCN and SAGE share: K7 forward and K6 backward for the gather, K5
@@ -8,7 +9,10 @@ forward and K7 backward for the sum), and the per-channel convs
 ``gcn_apply``, ``sage_apply`` and ``gat_apply`` (the per-channel forwards
 of models/pea.py), the last with attention dropout under keep masks that
 the caller draws.  The fused forwards (models/pea.py) run ``propagate`` on
-union graphs.
+union graphs.  The baselines' convs ``ngcf_apply`` (models/ngcf.py),
+``kgat_apply`` and ``kgcn_apply`` (models/kg.py) gather their edge rows
+with gather_src (K7 forward, K6 backward) and gather_dst (K7 forward, K5
+backward) and sum with _aggregate (K5 forward, K7 backward).
 
 Semantics (PyG 1.5.0, the reference's pin), with the degree and self-loop
 work precomputed into StepGraph.w (graph.py):
@@ -16,6 +20,11 @@ work precomputed into StepGraph.w (graph.py):
   GATConv : alpha_e = softmax_dst(leaky_relu(att_dst . (x_i W) +
             att_src . (x_j W))), out_i = concat_heads(sum_j alpha_e (x_j W)) + b
   SAGEConv: out = mean_j(x_j) W_rel + b + x W_root
+  NGCFConv: out_i = leaky_relu(x_i W1 + sum_j w_e (x_j W1 + (x_i * x_j) W2))
+            (reference nn/ngcf_conv.py:42-48)
+  KGATConv: a_i = sum_j att_e x_j; out = leaky_relu((x + a) W_add) +
+            leaky_relu((x * a) W_bi) + b (reference nn/kgat_conv.py:43-54)
+  KGCNConv: out = relu((sum_j att_e x_j + x) W + b) (nn/kgcn_conv.py:39-44)
 """
 
 from __future__ import annotations
@@ -144,3 +153,58 @@ def sage_apply(params, x, g, transport="f32"):
     xn = x[: g.num_nodes]
     mean_agg = propagate(xn, g, transport)
     return mean_agg @ params["w_rel"] + params["b_rel"] + xn @ params["w_root"]
+
+
+def ngcf_init(generator, in_dim, out_dim):
+    return {"w1": glorot(generator, (in_dim, out_dim)),
+            "w2": glorot(generator, (in_dim, out_dim))}
+
+
+def ngcf_apply(params, x, g, negative_slope=0.2, transport="f32"):
+    """NGCFConv over StepGraph `g` (JAX nn/conv.py:196-201): x [>= g.num_nodes,
+    din] -> [num_nodes, dout].  No message cast, as in JAX: the rows ride
+    the gathers in x's dtype, and the transport rounds the messages inside
+    the segment-sum (K5) and the gathers' backward sums (K6, K5), as the
+    Pallas kernels cast them on the TPU at these graphs' sizes."""
+    n = g.num_nodes
+    x_j = gather_src(x, g, transport)
+    x_i = gather_dst(x[:n], g, transport)
+    msgs = g.w[:, None] * (x_j @ params["w1"] + (x_i * x_j) @ params["w2"])
+    aggr = _aggregate(msgs, g, transport)
+    return F.leaky_relu(x[:n] @ params["w1"] + aggr, negative_slope)
+
+
+def kgat_init(generator, in_dim, out_dim):
+    return {"w_add": glorot(generator, (in_dim, out_dim)),
+            "w_bi": glorot(generator, (in_dim, out_dim)),
+            "b": torch.zeros(out_dim, dtype=torch.float32)}
+
+
+def _attend(x, g, att_map, transport):
+    """sum_j att_e x_j into each dst row -> f32 [num_nodes, D]: x and the
+    per-edge attention [E_pad] (0 on padding) in the transport dtype, their
+    product rounded there (JAX ``msg_cast``), f32 sums."""
+    xm, att = msg_cast(x, att_map, transport=transport)
+    return _aggregate(att[:, None] * gather_src(xm, g, transport), g, transport)
+
+
+def kgat_apply(params, x, g, att_map, negative_slope=0.2, transport="f32"):
+    """KGATConv over StepGraph `g` with the frozen attention `att_map`
+    (JAX nn/conv.py:215-227): x [>= g.num_nodes, din] -> [num_nodes, dout]."""
+    aggr = _attend(x, g, att_map, transport)
+    xn = x[: g.num_nodes]
+    add_aggr = F.leaky_relu((xn + aggr) @ params["w_add"], negative_slope)
+    bi_aggr = F.leaky_relu((xn * aggr) @ params["w_bi"], negative_slope)
+    return add_aggr + bi_aggr + params["b"]
+
+
+def kgcn_init(generator, in_dim, out_dim):
+    return {"w": glorot(generator, (in_dim, out_dim)),
+            "b": torch.zeros(out_dim, dtype=torch.float32)}
+
+
+def kgcn_apply(params, x, g, att_map, transport="f32"):
+    """KGCNConv over StepGraph `g` with the frozen attention `att_map`
+    (JAX nn/conv.py:234-237): x [>= g.num_nodes, din] -> [num_nodes, dout]."""
+    aggr = _attend(x, g, att_map, transport)
+    return torch.relu((aggr + x[: g.num_nodes]) @ params["w"] + params["b"])

@@ -54,3 +54,28 @@ def torch_linear_params(generator, in_dim, out_dim, glorot_weight=False):
 
 def linear(params, x):
     return x @ params["w"] + params["b"]
+
+
+class ParamTree(torch.nn.Module):
+    """Parameters in the layout and names of a JAX params dict: a tensor
+    leaf becomes a Parameter under its key, a dict of tensors a
+    ParameterDict, so carrying weights across is a copy
+    (models/params.py)."""
+
+    def __init__(self, tree):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, torch.nn.ParameterDict(
+                    {kk: torch.nn.Parameter(vv) for kk, vv in v.items()}))
+            else:
+                self.register_parameter(k, torch.nn.Parameter(v))
+
+    def tree(self):
+        """The JAX layout: {key: tensor or {key: tensor}} of the Parameters."""
+        out = {}
+        for k, m in self.named_children():
+            out[k] = dict(m.items())
+        for k, p in self.named_parameters(recurse=False):
+            out[k] = p
+        return out

@@ -19,8 +19,12 @@ The trainer supplies the port's API (train/pea_trainer.PEATrainer):
   device                                  the trainer's torch.device
   init(seed) -> params                    an nn.Module
   optimizer(params) -> optimizer          a torch.optim.Optimizer
-  run_epoch(params, optimizer, generator) -> train_loss (0-dim tensor)
-  evaluate(params, generator, metapath_idx=None) -> metrics dict
+  run_epoch(params, optimizer, generator) -> train_loss (0-dim tensor), or
+      a dict of them with "train_loss" and the family's extra losses
+      (KGAT/KGCN's "kg_train_loss"), which go into the history and the
+      epoch's log line (JAX train/solver.py:124-131, :156-162)
+  evaluate(params, generator[, metapath_idx]) -> metrics dict (metapath_idx
+      only with num_metapaths > 0: the PEA trainers')
   evaluate_full(params) -> metrics dict   (optional)
 
 One ``torch.Generator`` on the trainer's device, seeded with the run's
@@ -140,6 +144,14 @@ class Solver:
             t_run = time.perf_counter()
             for epoch in range(last_epoch + 1, self.epochs + 1):
                 train_loss = self.trainer.run_epoch(params, opt, gen)
+                # two-phase trainers (KGAT/KGCN) report per-phase losses as a
+                # dict — the reference checkpoints a 6-tuple history with
+                # separate kg/cf train losses (kgat_solver_bpr.py:364-375)
+                extra_losses = {}
+                if isinstance(train_loss, dict):
+                    extra_losses = {k: float(v) for k, v in train_loss.items()
+                                    if k != "train_loss"}
+                    train_loss = train_loss["train_loss"]
 
                 if self.metapath_test and epoch == self.epochs:
                     for mp in range(self.num_metapaths):
@@ -162,8 +174,11 @@ class Solver:
                 hist["AUC"] = np.append(hist["AUC"], auc)
                 hist["train_loss"] = np.append(hist["train_loss"], train_loss)
                 hist["eval_loss"] = np.append(hist["eval_loss"], eval_loss)
+                for k, v in extra_losses.items():
+                    hist[k] = np.append(hist.get(k, np.zeros((0,))), v)
 
-                self.logger.log_epoch(run, epoch, hr, ndcg, auc, train_loss, eval_loss)
+                self.logger.log_epoch(run, epoch, hr, ndcg, auc, train_loss, eval_loss,
+                                      extras=extra_losses)
 
                 if epoch in self.save_epochs:
                     save_checkpoint(

@@ -206,7 +206,7 @@ def test_main_runs_the_new_datasets(dataset, extra, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "NGCF"], "Baselines"),
+    (["--model", "HeRec"], "Baselines"),
     (["--model", "MetaPath2Vec"], "Baselines"),
     (["--walk_length", "10"], "Baselines"),
     (["--parallel", "a2a"], "Parallel, last"),
