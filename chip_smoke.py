@@ -131,6 +131,25 @@
       K5 3); then 2 warm-up and 8 timed steps, a KG epoch (KGAT/KGCN) and
       an eval with the counts read over them, step ms, epoch s, eval ms
       and the card's busy share over 8 profiled steps.
+   g. walk_phase, the walk models on the flagship HIN at the CLI's walk
+      defaults (emb 64, walk length 100, context 7, 1,000 walks a node, 5
+      negatives, 8 starts a batch): one batch's positive walks on the card
+      bitwise the CPU's from the same uniforms for both ML HeRec metapaths
+      from the users and, on the CLI's `synthetic-yelp` HIN, the HeRec
+      metapath 0 from the users (past its first relation's 6 rows: the
+      walker's clamp, no device assert) and MetaPath2Vec's from
+      item_reviewcount; one pretraining batch's skip-gram loss and
+      embedding gradient against a CPU copy (1e-5), with its peak memory;
+      a pretraining pass per HeRec metapath (75 batches, no repo kernel
+      launched), ms a batch, peak memory, 5 timed and 3 profiled batches
+      (busy share); one stage-2 step of MetaPath2VecTrainer and
+      HeRecTrainer on those embeddings against a CPU copy (loss and every
+      gradient 1e-5), a step's and an eval's launches (none).
+   h. import_phase: a synthetic reference PEAGAT checkpoint at the
+      flagship's shapes (pea_init(7)'s weights in the reference's naming)
+      imported on the card (utils/torch_import), bitwise; the flagship
+      trainer's eval of it (K12 1, K3 2), its representation and pair
+      scores against the CPU import's forward (1e-4).
 10. ML-25M phases (ml25m_*), PEAGAT at tools/bench_25m.py:41-58's full
    configuration: synthetic_ml25m_hin() (seed 0: 68,830 nodes, 2.13 M
    train interactions, 40,000 test users, rejection candidates), 13
@@ -244,6 +263,14 @@
       within hr_band of the JAX CLI's CPU result (BASELINE_JAX_CPU); then
       an NFM run stopped after epoch 1 and resumed at epoch 2 by a second
       Solver, its BatchNorm buffers restored bitwise from `latest`.
+   h. walk_cli_phase: `--model M --dataset synthetic-ml --runs 5 --epochs
+      10` at the walk defaults for MetaPath2Vec and HeRec (no repo kernel
+      launched; the overall HR@10 within hr_band of the JAX CLI's CPU
+      result, WALK_JAX_CPU; a stage-1 file a run and metapath), one
+      `synthetic-yelp` call of each (1 run x 5 epochs), then MetaPath2Vec
+      `--runs 1` and `--runs 2` into one run directory (only seed 2021
+      pretrained) and a new run directory over the same stage-1 cache
+      (none pretrained).
 12. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
    timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
@@ -3490,6 +3517,442 @@ def baselines_cli_phase(tmp):
     return out
 
 
+# the walk models' CLI defaults (JAX cli.py:89-93, train/walk_trainers.py:43-44)
+WALK_DEFAULTS = dict(embedding_dim=64, walk_length=100, context_size=7, walks_per_node=1000,
+                     num_negative_samples=5)
+WALK_TOL = 1e-5  # the CPU tests' bar (tests/test_torch_walk_models.py)
+
+
+def walk_config(hin, start):
+    """The CLI's walk config on `hin`, walks from the type `start`."""
+    from graph_recsys_benchmark_tpu_torch.models.metapath2vec import MP2VConfig
+
+    return MP2VConfig(**WALK_DEFAULTS, start_offset=hin.type_accs[start],
+                      num_start=hin.num_nodes_dict[start], num_nodes=hin.num_nodes)
+
+
+def synthetic_yelp_hin():
+    """The CLI's `synthetic-yelp` HIN, built by cli.load_hin."""
+    from graph_recsys_benchmark_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cli.build_parser().parse_args(["--dataset", "synthetic-yelp", "--cache_dir", tmp])
+        return cli.load_hin(args)[0]
+
+
+def walks_vs_cpu(hin, steps, start, label):
+    """One pretraining batch's positive walks (8 starts x 1,000 walks of 100
+    steps) from the same uniforms, drawn on the card, walked on the card and
+    on the CPU: bitwise.  The last start is the start type's last node, so
+    a metapath whose first relation has fewer rows than the start type has
+    nodes walks past its tables (the clamp of models/metapath2vec.py)."""
+    from graph_recsys_benchmark_tpu_torch.models.metapath2vec import (
+        metapath_from_hin,
+        walk_from_uniforms,
+    )
+    from graph_recsys_benchmark_tpu_torch.train.walk_trainers import RW_BATCH
+
+    cfg = walk_config(hin, start)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    starts = torch.randperm(cfg.num_start, generator=gen, device="cuda")[:RW_BATCH]
+    starts[-1] = cfg.num_start - 1
+    u = torch.rand((cfg.walk_length, starts.numel() * cfg.walks_per_node), generator=gen,
+                   device="cuda")
+    card_csr = metapath_from_hin(hin, steps, "cuda")
+    card = walk_from_uniforms(starts, card_csr, cfg, u)
+    cpu = walk_from_uniforms(starts.cpu(), metapath_from_hin(hin, steps, "cpu"), cfg, u.cpu())
+    torch.cuda.synchronize()
+    check(torch.equal(card.cpu(), cpu), f"{label}: walks on the card differ from the CPU's")
+    rows = int(card_csr[0].deg.shape[0])
+    past = int((starts >= rows).sum())
+    print(f"walks {label}: {tuple(card.shape)} from {starts.numel()} starts, bitwise the "
+          "CPU's; "
+          f"{past} of the starts past the first relation's {rows} rows; "
+          f"{int(card[:, 1].unique().numel())} distinct first steps", flush=True)
+    return past
+
+
+def walk_batch_vs_cpu(hin, steps, label):
+    """One pretraining batch at the CLI defaults on the card: the skip-gram
+    loss and the embedding's gradient against a float64 CPU copy on the
+    same walks (WALK_TOL of the largest value), and the batch's peak
+    memory.  A start node's row sums the terms of its 1,000 walks' windows
+    and a genre's millions: the card's F.embedding backward adds them in
+    parallel pieces, an f32 CPU copy one after another, and the two orders
+    part by ~4e-5 of the largest row; each is held to the float64 sum."""
+    from graph_recsys_benchmark_tpu_torch.models import metapath2vec as M
+    from graph_recsys_benchmark_tpu_torch.train.walk_trainers import RW_BATCH
+
+    cfg = walk_config(hin, "uid")
+    csr = M.metapath_from_hin(hin, steps, "cuda")
+    params = M.mp2v_init(torch.Generator().manual_seed(2020), cfg).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    starts = torch.randperm(cfg.num_start, generator=gen, device="cuda")[:RW_BATCH]
+    pos = M.sample_pos_walks(gen, starts, csr, cfg)
+    neg = M.sample_neg_walks(gen, starts, csr, cfg)
+    ref = copy.deepcopy(params).cpu().double()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = M.mp2v_loss(params, pos, neg, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    ref_loss = M.mp2v_loss(ref, pos.cpu(), neg.cpu(), cfg)
+    ref_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    _, lrel = rel_err(loss.detach().cpu().double(), ref_loss.detach())
+    _, grel = rel_err(params.emb.grad.cpu().double(), ref.emb.grad)
+    check(lrel <= WALK_TOL and grel <= WALK_TOL,
+          f"{label} batch vs CPU: loss rel {lrel}, gradient rel {grel} > {WALK_TOL}")
+    print(f"walk batch {label}: {pos.shape[0]} positive + {neg.shape[0]} negative walks, loss "
+          f"{float(loss.detach()):.6f}, vs the float64 CPU copy loss rel {lrel:.3e} gradient "
+          f"rel {grel:.3e}; peak "
+          f"memory of the forward and backward {peak / 2**30:.3f} GiB; the CPU copy "
+          f"{cpu_s:.1f} s", flush=True)
+
+
+def walk_gather_bytes(cfg, n_pos):
+    """The bytes of the skip-gram's gathered blocks in one batch: each of
+    the context_size row blocks [walks, windows, D] f32 of the positive and
+    negative walks, written once by the forward (the JAX package's
+    reckoning: the backward scatters about as much again)."""
+    windows = cfg.walk_length + 2 - cfg.context_size
+    walks = n_pos * (1 + cfg.num_negative_samples)
+    return cfg.context_size * walks * windows * cfg.embedding_dim * 4
+
+
+def walk_timed_pass(hin, steps, label):
+    """A pretraining pass (train/walk_trainers.pretrain_mp2v, seed 2020) at
+    the CLI defaults on `hin`, every launch count set to 0 before and read
+    after (the walk path launches no repo kernel); ms a batch, the peak
+    memory; then 5 timed batches and 3 profiled ones (device_breakdown: the
+    card's busy share).  Returns the frozen embedding."""
+    from graph_recsys_benchmark_tpu_torch.models import metapath2vec as M
+    from graph_recsys_benchmark_tpu_torch.train.optim import SparseAdam
+    from graph_recsys_benchmark_tpu_torch.train.walk_trainers import RW_BATCH, RW_LR, pretrain_mp2v
+
+    cfg = walk_config(hin, "uid")
+    n_batches = -(-cfg.num_start // RW_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    emb, loss = pretrain_mp2v(hin, steps, cfg, 2020, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == expected(), f"{label} pass: launches {launches}, expected none")
+    check(np.isfinite(loss) and bool(torch.isfinite(emb).all()) and emb.device.type == "cuda",
+          f"{label} pass: loss {loss}")
+
+    csr = M.metapath_from_hin(hin, steps, "cuda")
+    params = M.MP2V({"emb": emb.clone()})
+    opt = SparseAdam(params.parameters(), lr=RW_LR)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def batch():
+        starts = torch.randint(0, cfg.num_start, (RW_BATCH,), generator=gen, device="cuda")
+        pos = M.sample_pos_walks(gen, starts, csr, cfg)
+        neg = M.sample_neg_walks(gen, starts, csr, cfg)
+        opt.zero_grad()
+        out = M.mp2v_loss(params, pos, neg, cfg)
+        out.backward()
+        opt.step()
+        return out.detach()
+
+    batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [batch() for _ in range(5)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    check(all(bool(torch.isfinite(v)) for v in losses), f"{label}: batch losses {losses}")
+    gbytes = walk_gather_bytes(cfg, RW_BATCH * cfg.walks_per_node)
+    print(f"walk pass {label}: {n_batches} batches of {RW_BATCH} starts in {wall:.3f} s "
+          f"({wall / n_batches * 1e3:.2f} ms a batch, the first with the pass's set-up), mean "
+          f"loss {loss:.6f}; peak memory {peak / 2**30:.3f} GiB; 5 timed batches {ms:.2f} ms "
+          f"a batch; the forward's gathered blocks {gbytes / 1e9:.2f} GB, twice that over "
+          f"3.35 TB/s {2 * gbytes / 3.35e12 * 1e3:.2f} ms; launches {launches}", flush=True)
+    device_breakdown(lambda: [batch() for _ in range(3)], f"walk pass {label} 3 batches",
+                     3 * ms)
+    return emb, dict(wall=wall, batches=n_batches, ms=ms, peak=peak)
+
+
+def walk_stage2_vs_cpu(hin, model, embs, label):
+    """One stage-2 step of `model`'s trainer on the card (the frozen
+    embeddings `embs`, init(2020)'s parameters drawn without stage 1, a
+    seeded batch whose last 100 rows are padding): its loss and every
+    gradient against a CPU copy at WALK_TOL, the launches of the step and
+    of an eval (none), the eval's HR@10 finite."""
+    from graph_recsys_benchmark_tpu_torch.models.herec import herec_init
+    from graph_recsys_benchmark_tpu_torch.models.walk import walk_init
+    from graph_recsys_benchmark_tpu_torch.train import walk_trainers as W
+    from graph_recsys_benchmark_tpu_torch.train.engine import fill_grads
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    cfg = walk_config(hin, "uid")
+    gen_init = torch.Generator().manual_seed(2020)
+    if model == "MetaPath2Vec":
+        tr = W.MetaPath2VecTrainer(hin, cfg, TrainConfig(), device="cuda")
+        tr.embedding = embs[0]
+        params = walk_init(gen_init, cfg.embedding_dim).cuda()
+    else:
+        tr = W.HeRecTrainer(hin, cfg, TrainConfig(), device="cuda")
+        tr.rk_embeddings = tuple(embs)
+        params = herec_init(gen_init, hin.num_users, hin.num_items, cfg.embedding_dim,
+                            len(embs)).cuda()
+    bs = tr.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = tr._build_batch(torch.randperm(tr.n_rows, generator=gen, device="cuda")[:bs], gen)
+    rmask = (torch.arange(bs, device="cuda") < bs - 100).float()
+    cpu = copy.copy(tr)
+    if model == "MetaPath2Vec":
+        cpu.embedding = tr.embedding.cpu()
+    else:
+        cpu.rk_embeddings = tuple(e.cpu() for e in tr.rk_embeddings)
+    ref = copy.deepcopy(params).cpu()
+    loss = tr.batch_loss(params, batch, rmask)
+    loss.backward()
+    fill_grads(params)
+    cpu_batch = tuple(b.cpu() for b in batch) if isinstance(batch, tuple) else batch.cpu()
+    ref_loss = cpu.batch_loss(ref, cpu_batch, rmask.cpu())
+    ref_loss.backward()
+    fill_grads(ref)
+    _, lrel = rel_err(loss.detach().cpu(), ref_loss.detach())
+    errs = leaf_errors(label, params, ref)
+    check(lrel <= WALK_TOL and errs[-1][0] <= WALK_TOL,
+          f"{label} step vs CPU: loss rel {lrel}, worst leaf {errs[-1]} > {WALK_TOL}")
+    opt = tr.optimizer(params)
+    reset_launches()
+    step_loss = tr.train_step(params, opt, torch.arange(bs, device="cuda"),
+                              torch.ones(bs, device="cuda"), gen)
+    m = tr.evaluate(params, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == expected(), f"{label} step and eval: launches {launches}, expected none")
+    check(bool(torch.isfinite(step_loss)) and np.isfinite(float(m["HR"][5])),
+          f"{label}: step loss {step_loss}, HR@10 {m['HR'][5]}")
+    print(f"walk stage 2 {label}: one step ({bs} rows, {tr.n_rows} a pass), loss "
+          f"{float(loss.detach()):.6f}, vs CPU loss rel {lrel:.3e} worst leaf {errs[-1][1]} "
+          f"{errs[-1][0]:.3e}; a step and an eval launch no repo kernel; HR@10 after a step "
+          f"{float(m['HR'][5]):.4f}", flush=True)
+
+
+def walk_phase(hin):
+    """The walk models (MetaPath2Vec, HeRec) on the flagship HIN at the
+    CLI's walk defaults: walks on the card bitwise the CPU's for the same
+    uniforms (ML_MP2V_STEPS and the user-item metapath from the users, and
+    the `synthetic-yelp` HeRec metapath 0, whose first relation has fewer
+    rows than there are users); one pretraining batch's loss and gradient
+    against a CPU copy; a timed pretraining pass for each of HeRec's
+    metapaths (ms a batch, peak memory, busy share); one stage-2 step of
+    each trainer against a CPU copy on those embeddings."""
+    from graph_recsys_benchmark_tpu_torch.data.yelp import YELP_HEREC_METAPATHS
+    from graph_recsys_benchmark_tpu_torch.train.walk_trainers import ML_HEREC_METAPATHS
+
+    for k, steps in enumerate(ML_HEREC_METAPATHS):
+        walks_vs_cpu(hin, steps, "uid", f"flagship HeRec metapath {k}")
+    yelp = synthetic_yelp_hin()
+    past = walks_vs_cpu(yelp, YELP_HEREC_METAPATHS[0], "uid", "synthetic-yelp HeRec metapath 0")
+    check(past > 0, "synthetic-yelp HeRec metapath 0: no start past the first relation")
+    walks_vs_cpu(yelp, YELP_HEREC_METAPATHS[0], "item_reviewcount",
+                 "synthetic-yelp MetaPath2Vec")
+    walk_batch_vs_cpu(hin, ML_HEREC_METAPATHS[0], "flagship ML_MP2V_STEPS")
+    embs, out = [], {}
+    for k, steps in enumerate(ML_HEREC_METAPATHS):
+        emb, out[k] = walk_timed_pass(hin, steps, f"flagship HeRec metapath {k}")
+        embs.append(emb)
+    walk_stage2_vs_cpu(hin, "MetaPath2Vec", embs[:1], "MetaPath2Vec")
+    walk_stage2_vs_cpu(hin, "HeRec", embs, "HeRec")
+    return out
+
+
+def import_phase(trainer, tmp):
+    """A synthetic reference PEAGAT checkpoint at the flagship's shapes
+    (pea_init(7)'s weights in the reference's layout and naming, a 30-epoch
+    history, written by tests/torch_ckpt_files.py) imported on the card (utils/torch_import): its arrays bitwise
+    the pea_init tree and a CPU import's; the flagship trainer's eval of the
+    imported weights with every count set to 0 just before and read just
+    after (flash_gat_fwd 1, batch_gat_fwd 2, as slice_phase's); the cached
+    representation against the same forward of the CPU import
+    (FORWARD_TOL) and the pair scores on it (KERNEL_TOL)."""
+    from graph_recsys_benchmark_tpu_torch.models.params import to_numpy
+    from graph_recsys_benchmark_tpu_torch.models.pea import pea_forward, pea_init, pea_predict
+    from graph_recsys_benchmark_tpu_torch.utils.torch_import import import_reference_checkpoint
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_ckpt_files import reference_state_dict, write_reference_checkpoint
+
+    cfg = trainer.cfg
+    tree = to_numpy(pea_init(torch.Generator().manual_seed(7), cfg))
+    tree["x"][cfg.num_nodes:] = 0.0  # the rows past the nodes: zeros in an import
+    path = os.path.join(tmp, "latest.pkl")
+    write_reference_checkpoint(path, reference_state_dict(tree, cfg), 30, seed=7)
+    model, rec, epoch = import_reference_checkpoint(path, cfg, device="cuda")
+    cpu_model, _, _ = import_reference_checkpoint(path, cfg, device="cpu")
+    check(epoch == 30 and rec["HR"].shape == (30, 16), f"import: epoch {epoch}")
+    check(all(p.device.type == "cuda" for p in model.parameters()), "import: not on the card")
+    for got in (to_numpy(model), to_numpy(cpu_model)):
+        for (name, a), b in zip(sorted(_leaves(got)), [v for _, v in sorted(_leaves(tree))]):
+            check(np.array_equal(a, b), f"import: {name} differs from the checkpoint")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_launches()
+    res = trainer.evaluate(model, gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == expected(flash_fwd=1, batch_fwd=2),
+          f"import eval: launches {launches}, expected flash_fwd 1, batch_fwd 2")
+    with torch.no_grad():
+        rep = trainer.eval_forward(model)
+        cpu_rep = pea_forward(cpu_model, trainer.graphs.to("cpu"), cfg)
+        users = trainer.tables.test_users.long()
+        items = trainer.tables.test_items.long()
+        scores = pea_predict(model, rep, users, items)
+        cpu_scores = pea_predict(cpu_model, cpu_rep, users.cpu(), items.cpu())
+    _, rrel = rel_err(rep.cpu(), cpu_rep)
+    _, srel = rel_err(scores.cpu(), cpu_scores)
+    check(rrel <= FORWARD_TOL["f32"] and srel <= FORWARD_TOL["f32"],
+          f"import forward vs CPU: repr rel {rrel}, scores rel {srel}")
+    print(f"import: a {len(tree['channels'])}-channel PEAGAT checkpoint ({cfg.num_nodes} nodes) on "
+          f"the card, bitwise; eval launches {launches} HR@10 {float(res['HR'][5]):.4f} AUC "
+          f"{float(res['AUC']):.4f}; repr vs the CPU import rel {rrel:.3e}, "
+          f"{users.numel()} pair scores rel {srel:.3e}", flush=True)
+
+
+def _leaves(tree, prefix=""):
+    """(name, array) of every leaf of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], np.asarray(tree))]
+
+
+WALK_MODELS = ("MetaPath2Vec", "HeRec")
+WALK_YELP_ARGV = ["--dataset", "synthetic-yelp", "--runs", "1", "--epochs", "5"]
+# the JAX CLI's results on a CPU (JAX_PLATFORMS=cpu; PERF.md section 2) for
+# `--model M` + BASELINE_ARGV at the walk flags' defaults and + WALK_YELP_ARGV:
+# (HR@10, NDCG@10, AUC)
+WALK_JAX_CPU = {"MetaPath2Vec": (0.3053, 0.1607, 0.7241), "HeRec": (0.1667, 0.0838, 0.5707)}
+WALK_JAX_CPU_YELP = {"MetaPath2Vec": (0.0478, 0.0271, 0.2795), "HeRec": (0.0510, 0.0364, 0.4487)}
+# the same JAX CLI calls' train loss at the last epoch of each of the 5
+# runs of `--model M` + BASELINE_ARGV (their logger_file.txt; BPR for
+# MetaPath2Vec, HeRec's stage-2 MSE, which starts at 14.4-16.6 in epoch 1)
+WALK_JAX_CPU_LAST_LOSS = {"MetaPath2Vec": (392.9886, 399.3532, 390.4069, 389.2782, 390.7646),
+                          "HeRec": (2.1809, 1.9258, 1.8543, 1.9031, 1.7604)}
+
+
+def loss_band(ref, runs):
+    """The mean of the JAX CPU runs' losses `ref` +- 4 standard errors of
+    the difference of two independent means, of `runs` and len(ref) runs,
+    the per-run spread the sample standard deviation of `ref`."""
+    ref = np.asarray(ref, np.float64)
+    w = 4.0 * ref.std(ddof=1) * (1.0 / runs + 1.0 / ref.size) ** 0.5
+    return (ref.mean() - w, ref.mean() + w)
+
+
+def train_losses(lines):
+    """{run: [train loss of epoch 1, 2, ...]} of a CLI log's epoch lines."""
+    out = {}
+    for ln in lines:
+        m = re.match(r"Run: (\d+), epoch: (\d+), .*train loss: ([0-9.]+)", ln)
+        if m:
+            out.setdefault(int(m.group(1)), []).append(float(m.group(3)))
+    return out
+
+
+def walk_cli_phase(tmp):
+    """The walk models through cli.main in process (cli_calls, every count
+    set to 0 just before and read just after: none launched):
+    `--model M` + BASELINE_ARGV (5 runs x 10 epochs at the walk defaults;
+    each run pretrains: HeRec twice), the overall HR@10 within hr_band of
+    the JAX CLI's CPU result and the runs' mean last-epoch train loss within
+    loss_band of the JAX CLI's runs (an untrained HeRec reads HR@10 near a
+    random scorer's 0.10, inside its HR band, and keeps its epoch-1 MSE of
+    ~15); `--model M` + WALK_YELP_ARGV once each (MetaPath2Vec's walks from
+    item_reviewcount), a finite overall HR@10 beside the JAX CLI's; every
+    run's train loss lower at its last epoch than at its first; then MetaPath2Vec `--runs 1` and `--runs 2` into one run
+    directory (run 1 resumed at run level, only seed 2021 pretrained) and a
+    third call with other epochs (a new run directory) that reads both
+    stage-1 embeddings from the cache and pretrains none."""
+    from graph_recsys_benchmark_tpu_torch import cli
+    from graph_recsys_benchmark_tpu_torch.train import walk_trainers as W
+
+    argv_of, trainer_of, run = cli_calls(tmp)
+    out = {}
+    for model, base, refs, held in [(m, BASELINE_ARGV, WALK_JAX_CPU, True) for m in WALK_MODELS] + \
+            [(m, WALK_YELP_ARGV, WALK_JAX_CPU_YELP, False) for m in WALK_MODELS]:
+        label = f"cli {model} {base[1]}"
+        argv = ["--model", model] + base
+        tr, hin = trainer_of(argv, label)
+        check(tr.device.type == "cuda", f"{label}: the CLI's trainer is on {tr.device}")
+        overall, launches, wall, path, lines = run(argv, label)
+        check(launches == expected(), f"{label}: launches {launches}, expected none")
+        hr10, auc = float(overall["HR"][5]), float(np.ravel(overall["AUC"])[0])
+        check(np.isfinite(hr10) and 0.0 <= hr10 <= 1.0, f"{label}: overall HR@10 {hr10}")
+        runs, epochs = tr.tcfg.runs, tr.tcfg.epochs
+        ref = refs[model]
+        note = (f"the JAX CLI on a CPU: HR@10 {ref[0]}, NDCG@10 {ref[1]}, AUC {ref[2]}; "
+                f"HR@10 {hr10 - ref[0]:+.4f}")
+        losses = train_losses(lines)
+        check(sorted(losses) == list(range(1, runs + 1))
+              and all(len(v) == epochs and v[-1] < v[0] for v in losses.values()),
+              f"{label}: train loss by run {losses}, each not falling over {epochs} epochs")
+        last = float(np.mean([v[-1] for v in losses.values()]))
+        note += ("; train loss by run, first -> last epoch: "
+                 + ", ".join(f"{v[0]:.4f} -> {v[-1]:.4f}" for v in losses.values()))
+        if held:
+            band = hr_band(ref[0], hin.candidates.test_users.shape[0], runs)
+            check(band[0] <= hr10 <= band[1], f"{label}: overall HR@10 {hr10} outside {band}")
+            lband = loss_band(WALK_JAX_CPU_LAST_LOSS[model], runs)
+            check(lband[0] <= last <= lband[1],
+                  f"{label}: mean last-epoch train loss {last} outside {lband}")
+            note += (f"; HR@10 band ({band[0]:.4f}, {band[1]:.4f}); mean last-epoch train "
+                     f"loss {last:.4f}, JAX {np.mean(WALK_JAX_CPU_LAST_LOSS[model]):.4f}, band "
+                     f"({lband[0]:.4f}, {lband[1]:.4f})")
+        stage1 = [f for f in os.listdir(os.path.join(tmp, label, hin.name, model))
+                  if f.endswith(".pt")]
+        check(len(stage1) == runs * (2 if model == "HeRec" else 1),
+              f"{label}: stage-1 files {stage1}")
+        print(f"{label} ({runs} runs x {epochs} epochs, {tr.num_batches} steps an epoch, "
+              f"{tr.cfg.num_start} walk starts from node {tr.cfg.start_offset}): overall "
+              f"HR@10 {hr10:.4f} NDCG@10 {float(overall['NDCG'][5]):.4f} AUC {auc:.4f} "
+              f"({note}); wall {wall:.2f} s; {len(stage1)} stage-1 files", flush=True)
+        out[label] = dict(hr10=hr10, auc=auc, wall=wall, last_loss=last)
+
+    # MetaPath2Vec: --runs 1, --runs 2 (run-level resume), then another run
+    # directory over the same stage-1 cache
+    seeds, real = [], W.pretrain_mp2v
+
+    def spy(*args, **kw):
+        seeds.append(args[3])
+        return real(*args, **kw)
+
+    label = "mp2v-resume"
+    argv = ["--model", "MetaPath2Vec", "--dataset", "synthetic-ml", "--epochs", "2"]
+    W.pretrain_mp2v = spy
+    try:
+        run(argv + ["--runs", "1"], label)
+        check(seeds == [2020], f"{label} --runs 1: pretrained seeds {seeds}")
+        _, _, _, path, lines = run(argv + ["--runs", "2"], label)
+        check(seeds == [2020, 2021], f"{label} --runs 2: pretrained seeds {seeds}")
+        trained = [ln for ln in lines if re.match(r"Run: 1, epoch: \d+,", ln)]
+        check(len(trained) == 2, f"{label}: run 1 trained again: {trained}")
+        reset_launches()
+        cli.main(argv_of(argv + ["--runs", "2", "--lr", "0.002"], label))
+        check(seeds == [2020, 2021] and read_launches() == expected(),
+              f"{label} a new run directory: pretrained seeds {seeds}")
+    finally:
+        W.pretrain_mp2v = real
+    print(f"{label}: --runs 1 pretrained seed 2020, --runs 2 resumed run 1 and pretrained "
+          f"2021 alone; a new run directory (--lr 0.002) read both from the stage-1 cache",
+          flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3554,6 +4017,9 @@ def main():
     pres = timed("per-channel", per_channel_phase, hin)
     timed("profiling and roofline", profiling_phase, trainers, smi)
     beres, bkres, blaunch = timed("baselines", baselines_phase, hin)
+    timed("walk models", walk_phase, hin)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("checkpoint import", import_phase, trainers["f32"], tmp)
     del hin, all_trainers, trainers, plan, union
     torch.cuda.empty_cache()
 
@@ -3581,6 +4047,7 @@ def main():
         timed("cli archive", archive_cli_phase, tmp)
         timed("cli datasets", cli_datasets_phase, tmp)
         timed("cli baselines", baselines_cli_phase, tmp)
+        timed("cli walk models", walk_cli_phase, tmp)
     print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
 
     repo = "graph_recsys_benchmark_tpu"

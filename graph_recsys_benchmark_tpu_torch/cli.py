@@ -1,5 +1,5 @@
-"""Unified CLI of the port: one entry point for the PEA models and the
-graph baselines.
+"""Unified CLI of the port: one entry point for every model of the JAX
+package, the PEA models, the graph baselines and the walk models.
 
 Port of the JAX package's ``cli.py`` with the same flags, defaults and
 choices, plus ``--device`` (default: the card; ``cpu`` runs the kernels'
@@ -19,10 +19,11 @@ archive there first, data/download.py), both candidate modes (ML-25M defaults to
 bf16 message transport (``--message_dtype``, the trainer's ``transport``),
 GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD; the
 baselines NGCF, KGAT, KGCN, CFKG and NFM (train/baseline_trainers.py; NFM's
-dropout defaults to 0.3, as in the JAX CLI).  The walk models
-(MetaPath2Vec, HeRec), the walk flags and the parallel layer raise
-``NotImplementedError`` before any work, naming the ROADMAP Queue 1 item
-that ports them.
+dropout defaults to 0.3, as in the JAX CLI); the walk models MetaPath2Vec
+and HeRec (train/walk_trainers.py), which read the walk flags and keep
+their stage-1 embeddings under ``<out_dir>/<hin>/<model>``.  The parallel
+layer raises ``NotImplementedError`` before any work, naming the ROADMAP
+Queue 1 item that ports it.
 
 Differences from the JAX CLI: nothing is fetched over the network (an
 http(s) ``--dataset_url`` raises NotImplementedError, and without one the
@@ -46,13 +47,11 @@ import pickle
 import numpy as np
 
 PACKAGE = "graph_recsys_benchmark_tpu_torch"
-PEA_MODELS = ("PEAGCN", "PEAGAT", "PEASage")
 BASELINE_MODELS = ("NGCF", "KGAT", "KGCN", "CFKG", "NFM")
 WALK_MODELS = ("MetaPath2Vec", "HeRec")
 PORTED_DATASETS = ("synthetic-ml", "synthetic-ml25m", "synthetic-yelp",
                    "ml-latest-small", "ml-25m", "yelp")
-# ROADMAP Queue 1 items by title
-BASELINES_ITEM = 'ROADMAP Queue 1, "Baselines"'
+# ROADMAP Queue 1 item by title
 PARALLEL_ITEM = 'ROADMAP Queue 1, "Parallel, last"'
 
 
@@ -125,9 +124,6 @@ def build_parser():
     return p
 
 
-_WALK_FLAGS = ("walk_length", "context_size", "walks_per_node", "rw_negative_samples")
-
-
 def _bool(s):
     return str(s).lower() == "true"
 
@@ -141,18 +137,8 @@ def _dataset_defaults(name):
 
 
 def check_ported(args):
-    """NotImplementedError for every choice the port does not run yet,
-    naming the ROADMAP Queue 1 item that ports it."""
-    defaults = build_parser().parse_args([])
-    if args.model in WALK_MODELS:
-        raise NotImplementedError(
-            f"--model {args.model}: the walk models are not ported (ported: "
-            f"{', '.join(PEA_MODELS + BASELINE_MODELS)}): {BASELINES_ITEM}")
-    changed = [f for f in _WALK_FLAGS if getattr(args, f) != getattr(defaults, f)]
-    if changed:
-        raise NotImplementedError(
-            f"--{', --'.join(changed)}: read by the walk models only, which are not "
-            f"ported: {BASELINES_ITEM}")
+    """NotImplementedError for every choice the port does not run yet (the
+    parallel layer), naming the ROADMAP Queue 1 item that ports it."""
     dist = [f"--{f}" for f in ("dist_coordinator", "dist_nprocs", "dist_rank", "mesh_mp")
             if getattr(args, f) is not None]
     if args.parallel != "none" or dist:
@@ -285,7 +271,8 @@ def _build_hin(args):
 
 def build_trainer(args, hin, mp_edges):
     """(the model's trainer on args.device, number of metapaths), as the JAX
-    CLI builds them (cli.py:242-319); the baselines have no metapaths."""
+    CLI builds them (cli.py:242-358); the baselines and the walk models have
+    no metapaths to ablate."""
     from .train.pea_trainer import TrainConfig
 
     check_ported(args)
@@ -303,6 +290,8 @@ def build_trainer(args, hin, mp_edges):
     )
     if args.model in BASELINE_MODELS:
         return _build_baseline(args, hin, tcfg), 0
+    if args.model in WALK_MODELS:
+        return _build_walk(args, hin, tcfg), 0
     from .models.pea import PEAConfig
     from .train.pea_trainer import PEATrainer
 
@@ -361,6 +350,35 @@ def _build_baseline(args, hin, tcfg):
         dropout=args.dropout if args.dropout else 0.3,
     )
     return B.NFMTrainer(hin, cfg, tcfg, device=device)
+
+
+def _build_walk(args, hin, tcfg):
+    """MetaPath2Vec or HeRec with the walk flags, as JAX cli.py:320-358: walks
+    start at the users, but MetaPath2Vec's on Yelp at item_reviewcount
+    (its metapath's start type); the stage-1 cache is one level above the
+    hashed run directories, like the reference's random_walk_*.pkl
+    (metapath2vec_solver_bpr.py:197)."""
+    from .data.yelp import YELP_HEREC_METAPATHS, YELP_MP2V_STEPS
+    from .models.metapath2vec import MP2VConfig
+    from .train import walk_trainers as W
+
+    yelp = hin.name.startswith("yelp")
+    start = "item_reviewcount" if yelp and args.model == "MetaPath2Vec" else hin.types[0]
+    cfg = MP2VConfig(
+        embedding_dim=args.emb_dim, walk_length=args.walk_length,
+        context_size=args.context_size, walks_per_node=args.walks_per_node,
+        num_negative_samples=args.rw_negative_samples,
+        start_offset=hin.type_accs[start], num_start=hin.num_nodes_dict[start],
+        num_nodes=hin.num_nodes,
+    )
+    cache = os.path.join(args.out_dir, hin.name, args.model)
+    if args.model == "MetaPath2Vec":
+        steps = YELP_MP2V_STEPS if yelp else W.ML_MP2V_STEPS
+        return W.MetaPath2VecTrainer(hin, cfg, tcfg, relation_steps=steps, cache_dir=cache,
+                                     device=args.device)
+    metapaths = YELP_HEREC_METAPATHS if yelp else W.ML_HEREC_METAPATHS
+    return W.HeRecTrainer(hin, cfg, tcfg, metapaths=metapaths, cache_dir=cache,
+                          device=args.device)
 
 
 def run_dir(args, hin):

@@ -25,9 +25,8 @@ keeps every filtering and discretization rule of the reference pipeline
 
 Deviations, as in the JAX package: set-ordered entity names use sorted
 order (node-id assignment only); hours/checkin-time boolean columns feed
-no edges in the reference and are not materialized.  The walk models'
-metapath tables (MetaPath2Vec, HeRec) come with those models (ROADMAP
-Queue 1, "Baselines").
+no edges in the reference and are not materialized.  ``YELP_MP2V_STEPS``
+and ``YELP_HEREC_METAPATHS`` are the walk models' metapaths.
 """
 
 from __future__ import annotations
@@ -313,3 +312,19 @@ def yelp_metapath_edges(hin: HINData):
         [fwd("stars2user"), u2i],
     ]
 
+
+YELP_MP2V_STEPS = [
+    ("reviewcount2item", False),
+    ("user2item", True),
+    ("friendcount2user", True),
+    ("friendcount2user", False),
+    ("user2item", False),
+    ("reviewcount2item", True),
+]  # item_reviewcount->iid->uid->user_friendcount->uid->iid->item_reviewcount
+#   (metapath2vec_solver_bpr.py:162-180)
+
+YELP_HEREC_METAPATHS = [
+    YELP_MP2V_STEPS,
+    [("user2item", False), ("user2item", True)],
+]  # herec_solver_bpr.py:178-252; its first metapath starts at item_reviewcount
+#   rows while HeRec starts every walk at a user (models/metapath2vec.py's clamp)

@@ -22,12 +22,16 @@ from .metrics import ranks_to_metrics
 
 
 def _dense_ranks(score_fn, u, p, cand, counts):
-    """Unseen items above the positive, over the dense table's columns 1.."""
+    """Unseen items above the positive, over the dense table's columns 1..;
+    the padding columns (node id 0, masked out) are scored at the positive
+    item, so a scorer of 0-based item tables (HeRec's) gets no id out of
+    its range."""
     cd = cand[:, 1:]
     b, m = cd.shape
+    valid = torch.arange(m, device=cd.device)[None, :] < counts[:, None]
+    cd = torch.where(valid, cd, p[:, None])
     pos_s = score_fn(u, p)
     neg_s = score_fn(torch.repeat_interleave(u, m), cd.reshape(-1)).reshape(b, m)
-    valid = torch.arange(m, device=cd.device)[None, :] < counts[:, None]
     return ((neg_s > pos_s[:, None]) & valid).sum(dim=1, dtype=torch.int32)
 
 

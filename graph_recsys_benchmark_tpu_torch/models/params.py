@@ -7,7 +7,8 @@ numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and
 ``to_numpy`` returns that structure; ``ngcf_*``, ``kg_*`` (KGAT and KGCN),
 ``cfkg_*`` and ``nfm_*`` do the same for the baselines' ``*_init`` trees,
 NFM's as ``{"params", "state"}`` with the BatchNorm running statistics as
-the module's buffers.
+the module's buffers; ``walk_*`` and ``herec_*`` for the walk models'
+stage-2 trees (HeRec's ``trans`` a tuple of ``{w, b}``).
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ import numpy as np
 import torch
 
 from .cfkg import CFKG
+from .herec import HeRec
 from .kg import KG
 from .nfm import NFM, STATE
 from .ngcf import NGCF
 from .pea import PEA
+from .walk import Walk
 
 
 def _t(a):
@@ -30,14 +33,21 @@ def _a(p):
     return p.detach().cpu().numpy().copy()
 
 
+def _map(fn, tree):
+    """fn over the leaves of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def _tensors(tree):
-    return {k: ({kk: _t(vv) for kk, vv in v.items()} if isinstance(v, dict) else _t(v))
-            for k, v in tree.items()}
+    return _map(_t, tree)
 
 
 def _arrays(module):
-    return {k: ({kk: _a(vv) for kk, vv in v.items()} if isinstance(v, dict) else _a(v))
-            for k, v in module.tree().items()}
+    return _map(_a, module.tree())
 
 
 def from_jax_numpy(tree) -> PEA:
@@ -107,3 +117,22 @@ def nfm_from_jax_numpy(tree) -> NFM:
 def nfm_to_numpy(module: NFM) -> dict:
     """The JAX {"params", "state"} tree with numpy leaves."""
     return {"params": _arrays(module), "state": {k: _a(v) for k, v in module.state().items()}}
+
+
+def walk_from_jax_numpy(tree) -> Walk:
+    """MetaPath2Vec's pair scorer from the JAX ``walk_init`` pytree as numpy
+    arrays."""
+    return Walk(_tensors(tree))
+
+
+def walk_to_numpy(module: Walk) -> dict:
+    return _arrays(module)
+
+
+def herec_from_jax_numpy(tree) -> HeRec:
+    """HeRec module from the JAX ``herec_init`` pytree as numpy arrays."""
+    return HeRec(_tensors(tree))
+
+
+def herec_to_numpy(module: HeRec) -> dict:
+    return _arrays(module)

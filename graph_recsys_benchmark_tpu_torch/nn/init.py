@@ -56,26 +56,35 @@ def linear(params, x):
     return x @ params["w"] + params["b"]
 
 
+def _parameter_dict(tree):
+    return torch.nn.ParameterDict({k: torch.nn.Parameter(v) for k, v in tree.items()})
+
+
 class ParamTree(torch.nn.Module):
     """Parameters in the layout and names of a JAX params dict: a tensor
     leaf becomes a Parameter under its key, a dict of tensors a
-    ParameterDict, so carrying weights across is a copy
-    (models/params.py)."""
+    ParameterDict, a tuple of such dicts a ModuleList of them (HeRec's
+    ``trans``), so carrying weights across is a copy (models/params.py)."""
 
     def __init__(self, tree):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, torch.nn.ParameterDict(
-                    {kk: torch.nn.Parameter(vv) for kk, vv in v.items()}))
+                self.add_module(k, _parameter_dict(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, torch.nn.ModuleList(_parameter_dict(d) for d in v))
             else:
                 self.register_parameter(k, torch.nn.Parameter(v))
 
     def tree(self):
-        """The JAX layout: {key: tensor or {key: tensor}} of the Parameters."""
+        """The JAX layout: {key: tensor, {key: tensor} or a tuple of them} of
+        the Parameters."""
         out = {}
         for k, m in self.named_children():
-            out[k] = dict(m.items())
+            if isinstance(m, torch.nn.ModuleList):
+                out[k] = tuple(dict(d.items()) for d in m)
+            else:
+                out[k] = dict(m.items())
         for k, p in self.named_parameters(recurse=False):
             out[k] = p
         return out

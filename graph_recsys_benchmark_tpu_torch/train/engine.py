@@ -27,9 +27,9 @@ Loss modes (JAX :83-94, :108-153), each with its rows and batch columns:
   'bpr' — one row per (train interaction, negative draw): (u, pos, neg
           [, entity columns]);
   'bce' — the positives then one row per negative draw: (u, item, label);
-  'kg'  — one row per typed edge: (h, t, uniform corrupted tail, rel).
-'mse' (HeRec's) comes with the walk models (ROADMAP Queue 1,
-"Baselines").
+  'kg'  — one row per typed edge: (h, t, uniform corrupted tail, rel);
+  'mse' — one row per rated interaction, no sampling: the batch is the
+          pair (int64 [B, 2] (u, item), float32 [B] rating) (HeRec's).
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ import torch
 
 from .sampling import DeviceTables, sample_cf_negatives, sample_entities
 
-LOSS_MODES = ("bpr", "bce", "kg")
-EVAL_LOSS_FORMS = {"bpr": "bpr", "bce": "bce", "kg": "zero"}
+LOSS_MODES = ("bpr", "bce", "mse", "kg")
+EVAL_LOSS_FORMS = {"bpr": "bpr", "bce": "bce", "mse": "mse", "kg": "zero"}
 
 
 def fill_grads(params: torch.nn.Module):
@@ -60,10 +60,6 @@ class GraphEpochEngine:
                  predict: Optional[Callable] = None, mf_offsets=None, loss_mode: str = "bpr",
                  has_state: bool = False, kg_edges: Optional[torch.Tensor] = None,
                  num_nodes: Optional[int] = None, eval_loss_form: Optional[str] = None):
-        if loss_mode == "mse":
-            raise NotImplementedError(
-                "loss_mode 'mse' (HeRec) comes with the walk models: "
-                'ROADMAP Queue 1, "Baselines"')
         if loss_mode not in LOSS_MODES:
             raise ValueError(f"loss_mode {loss_mode!r}: expected one of {LOSS_MODES}")
         if loss_mode == "kg" and (kg_edges is None or num_nodes is None):
@@ -85,6 +81,8 @@ class GraphEpochEngine:
             self.n_rows = ei * tcfg.num_negative_samples
         elif loss_mode == "bce":  # pos rows + num_neg negative rows (movielens.py:887-917)
             self.n_rows = ei * (1 + tcfg.num_negative_samples)
+        elif loss_mode == "mse":  # one row per rated interaction (movielens.py:918-919)
+            self.n_rows = ei
         else:  # one row per typed edge, corrupted tail (movielens.py:861-877)
             self.n_rows = int(kg_edges.shape[0])
         self.num_batches = -(-self.n_rows // tcfg.batch_size)
@@ -92,16 +90,19 @@ class GraphEpochEngine:
     def _build_batch(self, rows, generator):
         """rows: int64[B] global row indices -> the loss mode's int64 batch
         columns (train/engine.py:108-153), user / item ids shifted by
-        mf_offsets."""
+        mf_offsets; 'mse' gives (pair, rating)."""
         if self.loss_mode == "kg":
             return self._kg_batch(rows, generator)
         tables = self.tables
         ei = tables.train_pos.shape[0]
         inter = rows % ei
+        u_lo, i_lo = self.mf_offsets or (0, 0)
+        if self.loss_mode == "mse":
+            pair = tables.train_pos[inter].long() - rows.new_tensor([u_lo, i_lo])
+            return pair, tables.ratings[inter]
         u = tables.train_pos[inter, 0]
         pos_i = tables.train_pos[inter, 1]
         neg_i = sample_cf_negatives(generator, u, tables, self.tcfg.sampling_strategy)
-        u_lo, i_lo = self.mf_offsets or (0, 0)
         if self.loss_mode == "bce":  # row < ei: positive (label 1), else a negative
             is_pos = rows < ei
             batch = torch.stack([u, torch.where(is_pos, pos_i, neg_i), is_pos.int()],

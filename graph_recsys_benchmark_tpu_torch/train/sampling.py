@@ -40,6 +40,7 @@ class DeviceTables:
     other mode's tables are [1, 1] / [1] zeros."""
 
     train_pos: torch.Tensor  # int32[Ei, 2] (u_nid, i_nid)
+    ratings: torch.Tensor  # float32[Ei], aligned with train_pos
     test_users: torch.Tensor  # int32[U]
     test_items: torch.Tensor  # int32[U]
     mode: str  # 'dense' | 'rejection'
@@ -94,6 +95,7 @@ def build_device_tables(hin: HINData, device) -> DeviceTables:
                     cnt_all=i32(counts), cnt_train=i32(counts - 1))
     return DeviceTables(
         train_pos=i32(hin.train_pos),
+        ratings=torch.as_tensor(hin.ratings).to(device=device, dtype=torch.float32),
         test_users=i32(cands.test_users),
         test_items=i32(cands.test_items),
         **tabs,

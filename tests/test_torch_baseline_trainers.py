@@ -14,7 +14,8 @@ batch that the port's trainer builds goes through both packages' losses:
   statistics and the eval forward on running statistics at 1e-5; its
   statistics are buffers that no optimizer step decays.
 * The engine's 'kg' and 'bce' batch columns, row counts and eval-loss
-  forms; 'mse' raises NotImplementedError naming ROADMAP Queue 1.
+  forms; an 'mse' engine on the same tables (one row per rated
+  interaction, the batch (pair, rating), its eval-loss form 'mse').
 * One KG-phase step, in which the conv weights get no gradient, then one CF
   step, against the optax chain (JAX train/optim.py): every leaf, the conv
   weights moved by the weight decay as in optax, every Adam step count 2.
@@ -367,8 +368,11 @@ def test_engine_batch_columns_and_rows(world):
     # bpr with the entity-aware columns
     b = ng._build_batch(torch.arange(64), gen)
     assert b.shape == (64, 9) and torch.equal(b[:, :2], tp[:64])
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1, "Baselines"'):
-        GraphEpochEngine(ng.tables, TCFG, ng.batch_loss, loss_mode="mse")
+    # mse: one row per rated interaction, (pair, rating) with no sampling
+    mse = GraphEpochEngine(ng.tables, TCFG, ng.batch_loss, loss_mode="mse")
+    assert (mse.n_rows, mse.eval_loss_form) == (ei, "mse")
+    pair, rating = mse._build_batch(torch.arange(64), gen)
+    assert torch.equal(pair, tp[:64]) and torch.equal(rating, torch.from_numpy(th.ratings[:64]))
 
 
 @pytest.mark.parametrize("form", ["bpr", "bce", "mse", "zero"])

@@ -206,9 +206,6 @@ def test_main_runs_the_new_datasets(dataset, extra, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "HeRec"], "Baselines"),
-    (["--model", "MetaPath2Vec"], "Baselines"),
-    (["--walk_length", "10"], "Baselines"),
     (["--parallel", "a2a"], "Parallel, last"),
     (["--dist_coordinator", "localhost:1234"], "Parallel, last"),
     (["--mesh_mp", "2"], "Parallel, last"),

@@ -618,7 +618,8 @@ def test_eval_negatives_draw_on_the_card(cuda):
     ids = torch.zeros(2, dtype=torch.int32, device=cuda)
     z = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     tables = tsamp.DeviceTables(
-        train_pos=z, test_users=ids, test_items=cand[:, 0], mode="dense", cand=cand,
+        train_pos=z, ratings=z[0].float(), test_users=ids, test_items=cand[:, 0], mode="dense",
+        cand=cand,
         neg_counts=torch.full((2,), 5, dtype=torch.int32, device=cuda), seen_all=z,
         seen_train=z, cnt_all=z[0], cnt_train=z[0], item_lo=0,
         num_items=12, user_lo=0, item_feat=z, item_feat_counts=z[0], user_feat=z,
