@@ -271,7 +271,46 @@
       `--runs 1` and `--runs 2` into one run directory (only seed 2021
       pretrained) and a new run directory over the same stage-1 cache
       (none pretrained).
-12. Prints the kernels' JSON line (a GAT forward's launches are the
+12. Edge-parallel phases (parallel_phase: parallel/, `--parallel edge`),
+   each world in processes of their own (run_ranks: a timeout each, every
+   line printed with its rank, any rank's failure or timeout fails the
+   run); phases a-c in one world of two ranks sharing cuda:0 over gloo,
+   per transport:
+   a. the flagship PEAGAT through ShardedPEATrainer: one step's launches
+      per rank against the shard plan (K7 3, K5 2, K6 1 a union shard; no
+      flash or batch-GAT kernel); its loss and all-reduced gradients the
+      same on both ranks and, on rank 0, against the same code at a world
+      of one (PAR_LOSS_TOL, PAR_LEAF_TOL, stream_excess) and the single-process
+      PEATrainer's hybrid plan (mode_slice_phase's bars between routes);
+      PAR_STEPS steps of train_step with bitwise-equal parameter digests
+      on both ranks, step ms per rank and the all-reduces' ms (the last
+      step with every collective timed, and the gradient buffer's
+      all-reduce alone); then (rank 0) K7/K5/K6 at its union shards
+      (replay_edge_calls) and an eval's launches (K12 in f32, K1 in bf16,
+      twice: the union graphs, the hybrid plan off) with both calls timed
+      (replay_flash_calls);
+   b. the ML-25M regime's streaming route
+      (make_stream_edge_sharded_train_step on each rank's shards of the
+      per-channel graphs that the ML-25M phases built, pickled to the
+      ranks): one step's K9/K10/K11 launches against the plan's channel
+      groups; its loss and gradients against a world of one (phase a's
+      bars) and the single-process grouped forward (the JAX
+      test_stream_edge_sharded.py bars in f32); 2 steps, digests, step
+      and all-reduce ms; K9-K11 at rank 0's shards in f32
+      (ml25m_kernel_phase);
+   c. KGAT through make_sharded_kg_trainer: a CF step's launches (K7 6,
+      K5 3, K6 3) and loss (PAR_LOSS_TOL), one epoch's train_loss and
+      kg_train_loss and the eval's HR@10 and AUC against the
+      single-process KGTrainer (KG_EPOCH_BARS), digests equal; then which
+      collectives gloo serves on CUDA tensors (probe_collectives);
+   d. `python -m graph_recsys_benchmark_tpu_torch --parallel edge` as two
+      processes (--dist_* flags) against the same flags in one process:
+      each epoch's train loss (1e-4) and HR@10 (2/150); only rank 0
+      writes files; a resume by both ranks from rank 0's checkpoints;
+   e. a world of one over NCCL (after NCCL asked for with two ranks on one
+      card is refused, the layout named): phase a's world-of-one step
+      against the gloo world's.
+13. Prints the kernels' JSON line (a GAT forward's launches are the
    eval's, a GAT backward's the timed epoch's, an edge kernel's the last
    timed epoch of its path (at 300 columns 11d's CLI call: its epoch and
    the eval after it),
@@ -279,7 +318,8 @@
    8 timed steps, the per-channel entries of K5-K8 one step of the mixed
    table, the baselines' entries of K5-K8 their model's timed run (9f), a
    variant route's forward its mode's eval and its
-   backward its mode's 20 steps),
+   backward its mode's 20 steps, the edge-parallel entries one step of
+   rank 0 of 2, or one eval for K1/K12),
    then {"ok": true, "device": {...}} last.
 
 Any failed check raises: the exit code is then nonzero and no result line
@@ -288,6 +328,7 @@ is printed.  Imports nothing of JAX.
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -1589,7 +1630,8 @@ def check_softmax(label, got, alpha, dst, n):
     return plain, exact, bound, share
 
 
-def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
+def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True, reps=30,
+                       plain_reps=5, transports=TDT):
     """K8 on every composed graph (weighted by its uses in one forward) and
     K9-K11 at the four streaming calls, per transport, against their plain
     versions on the card (atomic sums against float64 sums); with `sweep`
@@ -1610,7 +1652,8 @@ def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
     for _, g, _ in composed:
         uses.setdefault(id(g), [g, 0])[1] += 1
     results = {}
-    for transport, t_dtype in TDT.items():
+    for transport in transports:
+        t_dtype = TDT[transport]
         it = torch.finfo(t_dtype).bits // 8
         # ---- K8: the logits are f32 in both transports
         agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
@@ -1716,8 +1759,8 @@ def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True):
                 _, rel_plain = rel_err(got, plain(*a))
                 check(rel <= KERNEL_TOL, f"{key} {transport} (n_ch {n_ch}, kz {kz}): "
                       f"relative error vs float64 {rel} > {KERNEL_TOL}")
-                ms = device_ms(lambda: fn(*a, **kw))
-                plain_ms = device_ms(lambda: plain(*a), reps=5)
+                ms = device_ms(lambda: fn(*a, **kw), reps=reps)
+                plain_ms = device_ms(lambda: plain(*a), reps=plain_reps)
                 b_ms, b_by = bound_ms(nbytes, flops)
                 print(f"{pre}{key} {transport}: n_ch {n_ch} kz {kz} rows {n} edges {e} (padded "
                       f"{g.dst.numel()}) rel_err vs float64 {rel:.3e} vs plain {rel_plain:.3e} "
@@ -1857,119 +1900,126 @@ def ml25m_edge_kernel_phase(trainers, label="ml25m"):
     dtype): their ms replayed back to back and bound ms, and for K5 and K6
     the kernel's own device time (sum_alone) and the mean edges an id
     takes (id_runs)."""
+    results = {}
+    for transport, trainer in trainers.items():
+        results.update(replay_edge_calls(record_edge_calls(trainer), transport, label))
+        torch.cuda.empty_cache()
+    return results
+
+
+def replay_edge_calls(calls, transport, label):
+    """ml25m_edge_kernel_phase's checks and timings of one step's recorded
+    K7, K5 and K6 calls (record_edge_calls) -> {(kind, transport): the
+    kernels' JSON entry}."""
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
     from graph_recsys_benchmark_tpu_torch.ops.segment import segment_sum
 
     results = {}
     gather, sum_by_id = sk._gather, sk._sum_by_id
-    for transport, trainer in trainers.items():
-        calls = record_edge_calls(trainer)
-        for kind, recs in calls.items():
-            err, nbytes, flops, shapes = 0.0, 0, 0, {}
-            libs = []
-            groups = {}  # (width, dtype) -> [call, bytes, runs, real edges]
-            for rec in recs:
-                v, ids, n = rec[:3]
-                ids64 = torch.clamp(ids.long(), max=n)
-                e, n_in = ids.numel(), int((ids < n).sum())
-                if kind == "gather":
-                    v2 = v.reshape(n, -1)
-                    got, want = gather(*rec), sk.sorted_broadcast_plain(v, ids, n)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got, want), f"{label} gather {transport}: not a bitwise "
-                          f"copy at rows {n}, width {v2.shape[1]}")
-                    row_bytes = v2.shape[1] * v2.element_size()
-                    call_bytes, call_flops = e * 4 + n * row_bytes + e * row_bytes, 0
-                    vpad = torch.cat([v2, v2.new_zeros(1, v2.shape[1])])
-                    libs.append(lambda vpad=vpad, ids64=ids64: torch.index_select(vpad, 0,
-                                                                                   ids64))
-                    width, runs = v2.shape[1], None
-                else:
-                    counter = (sk.sorted_segment_sum if kind == "segsum"
-                               else sk.localized_scatter_add)
-                    if len(rec) > 3 and rec[3] is not None:  # the walk sums by its own ids
-                        perm, walk = rec[3]
-                        check(torch.equal(walk, ids[perm.long()]),
-                              f"{label} {kind} {transport}: a walk that is not ids[perm]")
-                    got = sum_by_id(counter, *rec)
-                    exact = segment_sum(v.double(), ids, n)
-                    torch.cuda.synchronize()
-                    check_sum(f"{label} {kind} {transport} (rows {n}, width {v.shape[1]})", got,
-                              exact, sum_bound(v.double(), ids, n))
-                    err = max(err, rel_err(got.double(), exact)[0])
-                    width = v.shape[1]
-                    call_bytes = e * 4 + n_in * width * v.element_size() + n * width * 4
-                    call_flops = n_in * width
-                    libs.append(lambda v=v, ids64=ids64, n=n: torch.zeros(
-                        n + 1, v.shape[1], dtype=v.dtype, device=v.device).index_add_(
-                        0, ids64, v))
-                    runs = id_runs(ids, n)
-                nbytes += call_bytes
-                flops += call_flops
-                dtype = str(v.dtype).split(".")[-1]
-                key = (n, width, dtype, e)
-                shapes[key] = shapes.get(key, 0) + 1
-                grp = groups.setdefault((width, dtype), [[], 0, 0, [0.0] * 4, 0])
-                grp[0].append(rec)
-                grp[1] += call_bytes
-                grp[2] += call_flops
-                if runs is not None:
-                    grp[3] = [a + b * runs[1] for a, b in zip(grp[3], runs[0])]
-                    grp[4] += runs[1]
-            counter = {"gather": None, "segsum": sk.sorted_segment_sum,
-                       "scatter": sk.localized_scatter_add}[kind]
-
-            def replay(group):
-                if kind == "gather":
-                    def run():
-                        for rec in group:
-                            gather(*rec)
-                else:
-                    def run():
-                        for rec in group:
-                            sum_by_id(counter, *rec)
-                return run
-
+    for kind, recs in calls.items():
+        err, nbytes, flops, shapes = 0.0, 0, 0, {}
+        libs = []
+        groups = {}  # (width, dtype) -> [call, bytes, runs, real edges]
+        for rec in recs:
+            v, ids, n = rec[:3]
+            ids64 = torch.clamp(ids.long(), max=n)
+            e, n_in = ids.numel(), int((ids < n).sum())
             if kind == "gather":
-                def plain():
-                    for v, ids, n, *_ in recs:
-                        sk.sorted_broadcast_plain(v, ids, n)
+                v2 = v.reshape(n, -1)
+                got, want = gather(*rec), sk.sorted_broadcast_plain(v, ids, n)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{label} gather {transport}: not a bitwise "
+                      f"copy at rows {n}, width {v2.shape[1]}")
+                row_bytes = v2.shape[1] * v2.element_size()
+                call_bytes, call_flops = e * 4 + n * row_bytes + e * row_bytes, 0
+                vpad = torch.cat([v2, v2.new_zeros(1, v2.shape[1])])
+                libs.append(lambda vpad=vpad, ids64=ids64: torch.index_select(vpad, 0,
+                                                                               ids64))
+                width, runs = v2.shape[1], None
             else:
-                def plain():
-                    for v, ids, n, *_ in recs:
-                        sk.sorted_segment_sum_plain(v, ids, n, "f32")
+                counter = (sk.sorted_segment_sum if kind == "segsum"
+                           else sk.localized_scatter_add)
+                if len(rec) > 3 and rec[3] is not None:  # the walk sums by its own ids
+                    perm, walk = rec[3]
+                    check(torch.equal(walk, ids[perm.long()]),
+                          f"{label} {kind} {transport}: a walk that is not ids[perm]")
+                got = sum_by_id(counter, *rec)
+                exact = segment_sum(v.double(), ids, n)
+                torch.cuda.synchronize()
+                check_sum(f"{label} {kind} {transport} (rows {n}, width {v.shape[1]})", got,
+                          exact, sum_bound(v.double(), ids, n))
+                err = max(err, rel_err(got.double(), exact)[0])
+                width = v.shape[1]
+                call_bytes = e * 4 + n_in * width * v.element_size() + n * width * 4
+                call_flops = n_in * width
+                libs.append(lambda v=v, ids64=ids64, n=n: torch.zeros(
+                    n + 1, v.shape[1], dtype=v.dtype, device=v.device).index_add_(
+                    0, ids64, v))
+                runs = id_runs(ids, n)
+            nbytes += call_bytes
+            flops += call_flops
+            dtype = str(v.dtype).split(".")[-1]
+            key = (n, width, dtype, e)
+            shapes[key] = shapes.get(key, 0) + 1
+            grp = groups.setdefault((width, dtype), [[], 0, 0, [0.0] * 4, 0])
+            grp[0].append(rec)
+            grp[1] += call_bytes
+            grp[2] += call_flops
+            if runs is not None:
+                grp[3] = [a + b * runs[1] for a, b in zip(grp[3], runs[0])]
+                grp[4] += runs[1]
+        counter = {"gather": None, "segsum": sk.sorted_segment_sum,
+                   "scatter": sk.localized_scatter_add}[kind]
 
-            def lib():
-                for f in libs:
-                    f()
+        def replay(group):
+            if kind == "gather":
+                def run():
+                    for rec in group:
+                        gather(*rec)
+            else:
+                def run():
+                    for rec in group:
+                        sum_by_id(counter, *rec)
+            return run
 
-            ms = device_ms(replay(recs), reps=10)
-            plain_ms = device_ms(plain, reps=3)
-            lib_ms = device_ms(lib, reps=10)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            print(f"{label} {SEG_KERNELS[kind]} {transport}: {len(recs)} calls in one step "
-                  f"((rows, width, dtype, edges) x calls: "
-                  f"{sorted(shapes.items(), key=lambda kv: -kv[1])}); ms {ms:.5f} plain_ms "
-                  f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by}; "
-                  f"{nbytes} bytes)", flush=True)
-            for (width, dtype), (group, g_bytes, g_flops, run_sum, run_e) in sorted(
-                    groups.items(), key=lambda kv: -kv[1][1]):
-                g_ms = device_ms(replay(group), reps=10)
-                g_bound = bound_ms(g_bytes, g_flops)[0]
-                line = (f"{label} {SEG_KERNELS[kind]} {transport} width {width} {dtype}: "
-                        f"{len(group)} calls ms {g_ms:.5f} bound_ms {g_bound:.5f} (share "
-                        f"{g_bound / g_ms:.3f})")
-                if kind != "gather":
-                    k_ms = device_ms(sum_alone(group), reps=10)
-                    line += (f"; kernel alone {k_ms:.5f} ms, zeroing {g_ms - k_ms:.5f} ms; "
-                             "mean edges an id takes (run, 32-edge window, 2,048-edge "
-                             f"chunk, call) {[round(x / run_e, 3) for x in run_sum]}")
-                print(line, flush=True)
-            results[(kind, transport)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                              calls=len(recs))
-        del calls
-        torch.cuda.empty_cache()
+        if kind == "gather":
+            def plain():
+                for v, ids, n, *_ in recs:
+                    sk.sorted_broadcast_plain(v, ids, n)
+        else:
+            def plain():
+                for v, ids, n, *_ in recs:
+                    sk.sorted_segment_sum_plain(v, ids, n, "f32")
+
+        def lib():
+            for f in libs:
+                f()
+
+        ms = device_ms(replay(recs), reps=10)
+        plain_ms = device_ms(plain, reps=3)
+        lib_ms = device_ms(lib, reps=10)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"{label} {SEG_KERNELS[kind]} {transport}: {len(recs)} calls in one step "
+              f"((rows, width, dtype, edges) x calls: "
+              f"{sorted(shapes.items(), key=lambda kv: -kv[1])}); ms {ms:.5f} plain_ms "
+              f"{plain_ms:.4f} library_ms {lib_ms:.5f} bound_ms {b_ms:.5f} ({b_by}; "
+              f"{nbytes} bytes)", flush=True)
+        for (width, dtype), (group, g_bytes, g_flops, run_sum, run_e) in sorted(
+                groups.items(), key=lambda kv: -kv[1][1]):
+            g_ms = device_ms(replay(group), reps=10)
+            g_bound = bound_ms(g_bytes, g_flops)[0]
+            line = (f"{label} {SEG_KERNELS[kind]} {transport} width {width} {dtype}: "
+                    f"{len(group)} calls ms {g_ms:.5f} bound_ms {g_bound:.5f} (share "
+                    f"{g_bound / g_ms:.3f})")
+            if kind != "gather":
+                k_ms = device_ms(sum_alone(group), reps=10)
+                line += (f"; kernel alone {k_ms:.5f} ms, zeroing {g_ms - k_ms:.5f} ms; "
+                         "mean edges an id takes (run, 32-edge window, 2,048-edge "
+                         f"chunk, call) {[round(x / run_e, 3) for x in run_sum]}")
+            print(line, flush=True)
+        results[(kind, transport)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                          calls=len(recs))
     return results
 
 
@@ -3953,8 +4003,870 @@ def walk_cli_phase(tmp):
     return out
 
 
+# ---------------------------------------------------------------- 12. parallel
+
+PAR_TIMEOUT_S = 420  # each rank process of the parallel phase
+# one step of the two-rank routes against the same code at a world of one:
+# only the split and the order of the sums differ.  The loss is held to
+# PAR_LOSS_TOL.  In f32 the median leaf is held to PAR_LEAF_TOL of its
+# largest value, and every leaf to the JAX stream test's elementwise bars
+# (stream_excess): a leaf that is a sum cancelling to a small value (a
+# bias's, fc2.w) moves further when the batch's rows are split over the
+# ranks (flagship channels.4.1.b 1.5e-4-2.1e-4 of its largest value,
+# ML-25M fc2.w 1.1e-3), and by 2.6e-5-6.3e-5 between two runs of the same
+# world-of-one step in one process, whose f32 atomics add in any order (on
+# one H100 80GB HBM3 at 700 W; PERF.md section 6).  In bf16 every leaf is
+# held to PAR_LEAF_TOL.  Two worlds of one (phase e) hold each leaf to
+# PAR_LEAF_TOL or, where larger, PAR_SPREAD_X times its spread between two
+# runs in one process.
+PAR_LOSS_TOL = {"f32": 1e-6, "bf16": 1e-3}
+PAR_LEAF_TOL = {"f32": 1e-5, "bf16": KINK_TOL}
+PAR_SPREAD_X = 4.0
+# one KGAT epoch against the single-process trainer's (par_phase_c): the
+# JAX test's bars, but for the CF phase's mean train loss and HR@10, which
+# the single-process trainer itself does not repeat to them: its f32
+# atomics add in any order, and 281 CF steps amplify that (six f32 epochs
+# from the same seeds read 432.29-432.60, 7e-4 apart, and HR@10
+# 0.3117-0.3250, 8 users of 600, on one H100 80GB HBM3 at 700 W)
+KG_EPOCH_BARS = {"train_loss": ("rtol", 2e-3), "kg_train_loss": ("rtol", 2e-4),
+                 "AUC": ("atol", 5e-3), "HR@10": ("atol", 2e-2)}
+# the streaming route against the single-process grouped forward: the JAX
+# package's own bars (tests/test_stream_edge_sharded.py:97-104)
+STREAM_LOSS_RTOL, STREAM_GRAD_RTOL, STREAM_GRAD_ATOL = 1e-5, 5e-3, 5e-4
+PAR_STEPS = 3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk_:
+        sk_.bind(("127.0.0.1", 0))
+        return sk_.getsockname()[1]
+
+
+def _start_ranks(kind, nprocs, workdir, argv=None):
+    """Start `nprocs` processes (this script's rank worker `kind` over one
+    TCP store, or `argv(r)`), each line printed with its rank as it comes
+    -> [(kind, rank, process, lines, thread)]."""
+    import threading
+
+    store = f"tcp://127.0.0.1:{_free_port()}"
+    started = []
+    for r in range(nprocs):
+        cmd = (argv(r) if argv is not None else
+               [sys.executable, os.path.abspath(__file__), "--parallel-rank", kind, str(r),
+                str(nprocs), store, workdir])
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             cwd=HERE)
+        lines = []
+
+        def pump(p=p, lines=lines, r=r):
+            for line in p.stdout:
+                lines.append(line.rstrip("\n"))
+                sys.stdout.write(f"[{kind} rank {r}] {line.rstrip()}\n")  # one write a line
+                sys.stdout.flush()
+
+        t = threading.Thread(target=pump, daemon=True)
+        t.start()
+        started.append((kind, r, p, lines, t))
+    return started
+
+
+def run_ranks(*groups, workdir=None, timeout=PAR_TIMEOUT_S):
+    """Run every group (kind, nprocs[, argv]) of processes at once
+    (_start_ranks) and wait for all: any process's failure or timeout kills
+    the others and fails.  Returns {kind: each rank's output lines}."""
+    procs = [x for g in groups for x in _start_ranks(g[0], g[1], workdir, *g[2:])]
+    deadline = time.perf_counter() + timeout
+    failed = None
+    try:
+        for kind, r, p, _, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                failed = f"{kind}: rank {r} did not end within {timeout} s"
+                break
+            if p.returncode != 0:
+                failed = f"{kind}: rank {r} exited {p.returncode}"
+                break
+    finally:
+        for _, _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for *_, t in procs:
+            t.join(timeout=10)
+    check(failed is None, failed)
+    out = {}
+    for kind, _, _, lines, _ in procs:
+        out.setdefault(kind, []).append(lines)
+    return out
+
+
+def _grad_list(params):
+    return [p.grad.detach().clone() for p in params.parameters()]
+
+
+# a gradient leaf whose reference is no larger than this share of the
+# largest reference gradient of all is a zero but for rounding: at the
+# flagship's init the step-2 attention vectors of the seven channels that
+# share i2u get exact zeros on the edge route and ~1e-11 on the hybrid
+# plan (against 0.2 for fc2.w).  Such a leaf is held to the transport's
+# PAR_LEAF_TOL of that largest gradient.
+PAR_ZERO_FLOOR = 1e-7
+
+
+def _par_leaf_errors(label, grads, ref_grads, names, transport):
+    """{leaf: max |grads - ref| over the ref leaf's largest value}; a ref
+    leaf at most PAR_ZERO_FLOOR of the largest ref gradient of all is held
+    to PAR_LEAF_TOL[transport] of that largest gradient (and left out)."""
+    top = max(float(r.abs().max()) for r in ref_grads)
+    errs = {}
+    for n, g, r in zip(names, grads, ref_grads):
+        check(bool(torch.isfinite(g).all()), f"{label} grad {n}: not finite")
+        if float(r.abs().max()) <= PAR_ZERO_FLOOR * top:
+            err = float((g.to(r.device) - r).abs().max())
+            check(err <= PAR_LEAF_TOL[transport] * top,
+                  f"{label} grad {n}: a zero but for rounding in the reference, off by {err:.3e} "
+                  f"(the largest gradient {top:.3e})")
+            continue
+        errs[n] = rel_err(g.to(r.device), r)[1]
+    return errs
+
+
+def _worst(errs):
+    """(median, (worst error, leaf)) of a _par_leaf_errors dict."""
+    vals = sorted((e, n) for n, e in errs.items())
+    return vals[len(vals) // 2][0], vals[-1]
+
+
+def stream_excess(grads, ref_grads, names):
+    """{leaf: how far past rtol STREAM_GRAD_RTOL / atol STREAM_GRAD_ATOL
+    (the JAX test_stream_edge_sharded.py bars) its worst element lies},
+    the leaves within them left out."""
+    excess = {}
+    for n, g, r in zip(names, grads, ref_grads):
+        over = float(((g - r).abs() - (STREAM_GRAD_ATOL + STREAM_GRAD_RTOL * r.abs())).max())
+        if over > 0:
+            excess[n] = over
+    return excess
+
+
+def hold_vs_world1(label, transport, loss, loss1, errs, spread, elementwise=None):
+    """The loss within PAR_LOSS_TOL of the world of one's; each leaf within
+    PAR_LEAF_TOL of its largest value or PAR_SPREAD_X times its spread
+    between two world-of-one runs (`spread`, a _par_leaf_errors dict).
+    `elementwise` {leaf: excess} replaces the leaf rule with an elementwise
+    one the caller held (its leaves past it)."""
+    rel_l = rel_err(loss, loss1)[1]
+    med, worst = _worst(errs)
+    if elementwise is not None:
+        over = elementwise
+        check(med <= PAR_LEAF_TOL[transport], f"{label}: median leaf vs a world of one {med}")
+    else:
+        over = {n: (e, spread.get(n, 0.0)) for n, e in errs.items()
+                if e > max(PAR_LEAF_TOL[transport], PAR_SPREAD_X * spread.get(n, 0.0))}
+    print(f"{label}: vs a world of one: loss {float(loss):.6f} / {float(loss1):.6f} rel "
+          f"{rel_l:.3e}; leaves median {med:.3e} worst {worst}; the world of one against "
+          f"itself run again: worst {_worst(spread)[1] if spread else None}", flush=True)
+    check(rel_l <= PAR_LOSS_TOL[transport], f"{label}: loss vs a world of one {rel_l}")
+    check(not over, f"{label}: leaves vs a world of one past their bar: {over}")
+    return dict(loss_rel=rel_l, median_leaf=med, worst_leaf=worst[0], worst_name=worst[1],
+                spread_worst=_worst(spread)[1][0] if spread else 0.0)
+
+
+def probe_collectives(mesh):
+    """Which collectives gloo serves on CUDA tensors (two ranks on one
+    card): all_reduce SUM and MAX (the edge layer's; a failure fails), and
+    all_gather, reduce_scatter, all_to_all (the row-sharded table's;
+    reported).  Returns {name: 'ok' | the error's first line}."""
+    import torch.distributed as dist
+
+    dev, r = mesh.device, mesh.rank
+    out = {}
+    x = torch.full((4,), float(r + 1), device=dev)
+    dist.all_reduce(x)
+    check(torch.equal(x.cpu(), torch.full((4,), 3.0)), "gloo all_reduce SUM on cuda tensors")
+    y = torch.full((4,), float(r + 1), device=dev)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    check(torch.equal(y.cpu(), torch.full((4,), 2.0)), "gloo all_reduce MAX on cuda tensors")
+    out["all_reduce"] = "ok (SUM, MAX)"
+    probes = {
+        "all_gather": lambda: dist.all_gather([torch.empty(4, device=dev) for _ in range(2)],
+                                              torch.full((4,), float(r), device=dev)),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(2, device=dev), [torch.ones(2, device=dev) for _ in range(2)]),
+        "all_to_all": lambda: dist.all_to_all([torch.empty(2, device=dev) for _ in range(2)],
+                                              [torch.ones(2, device=dev) for _ in range(2)]),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8, device=dev), torch.ones(4, device=dev)),
+    }
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # a probe's refusal is its result
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+        dist.barrier()
+    print(f"gloo on cuda tensors: {out}", flush=True)
+    return out
+
+
+def _par_flagship(hin, transport, mesh):
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    cfg = PEAConfig(conv="gat", num_nodes=hin.num_nodes, meta_path_steps=(2,) * 9, emb_dim=64,
+                    hidden_size=64, repr_dim=16, entity_aware=True)
+    return cfg, ShardedPEATrainer(hin, cfg, TrainConfig(), mesh=mesh, transport=transport)
+
+
+def _flagship_batch(trainer, seed=11):
+    bs = trainer.tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
+    return trainer._build_batch(rows, gen), torch.ones(bs, device="cuda")
+
+
+def record_flash_calls(fn):
+    """The arguments of every flash_gat_fwd (K1/K12) call of fn()."""
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+
+    calls, orig = [], fg.flash_gat_fwd
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    # the wrapper counts its launches on the module's flash_gat_fwd
+    rec.launches = orig.launches
+    fg.flash_gat_fwd = rec
+    try:
+        fn()
+    finally:
+        fg.flash_gat_fwd = orig
+        orig.launches = rec.launches
+    torch.cuda.synchronize()
+    return calls
+
+
+def replay_flash_calls(calls, transport, label):
+    """Each recorded K1/K12 call against its plain version (KERNEL_TOL of
+    the largest value), its device, plain ms and bound (flash_fwd_cost on
+    the call's real edges) -> the kernels' JSON entry of the calls'
+    sums."""
+    from graph_recsys_benchmark_tpu_torch.ops import cost
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+
+    agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
+    tb, tf = 0, 0
+    for a, k in calls:
+        table, _, _, src, dst, n, kz = a[:7]
+        got = fg.flash_gat_fwd(*a, **k)
+        want = fg.flash_gat_fwd_plain(*a[:7])
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= KERNEL_TOL, f"{label} flash_gat_fwd {transport} kz {kz}: relative error "
+              f"{rel} vs its plain version")
+        e = int((dst < n).sum())
+        flops, nbytes = cost.flash_fwd_cost(e, kz, n, table.shape[0], table.element_size())
+        ms = device_ms(lambda: fg.flash_gat_fwd(*a, **k))
+        plain_ms = device_ms(lambda: fg.flash_gat_fwd_plain(*a[:7]), reps=5)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"{label} flash_gat_fwd {transport}: kz {kz} rows {n} edges {e} (padded "
+              f"{dst.numel()}) rel_err {rel:.3e} ms {ms:.5f} plain_ms {plain_ms:.4f} bound_ms "
+              f"{b_ms:.6f} ({b_by})", flush=True)
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        agg["ms"] += ms
+        agg["plain_ms"] += plain_ms
+        agg["bound_ms"] += b_ms
+        tb, tf = tb + nbytes, tf + flops
+    agg["bound_by"] = bound_ms(tb, tf)[1]
+    agg["calls"] = len(calls)
+    return agg
+
+
+def par_phase_a(hin, mesh, transport, workdir):
+    """Flagship PEAGAT, edge mode, on `mesh` (two ranks sharing cuda:0 over
+    gloo): one step's launches against the shard plan, its loss and
+    all-reduced gradients against the same code at a world of one (rank 0)
+    and the single-process PEATrainer (the hybrid plan), PAR_STEPS steps
+    with bitwise-equal parameter digests on both ranks, step and all-reduce
+    ms, the eval's launches (rank 0), and K7/K5/K6 at the union shards and
+    K1/K12 on the eval's unions timed (rank 0)."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel.edge_parallel import (
+        _local_view,
+        make_edge_sharded_train_step,
+        shard_step_graph,
+        sharded_grads,
+    )
+    from graph_recsys_benchmark_tpu_torch.parallel.mesh import Mesh
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer
+
+    lab = f"parallel a {transport}"
+    r = mesh.rank
+    t0 = time.perf_counter()
+    cfg, sh = _par_flagship(hin, transport, mesh)
+    graphs = sh._edge_graphs
+    print(f"{lab}: trainer built in {time.perf_counter() - t0:.1f} s host; this rank's union "
+          f"shards (rows, real edges, padded) "
+          f"{[(g.num_nodes, int((g.dst < g.num_nodes).sum()), g.dst.numel()) for g in graphs]}",
+          flush=True)
+    names = [n for n, _ in sh.init(2020).named_parameters()]
+    params = sh.init(2020)
+    batch, mask = _flagship_batch(sh)
+    # one step's launches: per union shard K7 3 (gather_src, gather_dst,
+    # the sum's backward), K5 2 (the sum, gather_dst's backward), K6 1
+    # (gather_src's backward); the sharded softmax is plain torch
+    want = expected(gather=3 * len(graphs), segsum=2 * len(graphs), scatter=len(graphs))
+    reset_launches()
+    loss = sh.loss_and_grads(params, batch, mask)
+    torch.cuda.synchronize()
+    got = read_launches()
+    print(f"{lab}: one step's launches {got}", flush=True)
+    check(got == want, f"{lab}: launches {got}, the shard plan's {want}")
+    grads = _grad_list(params)
+    digests = coll.gather_digests(grads, mesh)
+    check(len(set(digests)) == 1, f"{lab}: the ranks' all-reduced gradients differ")
+    res = {"launches_step": got, "loss": float(loss)}
+    if r == 0:
+        # the same code at a world of one: one shard, no collective
+        one = Mesh(dp=1, rank=0, device=mesh.device)
+        g1 = tuple(_local_view(shard_step_graph(g, 1), one) for g in sh.graphs)
+        step1, _ = make_edge_sharded_train_step(cfg, g1, one, transport)
+        runs = []
+        for _ in range(2):
+            p1 = sh.init(2020)
+            runs.append((sharded_grads(step1.local_loss, p1, batch, mask, one), _grad_list(p1)))
+        (loss1, grads1), (_, grads1b) = runs
+        torch.save({"loss": loss1.cpu(), "grads": [g.cpu() for g in grads1]},
+                   os.path.join(workdir, f"world1_{transport}.pt"))
+        w1 = hold_vs_world1(lab, transport, loss, loss1,
+                            _par_leaf_errors(lab, grads, grads1, names, transport),
+                            _par_leaf_errors(lab, grads1b, grads1, names, transport),
+                            stream_excess(grads, grads1, names) if transport == "f32"
+                            else None)
+        # the single-process trainer, hybrid plan, same weights and batch
+        base = PEATrainer(hin, cfg, sh.tcfg, device="cuda", transport=transport)
+        ref = _one_batch(base, sh.init(2020), batch, mask)
+        rel_h = rel_err(loss, ref[0])[1]
+        hmed, hworst = _worst(_par_leaf_errors(lab, grads, [p.grad for p in
+                                                            ref[1].parameters()], names,
+                                               transport))
+        # mode_slice_phase's bars between routes: the loss and the median
+        # leaf at FORWARD_TOL, every leaf at KINK_TOL; in bf16 the
+        # gradients printed, as there for a route of another softmax shift
+        # (this route's exact row max against the hybrid plan's bound)
+        print(f"{lab}: vs the single-process PEATrainer (hybrid plan): loss rel {rel_h:.3e}; "
+              f"leaves median {hmed:.3e} worst {hworst}", flush=True)
+        check(rel_h <= FORWARD_TOL[transport], f"{lab}: loss vs the hybrid plan {rel_h}")
+        check(transport == "bf16" or (hmed <= FORWARD_TOL[transport] and hworst[0] <= KINK_TOL),
+              f"{lab}: vs the hybrid plan: median {hmed}, worst {hworst}")
+        res.update(world1=w1, hybrid_loss_rel=rel_h, hybrid_median_leaf=hmed,
+                   hybrid_worst_leaf=hworst[0])
+        del base, ref, p1, g1, runs
+    dist.barrier()
+    # PAR_STEPS optimizer steps through the trainer's own train_step
+    opt = sh.optimizer(params)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    step_ms, ar = [], []
+    for i in range(PAR_STEPS):
+        rows = torch.randint(0, sh.n_rows, (sh.tcfg.batch_size,), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == PAR_STEPS - 1:
+            coll.reset_stats()
+            with coll.timing():
+                sh.train_step(params, opt, rows, mask, gen)
+            ar.append(dict(coll.STATS))
+        else:
+            sh.train_step(params, opt, rows, mask, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    pd = coll.gather_digests(list(params.parameters()), mesh)
+    print(f"{lab}: {PAR_STEPS} steps, ms {[round(x, 2) for x in step_ms]} (the last with every "
+          f"collective timed: {ar[0]['calls']} all-reduces, {ar[0]['bytes']} bytes, "
+          f"{ar[0]['seconds'] * 1e3:.3f} ms); parameter digests {pd}", flush=True)
+    check(len(set(pd)) == 1, f"{lab}: the ranks' parameters differ after {PAR_STEPS} steps")
+    res.update(step_ms=step_ms, allreduce=ar[0], digests=pd)
+    # one all-reduce of the step's gradient buffer, timed alone (20 calls)
+    flat = torch.cat([p.grad.reshape(-1) for p in params.parameters()])
+    dist.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        coll.all_reduce_(flat, mesh)
+    torch.cuda.synchronize()
+    res["grad_allreduce_ms"] = (time.perf_counter() - t) * 1e3 / 20
+    print(f"{lab}: the gradient all-reduce alone ({flat.numel() * 4} bytes) "
+          f"{res['grad_allreduce_ms']:.3f} ms a call", flush=True)
+    # K7/K5/K6 at this rank's union shards: one step's calls recorded on
+    # both ranks (the step's collectives need both), replayed on rank 0
+    calls = record_edge_calls(sh)
+    if r == 0:
+        res["edge_kernels"] = {k: v for (k, _), v in replay_edge_calls(
+            calls, transport, f"parallel flagship union shard (rank 0 of 2)").items()}
+        reset_launches()
+        flash = record_flash_calls(lambda: sh.evaluate(params, torch.Generator(
+            device="cuda").manual_seed(13)))
+        ev = read_launches()
+        want_ev = expected(flash_fwd=2)
+        print(f"{lab}: an eval's launches (rank 0, the union graphs) {ev}", flush=True)
+        check(ev == want_ev, f"{lab}: eval launches {ev}, expected {want_ev}")
+        res["eval_launches"] = ev
+        res["flash"] = replay_flash_calls(flash, transport, "parallel eval union")
+    del calls
+    dist.barrier()
+    del sh
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_phase_b(mesh, transport, workdir, loaded):
+    """The ML-25M regime's streaming route on `mesh`: each rank's shards of
+    the per-channel graphs (plan_channel_shards) through K9-K11 with
+    make_stream_edge_sharded_train_step directly (no ShardedPEATrainer:
+    its eval graphs, a 13-channel union with the loops as edges, are not
+    built), one step's launches against the plan's groups, its loss and
+    gradients against the single-process grouped forward at the JAX bars
+    and a world of one at phase a's (rank 0), step ms, and K9-K11 at the
+    shards' shapes (rank 0)."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.graph import graphs_to
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig, pea_init, pea_loss
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel.edge_parallel import (
+        _local_view,
+        make_stream_edge_sharded_train_step,
+        plan_channel_shards,
+        sharded_grads,
+    )
+    from graph_recsys_benchmark_tpu_torch.parallel.mesh import Mesh
+    from graph_recsys_benchmark_tpu_torch.train.engine import GraphEpochEngine
+    from graph_recsys_benchmark_tpu_torch.train.optim import make_optimizer
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+    from graph_recsys_benchmark_tpu_torch.train.sampling import build_device_tables
+
+    lab = f"parallel b {transport}"
+    hin, per_channel = loaded["hin"], loaded["per_channel"]
+    cfg = PEAConfig(conv="gat", num_nodes=hin.num_nodes, meta_path_steps=(2,) * 13,
+                    emb_dim=64, hidden_size=64, repr_dim=16, entity_aware=True)
+    tcfg = TrainConfig(batch_size=4096, sampling_strategy="random")
+    if "plan" not in loaded:
+        t0 = time.perf_counter()
+        groups, dist_ = plan_channel_shards(per_channel, mesh.dp)
+        loaded["plan"] = (groups, tuple(tuple(_local_view(d, mesh) for d in s) for s in dist_))
+        loaded["engine"] = GraphEpochEngine(build_device_tables(hin, mesh.device), tcfg,
+                                            batch_loss=None, entity_aware=True)
+        print(f"{lab}: shard plan and tables in {time.perf_counter() - t0:.1f} s host; groups "
+              f"{groups}", flush=True)
+    groups, local = loaded["plan"]
+    eng = loaded["engine"]
+    step, place = make_stream_edge_sharded_train_step(cfg, groups, local, mesh, transport)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = torch.randint(0, eng.n_rows, (tcfg.batch_size,), generator=gen, device="cuda")
+    batch, mask = eng._build_batch(rows, gen), torch.ones(tcfg.batch_size, device="cuda")
+    params = pea_init(torch.Generator().manual_seed(2020), cfg).to(mesh.device)
+    names = [n for n, _ in params.named_parameters()]
+    n_groups = sum(len(g) for g in groups)
+    want = expected(stream_fwd=n_groups, stream_bwd_dst=n_groups, stream_bwd_src=n_groups)
+    reset_launches()
+    loss = sharded_grads(step.local_loss, params, *place(batch, mask), mesh)
+    torch.cuda.synchronize()
+    got = read_launches()
+    print(f"{lab}: one step's launches {got} ({n_groups} channel groups)", flush=True)
+    check(got == want, f"{lab}: launches {got}, the plan's {want}")
+    grads = _grad_list(params)
+    res = {"launches_step": got, "loss": float(loss)}
+    if mesh.rank == 0:
+        one = Mesh(dp=1, rank=0, device=mesh.device)
+        if "plan1" not in loaded:
+            g1, d1 = plan_channel_shards(per_channel, 1)
+            loaded["plan1"] = (g1, tuple(tuple(_local_view(d, one) for d in s) for s in d1))
+        step1, _ = make_stream_edge_sharded_train_step(cfg, *loaded["plan1"], one, transport)
+        runs = []
+        for _ in range(2):
+            p1 = pea_init(torch.Generator().manual_seed(2020), cfg).to(mesh.device)
+            runs.append((sharded_grads(step1.local_loss, p1, batch, mask, one), _grad_list(p1)))
+        (loss1, grads1), (_, grads1b) = runs
+        w1 = hold_vs_world1(lab, transport, loss, loss1,
+                            _par_leaf_errors(lab, grads, grads1, names, transport),
+                            _par_leaf_errors(lab, grads1b, grads1, names, transport),
+                            stream_excess(grads, grads1, names) if transport == "f32"
+                            else None)
+        del p1, step1, runs
+        # the single-process grouped forward (models/pea._grouped_gat_forward)
+        p2 = pea_init(torch.Generator().manual_seed(2020), cfg).to(mesh.device)
+        on_card = graphs_to(per_channel, mesh.device)
+        loss2 = pea_loss(p2, on_card, cfg, batch, row_mask=mask, transport=transport)
+        loss2.backward()
+        rel_g = rel_err(loss, loss2.detach())[1]
+        gmed, gworst = _worst(_par_leaf_errors(lab, grads, [p.grad for p in p2.parameters()],
+                                               names, transport))
+        excess = stream_excess(grads, [p.grad for p in p2.parameters()], names)
+        print(f"{lab}: vs the single-process grouped forward: loss {float(loss):.4f} / "
+              f"{float(loss2):.4f} rel {rel_g:.3e}; leaves median {gmed:.3e} worst {gworst}; "
+              f"past rtol {STREAM_GRAD_RTOL} / atol {STREAM_GRAD_ATOL}: {excess}", flush=True)
+        check(rel_g <= STREAM_LOSS_RTOL, f"{lab}: loss vs the grouped forward {rel_g}")
+        # f32: the JAX test's elementwise bars.  bf16, which that test does
+        # not run: the two routes make z in other products (one einsum a
+        # group against a matmul a channel), so a table entry can round to
+        # bf16 apart, and sums that cancel (the step-1 biases: 16 % on
+        # channels.11.0.b on one H100 80GB HBM3 at 700 W) amplify it:
+        # mode_slice_phase's rule for routes that round apart, the loss and
+        # the median leaf held (FORWARD_TOL), every leaf printed
+        check(not excess if transport == "f32" else gmed <= FORWARD_TOL[transport],
+              f"{lab}: gradients vs the grouped forward: {excess or gmed}")
+        res.update(world1=w1, grouped_loss_rel=rel_g, grouped_median_leaf=gmed,
+                   grouped_worst_leaf=gworst[0], grouped_excess=excess)
+        del p2, on_card, loss2
+    dist.barrier()
+    opt = make_optimizer(tcfg.opt, tcfg.lr, tcfg.weight_decay)(params.parameters())
+    step_ms = []
+    for i in range(2):
+        rows = torch.randint(0, eng.n_rows, (tcfg.batch_size,), generator=gen, device="cuda")
+        b = eng._build_batch(rows, gen)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 1:
+            coll.reset_stats()
+            with coll.timing():
+                step(params, opt, *place(b, mask))
+            ar = dict(coll.STATS)
+        else:
+            step(params, opt, *place(b, mask))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    pd = coll.gather_digests(list(params.parameters()), mesh)
+    check(len(set(pd)) == 1, f"{lab}: the ranks' parameters differ")
+    print(f"{lab}: 2 steps ms {[round(x, 2) for x in step_ms]} (the last with every "
+          f"collective timed: {ar['calls']} all-reduces, {ar['bytes']} bytes, "
+          f"{ar['seconds'] * 1e3:.3f} ms); parameter digests equal", flush=True)
+    res.update(step_ms=step_ms, allreduce=ar)
+    if mesh.rank == 0 and transport == "f32":
+        # K9-K11 at this rank's shards (each call's real edges), f32
+        from graph_recsys_benchmark_tpu_torch.models.pea import _channel_layer_dims
+
+        dims = _channel_layer_dims(cfg, 2)
+        stream = []
+        for k, step_groups in enumerate(groups):
+            for chans, gi in step_groups:
+                g = local[k][gi]
+                real = int((g.dst < g.num_nodes).sum())
+                stream.append((f"step {k + 1}", dataclasses.replace(g, num_edges=real), chans,
+                               dims[k][1]))
+        t0 = time.perf_counter()
+        res["stream_kernels"] = {f"{k}|{t}": v for (k, t), v in ml25m_kernel_phase(
+            None, stream, [], label="parallel ml25m shard (rank 0 of 2)", sweep=False,
+            reps=5, plain_reps=1, transports=("f32",)).items() if k != "softmax"}
+        print(f"{lab}: K9-K11 at the shards timed in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_phase_c(hin, mesh, transport):
+    """KGAT edge-sharded on `mesh` at the CLI's widths (emb 64, hidden 64)
+    and TrainConfig's defaults: one CF step's launches against the shard
+    plan and its loss against the single-process KGTrainer's step
+    (PAR_LOSS_TOL, rank 0); one epoch's train_loss and kg_train_loss and
+    the eval's HR@10 and AUC against the single-process trainer at the
+    same seeds (rank 0), at KG_EPOCH_BARS; the ranks' parameters bitwise
+    equal."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.models.kg import KGConfig
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import make_sharded_kg_trainer
+    from graph_recsys_benchmark_tpu_torch.train.baseline_trainers import KGTrainer
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    lab = f"parallel c {transport}"
+    cfg = KGConfig(variant="kgat", num_nodes=hin.num_nodes, num_relations=hin.num_edge_types,
+                   emb_dim=64, hidden_size=64)
+    tcfg = TrainConfig()
+    sh = make_sharded_kg_trainer(hin, cfg, tcfg, mesh, transport=transport)
+    params = sh.init(2020)
+    batch, mask = _flagship_batch(sh)
+    att = sh._att_snapshot(params)
+    reset_launches()
+    loss = sh._step(params, sh.optimizer(params),
+                    lambda: sh._cf_loss(params, att, batch, mask, None))
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = expected(gather=6, segsum=3, scatter=3)
+    print(f"{lab}: one CF step's launches {got}", flush=True)
+    check(got == want, f"{lab}: launches {got}, the plan's {want}")
+    res = {"launches_step": got}
+    single = None
+    if mesh.rank == 0:
+        single = KGTrainer(hin, cfg, tcfg, device="cuda", transport=transport)
+        ps = single.init(2020)
+        loss1 = single._step(ps, single.optimizer(ps), lambda: single._cf_loss(
+            ps, single._att_snapshot(ps), batch, mask, None))
+        rel = rel_err(loss, loss1)[1]
+        print(f"{lab}: one CF step's loss {float(loss):.6f} / single-process "
+              f"{float(loss1):.6f} rel {rel:.3e}", flush=True)
+        check(rel <= PAR_LOSS_TOL[transport], f"{lab}: a CF step's loss vs one process {rel}")
+        res["step_loss_rel"] = rel
+    out = {}
+    for name, tr in (("sharded", sh), ("single", single)):
+        if tr is None:
+            break
+        p = tr.init(2020)
+        o = tr.optimizer(p)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = tr.run_epoch(p, o, torch.Generator(device="cuda").manual_seed(31))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        m = tr.evaluate(p, torch.Generator(device="cuda").manual_seed(32))
+        out[name] = dict(train_loss=float(losses["train_loss"]),
+                         kg_train_loss=float(losses["kg_train_loss"]),
+                         HR=m["HR"].cpu().numpy(), AUC=float(m["AUC"]), secs=secs)
+        if name == "sharded":
+            pd = coll.gather_digests(list(p.parameters()), mesh)
+            check(len(set(pd)) == 1, f"{lab}: the ranks' parameters differ after an epoch")
+        print(f"{lab}: {name} epoch {secs:.2f} s: train loss {out[name]['train_loss']:.6f} kg "
+              f"train loss {out[name]['kg_train_loss']:.6f} HR@10 {out[name]['HR'][5]:.4f} "
+              f"AUC {out[name]['AUC']:.4f}", flush=True)
+    if mesh.rank == 0:
+        a, b = out["sharded"], out["single"]
+        for x in (a, b):
+            x["HR@10"] = float(x["HR"][5])
+        bars = {k: (abs(a[k] - b[k]), tol * abs(b[k]) if kind == "rtol" else tol)
+                for k, (kind, tol) in KG_EPOCH_BARS.items()}
+        n_users = sh.tables.test_users.shape[0]
+        print(f"{lab}: sharded vs single (difference, bar): {bars}; the largest difference "
+              f"over HR@1-16 {float(np.abs(a['HR'] - b['HR']).max()) * n_users:.0f} of "
+              f"{n_users} users", flush=True)
+        for k, (d, bar) in bars.items():
+            check(d <= bar, f"{lab}: {k} off the single-process trainer's by {d} > {bar}")
+        res.update({k: (a[k], b[k]) for k in ("train_loss", "kg_train_loss", "AUC", "HR@10")},
+                   epoch_s=(a["secs"], b["secs"]))
+    dist.barrier()
+    return res
+
+
+def _json_safe(x):
+    if isinstance(x, dict):
+        return {str(k): _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, (np.floating, np.integer)):
+        return x.item()
+    return x
+
+
+def parallel_rank_main(kind, rank, world, store, workdir):
+    """One rank of the parallel phase's worlds ('world': phases a-c, two
+    ranks sharing cuda:0 over gloo; 'nccl': phase e, a world of one over
+    NCCL, after the refused layout).  Writes its results to
+    <workdir>/<kind>_<rank>.json."""
+    import pickle
+
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel import multihost as mh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    res = {}
+    if kind == "nccl":
+        # two ranks asking for NCCL on one card: refused, the layout named,
+        # before any process group starts
+        try:
+            mh.initialize_runtime(store, 2, 0, backend="nccl")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        print(f"NCCL asked for with two ranks on {torch.cuda.device_count()} card(s): "
+              f"{refused}", flush=True)
+        check(refused is not None and "2 local ranks on 1 card" in refused,
+              "NCCL with two ranks on one card was not refused with the layout named")
+        res["refused"] = refused
+    check(mh.initialize_runtime(store, world, rank) is True, f"{kind}: no runtime")
+    want_backend = "nccl" if kind == "nccl" else "gloo"
+    check(mh.RUNTIME["backend"] == want_backend,
+          f"{kind}: backend {mh.RUNTIME['backend']}, expected {want_backend}")
+    mesh = mh.make_pod_mesh(mp=1)
+    hin = flagship_hin()
+    if kind == "world":
+        t = time.perf_counter()
+        res["a"] = {tr: par_phase_a(hin, mesh, tr, workdir) for tr in TDT}
+        res["a_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        with open(os.path.join(workdir, "ml25m.pkl"), "rb") as f:
+            loaded = pickle.load(f)
+        res["b"] = {tr: par_phase_b(mesh, tr, workdir, loaded) for tr in TDT}
+        res["b_s"] = time.perf_counter() - t
+        del loaded
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res["c"] = {tr: par_phase_c(hin, mesh, tr) for tr in TDT}
+        res["c_s"] = time.perf_counter() - t
+        res["probe"] = probe_collectives(mesh)
+    else:
+        # phase a's world-of-one step through this NCCL world, against the
+        # gloo world's rank 0 (world1_<transport>.pt)
+        import torch.distributed as dist
+
+        from graph_recsys_benchmark_tpu_torch.parallel.edge_parallel import sharded_grads
+
+        for transport in TDT:
+            cfg, sh = _par_flagship(hin, transport, mesh)
+            params = sh.init(2020)
+            batch, mask = _flagship_batch(sh)
+            loss = sharded_grads(sh._edge_step.local_loss, params, batch, mask, mesh)
+            grads = _grad_list(params)
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            before = flat.clone()
+            dist.all_reduce(flat)  # NCCL's all-reduce of one rank
+            torch.cuda.synchronize()
+            check(torch.equal(flat, before), "nccl: an all-reduce of one rank changed it")
+            ref = torch.load(os.path.join(workdir, f"world1_{transport}.pt"))
+            same = bool(torch.equal(loss.cpu(), ref["loss"]) and all(
+                torch.equal(g.cpu(), h) for g, h in zip(grads, ref["grads"])))
+            # the kernels' f32 atomics add in any order: a repeat of the same
+            # step in this process, to tell that from the backend
+            p2 = sh.init(2020)
+            loss2 = sharded_grads(sh._edge_step.local_loss, p2, batch, mask, mesh)
+            again = bool(torch.equal(loss, loss2) and all(
+                torch.equal(g, p.grad) for g, p in zip(grads, p2.parameters())))
+            names = [n for n, _ in params.named_parameters()]
+            print(f"parallel e {transport}: the world-of-one step over NCCL bitwise gloo's: "
+                  f"{same}; the same step twice in this process bitwise: {again}", flush=True)
+            check(same or not again, f"parallel e {transport}: NCCL's world of one differs "
+                  "from gloo's while its own repeat is bitwise")
+            w1 = hold_vs_world1(f"parallel e {transport} (NCCL against gloo)", transport,
+                                loss.cpu(), ref["loss"],
+                                _par_leaf_errors("parallel e", [g.cpu() for g in grads],
+                                                 ref["grads"], names, transport),
+                                _par_leaf_errors("parallel e", [p.grad.cpu() for p in
+                                                                p2.parameters()],
+                                                 [g.cpu() for g in grads], names, transport))
+            res[transport] = dict(bitwise=same, repeat_bitwise=again, world1=w1,
+                                  stats=dict(coll.STATS))
+            del sh, params, p2
+            torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_all
+    with open(os.path.join(workdir, f"{kind}_{rank}.json"), "w") as f:
+        json.dump(_json_safe(res), f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _cli_log(out_dir):
+    """(per-epoch train losses, overall HR@10, the log's path) of a CLI
+    run's only log."""
+    log, lines = _log_lines(out_dir)
+    losses = [float(re.search(r"train loss: ([-0-9.]+)", ln).group(1)) for ln in lines
+              if ln.startswith("Run: ") and "train loss:" in ln]
+    hr = [float(re.search(r"HR@10: ([0-9.]+)", ln).group(1)) for ln in lines
+          if ln.startswith("Overall")]
+    return losses, hr, log
+
+
+def par_phase_d(tmp, work):
+    """`python -m graph_recsys_benchmark_tpu_torch --parallel edge` as two
+    processes (ranks 0 and 1 sharing the card over gloo; rank 1 given an
+    --out_dir of its own, where it must write no file) and, at the same
+    time, the same flags in one process: each epoch's train loss within
+    1e-4 relative, the overall HR@10 within 2/150.  Then a resume by both
+    ranks from rank 0's checkpoints (its run marked unfinished): no epoch
+    trained, the overall line the first call's; phase e's world of one over
+    NCCL runs beside the resume (neither is timed)."""
+    base = ["--model", "PEAGAT", "--dataset", "synthetic-ml", "--parallel", "edge", "--runs",
+            "1", "--epochs", "5", "--save_every_epoch", "0"]
+
+    def ranks(out_of, cache):
+        port = _free_port()
+
+        def argv(r):
+            return [sys.executable, "-m", "graph_recsys_benchmark_tpu_torch", *base,
+                    "--cache_dir", cache, "--out_dir", out_of(r), "--dist_coordinator",
+                    f"127.0.0.1:{port}", "--dist_nprocs", "2", "--dist_rank", str(r)]
+        return argv
+
+    res = {}
+    t = time.perf_counter()
+    a, b = os.path.join(tmp, "d_rank0"), os.path.join(tmp, "d_rank1")
+    single = os.path.join(tmp, "d_single")
+    run_ranks(("cli", 2, ranks(lambda r: (a, b)[r], os.path.join(tmp, "hin_d"))),
+              ("cli-single", 1, lambda r: [
+                  sys.executable, "-m", "graph_recsys_benchmark_tpu_torch", *base,
+                  "--cache_dir", os.path.join(tmp, "hin_single"), "--out_dir", single]))
+    res["two_and_one_s"] = time.perf_counter() - t
+    files1 = [os.path.join(d, f) for d, _, fs in os.walk(b) for f in fs]
+    check(not files1, f"parallel d: rank 1 wrote {files1}")
+    losses2, hr2, log = _cli_log(a)
+    losses1, hr1, _ = _cli_log(single)
+    run = os.path.dirname(log)
+    ckpts = sorted(os.listdir(os.path.join(run, "run_1")))
+    check({"latest.ckpt", "epoch_5.ckpt"} <= set(ckpts), f"parallel d: checkpoints {ckpts}")
+    print(f"parallel d: two ranks and one process side by side {res['two_and_one_s']:.1f} s; "
+          f"train losses {losses2} / {losses1}; overall HR@10 {hr2} / {hr1}; rank 0's "
+          f"checkpoints {ckpts}, rank 1's directory empty", flush=True)
+    check(len(losses2) == len(losses1) == 5, "parallel d: five epochs each")
+    for x, y in zip(losses2, losses1):
+        check(abs(x - y) <= 1e-4 * abs(y), f"parallel d: train loss {x} vs {y}")
+    check(abs(hr2[0] - hr1[0]) <= 2 / 150 + 1e-9, f"parallel d: HR@10 {hr2} vs {hr1}")
+    # resume: run 1 unfinished in the summary, its checkpoints in place
+    os.remove(os.path.join(run, "global_logger.npz"))
+    t = time.perf_counter()
+    outs = run_ranks(("cli-resume", 2, ranks(lambda r: a, os.path.join(tmp, "hin_d"))),
+                     ("nccl", 1), workdir=work)["cli-resume"]
+    res["resume_and_e_s"] = time.perf_counter() - t
+    overall = [[ln for ln in o if ln.startswith("Overall HR@10")] for o in outs]
+    first = [ln for ln in _log_lines(a)[1] if ln.startswith("Overall")][0]
+    print(f"parallel d: resume (beside phase e) {res['resume_and_e_s']:.1f} s: {overall}",
+          flush=True)
+    check(all(len(o) == 1 and o[0].split(",")[:3] == first.split(" (")[0].split(",")[:3]
+              for o in overall), f"parallel d: the resumed overall {overall} vs {first}")
+    res.update(losses=(losses2, losses1), hr10=(hr2, hr1))
+    return res
+
+
+def parallel_phase(tmp, ml25m_pickle):
+    """Edge-parallel training (parallel/, --parallel edge): phases a-c in
+    one two-rank world sharing cuda:0 over gloo (par_phase_a, _b, _c, per
+    transport), d the CLI as processes, e a world of one over NCCL (after
+    the refused NCCL layout) beside d's resume.  Prints each phase's
+    seconds and the whole's."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "parallel")
+    os.makedirs(work, exist_ok=True)
+    os.replace(ml25m_pickle, os.path.join(work, "ml25m.pkl"))
+    run_ranks(("world", 2), workdir=work)
+    res = [json.load(open(os.path.join(work, f"world_{r}.json"))) for r in range(2)]
+    t_d = time.perf_counter()
+    res_d = par_phase_d(tmp, work)
+    res_e = json.load(open(os.path.join(work, "nccl_0.json")))
+    t_end = time.perf_counter()
+    print(f"parallel phases {t_end - t0:.1f} s: a-c {t_d - t0:.1f} s (a {res[0]['a_s']:.1f}, "
+          f"b {res[0]['b_s']:.1f}, c {res[0]['c_s']:.1f} by rank 0's clock), d and e "
+          f"{t_end - t_d:.1f} s", flush=True)
+    return res, res_d, res_e
+
+
 def main():
     t_start = time.perf_counter()
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        # one rank of parallel_phase's worlds (run_ranks)
+        sys.path.insert(0, HERE)
+        kind, rank, world, store, workdir = sys.argv[2:7]
+        return parallel_rank_main(kind, int(rank), int(world), store, workdir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4035,6 +4947,10 @@ def main():
               f"in one step, {steps} launches a timed step")
     print(f"ml25m phases {time.perf_counter() - t_m:.1f} s (earlier phases "
           f"{t_m - t_start:.1f} s)", flush=True)
+    # kept on the host for parallel_phase b: the HIN and the per-channel graphs
+    from graph_recsys_benchmark_tpu_torch.graph import graphs_to
+
+    ml25m_kept = {"hin": hin25, "per_channel": graphs_to(trainers25["f32"].graphs, "cpu")}
     del hin25, trainers25
     torch.cuda.empty_cache()
 
@@ -4049,6 +4965,18 @@ def main():
         timed("cli baselines", baselines_cli_phase, tmp)
         timed("cli walk models", walk_cli_phase, tmp)
     print(f"cli phases {time.perf_counter() - t_c:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        import pickle
+
+        t_p = time.perf_counter()
+        path = os.path.join(tmp, "ml25m.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(ml25m_kept, f, protocol=4)
+        del ml25m_kept
+        print(f"parallel: the ML-25M HIN and graphs pickled in "
+              f"{time.perf_counter() - t_p:.1f} s", flush=True)
+        pres_w, pres_d, pres_e = parallel_phase(tmp, path)
 
     repo = "graph_recsys_benchmark_tpu"
     csrc = "graph_recsys_benchmark_tpu_torch/csrc"
@@ -4193,6 +5121,40 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # the edge-parallel route (parallel_phase): launches those of one step
+    # (or, for K1/K12, one eval) of one rank of two sharing the card
+    r0 = pres_w[0]
+    for transport in TDT:
+        a = r0["a"][transport]
+        for kind, r in a["edge_kernels"].items():
+            kernels.append(dict(
+                name=f"{SEG_KERNELS[kind]} ({transport}; PEAGAT --parallel edge, rank 0 of 2 "
+                     f"on one card: its shards of the flagship's two union graphs, "
+                     f"{r['calls']} calls of one step)",
+                route="cuda", source=f"{csrc}/segment.cu",
+                replaces=f"{repo}/ops/pallas_segment.py:{lines[kind]}",
+                launches=a["launches_step"][kind], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
+        f = a["flash"]
+        kernels.append(dict(
+            name=f"flash_gat_fwd ({transport}; the edge-mode eval's union graphs, kz 64 and "
+                 "16)", route="cuda", source=f"{csrc}/gat_fwd.cu",
+            replaces=f"{repo}/ops/flash_gat.py:" + ("479" if transport == "bf16" else "129"),
+            launches=a["eval_launches"]["flash_fwd"], max_abs_err=f["max_abs_err"],
+            ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None))
+    stream_lines = {"stream_fwd": "220", "stream_bwd_dst": "292", "stream_bwd_src": "364"}
+    for key, r in r0["b"]["f32"]["stream_kernels"].items():
+        kind, transport = key.split("|")
+        kernels.append(dict(
+            name=f"{kind.replace('stream_', 'stream_gat_')} ({transport}; ML-25M --parallel "
+                 "edge, rank 0 of 2 on one card: its shards, the step's channel groups)",
+            route="cuda", source=f"{csrc}/stream_gat.cu",
+            replaces=f"{repo}/ops/stream_gat.py:{stream_lines[kind]}",
+            launches=r0["b"][transport]["launches_step"][kind], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

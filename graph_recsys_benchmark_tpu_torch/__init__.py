@@ -21,8 +21,10 @@ PEASage run one union graph a step: a row gather (``ops/gather``) and a
 segment-sum (``ops/segment_kernels``).  Metapaths of mixed depth, or
 ``PEAConfig(fused=False)``, run each channel on its own graphs (the
 per-channel forwards of ``models/pea.py``).  ``utils/profiling`` and
-``utils/roofline`` trace a step and count its bytes and flops.  The forwards and backwards of all
-of them are CUDA kernels in ``csrc/`` (built with nvcc at first use,
+``utils/roofline`` trace a step and count its bytes and flops.
+``parallel/`` trains them (and KGAT, KGCN) edge-parallel over the ranks of
+a torch.distributed world (``parallel.engine.ShardedPEATrainer``).  The
+forwards and backwards of all of them are CUDA kernels in ``csrc/`` (built with nvcc at first use,
 ``ops/_cuda.py``).  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the plain PyTorch versions of
 the kernels serve CPU tensors only.

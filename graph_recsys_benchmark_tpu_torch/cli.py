@@ -21,9 +21,18 @@ GAT attention dropout (``--dropout``), Adam, SparseAdam or SGD; the
 baselines NGCF, KGAT, KGCN, CFKG and NFM (train/baseline_trainers.py; NFM's
 dropout defaults to 0.3, as in the JAX CLI); the walk models MetaPath2Vec
 and HeRec (train/walk_trainers.py), which read the walk flags and keep
-their stage-1 embeddings under ``<out_dir>/<hin>/<model>``.  The parallel
-layer raises ``NotImplementedError`` before any work, naming the ROADMAP
-Queue 1 item that ports it.
+their stage-1 embeddings under ``<out_dir>/<hin>/<model>``.
+``--parallel edge`` trains PEAGCN, PEAGAT and PEASage
+(parallel/engine.ShardedPEATrainer) and KGAT and KGCN
+(make_sharded_kg_trainer) over the ranks of a torch.distributed world:
+one process a rank, started with ``--dist_coordinator host:port
+--dist_nprocs N --dist_rank r`` (or the GRB_* environment, or torchrun's),
+the runtime begun before anything touches the card
+(parallel/multihost.initialize_runtime: NCCL when each rank has a card of
+its own, gloo when ranks share one or run on the CPU).  ``--parallel dp``,
+``--parallel a2a`` and ``--mesh_mp`` (the row-sharded embedding table)
+raise ``NotImplementedError`` before any work, naming the ROADMAP Queue 1
+item that ports them.
 
 Differences from the JAX CLI: nothing is fetched over the network (an
 http(s) ``--dataset_url`` raises NotImplementedError, and without one the
@@ -33,7 +42,9 @@ package's name, so the port never unpickles a JAX ``HINData`` (which would
 import the JAX package), even in the JAX CLI's cache directory; the run
 directory's hash leaves out ``--runs``, so a later call with more runs
 resumes the runs already done (run r's seed is 2019 + r whatever the
-count).
+count), and leaves out the ``--dist_*`` flags, so the ranks of a world share
+one run directory (rank 0 writes its files; utils/checkpoint.py,
+utils/logging.py) and a later world resumes there on any port.
 """
 
 from __future__ import annotations
@@ -51,8 +62,9 @@ BASELINE_MODELS = ("NGCF", "KGAT", "KGCN", "CFKG", "NFM")
 WALK_MODELS = ("MetaPath2Vec", "HeRec")
 PORTED_DATASETS = ("synthetic-ml", "synthetic-ml25m", "synthetic-yelp",
                    "ml-latest-small", "ml-25m", "yelp")
-# ROADMAP Queue 1 item by title
-PARALLEL_ITEM = 'ROADMAP Queue 1, "Parallel, last"'
+# ROADMAP Queue 1 item by title: the row-sharded table ('dp', 'a2a', --mesh_mp)
+PARALLEL_ITEM = 'ROADMAP Queue 1, "Row-sharded embedding table"'
+DIST_FLAGS = ("dist_coordinator", "dist_nprocs", "dist_rank")
 
 
 def build_parser():
@@ -104,14 +116,20 @@ def build_parser():
         help="edge message-transport dtype (the trainer's transport): bf16 "
         "halves the edge kernels' traffic (f32 accumulation)",
     )
-    # multi-host runtime of the JAX CLI; not ported
-    p.add_argument("--dist_coordinator", default=None)
+    # multi-process runtime (parallel/multihost.py): one process a rank;
+    # also read from the GRB_* or torchrun environment when the flags are
+    # absent
+    p.add_argument("--dist_coordinator", default=None,
+                   help="host:port (or a tcp:// / file:// URL) of the world's store")
     p.add_argument("--dist_nprocs", type=int, default=None)
     p.add_argument("--dist_rank", type=int, default=None)
     p.add_argument("--parallel", default="none",
                    choices=["none", "dp", "edge", "a2a"],
-                   help="mesh-sharded training for PEA models (only 'none' is ported)")
-    p.add_argument("--mesh_mp", type=int, default=None)
+                   help="sharded training over the world's ranks: 'edge' (PEA models, "
+                        "KGAT, KGCN) shards the edges and the batch; 'dp' and 'a2a' are "
+                        "not ported")
+    p.add_argument("--mesh_mp", type=int, default=None,
+                   help="model-parallel axis size (not ported)")
     # walk-stage params (metapath2vec_solver_bpr.py:36-58), read by the walk models
     p.add_argument("--walk_length", type=int, default=100)
     p.add_argument("--context_size", type=int, default=7)
@@ -138,14 +156,13 @@ def _dataset_defaults(name):
 
 def check_ported(args):
     """NotImplementedError for every choice the port does not run yet (the
-    parallel layer), naming the ROADMAP Queue 1 item that ports it."""
-    dist = [f"--{f}" for f in ("dist_coordinator", "dist_nprocs", "dist_rank", "mesh_mp")
-            if getattr(args, f) is not None]
-    if args.parallel != "none" or dist:
-        what = " ".join(([f"--parallel {args.parallel}"] if args.parallel != "none" else [])
-                        + dist)
-        raise NotImplementedError(f"{what}: the parallel layer is not ported: "
-                                  f"{PARALLEL_ITEM}")
+    row-sharded modes of the parallel layer and their model axis), naming
+    the ROADMAP Queue 1 item that ports them."""
+    what = ([f"--parallel {args.parallel}"] if args.parallel in ("dp", "a2a") else []) + (
+        ["--mesh_mp"] if args.mesh_mp is not None else [])
+    if what:
+        raise NotImplementedError(f"{' '.join(what)}: the row-sharded embedding table is "
+                                  f"not ported: {PARALLEL_ITEM}")
 
 
 def load_hin(args):
@@ -172,8 +189,10 @@ def load_hin(args):
             hin = pickle.load(f)
     else:
         hin = _build_hin(args)
-        with open(cache, "wb") as f:
+        tmp = f"{cache}.tmp{os.getpid()}"  # the ranks of a world may build it together
+        with open(tmp, "wb") as f:
             pickle.dump(hin, f, protocol=4)
+        os.replace(tmp, cache)
     if hin.name.startswith("yelp"):
         return hin, Y.yelp_metapath_edges(hin)
     if "25m" in hin.name:
@@ -276,6 +295,13 @@ def build_trainer(args, hin, mp_edges):
     from .train.pea_trainer import TrainConfig
 
     check_ported(args)
+    if args.parallel != "none":
+        pea_ok = args.model in ("PEAGCN", "PEAGAT", "PEASage")
+        kg_ok = args.model in ("KGAT", "KGCN") and args.parallel == "edge"
+        if not (pea_ok or kg_ok):
+            raise SystemExit(
+                f"--parallel {args.parallel} supports the PEA family (dp/edge/a2a) and "
+                f"KGAT/KGCN (edge); {args.model} runs single-device (omit --parallel)")
     defaults = _dataset_defaults(args.dataset)
     tcfg = TrainConfig(
         batch_size=args.batch_size or defaults["batch_size"],
@@ -305,6 +331,13 @@ def build_trainer(args, hin, mp_edges):
         entity_aware=_bool(args.entity_aware),
         entity_aware_coff=args.entity_aware_coff,
     )
+    if args.parallel == "edge":
+        from .parallel.engine import ShardedPEATrainer
+        from .parallel.multihost import make_pod_mesh
+
+        return ShardedPEATrainer(hin, cfg, tcfg, metapath_edges=mp_edges,
+                                 mesh=make_pod_mesh(mp=1, device=args.device), mode="edge",
+                                 transport=args.message_dtype), len(mp_edges)
     trainer = PEATrainer(hin, cfg, tcfg, metapath_edges=mp_edges, device=args.device,
                          transport=args.message_dtype)
     return trainer, len(mp_edges)
@@ -333,6 +366,12 @@ def _build_baseline(args, hin, tcfg):
             num_relations=hin.num_edge_types, emb_dim=args.emb_dim,
             hidden_size=args.hidden_size, dropout=args.dropout,
         )
+        if args.parallel == "edge":
+            from .parallel.engine import make_sharded_kg_trainer
+            from .parallel.multihost import make_pod_mesh
+
+            return make_sharded_kg_trainer(hin, cfg, tcfg, make_pod_mesh(mp=1, device=device),
+                                           transport=args.message_dtype)
         return B.KGTrainer(hin, cfg, tcfg, device=device, transport=args.message_dtype)
     if model == "CFKG":
         from .models.cfkg import CFKGConfig
@@ -382,8 +421,10 @@ def _build_walk(args, hin, tcfg):
 
 
 def run_dir(args, hin):
-    """<out_dir>/<hin>/<model>/<hash of the arguments but --runs>."""
-    key = {k: v for k, v in vars(args).items() if k != "runs"}
+    """<out_dir>/<hin>/<model>/<hash of the arguments but --runs and the
+    --dist_* flags>: every rank of a world, and a later world, find the
+    same directory."""
+    key = {k: v for k, v in vars(args).items() if k != "runs" and k not in DIST_FLAGS}
     return os.path.join(
         args.out_dir, hin.name, args.model,
         hashlib.sha1(json.dumps(key, sort_keys=True, default=str).encode()).hexdigest()[:12],
@@ -393,6 +434,11 @@ def run_dir(args, hin):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
+    # before anything touches the card
+    from .parallel.multihost import initialize_runtime
+
+    initialize_runtime(args.dist_coordinator, args.dist_nprocs, args.dist_rank,
+                       device=args.device)
     hin, mp_edges = load_hin(args)
     print(
         f"{hin.name}: {hin.num_nodes} nodes ({hin.num_users} users, "

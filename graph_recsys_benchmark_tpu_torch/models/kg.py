@@ -106,23 +106,30 @@ def att_logits(model: KG, g: StepGraph, cfg: KGConfig):
 
 
 @torch.no_grad()
-def compute_att_map(model: KG, g: StepGraph, cfg: KGConfig, transport="f32"):
+def compute_att_map(model: KG, g: StepGraph, cfg: KGConfig, transport="f32",
+                    softmax=None):
     """Per-edge attention f32 [E_pad] over the signed typed graph: the
     per-dst softmax of att_logits (segment_softmax: K8 and a K7 of the
-    stats on the card), 0 on the padding edges, without gradient."""
-    return segment_softmax(att_logits(model, g, cfg), g.dst, g.num_nodes, transport,
+    stats on the card), 0 on the padding edges, without gradient.
+    `softmax(logits, dst, num_rows)` overrides it (the edge-parallel
+    softmax over the ranks' shards, JAX models/kg.py:69)."""
+    logits = att_logits(model, g, cfg)
+    if softmax is not None:
+        return softmax(logits, g.dst, g.num_nodes)
+    return segment_softmax(logits, g.dst, g.num_nodes, transport,
                            g.block_bounds, (g.dst_perm, g.dst_sorted))
 
 
 def kg_forward(model: KG, g: StepGraph, cfg: KGConfig, att_map, transport="f32",
-               masks: Optional[KeepMasks] = None):
+               masks: Optional[KeepMasks] = None, aggregate=None):
     """Every node's representation [num_nodes, 7 h / 4] under the frozen
     `att_map`; `masks` (a training forward) drops after each conv at rate
-    cfg.dropout."""
+    cfg.dropout; `aggregate` overrides the convs' edge sum (the
+    edge-parallel path, JAX models/kg.py:92)."""
     apply = C.kgat_apply if cfg.variant == "kgat" else C.kgcn_apply
 
     def conv(p, x):
-        return apply(p, x, g, att_map, transport=transport)
+        return apply(p, x, g, att_map, transport=transport, aggregate=aggregate)
 
     x1 = _dropout(conv(model.conv1, model.x), cfg.dropout, masks, 0)
     x2 = _dropout(conv(model.conv2, x1), cfg.dropout, masks, 1)
@@ -148,9 +155,10 @@ def transr_kg_loss(model: KG, batch, row_mask):
 
 
 def kg_cf_loss(model: KG, g: StepGraph, cfg: KGConfig, att_map, batch, row_mask,
-               transport="f32", masks: Optional[KeepMasks] = None):
+               transport="f32", masks: Optional[KeepMasks] = None, aggregate=None):
     """Summed BPR over the batch (u, pos, neg) under the frozen `att_map`."""
-    cached = kg_forward(model, g, cfg, att_map, transport=transport, masks=masks)
+    cached = kg_forward(model, g, cfg, att_map, transport=transport, masks=masks,
+                        aggregate=aggregate)
     pos = kg_predict(model, cached, batch[:, 0], batch[:, 1])
     neg = kg_predict(model, cached, batch[:, 0], batch[:, 2])
     return torch.sum(-_log_sigmoid(pos - neg) * row_mask)

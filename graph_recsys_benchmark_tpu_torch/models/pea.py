@@ -63,6 +63,7 @@ from torch import nn
 
 from ..graph import StepGraph, fuse_step_graphs
 from ..nn.conv import (
+    composed_attention,
     gat_apply,
     gat_init,
     gcn_apply,
@@ -225,38 +226,48 @@ def _stacked_step_params(model: PEA, step_idx, chans=None):
     return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
 
 
-def _fused_gcn_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
+def _fused_gcn_step(sp, h, g: StepGraph, num_channels, num_nodes, transport,
+                    aggregate=None):
     """One GCN step of every channel over their union graph `g` (virtual
     node space C*N).  h: [N', din] (shared input, step 0) or [C, N, din] ->
     [C, N, dout].  Under bf16 the message is the bf16 product of bf16 w and
-    bf16 z_src, summed in f32."""
+    bf16 z_src, summed in f32.  `aggregate(msgs, g, transport)` overrides
+    the edge sum (the edge-parallel path sums the ranks' partials,
+    parallel/edge_parallel.py)."""
     if h.dim() == 2:
         z = torch.einsum("nd,cde->cne", h[:num_nodes], sp["w"])
     else:
         z = torch.einsum("cnd,cde->cne", h, sp["w"])
-    out = propagate(z.reshape(num_channels * num_nodes, -1), g, transport)
+    out = propagate(z.reshape(num_channels * num_nodes, -1), g, transport, aggregate)
     return out.reshape(num_channels, num_nodes, -1) + sp["b"][:, None, :]
 
 
-def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport):
+def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport,
+                     aggregate=None):
     """One SAGE step: the mean of the (transport-rounded) source rows, then
-    w_rel and b_rel, plus the root term from the un-rounded input."""
+    w_rel and b_rel, plus the root term from the un-rounded input;
+    `aggregate` as _fused_gcn_step's."""
     if h.dim() == 2:
         hc = h[None, :num_nodes].expand((num_channels,) + h[:num_nodes].shape)
     else:
         hc = h
-    mean_agg = propagate(hc.reshape(num_channels * num_nodes, -1), g, transport)
+    mean_agg = propagate(hc.reshape(num_channels * num_nodes, -1), g, transport, aggregate)
     mean_agg = mean_agg.reshape(num_channels, num_nodes, -1)
     out = torch.einsum("cnd,cde->cne", mean_agg, sp["w_rel"]) + sp["b_rel"][:, None, :]
     return out + torch.einsum("cnd,cde->cne", hc, sp["w_root"])
 
 
 def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
-                    transport, flash_mode=FlashGATMode()):
+                    transport, flash_mode=FlashGATMode(), aggregate=None, softmax=None):
     """One GAT step of `num_channels` channels over their union graph `g`
     (virtual node space C*N).  h: [N', din] (shared input, step 0) or
     [C, N, din] -> [C, N, H*dout], heads concatenated.  One flash pass per
-    head, on the routes of `flash_mode`."""
+    head, on the routes of `flash_mode`; with an `aggregate` or `softmax`
+    override (the edge-parallel path) the edge-materialized route instead
+    (_edge_gat_step, JAX models/pea.py:188-195, :250-275)."""
+    if aggregate is not None or softmax is not None:
+        return _edge_gat_step(sp, h, g, num_channels, num_nodes, heads, transport,
+                              aggregate, softmax)
     n_virtual = num_channels * num_nodes
     c_dim = sp["w"].shape[-1] // heads
     head_outs = []
@@ -278,6 +289,26 @@ def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
         head_outs.append(out_h.reshape(num_channels, num_nodes, c_dim))
     out = head_outs[0] if heads == 1 else torch.cat(head_outs, dim=-1)
     return out + sp["b"][:, None, :]
+
+
+def _edge_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads, transport,
+                   aggregate=None, softmax=None):
+    """The edge-materialized union GAT step (JAX ``_fused_gat_step``'s
+    overridden route): nn/conv.composed_attention over the union graph
+    with the `softmax` and `aggregate` hooks -> [C, N, H*dout] + b."""
+    n_virtual = num_channels * num_nodes
+    c_dim = sp["w"].shape[-1] // heads
+    if h.dim() == 2:
+        z = torch.einsum("nd,cde->cne", h[:num_nodes], sp["w"])
+    else:
+        z = torch.einsum("cnd,cde->cne", h, sp["w"])
+    z = z.reshape(num_channels, num_nodes, heads, c_dim)
+    att = sp["att"][:, 0]  # [C, H, 2c]
+    a_dst = torch.sum(z * att[:, None, :, :c_dim], dim=-1).reshape(n_virtual, heads)
+    a_src = torch.sum(z * att[:, None, :, c_dim:], dim=-1).reshape(n_virtual, heads)
+    out = composed_attention(z.reshape(n_virtual, heads, c_dim), a_src, a_dst, g, 0.2,
+                             transport, softmax=softmax, aggregate=aggregate)
+    return out.reshape(num_channels, num_nodes, heads * c_dim) + sp["b"][:, None, :]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,10 +430,14 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
 
 
 def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
-                      flash_mode=FlashGATMode()):
+                      flash_mode=FlashGATMode(), aggregate=None, softmax=None):
     """All channels advance together over one union graph a step
     (graph.build_fused_metapath_graphs): per step one batched einsum and one
-    union aggregation -> [N, C, R]."""
+    union aggregation -> [N, C, R].  `aggregate(msgs, g, transport)` and
+    `softmax(alpha, dst, num_rows)` override the edge sum and the GAT
+    softmax (the edge-parallel path over one rank's shards of the union
+    graphs, parallel/edge_parallel.py; GAT then takes the edge-materialized
+    route, _edge_gat_step)."""
     n = cfg.num_nodes
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -411,12 +446,12 @@ def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
         sp = _stacked_step_params(model, k)
         g = fused_graphs[k]
         if cfg.conv == "gcn":
-            h = _fused_gcn_step(sp, h, g, cfg.num_channels, n, transport)
+            h = _fused_gcn_step(sp, h, g, cfg.num_channels, n, transport, aggregate)
         elif cfg.conv == "sage":
-            h = _fused_sage_step(sp, h, g, cfg.num_channels, n, transport)
+            h = _fused_sage_step(sp, h, g, cfg.num_channels, n, transport, aggregate)
         elif cfg.conv == "gat":
             h = _fused_gat_step(sp, h, g, cfg.num_channels, n, dims[k][2], transport,
-                                flash_mode)
+                                flash_mode, aggregate, softmax)
         else:
             raise ValueError(cfg.conv)
         if k < num_steps - 1:

@@ -46,14 +46,15 @@ def _aggregate(msgs, g, transport="f32"):
     return sorted_segment_sum(msgs, g.dst, g.num_nodes, transport, (g.dst_perm, g.dst_sorted))
 
 
-def propagate(z, g, transport="f32"):
+def propagate(z, g, transport="f32", aggregate=None):
     """Σ over g's edges (j, i) of w_e z_j into row i -> f32 [g.num_nodes,
     D]: z [>= g.num_nodes, D] and g.w cast to the transport dtype (JAX
     ``msg_cast``), their product rounded there, f32 sums.  The source rows
     ride gather_src (K7, backward K6), the sum _aggregate (K5, backward
-    K7)."""
+    K7), or `aggregate(msgs, g, transport)` where given (the edge-parallel
+    sum over the ranks, parallel/edge_parallel.make_psum_aggregate)."""
     z, w = msg_cast(z, g.w, transport=transport)
-    return _aggregate(w[:, None] * gather_src(z, g, transport), g, transport)
+    return (aggregate or _aggregate)(w[:, None] * gather_src(z, g, transport), g, transport)
 
 
 def gcn_init(generator, in_dim, out_dim):
@@ -122,19 +123,41 @@ def gat_apply(params, x, g, heads=1, concat=True, negative_slope=0.2, dropout=0.
         ]
         out = torch.stack(head_outs, dim=1)  # [N, H, C]
     else:
-        packed = msg_cast(torch.cat([h.reshape(n, heads * c), alpha_src], dim=1),
-                          transport=transport)
-        packed_e = gather_src(packed, g, transport)  # [E, H*C + H]
-        h_e = packed_e[:, : heads * c].reshape(-1, heads, c)
-        alpha = gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float()
-        alpha = segment_softmax(F.leaky_relu(alpha, negative_slope), g.dst, n, transport,
-                                g.block_bounds, (g.dst_perm, g.dst_sorted))
-        if keep is not None:
-            alpha = torch.where(keep, alpha / (1.0 - dropout), torch.zeros_like(alpha))
-        msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
-        out = _aggregate(msgs.reshape(-1, heads * c), g, transport).reshape(n, heads, c)
+        out = composed_attention(h, alpha_src, alpha_dst, g, negative_slope, transport, keep,
+                                 dropout)
     out = out.reshape(n, heads * c) if concat else out.mean(dim=1)
     return out + params["b"]
+
+
+def composed_attention(h, alpha_src, alpha_dst, g, negative_slope=0.2, transport="f32",
+                       keep=None, dropout=0.0, softmax=None, aggregate=None):
+    """GAT attention over the edges of StepGraph `g` with its loops as
+    edges, composed: h [N, H, C], alpha_src / alpha_dst [N, H] (N =
+    g.num_nodes) -> f32 [N, H, C].  The source rows ``[h | a_src]`` in the
+    transport dtype by gather_src (K7, backward K6), a_dst by gather_dst
+    (K7, backward K5), leaky ReLU, the per-dst softmax (segment_softmax:
+    K8; or `softmax(alpha, dst, num_rows)`), dropout under `keep`, the
+    messages in the transport dtype summed by dst (_aggregate: K5; or
+    `aggregate(msgs, g, transport)`).  gat_apply's composed path, and the
+    edge-parallel union step's (models/pea._edge_gat_step) with the
+    sharded softmax and sum."""
+    n, heads, c = h.shape
+    packed = msg_cast(torch.cat([h.reshape(n, heads * c), alpha_src], dim=1),
+                      transport=transport)
+    packed_e = gather_src(packed, g, transport)  # [E, H*C + H]
+    h_e = packed_e[:, : heads * c].reshape(-1, heads, c)
+    alpha = F.leaky_relu(gather_dst(alpha_dst, g, transport) + packed_e[:, heads * c :].float(),
+                         negative_slope)
+    if softmax is None:
+        alpha = segment_softmax(alpha, g.dst, n, transport, g.block_bounds,
+                                (g.dst_perm, g.dst_sorted))
+    else:
+        alpha = softmax(alpha, g.dst, n)
+    if keep is not None:
+        alpha = torch.where(keep, alpha / (1.0 - dropout), torch.zeros_like(alpha))
+    msgs = h_e * msg_cast(alpha, transport=transport)[:, :, None]  # [E, H, C]
+    return (aggregate or _aggregate)(msgs.reshape(-1, heads * c), g, transport).reshape(
+        n, heads, c)
 
 
 def sage_init(generator, in_dim, out_dim):
@@ -180,18 +203,22 @@ def kgat_init(generator, in_dim, out_dim):
             "b": torch.zeros(out_dim, dtype=torch.float32)}
 
 
-def _attend(x, g, att_map, transport):
+def _attend(x, g, att_map, transport, aggregate=None):
     """sum_j att_e x_j into each dst row -> f32 [num_nodes, D]: x and the
     per-edge attention [E_pad] (0 on padding) in the transport dtype, their
-    product rounded there (JAX ``msg_cast``), f32 sums."""
+    product rounded there (JAX ``msg_cast``), f32 sums (_aggregate, or the
+    `aggregate` hook)."""
     xm, att = msg_cast(x, att_map, transport=transport)
-    return _aggregate(att[:, None] * gather_src(xm, g, transport), g, transport)
+    return (aggregate or _aggregate)(att[:, None] * gather_src(xm, g, transport), g,
+                                     transport)
 
 
-def kgat_apply(params, x, g, att_map, negative_slope=0.2, transport="f32"):
+def kgat_apply(params, x, g, att_map, negative_slope=0.2, transport="f32", aggregate=None):
     """KGATConv over StepGraph `g` with the frozen attention `att_map`
-    (JAX nn/conv.py:215-227): x [>= g.num_nodes, din] -> [num_nodes, dout]."""
-    aggr = _attend(x, g, att_map, transport)
+    (JAX nn/conv.py:215-227): x [>= g.num_nodes, din] -> [num_nodes, dout].
+    `aggregate(msgs, g, transport)` overrides the edge sum (the
+    edge-parallel path sums the ranks' partials)."""
+    aggr = _attend(x, g, att_map, transport, aggregate)
     xn = x[: g.num_nodes]
     add_aggr = F.leaky_relu((xn + aggr) @ params["w_add"], negative_slope)
     bi_aggr = F.leaky_relu((xn * aggr) @ params["w_bi"], negative_slope)
@@ -203,8 +230,9 @@ def kgcn_init(generator, in_dim, out_dim):
             "b": torch.zeros(out_dim, dtype=torch.float32)}
 
 
-def kgcn_apply(params, x, g, att_map, transport="f32"):
+def kgcn_apply(params, x, g, att_map, transport="f32", aggregate=None):
     """KGCNConv over StepGraph `g` with the frozen attention `att_map`
-    (JAX nn/conv.py:234-237): x [>= g.num_nodes, din] -> [num_nodes, dout]."""
-    aggr = _attend(x, g, att_map, transport)
+    (JAX nn/conv.py:234-237): x [>= g.num_nodes, din] -> [num_nodes, dout];
+    `aggregate` as kgat_apply's."""
+    aggr = _attend(x, g, att_map, transport, aggregate)
     return torch.relu((aggr + x[: g.num_nodes]) @ params["w"] + params["b"])

@@ -32,9 +32,18 @@ tensor launches the kernel, counted in the wrapper's ``launches``, or
 raises; a CPU tensor takes the ``*_plain`` version in this module, which
 sums every real edge whatever the work split.  ``StreamGAT`` (a
 ``torch.autograd.Function``) builds the tables, adds the loop term and
-normalizes, as ``_fwd_common`` / ``_stream_bwd`` do; the edge-parallel
-``psum_axis`` contract waits for the parallel port (ROADMAP Queue 1,
-"Parallel, last").
+normalizes, as ``_fwd_common`` / ``_stream_bwd`` do.
+
+Edge-parallel (``mesh``, ``psum_scale``; the JAX ``psum_axis`` contract,
+ops/stream_gat.py:595-822): the edge list is this rank's shard
+(parallel/edge_parallel.py).  The forward all-reduces K9's per-dst
+numerator and denominator partials before the loop term and the
+normalization; the backward all-reduces the incoming cotangent, then K10's
+and K11's partials, adds the loop term's gradient, and scales dz, da_src
+and da_dst by `psum_scale` (1/dp), so that the trainer's one all-reduce of
+the gradients restores the totals at every conv depth.  K9-K11 run on the
+shard unchanged.  The row-sharded modes are ROADMAP Queue 1's
+"Row-sharded embedding table".
 """
 
 from __future__ import annotations
@@ -337,17 +346,23 @@ def _loop_terms(table, adst_r, mhat, num_rows, kz, n_ch, negative_slope):
 
 
 def _fwd_common(z, a_src, a_dst, src, dst, block_bounds, num_rows, self_loops,
-                negative_slope, t_dtype):
+                negative_slope, t_dtype, mesh=None):
     """(out [n_ch, N, kz] f32, table, adst_r, m̂, s): the table's bands and
     a_dst rounded once to the transport dtype, K9 over the edges (in
-    pieces cut at `block_bounds`), then the loop term and the normalization
-    in f32 (ops/stream_gat.py:594-665)."""
+    pieces cut at `block_bounds`), its partials all-reduced over `mesh`
+    (an edge shard's; m̂ depends on replicated tables only, so every rank
+    shifts alike), then the loop term and the normalization in f32
+    (ops/stream_gat.py:594-665)."""
     n_ch, _, kz = z.shape
     band = torch.cat([z.to(t_dtype), a_src[:, :, None].to(t_dtype)], dim=2)
     table = band.permute(1, 0, 2).reshape(num_rows, n_ch * (kz + 1)).contiguous()
     adst_r, mhat = bound_shift(a_dst, band[:, :, kz], negative_slope, t_dtype)
     acc = stream_gat_fwd(table, adst_r, mhat, src, dst, num_rows, kz, negative_slope,
                          block_bounds=block_bounds)
+    if mesh is not None:
+        from ..parallel.collectives import all_reduce_
+
+        all_reduce_(acc, mesh)
     acc_b = acc.view(num_rows, n_ch, kz + 1)
     num = acc_b[:, :, :kz].permute(1, 0, 2)
     s = acc_b[:, :, kz].t()
@@ -366,7 +381,8 @@ class StreamGAT(torch.autograd.Function):
     src_perm, src_sorted int32[E], block_bounds, src_block_bounds
     (int32[ceil(N/128)+1]: K9 and K10 read the first, K11 the second),
     num_rows, self_loops,
-    negative_slope, transport) -> out f32[n_ch, N, kz].  The backward builds
+    negative_slope, transport, mesh, psum_scale) -> out f32[n_ch, N, kz]
+    (`mesh` None: the whole edge list, no collective).  The backward builds
     the stat table as ``_stream_bwd`` does (ops/stream_gat.py:707-720: g,
     gout = Σ g·out, logden = m̂ + log(s + 1e-16), a_dst, rounded to the
     transport dtype for the kernels; stat_table), runs K10 and K11, and
@@ -375,14 +391,15 @@ class StreamGAT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, a_src, a_dst, src, dst, src_perm, src_sorted, block_bounds,
-                src_block_bounds, num_rows, self_loops, negative_slope, transport):
+                src_block_bounds, num_rows, self_loops, negative_slope, transport,
+                mesh=None, psum_scale=1.0):
         t_dtype = t_dtype_of(transport)
         out, table, adst_r, mhat, s = _fwd_common(z, a_src, a_dst, src, dst, block_bounds,
                                                   num_rows, self_loops, negative_slope,
-                                                  t_dtype)
+                                                  t_dtype, mesh)
         ctx.save_for_backward(table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted,
                               block_bounds, src_block_bounds)
-        ctx.consts = (num_rows, self_loops, negative_slope)
+        ctx.consts = (num_rows, self_loops, negative_slope, mesh, psum_scale)
         ctx.dtypes = (z.dtype, a_src.dtype, a_dst.dtype)
         return out
 
@@ -390,9 +407,15 @@ class StreamGAT(torch.autograd.Function):
     def backward(ctx, g):
         (table, adst_r, mhat, s, out, src, dst, src_perm, src_sorted, block_bounds,
          src_block_bounds) = ctx.saved_tensors
-        num_rows, self_loops, negative_slope = ctx.consts
+        num_rows, self_loops, negative_slope, mesh, psum_scale = ctx.consts
         n_ch, _, kz = out.shape
         g = g.float()
+        if mesh is not None:
+            from ..parallel.collectives import all_reduce_
+
+            # the cotangent may be this rank's partial (a batch-sharded
+            # loss): every edge must see the total (ops/stream_gat.py:722-732)
+            g = all_reduce_(g.contiguous().clone(), mesh)
         logden = mhat + torch.log(s + 1e-16)
         gout = (g * out).sum(dim=2)
         stat = stat_table(g, gout, logden, adst_r, table.dtype)
@@ -400,6 +423,10 @@ class StreamGAT(torch.autograd.Function):
                                     block_bounds=block_bounds)
         dpk = stream_gat_bwd_src(table, stat, src_perm, src_sorted, dst, num_rows, kz,
                                  negative_slope, src_block_bounds=src_block_bounds)
+        if mesh is not None:  # the shards' partials -> totals, one call
+            both = all_reduce_(torch.cat([dpk.reshape(-1), da_dst.reshape(-1)]), mesh)
+            dpk = both[: dpk.numel()].view_as(dpk)
+            da_dst = both[dpk.numel():].view_as(da_dst)
         dpk_b = dpk.view(-1, n_ch, kz + 1)[:num_rows]
         dz = dpk_b[:, :, :kz].permute(1, 0, 2)
         da_src = dpk_b[:, :, kz].t()
@@ -412,14 +439,17 @@ class StreamGAT(torch.autograd.Function):
             da_dst = da_dst + dpre_l
             da_src = da_src + dpre_l
             dz = dz + att_l[:, :, None] * g
+        if mesh is not None and psum_scale != 1.0:
+            dz, da_src, da_dst = dz * psum_scale, da_src * psum_scale, da_dst * psum_scale
         z_dt, as_dt, ad_dt = ctx.dtypes
         return (dz.to(z_dt), da_src.to(as_dt), da_dst.to(ad_dt),
-                None, None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None, None, None)
 
 
 def stream_gat_attention_batched(z, a_src, a_dst, src, dst, src_perm, src_sorted,
                                  num_rows, self_loops=True, negative_slope=0.2,
-                                 transport="f32", block_bounds=None, src_block_bounds=None):
+                                 transport="f32", block_bounds=None, src_block_bounds=None,
+                                 mesh=None, psum_scale=1.0):
     """Batched single-head GAT attention for n_ch <= 8 channels sharing ONE
     loop-free, block-ordered edge list, with PyG's self-loop added
     analytically per channel when `self_loops`.
@@ -428,8 +458,10 @@ def stream_gat_attention_batched(z, a_src, a_dst, src, dst, src_perm, src_sorted
     src/dst: int32[E] (padding sentinel dst == num_rows); src_perm /
     src_sorted: the StepGraph's stable src sort; block_bounds /
     src_block_bounds: the StepGraph's 128-row block ranges by dst and in
-    the src-sorted order (computed here when None).  Returns [n_ch,
-    num_rows, kz] f32, differentiable in z, a_src and a_dst (StreamGAT)."""
+    the src-sorted order (computed here when None); mesh / psum_scale: the
+    edge-parallel contract (src/dst one rank's shard; StreamGAT).  Returns
+    [n_ch, num_rows, kz] f32, differentiable in z, a_src and a_dst
+    (StreamGAT)."""
     _check_layout("stream_gat_attention_batched", z.shape[0], z.shape[2])
     i32 = [t.to(torch.int32).contiguous() for t in (src, dst, src_perm, src_sorted)]
     if block_bounds is None:
@@ -437,7 +469,8 @@ def stream_gat_attention_batched(z, a_src, a_dst, src, dst, src_perm, src_sorted
     if src_block_bounds is None:
         src_block_bounds = dst_block_bounds(i32[3], num_rows)
     return StreamGAT.apply(z.float(), a_src.float(), a_dst.float(), *i32, block_bounds,
-                           src_block_bounds, num_rows, self_loops, negative_slope, transport)
+                           src_block_bounds, num_rows, self_loops, negative_slope, transport,
+                           mesh, psum_scale)
 
 
 def stream_gat_attention(z, a_src, a_dst, src, dst, src_perm, src_sorted, num_rows,

@@ -170,14 +170,27 @@ class KGTrainer(_Baseline):
         """The attention map of the current weights (no gradient)."""
         return M_kg.compute_att_map(params, self.graph, self.cfg, self.transport)
 
+    def _cf_batch_loss(self, params, batch, row_mask, generator=None):
+        # a standalone step (train_step) on the whole graph; the epoch's CF
+        # phase freezes one map
+        return M_kg.kg_cf_loss(params, self.graph, self.cfg, self.att_snapshot(params), batch,
+                               row_mask, transport=self.transport,
+                               masks=_masks(self.cfg.dropout, generator))
+
+    # The epoch's phase hooks (JAX baseline_trainers.py:148-167): the
+    # edge-sharded trainer (parallel/engine.make_sharded_kg_trainer) swaps
+    # each, and the engine's _step, for its own while run_epoch and its
+    # draws stay as they are.
+    def _kg_loss(self, params, batch, row_mask):
+        return M_kg.transr_kg_loss(params, batch, row_mask)
+
+    def _att_snapshot(self, params):
+        return self.att_snapshot(params)
+
     def _cf_loss(self, params, att, batch, row_mask, generator):
         return M_kg.kg_cf_loss(params, self.graph, self.cfg, att, batch, row_mask,
                                transport=self.transport,
                                masks=_masks(self.cfg.dropout, generator))
-
-    def _cf_batch_loss(self, params, batch, row_mask, generator=None):
-        # a standalone step (train_step); the epoch's CF phase freezes one map
-        return self._cf_loss(params, self.att_snapshot(params), batch, row_mask, generator)
 
     def _forward_with_att(self, params):
         return M_kg.kg_forward(params, self.graph, self.cfg, self.att_snapshot(params),
@@ -186,8 +199,7 @@ class KGTrainer(_Baseline):
     def kg_step(self, params, optimizer, rows, row_mask, generator):
         """One TransR step of the KG phase on the typed edges `rows`."""
         batch = self._kg_batch(rows, generator)
-        return self._step(params, optimizer,
-                          lambda: M_kg.transr_kg_loss(params, batch, row_mask))
+        return self._step(params, optimizer, lambda: self._kg_loss(params, batch, row_mask))
 
     def run_epoch(self, params, optimizer, generator):
         """Phase A: the KG TransR scan; ONE attention-map snapshot; phase B:
@@ -198,7 +210,7 @@ class KGTrainer(_Baseline):
         kg_loss = self._scan(generator, self.kg_rows,
                              lambda rows, mask: self.kg_step(params, optimizer, rows, mask,
                                                              generator))
-        att = self.att_snapshot(params)
+        att = self._att_snapshot(params)
 
         def cf_step(rows, mask):
             batch = self._build_batch(rows, generator)

@@ -89,6 +89,10 @@ class PEATrainer(GraphEpochEngine):
     # threshold (graph.build_gat_graph's auto rule); True forces them on
     # every graph, False off.
     _analytic_gat_loops = None
+    # GAT channels of one depth go into the hybrid plan (or the grouped
+    # forward); the edge-parallel trainer (parallel/engine.py) turns it off
+    # and its eval runs the union graphs (JAX train/pea_trainer.py:46,54).
+    _use_hybrid_plan = True
 
     def __init__(self, hin: HINData, cfg: PEAConfig, tcfg: TrainConfig,
                  metapath_edges=None, device=None, transport="f32",
@@ -100,8 +104,7 @@ class PEATrainer(GraphEpochEngine):
         self.hin, self.cfg, self.tcfg = hin, cfg, tcfg
         self.transport = transport
         self.flash_mode = flash_mode
-        if metapath_edges is None:
-            metapath_edges = mlsmall_metapath_edges(hin)
+        metapath_edges = self._resolved_edges(hin, metapath_edges)
         if len(metapath_edges) != cfg.num_channels:
             raise ValueError("one metapath per channel expected")
         depths = tuple(len(steps) for steps in metapath_edges)
@@ -109,7 +112,7 @@ class PEATrainer(GraphEpochEngine):
             raise ValueError(f"metapath depths {depths} differ from meta_path_steps "
                              f"{tuple(cfg.meta_path_steps)}")
         uniform = len(set(cfg.meta_path_steps)) == 1
-        if cfg.fused and uniform and cfg.conv == "gat":
+        if cfg.fused and uniform and cfg.conv == "gat" and self._use_hybrid_plan:
             per_channel = build_metapath_graphs(
                 metapath_edges, hin.num_nodes, cfg.conv,
                 analytic_gat_loops=self._analytic_gat_loops,
@@ -132,6 +135,11 @@ class PEATrainer(GraphEpochEngine):
         super().__init__(build_device_tables(hin, self.device), tcfg,
                          batch_loss=self.batch_loss, entity_aware=cfg.entity_aware)
         self._make_optimizer = make_optimizer(tcfg.opt, tcfg.lr, tcfg.weight_decay)
+
+    @staticmethod
+    def _resolved_edges(hin, metapath_edges):
+        """`metapath_edges`, or the ml-latest-small table of the HIN."""
+        return mlsmall_metapath_edges(hin) if metapath_edges is None else metapath_edges
 
     def init(self, seed: int) -> PEA:
         """Random parameters from `seed`, on the trainer's device."""

@@ -32,6 +32,10 @@ seed, stands in for the JAX key splits of a run: its draws are held to
 distribution parity, as sampling is.  The epoch's loss is read with one
 ``float()`` an epoch, as the JAX Solver reads it; nothing syncs inside
 the epoch.
+
+In a torch.distributed world every rank runs the Solver on its replicated
+parameters (an edge-parallel trainer, parallel/engine.py), and rank 0
+alone writes the run directory's log and checkpoints.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.checkpoint import is_writer, load_checkpoint, save_checkpoint
 from ..utils.logging import RunLogger
 
 
@@ -79,7 +83,7 @@ class Solver:
         self.num_metapaths = num_metapaths
         self.seed_base = seed_base
         self.full_ranking = full_ranking and hasattr(trainer, "evaluate_full")
-        self.logger = RunLogger(out_dir)
+        self.logger = RunLogger(out_dir, writer=is_writer())
 
     def _history(self, rec_metrics):
         if rec_metrics is None:

@@ -12,6 +12,12 @@ Everything in the file is a tensor or a plain Python value, so it loads
 under ``torch.load(weights_only=True)``: the history goes in as float64
 tensors (the float64 numpy arrays of the Solver's history survive
 exactly), not as pickled numpy arrays, which that setting refuses.
+
+In a torch.distributed world (parallel/multihost.py) rank 0 is the only
+writer, as in the JAX package (its checkpoint.py:25,45): the parameters
+are replicated, so its copy is every rank's; the ranks meet at a barrier
+after the write, so none reads a file before it is there.  Every rank
+reads on resume.
 """
 
 from __future__ import annotations
@@ -20,12 +26,20 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def is_writer() -> bool:
+    """Whether this process writes the run's files: rank 0 of a world, or
+    a process outside any."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def save_checkpoint(path, params, optimizer, epoch, rec_metrics):
     """params: an nn.Module; optimizer: its torch.optim.Optimizer;
     rec_metrics: dict of numpy arrays (per-epoch metric history).  Written
-    atomically: a crash never truncates `latest`."""
+    atomically: a crash never truncates `latest`.  Only rank 0 of a world
+    writes; all ranks then meet at a barrier."""
     payload = {
         "epoch": int(epoch),
         "params": params.state_dict(),
@@ -33,10 +47,13 @@ def save_checkpoint(path, params, optimizer, epoch, rec_metrics):
         "rec_metrics": {k: torch.as_tensor(np.asarray(v, dtype=np.float64))
                         for k, v in rec_metrics.items()},
     }
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if is_writer():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def load_checkpoint(path, params, optimizer):

@@ -9,6 +9,10 @@ run as the column-wise MAX over epochs, and reports the mean over runs
 (solvers.py:281-300, 394-413).  `RunLogger` reproduces that:
 `global_logger.npz` holds per-run rows and enables run-level resume
 (general_utils.py:182-191).
+
+``writer=False`` keeps the history in memory and writes no file: the
+ranks of a world share one run directory, and rank 0 writes it
+(train/solver.py), as it alone writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ import numpy as np
 
 
 class RunLogger:
-    def __init__(self, folder):
+    def __init__(self, folder, writer=True):
         self.folder = folder
+        self.writer = writer
         os.makedirs(folder, exist_ok=True)
         self.global_path = os.path.join(folder, "global_logger.npz")
         self.text_path = os.path.join(folder, "logger_file.txt")
@@ -35,6 +40,8 @@ class RunLogger:
         return len(self.runs["HR"])
 
     def write(self, line):
+        if not self.writer:
+            return
         with open(self.text_path, "a") as f:
             f.write(line + "\n")
             f.flush()
@@ -66,7 +73,8 @@ class RunLogger:
         self.runs["AUC"].append(np.max(auc_hist, axis=0))
         self.runs["train_loss"].append(np.mean(train_hist, axis=0))
         self.runs["eval_loss"].append(np.mean(eval_hist, axis=0))
-        np.savez(self.global_path, **{k: np.asarray(v) for k, v in self.runs.items()})
+        if self.writer:
+            np.savez(self.global_path, **{k: np.asarray(v) for k, v in self.runs.items()})
 
     def overall(self):
         """Mean over runs of the per-run maxima (solvers.py:394-413)."""

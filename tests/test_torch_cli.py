@@ -206,9 +206,9 @@ def test_main_runs_the_new_datasets(dataset, extra, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--parallel", "a2a"], "Parallel, last"),
-    (["--dist_coordinator", "localhost:1234"], "Parallel, last"),
-    (["--mesh_mp", "2"], "Parallel, last"),
+    (["--parallel", "a2a"], "Row-sharded embedding table"),
+    (["--parallel", "dp"], "Row-sharded embedding table"),
+    (["--mesh_mp", "2"], "Row-sharded embedding table"),
 ])
 def test_unported_choices_raise_before_any_work(argv, item, tmp_path):
     with open(os.path.join(ROOT, "ROADMAP.md")) as f:

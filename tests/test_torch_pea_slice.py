@@ -190,11 +190,12 @@ def test_port_imports_without_jax():
         os.path.relpath(os.path.join(d, f), REPO)[:-3].replace(os.sep, ".")
         for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")
     )
-    # slice 2's training modules, slice 3's edge ops and slice 5's mode
-    # switches are among them
+    # the training modules, the edge ops, the mode switches and the
+    # parallel layer are among them
     assert {f"graph_recsys_benchmark_tpu_torch.{m}" for m in (
         "train.engine", "train.optim", "ops.segment_kernels", "ops.gather", "nn.conv",
-        "ops.config",
+        "ops.config", "parallel.multihost", "parallel.collectives", "parallel.edge_parallel",
+        "parallel.engine",
     )} <= set(mods)
     code = (
         "import sys\n"
