@@ -271,7 +271,7 @@
       `--runs 1` and `--runs 2` into one run directory (only seed 2021
       pretrained) and a new run directory over the same stage-1 cache
       (none pretrained).
-12. Edge-parallel phases (parallel_phase: parallel/, `--parallel edge`),
+12. Parallel phases (parallel_phase: parallel/, `--parallel edge`, `a2a`, `dp`),
    each world in processes of their own (run_ranks: a timeout each, every
    line printed with its rank, any rank's failure or timeout fails the
    run); phases a-c in one world of two ranks sharing cuda:0 over gloo,
@@ -302,11 +302,33 @@
       K5 3, K6 3) and loss (PAR_LOSS_TOL), one epoch's train_loss and
       kg_train_loss and the eval's HR@10 and AUC against the
       single-process KGTrainer (KG_EPOCH_BARS), digests equal; then which
-      collectives gloo serves on CUDA tensors (probe_collectives);
-   d. `python -m graph_recsys_benchmark_tpu_torch --parallel edge` as two
-      processes (--dist_* flags) against the same flags in one process:
-      each epoch's train loss (1e-4) and HR@10 (2/150); only rank 0
-      writes files; a resume by both ranks from rank 0's checkpoints;
+      collectives gloo serves on CUDA tensors, the row-sharded route's
+      all_to_all_single, all_gather_into_tensor and reduce_scatter_tensor
+      held to their values (probe_collectives);
+   f. `--parallel a2a` (the row-sharded table, all-to-all lookups) through
+      ShardedPEATrainer: the flagship PEAGAT in f32 and bf16, PEAGCN and
+      PEASage in f32: each rank's plan capacities, one step's launches
+      against a2a_launches (PEAGAT K7 14, K6 12, K5 2; PEAGCN, PEASage
+      K7 10, K6 8, K5 2), its collectives by name (calls, bytes,
+      seconds), its loss and gradients (x's halves all-gathered) against
+      the same code at a world of one (rank 0, the edge phases' bars); PEAGAT
+      ROW_SHARDED_STEPS timed steps and K7/K5/K6 at one step's shapes
+      (replay_edge_calls, rank 0); then in f32
+   g. the a2a evaluator: an eval's launches (K7 10, K5 2), its
+      99-negative ranks and the full-catalog sweep's against the
+      single-process evaluators over the same cached rows, equal but for
+      near ties (EVAL_TIE);
+   h. `--parallel dp` at mp 2 (dp 1 x mp 2): per transport one flagship
+      PEAGAT step's launches (K12/K1 2, K2 2), its loss and gradients (x's
+      mp shards together) against a world of one, an eval (K12/K1 2, its
+      metrics against the world of one's), and the step's K12/K1 and K2
+      calls against their plain versions, timed (rank 0);
+   d. `python -m graph_recsys_benchmark_tpu_torch --parallel edge`, then
+      `--parallel a2a` and `--parallel dp --mesh_mp 2` beside each other
+      (CLI_MODES), each as two processes (--dist_* flags) against the
+      same mode in one process: each epoch's train loss (1e-4) and HR@10
+      (2/150); only rank 0 writes files; a resume of each by both ranks
+      from rank 0's checkpoints;
    e. a world of one over NCCL (after NCCL asked for with two ranks on one
       card is refused, the layout named): phase a's world-of-one step
       against the gloo world's.
@@ -4116,15 +4138,16 @@ def _grad_list(params):
 PAR_ZERO_FLOOR = 1e-7
 
 
-def _par_leaf_errors(label, grads, ref_grads, names, transport):
+def _par_leaf_errors(label, grads, ref_grads, names, transport, zeros=()):
     """{leaf: max |grads - ref| over the ref leaf's largest value}; a ref
-    leaf at most PAR_ZERO_FLOOR of the largest ref gradient of all is held
-    to PAR_LEAF_TOL[transport] of that largest gradient (and left out)."""
+    leaf at most PAR_ZERO_FLOOR of the largest ref gradient of all, or
+    named in `zeros`, is held to PAR_LEAF_TOL[transport] of that largest
+    gradient (and left out)."""
     top = max(float(r.abs().max()) for r in ref_grads)
     errs = {}
     for n, g, r in zip(names, grads, ref_grads):
         check(bool(torch.isfinite(g).all()), f"{label} grad {n}: not finite")
-        if float(r.abs().max()) <= PAR_ZERO_FLOOR * top:
+        if float(r.abs().max()) <= PAR_ZERO_FLOOR * top or n in zeros:
             err = float((g.to(r.device) - r).abs().max())
             check(err <= PAR_LEAF_TOL[transport] * top,
                   f"{label} grad {n}: a zero but for rounding in the reference, off by {err:.3e} "
@@ -4177,10 +4200,16 @@ def hold_vs_world1(label, transport, loss, loss1, errs, spread, elementwise=None
 
 def probe_collectives(mesh):
     """Which collectives gloo serves on CUDA tensors (two ranks on one
-    card): all_reduce SUM and MAX (the edge layer's; a failure fails), and
-    all_gather, reduce_scatter, all_to_all (the row-sharded table's;
-    reported).  Returns {name: 'ok' | the error's first line}."""
+    card): all_reduce SUM and MAX (the edge layer's) and the single-tensor
+    all_to_all_single (f32, bf16, int32), all_gather_into_tensor and
+    reduce_scatter_tensor (the row-sharded table's route,
+    parallel/collectives.py), their values checked (a failure fails); the
+    list all_gather, reduce_scatter and all_to_all reported.  Prints the
+    route the row-sharded collectives take.  Returns {name: 'ok' | the
+    error's first line}."""
     import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import route
 
     dev, r = mesh.device, mesh.rank
     out = {}
@@ -4191,6 +4220,24 @@ def probe_collectives(mesh):
     dist.all_reduce(y, op=dist.ReduceOp.MAX)
     check(torch.equal(y.cpu(), torch.full((4,), 2.0)), "gloo all_reduce MAX on cuda tensors")
     out["all_reduce"] = "ok (SUM, MAX)"
+    want_a2a = torch.tensor([0., 1., 10., 11.]) + 2 * r
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        src = (torch.arange(4, device=dev) + 10 * r).to(dtype)
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src)
+        check(torch.equal(got.cpu().float(), want_a2a),
+              f"gloo all_to_all_single {dtype} on cuda tensors: {got.cpu().tolist()}")
+    out["all_to_all_single"] = "ok (f32, bf16, int32)"
+    got = torch.empty(4, device=dev)
+    dist.all_gather_into_tensor(got, torch.full((2,), float(r), device=dev))
+    check(torch.equal(got.cpu(), torch.tensor([0., 0., 1., 1.])),
+          "gloo all_gather_into_tensor on cuda tensors")
+    out["all_gather_into_tensor"] = "ok"
+    got = torch.empty(2, device=dev)
+    dist.reduce_scatter_tensor(got, torch.arange(4, dtype=torch.float32, device=dev) * (r + 1))
+    check(torch.equal(got.cpu(), torch.tensor([0., 3.]) + 6.0 * r),
+          "gloo reduce_scatter_tensor on cuda tensors")
+    out["reduce_scatter_tensor"] = "ok"
     probes = {
         "all_gather": lambda: dist.all_gather([torch.empty(4, device=dev) for _ in range(2)],
                                               torch.full((4,), float(r), device=dev)),
@@ -4198,8 +4245,6 @@ def probe_collectives(mesh):
             torch.empty(2, device=dev), [torch.ones(2, device=dev) for _ in range(2)]),
         "all_to_all": lambda: dist.all_to_all([torch.empty(2, device=dev) for _ in range(2)],
                                               [torch.ones(2, device=dev) for _ in range(2)]),
-        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
-            torch.empty(8, device=dev), torch.ones(4, device=dev)),
     }
     for name, fn in probes.items():
         try:
@@ -4209,7 +4254,7 @@ def probe_collectives(mesh):
         except Exception as e:  # a probe's refusal is its result
             out[name] = f"refused: {str(e).splitlines()[0][:160]}"
         dist.barrier()
-    print(f"gloo on cuda tensors: {out}", flush=True)
+    print(f"gloo on cuda tensors: {out}; the row-sharded route: {route(mesh)}", flush=True)
     return out
 
 
@@ -4230,52 +4275,67 @@ def _flagship_batch(trainer, seed=11):
     return trainer._build_batch(rows, gen), torch.ones(bs, device="cuda")
 
 
+def record_calls(module, name):
+    """A context that records the arguments of every call of
+    module.<name> (its launches still counted on the original)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        calls, orig = [], getattr(module, name)
+
+        def rec(*a, **k):
+            calls.append((a, k))
+            return orig(*a, **k)
+
+        rec.launches = orig.launches
+        setattr(module, name, rec)
+        try:
+            yield calls
+        finally:
+            setattr(module, name, orig)
+            orig.launches = rec.launches
+    return ctx()
+
+
 def record_flash_calls(fn):
     """The arguments of every flash_gat_fwd (K1/K12) call of fn()."""
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
 
-    calls, orig = [], fg.flash_gat_fwd
-
-    def rec(*a, **k):
-        calls.append((a, k))
-        return orig(*a, **k)
-
-    # the wrapper counts its launches on the module's flash_gat_fwd
-    rec.launches = orig.launches
-    fg.flash_gat_fwd = rec
-    try:
+    with record_calls(fg, "flash_gat_fwd") as calls:
         fn()
-    finally:
-        fg.flash_gat_fwd = orig
-        orig.launches = rec.launches
     torch.cuda.synchronize()
     return calls
 
 
-def replay_flash_calls(calls, transport, label):
-    """Each recorded K1/K12 call against its plain version (KERNEL_TOL of
-    the largest value), its device, plain ms and bound (flash_fwd_cost on
+def replay_flash_calls(calls, transport, label, bwd=False):
+    """Each recorded K1/K12 call (or, `bwd`, K2 call) against its plain
+    version (KERNEL_TOL of the largest value), its device, plain ms and
+    bound (flash_fwd_cost, or flash_bwd_cost with the fused scatter, on
     the call's real edges) -> the kernels' JSON entry of the calls'
     sums."""
     from graph_recsys_benchmark_tpu_torch.ops import cost
     from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
 
+    if bwd:
+        name, kernel, plain, n_args = "flash_gat_bwd", fg.flash_gat_bwd, fg.flash_gat_bwd_plain, 8
+    else:
+        name, kernel, plain, n_args = "flash_gat_fwd", fg.flash_gat_fwd, fg.flash_gat_fwd_plain, 7
     agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
     tb, tf = 0, 0
     for a, k in calls:
-        table, _, _, src, dst, n, kz = a[:7]
-        got = fg.flash_gat_fwd(*a, **k)
-        want = fg.flash_gat_fwd_plain(*a[:7])
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, want)
-        check(rel <= KERNEL_TOL, f"{label} flash_gat_fwd {transport} kz {kz}: relative error "
-              f"{rel} vs its plain version")
+        table, src, dst, n, kz = a[0], *a[n_args - 4:n_args]
+        got, want = kernel(*a, **k), plain(*a[:n_args])
+        err, rel = check_kernel(f"{label} {name} kz {kz}", transport,
+                                got if bwd else [got], want if bwd else [want])
         e = int((dst < n).sum())
-        flops, nbytes = cost.flash_fwd_cost(e, kz, n, table.shape[0], table.element_size())
-        ms = device_ms(lambda: fg.flash_gat_fwd(*a, **k))
-        plain_ms = device_ms(lambda: fg.flash_gat_fwd_plain(*a[:7]), reps=5)
+        isz = table.element_size()
+        flops, nbytes = (cost.flash_bwd_cost(e, kz, n, table.shape[0], isz, True) if bwd
+                         else cost.flash_fwd_cost(e, kz, n, table.shape[0], isz))
+        ms = device_ms(lambda: kernel(*a, **k))
+        plain_ms = device_ms(lambda: plain(*a[:n_args]), reps=5)
         b_ms, b_by = bound_ms(nbytes, flops)
-        print(f"{label} flash_gat_fwd {transport}: kz {kz} rows {n} edges {e} (padded "
+        print(f"{label} {name} {transport}: kz {kz} rows {n} edges {e} (padded "
               f"{dst.numel()}) rel_err {rel:.3e} ms {ms:.5f} plain_ms {plain_ms:.4f} bound_ms "
               f"{b_ms:.6f} ({b_by})", flush=True)
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -4639,11 +4699,16 @@ def par_phase_c(hin, mesh, transport):
               f"AUC {out[name]['AUC']:.4f}", flush=True)
     if mesh.rank == 0:
         a, b = out["sharded"], out["single"]
+        n_users = sh.tables.test_users.shape[0]
         for x in (a, b):
             x["HR@10"] = float(x["HR"][5])
-        bars = {k: (abs(a[k] - b[k]), tol * abs(b[k]) if kind == "rtol" else tol)
+        diff = {k: abs(a[k] - b[k]) for k in KG_EPOCH_BARS}
+        # HR@10 is a count of users over n_users: its difference is taken
+        # in users, so that a difference of exactly the bar (2e-2: 12 of
+        # 600) is not pushed past it by the float32 rounding of two shares
+        diff["HR@10"] = abs(round(a["HR@10"] * n_users) - round(b["HR@10"] * n_users)) / n_users
+        bars = {k: (diff[k], tol * abs(b[k]) if kind == "rtol" else tol)
                 for k, (kind, tol) in KG_EPOCH_BARS.items()}
-        n_users = sh.tables.test_users.shape[0]
         print(f"{lab}: sharded vs single (difference, bar): {bars}; the largest difference "
               f"over HR@1-16 {float(np.abs(a['HR'] - b['HR']).max()) * n_users:.0f} of "
               f"{n_users} users", flush=True)
@@ -4652,6 +4717,340 @@ def par_phase_c(hin, mesh, transport):
         res.update({k: (a[k], b[k]) for k in ("train_loss", "kg_train_loss", "AUC", "HR@10")},
                    epoch_s=(a["secs"], b["secs"]))
     dist.barrier()
+    return res
+
+
+# ------------------------------------------------ 12f-h. the row-sharded table
+
+ROW_SHARDED_STEPS = 2  # timed steps a case (phases f and h)
+# a 99-negative or full-catalog rank may differ from the single-process
+# evaluator's only where the positive ties a candidate within this share
+# of its score (the two sum a score's terms in other orders)
+EVAL_TIE = 1e-6
+
+
+def a2a_launches(cfg, step=True):
+    """A rank's launches of one a2a step (or, step False, one eval
+    forward and its cached-row lookup) from parallel/a2a.py: a step
+    position's static lookups (GAT: [z | a_src] by src and a_dst by dst;
+    GCN, SAGE: the source rows) gather twice each (K7: the serve rows,
+    then the pick from the received buffer) and its sum is one K5; the
+    batch's dynamic lookups (cached rows; entity-aware also x's) gather
+    twice each.  Backward: each gather's K6, each K5's K7."""
+    steps = cfg.meta_path_steps[0]
+    static = 2 if cfg.conv == "gat" else 1
+    if not step:
+        return expected(gather=steps * 2 * static + 2, segsum=steps)
+    dynamic = 2 if cfg.entity_aware else 1
+    return expected(gather=steps * (2 * static + 1) + 2 * dynamic,
+                    scatter=steps * 2 * static + 2 * dynamic, segsum=steps)
+
+
+def _flagship_cfg(hin, conv="gat"):
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig
+
+    return PEAConfig(conv=conv, num_nodes=hin.num_nodes, meta_path_steps=(2,) * 9, emb_dim=64,
+                     hidden_size=64, repr_dim=16, entity_aware=True)
+
+
+def _whole_grads(params, mesh, axis):
+    """_grad_list with x's gradient, this rank's rows, all-gathered."""
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import full_rows
+
+    grads = _grad_list(params)
+    grads[0] = full_rows(grads[0], mesh, axis)
+    return grads
+
+
+def _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch, mask, axis, mesh,
+                      zeros=()):
+    """The step's loss and gradients (x's re-assembled) against the same
+    code at a world of one (`sh1`, run twice for the spread), rank 0 ->
+    (hold_vs_world1's result, the leaves held as zeros but for rounding:
+    _par_leaf_errors' floor and `zeros`, printed); (None, ()) on the other
+    ranks."""
+    names = [n for n, _ in params.named_parameters()]
+    check(names[0] == "x", f"{lab}: x is not the first parameter")
+    grads = _whole_grads(params, mesh, axis)
+    if mesh.rank != 0:
+        return None, ()
+    runs = []
+    for _ in range(2):
+        p1 = sh1.init(2020)
+        runs.append((sh1.loss_and_grads(p1, batch, mask), _grad_list(p1)))
+    (loss1, grads1), (_, grads1b) = runs
+    top = max(float(r.abs().max()) for r in grads1)
+    floor = {n: (float(r.abs().max()) / top, float((g - r).abs().max()) / top)
+             for n, g, r in zip(names, grads, grads1)
+             if float(r.abs().max()) <= PAR_ZERO_FLOOR * top or n in zeros}
+    print(f"{lab}: zeros but for rounding (the leaf's largest reference value and its error, "
+          f"over the largest gradient {top:.4e}): {floor}", flush=True)
+    return hold_vs_world1(lab, transport, loss, loss1,
+                          _par_leaf_errors(lab, grads, grads1, names, transport, zeros),
+                          _par_leaf_errors(lab, grads1b, grads1, names, transport, zeros),
+                          stream_excess(grads, grads1, names) if transport == "f32"
+                          else None), tuple(floor)
+
+
+def par_phase_f(hin, mesh):
+    """`--parallel a2a` on `mesh` (two ranks sharing cuda:0 over gloo): the
+    flagship PEAGAT in f32 and bf16, then PEAGCN and PEASage in f32,
+    through ShardedPEATrainer(mode='a2a'): each rank's plan capacities
+    and shards, one step's launches against a2a_launches, its collectives
+    (calls and bytes by name, seconds under timing()), its loss and
+    gradients (x's halves together) against the same code at a world of
+    one (rank 0; the edge phases' bars: hold_vs_world1); for PEAGAT
+    ROW_SHARDED_STEPS timed steps and K7/K5/K6 at one step's shapes
+    against their plain versions (replay_edge_calls, rank 0), and in f32
+    the eval (phase g)."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+    from graph_recsys_benchmark_tpu_torch.parallel.mesh import Mesh
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    res = {}
+    for conv, transport in (("gat", "f32"), ("gat", "bf16"), ("gcn", "f32"), ("sage", "f32")):
+        lab = f"parallel f a2a {conv} {transport}"
+        cfg = _flagship_cfg(hin, conv)
+        t0 = time.perf_counter()
+        sh = ShardedPEATrainer(hin, cfg, TrainConfig(), mesh=mesh, mode="a2a",
+                               transport=transport)
+        setup = sh._a2a["setup"]
+        print(f"{lab}: built in {time.perf_counter() - t0:.1f} s host; r_loc "
+              f"{setup['r_loc']}, s_virt {setup['s_virt']}, v_total {setup['v_total']}; this "
+              f"rank's shards (real edges, padded) "
+              f"{[(int((g.dst < g.num_nodes).sum()), g.dst.numel()) for g in setup['graphs']]};"
+              f" plan capacities src {[p['capacity'] for p in setup['src_plans']]} dst "
+              f"{[p and p['capacity'] for p in setup['dst_plans']]}", flush=True)
+        params = sh.init(2020)
+        batch, mask = _flagship_batch(sh)
+        want = a2a_launches(cfg)
+        reset_launches()
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with coll.timing():
+            loss = sh.loss_and_grads(params, batch, mask)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        got = read_launches()
+        stats = dict(coll.STATS, ops={k: list(v) for k, v in coll.STATS["ops"].items()})
+        print(f"{lab}: one step's launches {got}; collectives {stats['ops']} ([calls, bytes "
+              f"sent] by name), {stats['seconds'] * 1e3:.3f} ms of {step_s * 1e3:.2f} ms",
+              flush=True)
+        check(got == want, f"{lab}: launches {got}, a2a_launches' {want}")
+        r = dict(launches_step=got, collectives=stats, step_ms_timed=step_s * 1e3,
+                 capacities=[p["capacity"] for p in setup["src_plans"]])
+        sh1 = None
+        if mesh.rank == 0:
+            sh1 = ShardedPEATrainer(hin, cfg, TrainConfig(), mode="a2a", transport=transport,
+                                    mesh=Mesh(dp=1, rank=0, device=mesh.device))
+        r["world1"], _ = _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch, mask,
+                                           "dp", mesh)
+        del sh1
+        dist.barrier()
+        if conv == "gat":
+            opt = sh.optimizer(params)
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            step_ms = []
+            for _ in range(ROW_SHARDED_STEPS):
+                rows = torch.randint(0, sh.n_rows, (sh.tcfg.batch_size,), generator=gen,
+                                     device="cuda")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sh.train_step(params, opt, rows, mask, gen)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            print(f"{lab}: {ROW_SHARDED_STEPS} steps, ms {[round(x, 2) for x in step_ms]}",
+                  flush=True)
+            r["step_ms"] = step_ms
+            calls = record_edge_calls(sh)  # both ranks: the step's exchanges need both
+            if mesh.rank == 0:
+                r["edge_kernels"] = {k: v for (k, _), v in replay_edge_calls(
+                    calls, transport, f"a2a flagship (rank 0 of 2)").items()}
+            del calls
+            dist.barrier()
+            if transport == "f32":
+                t = time.perf_counter()
+                r["eval"] = par_phase_g(sh, params, mesh)
+                r["eval_s"] = time.perf_counter() - t
+        res[f"{conv}|{transport}"] = r
+        del sh, params
+        torch.cuda.empty_cache()
+    return res
+
+
+def _neg_tie_gaps(users, score, tables, neg):
+    """For each test user index in `users`: the smallest |s(negative) -
+    s(positive)| / |s(positive)| over its sampled negatives."""
+    gaps = []
+    for k in users:
+        u, p = tables.test_users[k:k + 1], tables.test_items[k:k + 1]
+        s_pos = score(u, p)
+        s_n = score(u.repeat(neg.shape[1]), neg[k])
+        gaps.append(float(((s_n - s_pos).abs() / s_pos.abs().clamp_min(1e-30)).min()))
+    return gaps
+
+
+def par_phase_g(sh, params, mesh):
+    """The a2a evaluator on the flagship PEAGAT (f32): an eval's launches
+    (a2a_launches(step=False)), then (rank 0) its 99-negative ranks and
+    metrics against the single-process evaluator (eval/ranking.py, the
+    same generator) and its full-catalog sweep's ranks against
+    eval/full_ranking.py, both over the same cached representation (the
+    ranks' rows all-gathered): equal but for users whose positive ties a
+    candidate within EVAL_TIE."""
+    from graph_recsys_benchmark_tpu_torch.eval.full_ranking import evaluate_full_ranking
+    from graph_recsys_benchmark_tpu_torch.eval.ranking import evaluate_ranking
+    from graph_recsys_benchmark_tpu_torch.models.pea import pea_predict
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import full_rows
+    from graph_recsys_benchmark_tpu_torch.train.sampling import sample_eval_negatives
+
+    lab = "parallel g a2a eval f32"
+    seed = 13
+    reset_launches()
+    ev = sh.evaluate(params, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = a2a_launches(sh.cfg, step=False)
+    check(got == want, f"{lab}: launches {got}, expected {want}")
+    full = sh.evaluate_full(params)
+    with torch.no_grad():
+        cached = full_rows(sh._a2a["local_cached"](params), mesh, "dp")
+    out = dict(launches=got, HR10=float(ev["HR"][5]), AUC=float(ev["AUC"]),
+               full_HR10=float(full["HR"][5]))
+    if mesh.rank != 0:
+        return out
+    tables = sh.tables
+    check(tables.mode == "dense", "the near-tie check reads dense tables")
+
+    def score(u, i):
+        return pea_predict(params, cached, u.long(), i.long())
+
+    with torch.no_grad():
+        ref = evaluate_ranking(torch.Generator(device="cuda").manual_seed(seed), score, tables,
+                               num_candidates=sh.tcfg.num_neg_candidates)
+        neg = sample_eval_negatives(torch.Generator(device="cuda").manual_seed(seed), tables,
+                                    sh.tcfg.num_neg_candidates)
+        differ = torch.nonzero(ev["ranks"] != ref["ranks"]).flatten().tolist()
+        gaps = _neg_tie_gaps(differ, score, tables, neg)
+        fref = evaluate_full_ranking(score, tables)
+        fdiffer = torch.nonzero(full["ranks"] != fref["ranks"]).flatten().tolist()
+        fgaps = _near_tie_users(fdiffer, tables, score)
+    n = int(tables.test_users.shape[0])
+    print(f"{lab}: launches {got}; 99 negatives: HR@10 {out['HR10']:.4f} / single-process "
+          f"{float(ref['HR'][5]):.4f}, NDCG@10 {float(ev['NDCG'][5]):.4f} / "
+          f"{float(ref['NDCG'][5]):.4f}, AUC {out['AUC']:.4f} / {float(ref['AUC']):.4f}, "
+          f"eval loss {float(ev['eval_loss']):.5f} / {float(ref['eval_loss']):.5f}; "
+          f"{len(differ)} of {n} users' ranks differ (near ties {gaps}); full catalog: "
+          f"HR@10 {out['full_HR10']:.4f} / {float(fref['HR'][5]):.4f}, {len(fdiffer)} of {n} "
+          f"users' ranks differ (near ties {fgaps})", flush=True)
+    check(all(g <= EVAL_TIE for g in gaps),
+          f"{lab}: 99-negative ranks apart beyond ties: users {differ}, gaps {gaps}")
+    check(all(g <= EVAL_TIE for g in fgaps),
+          f"{lab}: full-catalog ranks apart beyond ties: users {fdiffer}, gaps {fgaps}")
+    out.update(differ=len(differ), full_differ=len(fdiffer), users=n,
+               single_HR10=float(ref["HR"][5]), single_full_HR10=float(fref["HR"][5]))
+    return out
+
+
+def par_phase_h(hin, mesh):
+    """`--parallel dp` at mp 2 (dp 1 x mp 2 on the two ranks sharing the
+    card): per transport the flagship PEAGAT through
+    ShardedPEATrainer(mode='dp'): one step's launches (the union graphs
+    over the all-gathered table: K12/K1 2, K2 2), its loss and gradients
+    (x's mp shards together) against the same code at a world of one
+    (rank 0, hold_vs_world1), ROW_SHARDED_STEPS timed steps (the collectives
+    timed), one eval (launches K12/K1 2; its metrics against the world of
+    one's), and (rank 0) the step's K12/K1 and K2 calls against their
+    plain versions, timed.
+
+    The bf16 step rounds each rank's rows' cotangent to bf16 in the flash
+    backward, where the world of one rounds their sum: a leaf that is zero
+    but for rounding carries bf16 noise of another draw (the step-2
+    attention vectors of the seven channels sharing i2u: 1.6e-12-3.6e-11
+    of the largest gradient in f32, 1.4e-7-2.2e-6 in bf16, and 0.45-0.74
+    of that apart on one H100 80GB HBM3 at 700 W; PERF.md section 6).  So
+    the leaves that the f32 step finds zero (PAR_ZERO_FLOOR) are held as
+    zeros in bf16 too."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.ops import flash_gat as fg
+    from graph_recsys_benchmark_tpu_torch.parallel import collectives as coll
+    from graph_recsys_benchmark_tpu_torch.parallel import multihost as mh
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+    from graph_recsys_benchmark_tpu_torch.parallel.mesh import Mesh
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    m2 = mh.make_pod_mesh(mp=2)
+    check((m2.dp, m2.mp, m2.axis_index("mp")) == (1, 2, mesh.rank),
+          f"parallel h: mesh {m2.dp} x {m2.mp}, m {m2.axis_index('mp')} on rank {mesh.rank}")
+    res = {}
+    cfg = _flagship_cfg(hin)
+    zeros = ()  # the f32 step's zeros but for rounding, held as zeros in bf16
+    for transport in TDT:
+        lab = f"parallel h dp mp 2 {transport}"
+        sh = ShardedPEATrainer(hin, cfg, TrainConfig(), mesh=m2, mode="dp", transport=transport)
+        params = sh.init(2020)
+        check(params.x.shape[0] == cfg.emb_rows // 2, f"{lab}: x rows {params.x.shape[0]}")
+        batch, mask = _flagship_batch(sh)
+        reset_launches()
+        with record_calls(fg, "flash_gat_fwd") as fwd, record_calls(fg, "flash_gat_bwd") as bwd:
+            loss = sh.loss_and_grads(params, batch, mask)
+            torch.cuda.synchronize()
+        got = read_launches()
+        want = expected(flash_fwd=2, flash_bwd=2)
+        print(f"{lab}: one step's launches {got}", flush=True)
+        check(got == want, f"{lab}: launches {got}, expected {want}")
+        r = dict(launches_step=got)
+        sh1 = None
+        if mesh.rank == 0:
+            sh1 = ShardedPEATrainer(hin, cfg, TrainConfig(), mode="dp", transport=transport,
+                                    mesh=Mesh(dp=1, rank=0, device=mesh.device))
+        r["world1"], zeros = _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch,
+                                               mask, "mp", m2, zeros)
+        reset_launches()
+        ev = sh.evaluate(params, torch.Generator(device="cuda").manual_seed(13))
+        torch.cuda.synchronize()
+        ev_launches = read_launches()
+        check(ev_launches == expected(flash_fwd=2), f"{lab}: eval launches {ev_launches}")
+        r.update(eval_launches=ev_launches, HR10=float(ev["HR"][5]), AUC=float(ev["AUC"]))
+        if mesh.rank == 0:
+            p1 = sh1.init(2020)
+            ev1 = sh1.evaluate(p1, torch.Generator(device="cuda").manual_seed(13))
+            print(f"{lab}: eval launches {ev_launches}; HR@10 {r['HR10']:.4f} AUC "
+                  f"{r['AUC']:.4f}; a world of one's {float(ev1['HR'][5]):.4f} "
+                  f"{float(ev1['AUC']):.4f}", flush=True)
+            check(abs(r["HR10"] - float(ev1["HR"][5])) <= 5e-3
+                  and abs(r["AUC"] - float(ev1["AUC"])) <= 5e-3,
+                  f"{lab}: eval against a world of one's")
+            r["flash_fwd"] = replay_flash_calls(fwd, transport, "parallel dp union")
+            r["flash_bwd"] = replay_flash_calls(bwd, transport, "parallel dp union", bwd=True)
+        dist.barrier()
+        opt = sh.optimizer(params)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        step_ms = []
+        for i in range(ROW_SHARDED_STEPS):
+            rows = torch.randint(0, sh.n_rows, (sh.tcfg.batch_size,), generator=gen,
+                                 device="cuda")
+            coll.reset_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with coll.timing():
+                sh.train_step(params, opt, rows, mask, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        stats = dict(coll.STATS, ops={k: list(v) for k, v in coll.STATS["ops"].items()})
+        print(f"{lab}: {ROW_SHARDED_STEPS} steps, ms {[round(x, 2) for x in step_ms]}; the last's "
+              f"collectives {stats['ops']} ([calls, bytes sent]), {stats['seconds'] * 1e3:.3f} "
+              "ms", flush=True)
+        r.update(step_ms=step_ms, collectives=stats)
+        del sh, sh1, params, fwd, bwd
+        dist.barrier()
+        torch.cuda.empty_cache()
+        res[transport] = r
     return res
 
 
@@ -4668,9 +5067,9 @@ def _json_safe(x):
 
 
 def parallel_rank_main(kind, rank, world, store, workdir):
-    """One rank of the parallel phase's worlds ('world': phases a-c, two
-    ranks sharing cuda:0 over gloo; 'nccl': phase e, a world of one over
-    NCCL, after the refused layout).  Writes its results to
+    """One rank of the parallel phase's worlds ('world': phases a-c, the
+    probe and f-h, two ranks sharing cuda:0 over gloo; 'nccl': phase e, a
+    world of one over NCCL, after the refused layout).  Writes its results to
     <workdir>/<kind>_<rank>.json."""
     import pickle
 
@@ -4715,6 +5114,12 @@ def parallel_rank_main(kind, rank, world, store, workdir):
         res["c"] = {tr: par_phase_c(hin, mesh, tr) for tr in TDT}
         res["c_s"] = time.perf_counter() - t
         res["probe"] = probe_collectives(mesh)
+        t = time.perf_counter()
+        res["f"] = par_phase_f(hin, mesh)
+        res["f_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["h"] = par_phase_h(hin, mesh)
+        res["h_s"] = time.perf_counter() - t
     else:
         # phase a's world-of-one step through this NCCL world, against the
         # gloo world's rank 0 (world1_<transport>.pt)
@@ -4778,72 +5183,100 @@ def _cli_log(out_dir):
     return losses, hr, log
 
 
-def par_phase_d(tmp, work):
-    """`python -m graph_recsys_benchmark_tpu_torch --parallel edge` as two
-    processes (ranks 0 and 1 sharing the card over gloo; rank 1 given an
-    --out_dir of its own, where it must write no file) and, at the same
-    time, the same flags in one process: each epoch's train loss within
-    1e-4 relative, the overall HR@10 within 2/150.  Then a resume by both
-    ranks from rank 0's checkpoints (its run marked unfinished): no epoch
-    trained, the overall line the first call's; phase e's world of one over
-    NCCL runs beside the resume (neither is timed)."""
-    base = ["--model", "PEAGAT", "--dataset", "synthetic-ml", "--parallel", "edge", "--runs",
-            "1", "--epochs", "5", "--save_every_epoch", "0"]
+# phase d's CLI modes: (the two ranks' flags, the one process's flags)
+CLI_MODES = {"edge": (["--parallel", "edge"], ["--parallel", "edge"]),
+             "a2a": (["--parallel", "a2a"], ["--parallel", "a2a"]),
+             # the one process's world of one takes mp 1 (an odd world)
+             "dp": (["--parallel", "dp", "--mesh_mp", "2"], ["--parallel", "dp"])}
 
-    def ranks(out_of, cache):
+
+def par_phase_d(tmp, work):
+    """`python -m graph_recsys_benchmark_tpu_torch --parallel edge`,
+    `--parallel a2a` and `--parallel dp --mesh_mp 2` beside each other
+    (CLI_MODES), each as two processes (ranks 0 and 1 sharing the card
+    over gloo; rank 1 given an --out_dir of its own, where it must write no
+    file) and, at the same time, the same mode in one process: each
+    epoch's train loss within 1e-4 relative, the overall HR@10 within
+    2/150.  Then a resume of every mode by both ranks from rank 0's
+    checkpoints (its run marked unfinished): no epoch trained, the overall
+    line the first call's; phase e's world of one over NCCL runs beside
+    the resumes (neither is timed)."""
+    base = ["--model", "PEAGAT", "--dataset", "synthetic-ml", "--runs", "1", "--epochs", "5",
+            "--save_every_epoch", "0"]
+
+    def ranks(mode, out_of, cache):
         port = _free_port()
 
         def argv(r):
             return [sys.executable, "-m", "graph_recsys_benchmark_tpu_torch", *base,
-                    "--cache_dir", cache, "--out_dir", out_of(r), "--dist_coordinator",
-                    f"127.0.0.1:{port}", "--dist_nprocs", "2", "--dist_rank", str(r)]
+                    *CLI_MODES[mode][0], "--cache_dir", cache, "--out_dir", out_of(r),
+                    "--dist_coordinator", f"127.0.0.1:{port}", "--dist_nprocs", "2",
+                    "--dist_rank", str(r)]
         return argv
 
-    res = {}
+    def single(mode):
+        return lambda r: [sys.executable, "-m", "graph_recsys_benchmark_tpu_torch", *base,
+                          *CLI_MODES[mode][1], "--cache_dir",
+                          os.path.join(tmp, f"hin_single_{mode}"), "--out_dir",
+                          os.path.join(tmp, f"d_single_{mode}")]
+
+    def rank_dir(mode, r):
+        return os.path.join(tmp, f"d_{mode}_rank{r}")
+
     t = time.perf_counter()
-    a, b = os.path.join(tmp, "d_rank0"), os.path.join(tmp, "d_rank1")
-    single = os.path.join(tmp, "d_single")
-    run_ranks(("cli", 2, ranks(lambda r: (a, b)[r], os.path.join(tmp, "hin_d"))),
-              ("cli-single", 1, lambda r: [
-                  sys.executable, "-m", "graph_recsys_benchmark_tpu_torch", *base,
-                  "--cache_dir", os.path.join(tmp, "hin_single"), "--out_dir", single]))
-    res["two_and_one_s"] = time.perf_counter() - t
-    files1 = [os.path.join(d, f) for d, _, fs in os.walk(b) for f in fs]
-    check(not files1, f"parallel d: rank 1 wrote {files1}")
-    losses2, hr2, log = _cli_log(a)
-    losses1, hr1, _ = _cli_log(single)
-    run = os.path.dirname(log)
-    ckpts = sorted(os.listdir(os.path.join(run, "run_1")))
-    check({"latest.ckpt", "epoch_5.ckpt"} <= set(ckpts), f"parallel d: checkpoints {ckpts}")
-    print(f"parallel d: two ranks and one process side by side {res['two_and_one_s']:.1f} s; "
-          f"train losses {losses2} / {losses1}; overall HR@10 {hr2} / {hr1}; rank 0's "
-          f"checkpoints {ckpts}, rank 1's directory empty", flush=True)
-    check(len(losses2) == len(losses1) == 5, "parallel d: five epochs each")
-    for x, y in zip(losses2, losses1):
-        check(abs(x - y) <= 1e-4 * abs(y), f"parallel d: train loss {x} vs {y}")
-    check(abs(hr2[0] - hr1[0]) <= 2 / 150 + 1e-9, f"parallel d: HR@10 {hr2} vs {hr1}")
-    # resume: run 1 unfinished in the summary, its checkpoints in place
-    os.remove(os.path.join(run, "global_logger.npz"))
+    run_ranks(*[x for mode in CLI_MODES for x in (
+        (f"cli-{mode}", 2, ranks(mode, lambda r, m=mode: rank_dir(m, r),
+                                 os.path.join(tmp, f"hin_{mode}"))),
+        (f"cli-{mode}-single", 1, single(mode)))])
+    res = {"calls_s": time.perf_counter() - t}
+    for mode in CLI_MODES:
+        files1 = [os.path.join(d, f) for d, _, fs in os.walk(rank_dir(mode, 1)) for f in fs]
+        check(not files1, f"parallel d {mode}: rank 1 wrote {files1}")
+        losses2, hr2, log = _cli_log(rank_dir(mode, 0))
+        losses1, hr1, _ = _cli_log(os.path.join(tmp, f"d_single_{mode}"))
+        ckpts = sorted(os.listdir(os.path.join(os.path.dirname(log), "run_1")))
+        check({"latest.ckpt", "epoch_5.ckpt"} <= set(ckpts),
+              f"parallel d {mode}: checkpoints {ckpts}")
+        print(f"parallel d {mode}: two ranks and one process side by side (every mode at "
+              f"once) {res['calls_s']:.1f} s; train losses {losses2} / {losses1}; overall "
+              f"HR@10 {hr2} / {hr1}; rank 0's checkpoints {ckpts}, rank 1's directory empty",
+              flush=True)
+        check(len(losses2) == len(losses1) == 5, f"parallel d {mode}: five epochs each")
+        for x, y in zip(losses2, losses1):
+            check(abs(x - y) <= 1e-4 * abs(y), f"parallel d {mode}: train loss {x} vs {y}")
+        check(abs(hr2[0] - hr1[0]) <= 2 / 150 + 1e-9, f"parallel d {mode}: HR@10 {hr2} vs {hr1}")
+        res[mode] = dict(losses=(losses2, losses1), hr10=(hr2, hr1))
+    # resume: each run 1 unfinished in the summary, its checkpoints in place
+    firsts = {}
+    for mode in CLI_MODES:
+        _, lines = _log_lines(rank_dir(mode, 0))
+        firsts[mode] = [ln for ln in lines if ln.startswith("Overall")][0]
+        run = os.path.dirname(_cli_log(rank_dir(mode, 0))[2])
+        os.remove(os.path.join(run, "global_logger.npz"))
     t = time.perf_counter()
-    outs = run_ranks(("cli-resume", 2, ranks(lambda r: a, os.path.join(tmp, "hin_d"))),
-                     ("nccl", 1), workdir=work)["cli-resume"]
+    outs = run_ranks(*[(f"cli-resume-{mode}", 2, ranks(mode, lambda r, m=mode: rank_dir(m, 0),
+                                                       os.path.join(tmp, f"hin_{mode}")))
+                       for mode in CLI_MODES], ("nccl", 1), workdir=work)
     res["resume_and_e_s"] = time.perf_counter() - t
-    overall = [[ln for ln in o if ln.startswith("Overall HR@10")] for o in outs]
-    first = [ln for ln in _log_lines(a)[1] if ln.startswith("Overall")][0]
-    print(f"parallel d: resume (beside phase e) {res['resume_and_e_s']:.1f} s: {overall}",
-          flush=True)
-    check(all(len(o) == 1 and o[0].split(",")[:3] == first.split(" (")[0].split(",")[:3]
-              for o in overall), f"parallel d: the resumed overall {overall} vs {first}")
-    res.update(losses=(losses2, losses1), hr10=(hr2, hr1))
+    for mode in CLI_MODES:
+        overall = [[ln for ln in o if ln.startswith("Overall HR@10")]
+                   for o in outs[f"cli-resume-{mode}"]]
+        first = firsts[mode]
+        print(f"parallel d {mode}: resume (beside the other modes' and phase e) "
+              f"{res['resume_and_e_s']:.1f} s: {overall}", flush=True)
+        check(all(len(o) == 1 and o[0].split(",")[:3] == first.split(" (")[0].split(",")[:3]
+                  for o in overall), f"parallel d {mode}: the resumed overall {overall} vs "
+              f"{first}")
     return res
 
 
 def parallel_phase(tmp, ml25m_pickle):
-    """Edge-parallel training (parallel/, --parallel edge): phases a-c in
-    one two-rank world sharing cuda:0 over gloo (par_phase_a, _b, _c, per
-    transport), d the CLI as processes, e a world of one over NCCL (after
-    the refused NCCL layout) beside d's resume.  Prints each phase's
-    seconds and the whole's."""
+    """Parallel training (parallel/, --parallel edge, a2a, dp): phases a-c,
+    the probe and f-h in one two-rank world sharing cuda:0 over gloo
+    (par_phase_a, _b, _c per transport; probe_collectives; par_phase_f
+    with g, par_phase_h), d the CLI as processes, e a world of one over
+    NCCL (after the refused NCCL layout) beside d's resumes.  Prints each
+    phase's seconds and the whole's."""
     t0 = time.perf_counter()
     work = os.path.join(tmp, "parallel")
     os.makedirs(work, exist_ok=True)
@@ -4854,9 +5287,11 @@ def parallel_phase(tmp, ml25m_pickle):
     res_d = par_phase_d(tmp, work)
     res_e = json.load(open(os.path.join(work, "nccl_0.json")))
     t_end = time.perf_counter()
-    print(f"parallel phases {t_end - t0:.1f} s: a-c {t_d - t0:.1f} s (a {res[0]['a_s']:.1f}, "
-          f"b {res[0]['b_s']:.1f}, c {res[0]['c_s']:.1f} by rank 0's clock), d and e "
-          f"{t_end - t_d:.1f} s", flush=True)
+    print(f"parallel phases {t_end - t0:.1f} s: a-c, f-h {t_d - t0:.1f} s (a {res[0]['a_s']:.1f}, "
+          f"b {res[0]['b_s']:.1f}, c {res[0]['c_s']:.1f}, f {res[0]['f_s']:.1f}, h "
+          f"{res[0]['h_s']:.1f} by rank 0's clock), d and e {t_end - t_d:.1f} s (d's calls "
+          f"{res_d['calls_s']:.1f} s, the resumes and e "
+          f"{res_d['resume_and_e_s']:.1f} s)", flush=True)
     return res, res_d, res_e
 
 
@@ -5144,6 +5579,34 @@ def main():
             launches=a["eval_launches"]["flash_fwd"], max_abs_err=f["max_abs_err"],
             ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
             bound_by=f["bound_by"], library_ms=None))
+    # the row-sharded modes (parallel_phase f, h): launches those of one
+    # step of one rank of two sharing the card
+    for transport in TDT:
+        f = r0["f"][f"gat|{transport}"]
+        for kind, r in f["edge_kernels"].items():
+            kernels.append(dict(
+                name=f"{SEG_KERNELS[kind]} ({transport}; PEAGAT --parallel a2a, rank 0 of 2 on "
+                     f"one card: its shards of the flagship's interleaved unions and its "
+                     f"lookups, {r['calls']} calls of one step)",
+                route="cuda", source=f"{csrc}/segment.cu",
+                replaces=f"{repo}/ops/pallas_segment.py:{lines[kind]}",
+                launches=f["launches_step"][kind], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
+        h = r0["h"][transport]
+        for kind, src_file, line in (("flash_fwd", "gat_fwd.cu",
+                                      "479" if transport == "bf16" else "129"),
+                                     ("flash_bwd", "gat_bwd.cu", "829")):
+            r = h[kind]
+            kernels.append(dict(
+                name=f"flash_gat_{kind[6:]} ({transport}; PEAGAT --parallel dp --mesh_mp 2, "
+                     f"rank 0 of 2 on one card: the union graphs over the all-gathered table, "
+                     f"kz 64 and 16, {r['calls']} calls of one step)",
+                route="cuda", source=f"{csrc}/{src_file}",
+                replaces=f"{repo}/ops/flash_gat.py:{line}",
+                launches=h["launches_step"][kind], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None))
     stream_lines = {"stream_fwd": "220", "stream_bwd_dst": "292", "stream_bwd_src": "364"}
     for key, r in r0["b"]["f32"]["stream_kernels"].items():
         kind, transport = key.split("|")

@@ -22,8 +22,9 @@ segment-sum (``ops/segment_kernels``).  Metapaths of mixed depth, or
 ``PEAConfig(fused=False)``, run each channel on its own graphs (the
 per-channel forwards of ``models/pea.py``).  ``utils/profiling`` and
 ``utils/roofline`` trace a step and count its bytes and flops.
-``parallel/`` trains them (and KGAT, KGCN) edge-parallel over the ranks of
-a torch.distributed world (``parallel.engine.ShardedPEATrainer``).  The
+``parallel/`` trains them over the ranks of a torch.distributed world
+(``parallel.engine.ShardedPEATrainer``): edge-parallel (and KGAT, KGCN),
+or with the embedding table row-sharded (modes 'a2a' and 'dp').  The
 forwards and backwards of all of them are CUDA kernels in ``csrc/`` (built with nvcc at first use,
 ``ops/_cuda.py``).  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; the plain PyTorch versions of

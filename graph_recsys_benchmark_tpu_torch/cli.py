@@ -22,17 +22,17 @@ baselines NGCF, KGAT, KGCN, CFKG and NFM (train/baseline_trainers.py; NFM's
 dropout defaults to 0.3, as in the JAX CLI); the walk models MetaPath2Vec
 and HeRec (train/walk_trainers.py), which read the walk flags and keep
 their stage-1 embeddings under ``<out_dir>/<hin>/<model>``.
-``--parallel edge`` trains PEAGCN, PEAGAT and PEASage
-(parallel/engine.ShardedPEATrainer) and KGAT and KGCN
-(make_sharded_kg_trainer) over the ranks of a torch.distributed world:
+``--parallel edge``, ``dp`` and ``a2a`` train PEAGCN, PEAGAT and PEASage
+(parallel/engine.ShardedPEATrainer), ``edge`` also KGAT and KGCN
+(make_sharded_kg_trainer), over the ranks of a torch.distributed world:
 one process a rank, started with ``--dist_coordinator host:port
 --dist_nprocs N --dist_rank r`` (or the GRB_* environment, or torchrun's),
 the runtime begun before anything touches the card
 (parallel/multihost.initialize_runtime: NCCL when each rank has a card of
-its own, gloo when ranks share one or run on the CPU).  ``--parallel dp``,
-``--parallel a2a`` and ``--mesh_mp`` (the row-sharded embedding table)
-raise ``NotImplementedError`` before any work, naming the ROADMAP Queue 1
-item that ports them.
+its own, gloo when ranks share one or run on the CPU).  ``dp`` row-shards
+the table over ``--mesh_mp`` ranks (default 2 on an even world, else 1),
+``a2a`` over every rank; a mesh the world cannot hold raises ValueError
+before any file is written.
 
 Differences from the JAX CLI: nothing is fetched over the network (an
 http(s) ``--dataset_url`` raises NotImplementedError, and without one the
@@ -62,8 +62,6 @@ BASELINE_MODELS = ("NGCF", "KGAT", "KGCN", "CFKG", "NFM")
 WALK_MODELS = ("MetaPath2Vec", "HeRec")
 PORTED_DATASETS = ("synthetic-ml", "synthetic-ml25m", "synthetic-yelp",
                    "ml-latest-small", "ml-25m", "yelp")
-# ROADMAP Queue 1 item by title: the row-sharded table ('dp', 'a2a', --mesh_mp)
-PARALLEL_ITEM = 'ROADMAP Queue 1, "Row-sharded embedding table"'
 DIST_FLAGS = ("dist_coordinator", "dist_nprocs", "dist_rank")
 
 
@@ -126,10 +124,12 @@ def build_parser():
     p.add_argument("--parallel", default="none",
                    choices=["none", "dp", "edge", "a2a"],
                    help="sharded training over the world's ranks: 'edge' (PEA models, "
-                        "KGAT, KGCN) shards the edges and the batch; 'dp' and 'a2a' are "
-                        "not ported")
+                        "KGAT, KGCN) shards the edges and the batch; 'dp' (PEA) the batch "
+                        "and the table over --mesh_mp; 'a2a' (PEA) the table, the "
+                        "aggregates and the batch, with all-to-all lookups")
     p.add_argument("--mesh_mp", type=int, default=None,
-                   help="model-parallel axis size (not ported)")
+                   help="--parallel dp's model axis: the ranks the table is row-sharded "
+                        "over (default 2 on an even world, else 1)")
     # walk-stage params (metapath2vec_solver_bpr.py:36-58), read by the walk models
     p.add_argument("--walk_length", type=int, default=100)
     p.add_argument("--context_size", type=int, default=7)
@@ -152,17 +152,6 @@ def _dataset_defaults(name):
     if name in ("yelp", "synthetic-yelp"):
         return dict(runs=3, epochs=20, batch_size=1024, sampling="random")
     return dict(runs=5, epochs=30, batch_size=1024, sampling="unseen")
-
-
-def check_ported(args):
-    """NotImplementedError for every choice the port does not run yet (the
-    row-sharded modes of the parallel layer and their model axis), naming
-    the ROADMAP Queue 1 item that ports them."""
-    what = ([f"--parallel {args.parallel}"] if args.parallel in ("dp", "a2a") else []) + (
-        ["--mesh_mp"] if args.mesh_mp is not None else [])
-    if what:
-        raise NotImplementedError(f"{' '.join(what)}: the row-sharded embedding table is "
-                                  f"not ported: {PARALLEL_ITEM}")
 
 
 def load_hin(args):
@@ -288,13 +277,12 @@ def _build_hin(args):
     raise ValueError(args.dataset)
 
 
-def build_trainer(args, hin, mp_edges):
+def build_trainer(args, hin, mp_edges, mesh=None):
     """(the model's trainer on args.device, number of metapaths), as the JAX
     CLI builds them (cli.py:242-358); the baselines and the walk models have
     no metapaths to ablate."""
     from .train.pea_trainer import TrainConfig
 
-    check_ported(args)
     if args.parallel != "none":
         pea_ok = args.model in ("PEAGCN", "PEAGAT", "PEASage")
         kg_ok = args.model in ("KGAT", "KGCN") and args.parallel == "edge"
@@ -315,7 +303,7 @@ def build_trainer(args, hin, mp_edges):
         runs=args.runs or defaults["runs"],
     )
     if args.model in BASELINE_MODELS:
-        return _build_baseline(args, hin, tcfg), 0
+        return _build_baseline(args, hin, tcfg, mesh), 0
     if args.model in WALK_MODELS:
         return _build_walk(args, hin, tcfg), 0
     from .models.pea import PEAConfig
@@ -331,19 +319,18 @@ def build_trainer(args, hin, mp_edges):
         entity_aware=_bool(args.entity_aware),
         entity_aware_coff=args.entity_aware_coff,
     )
-    if args.parallel == "edge":
+    if args.parallel != "none":
         from .parallel.engine import ShardedPEATrainer
-        from .parallel.multihost import make_pod_mesh
 
         return ShardedPEATrainer(hin, cfg, tcfg, metapath_edges=mp_edges,
-                                 mesh=make_pod_mesh(mp=1, device=args.device), mode="edge",
+                                 mesh=mesh or parallel_mesh(args), mode=args.parallel,
                                  transport=args.message_dtype), len(mp_edges)
     trainer = PEATrainer(hin, cfg, tcfg, metapath_edges=mp_edges, device=args.device,
                          transport=args.message_dtype)
     return trainer, len(mp_edges)
 
 
-def _build_baseline(args, hin, tcfg):
+def _build_baseline(args, hin, tcfg, mesh=None):
     """NGCF, KGAT/KGCN (f32 or bf16 message transport), CFKG or NFM."""
     from .train import baseline_trainers as B
 
@@ -368,9 +355,8 @@ def _build_baseline(args, hin, tcfg):
         )
         if args.parallel == "edge":
             from .parallel.engine import make_sharded_kg_trainer
-            from .parallel.multihost import make_pod_mesh
 
-            return make_sharded_kg_trainer(hin, cfg, tcfg, make_pod_mesh(mp=1, device=device),
+            return make_sharded_kg_trainer(hin, cfg, tcfg, mesh or parallel_mesh(args),
                                            transport=args.message_dtype)
         return B.KGTrainer(hin, cfg, tcfg, device=device, transport=args.message_dtype)
     if model == "CFKG":
@@ -431,20 +417,30 @@ def run_dir(args, hin):
     )
 
 
+def parallel_mesh(args):
+    """The mesh of --parallel (the world; 'dp' over mp = --mesh_mp or 2 on
+    an even world, else 1, JAX cli.py:255-266), or None without it."""
+    if args.parallel == "none":
+        return None
+    from .parallel.engine import default_mesh
+
+    return default_mesh(args.parallel, args.mesh_mp, device=args.device)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
     # before anything touches the card
     from .parallel.multihost import initialize_runtime
 
     initialize_runtime(args.dist_coordinator, args.dist_nprocs, args.dist_rank,
                        device=args.device)
+    mesh = parallel_mesh(args)  # a mesh the world cannot hold raises before any file
     hin, mp_edges = load_hin(args)
     print(
         f"{hin.name}: {hin.num_nodes} nodes ({hin.num_users} users, "
         f"{hin.num_items} items), {hin.train_pos.shape[0]} train interactions"
     )
-    trainer, num_metapaths = build_trainer(args, hin, mp_edges)
+    trainer, num_metapaths = build_trainer(args, hin, mp_edges, mesh)
 
     from .train.solver import Solver
 

@@ -333,6 +333,62 @@ def fuse_step_graphs(step_graphs, num_nodes, pad_to=PAD_TO) -> StepGraph:
     )
 
 
+def fuse_step_graphs_interleaved(step_graphs, emb_rows, pad_to=PAD_TO) -> StepGraph:
+    """Node-major union: channel c's node n maps to virtual id ``n * C +
+    c`` over ``emb_rows * C`` rows (emb_rows: the 128-padded table height).
+
+    fuse_step_graphs is channel-major (c * N + n); this layout makes row
+    ownership contiguous under a P-way row sharding of the embedding table:
+    virtual row v belongs to shard ``v // (C * emb_rows / P)``, the shard
+    that owns node ``v // C`` of the table, so that the row-sharded path
+    (parallel/a2a.py) psum-scatters each step's aggregates straight into
+    table-aligned shards.  Math per channel is identical.  Built by
+    _sort_pad, so the graph carries its walks (src_perm, dst_perm, block
+    bounds)."""
+    c_total = len(step_graphs)
+    srcs, dsts, ws, rels = [], [], [], []
+    for c, g in enumerate(step_graphs):
+        if g.gat_loops:
+            raise ValueError(
+                "cannot fuse gat_loops (implicit self-loop) graphs: build the "
+                "per-channel graphs with analytic_gat_loops=False for the "
+                "fused path"
+            )
+        e = g.num_edges
+        srcs.append(g.src[:e].cpu().numpy().astype(np.int64) * c_total + c)
+        dsts.append(g.dst[:e].cpu().numpy().astype(np.int64) * c_total + c)
+        ws.append(g.w[:e].cpu().numpy())
+        rels.append(g.rel[:e].cpu().numpy().astype(np.int64))
+    return _sort_pad(
+        np.concatenate(srcs),
+        np.concatenate(dsts),
+        np.concatenate(ws).astype(np.float32),
+        np.concatenate(rels),
+        emb_rows * c_total,
+        pad_to,
+    )
+
+
+def build_fused_metapath_graphs_interleaved(
+    metapath_steps, num_nodes, emb_rows, conv: str, pad_to=PAD_TO
+) -> Tuple[StepGraph, ...]:
+    """The node-major variant of build_fused_metapath_graphs
+    (fuse_step_graphs_interleaved) for the row-sharded path."""
+    per_channel = build_metapath_graphs(metapath_steps, num_nodes, conv, pad_to)
+    n_steps = {len(ch) for ch in per_channel}
+    if len(n_steps) != 1:
+        raise ValueError(
+            "fused metapath graphs require every metapath to have the same "
+            f"number of steps; got step counts {sorted(n_steps)}. Use the "
+            "per-channel path (PEAConfig fused=False / --parallel dp) for "
+            "mixed-depth metapaths."
+        )
+    return tuple(
+        fuse_step_graphs_interleaved([ch[k] for ch in per_channel], emb_rows, pad_to)
+        for k in range(n_steps.pop())
+    )
+
+
 def build_fused_metapath_graphs(
     metapath_steps, num_nodes, conv: str, pad_to=PAD_TO
 ) -> Tuple[StepGraph, ...]:

@@ -42,8 +42,8 @@ normalization; the backward all-reduces the incoming cotangent, then K10's
 and K11's partials, adds the loop term's gradient, and scales dz, da_src
 and da_dst by `psum_scale` (1/dp), so that the trainer's one all-reduce of
 the gradients restores the totals at every conv depth.  K9-K11 run on the
-shard unchanged.  The row-sharded modes are ROADMAP Queue 1's
-"Row-sharded embedding table".
+shard unchanged.  The row-sharded modes (parallel/a2a.py, spmd.py) run
+the union graphs and never this route.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import ROW_SHARDED_ITEM, Mesh
+from .mesh import Mesh
 
 # set by initialize_runtime: {"backend", "device", "rank", "world",
 # "local_rank", "local_world"}
@@ -153,35 +153,53 @@ def runtime_device():
 
 
 def make_pod_mesh(dp: Optional[int] = None, mp: int = 1, device=None) -> Mesh:
-    """The world as a (dp, mp) Mesh, this process's rank and device in it.
-    Single-process: a mesh of one.  dp defaults to the world size and must
-    equal it; mp > 1 (the row-sharded table) raises.  `device` defaults to
-    the runtime's (else the current card)."""
-    if mp != 1:
-        raise NotImplementedError(
-            f"mp {mp}: the row-sharded embedding table is not ported: {ROW_SHARDED_ITEM}")
+    """The world as a (dp, mp) Mesh, this process's rank and device in it,
+    in the JAX layout rank = d * mp + m (JAX multihost.py:81-104).
+    Single-process: a mesh of one.  dp defaults to world / mp; dp * mp must
+    span the world, and in a world of several hosts mp must divide the
+    ranks of one host (the JAX assertion: the table's exchanges stay inside
+    a host).  Every rank creates every axis group, in the same order (dp's
+    lines, then mp's), or ``new_group`` hangs; an axis that spans the world
+    uses the world's group.  `device` defaults to the runtime's (else the
+    current card)."""
     started = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if started else 1
     rank = dist.get_rank() if started else 0
+    if mp < 1 or world % mp:
+        raise ValueError(f"mp {mp} does not divide the world of {world} rank(s)")
     if dp is None:
-        dp = world
+        dp = world // mp
     if dp * mp != world:
-        raise ValueError(f"dp {dp} x mp {mp} must span the world of {world} ranks")
+        raise ValueError(f"dp {dp} x mp {mp} must span the world of {world} rank(s)")
+    local = RUNTIME.get("local_world", world)
+    if mp > 1 and local != world and local % mp:
+        raise ValueError(f"mp {mp} must divide the {local} ranks of one host")
+    groups = {}
+    if started and 1 < mp < world:
+        for d in range(dp):
+            g = dist.new_group([d * mp + m for m in range(mp)])
+            if rank // mp == d:
+                groups["mp_group"] = g
+        for m in range(mp):
+            g = dist.new_group([d * mp + m for d in range(dp)])
+            if rank % mp == m:
+                groups["dp_group"] = g
     if device is None:
         device = runtime_device()
     if device is None:
         from ..device import resolve_device
 
         device = resolve_device(None)
-    return Mesh(dp=dp, mp=mp, rank=rank, device=torch.device(device))
+    return Mesh(dp=dp, mp=mp, rank=rank, device=torch.device(device), **groups)
 
 
 def process_local_rows(n_rows: int, mesh: Mesh) -> slice:
-    """The contiguous slice of a [n_rows, ...] dp-sharded batch that this
-    rank owns."""
-    if n_rows % mesh.dp:
-        raise ValueError(f"{n_rows} rows do not split over dp {mesh.dp}")
-    per = n_rows // mesh.dp
+    """The contiguous slice of a [n_rows, ...] batch that this rank owns:
+    the batch splits over every rank of the mesh (dp * mp; edge and a2a
+    meshes have mp 1), rank r taking the r-th share."""
+    if n_rows % mesh.size:
+        raise ValueError(f"{n_rows} rows do not split over {mesh.size} ranks")
+    per = n_rows // mesh.size
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
 
 

@@ -33,9 +33,10 @@ distribution parity, as sampling is.  The epoch's loss is read with one
 ``float()`` an epoch, as the JAX Solver reads it; nothing syncs inside
 the epoch.
 
-In a torch.distributed world every rank runs the Solver on its replicated
-parameters (an edge-parallel trainer, parallel/engine.py), and rank 0
-alone writes the run directory's log and checkpoints.
+In a torch.distributed world every rank runs the Solver on its
+parameters (a sharded trainer, parallel/engine.py), and rank 0 alone
+writes the run directory's log and checkpoints (a row-sharded table
+all-gathered first, utils/checkpoint.py).
 """
 
 from __future__ import annotations

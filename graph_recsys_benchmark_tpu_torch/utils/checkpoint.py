@@ -14,10 +14,14 @@ tensors (the float64 numpy arrays of the Solver's history survive
 exactly), not as pickled numpy arrays, which that setting refuses.
 
 In a torch.distributed world (parallel/multihost.py) rank 0 is the only
-writer, as in the JAX package (its checkpoint.py:25,45): the parameters
-are replicated, so its copy is every rank's; the ranks meet at a barrier
-after the write, so none reads a file before it is there.  Every rank
-reads on resume.
+writer, as in the JAX package (its checkpoint.py:25,45); the ranks meet at
+a barrier after the write, so none reads a file before it is there.  Every
+rank reads on resume.  A replicated parameter is the same on every rank;
+a row-sharded one (the 'a2a' and 'dp' modes' table, marked by
+parallel/collectives.mark_row_sharded) is all-gathered first, with its
+optimizer moments, so that the file holds the whole table whatever the
+mesh, and on resume each rank slices its rows back out (the contract of
+JAX tests/test_spmd.py:101).
 """
 
 from __future__ import annotations
@@ -40,10 +44,14 @@ def save_checkpoint(path, params, optimizer, epoch, rec_metrics):
     rec_metrics: dict of numpy arrays (per-epoch metric history).  Written
     atomically: a crash never truncates `latest`.  Only rank 0 of a world
     writes; all ranks then meet at a barrier."""
+    from ..parallel.collectives import full_rows
+
+    state, opt_state = _rows_of_sharded(params, optimizer, params.state_dict(),
+                                        optimizer.state_dict(), full_rows)
     payload = {
         "epoch": int(epoch),
-        "params": params.state_dict(),
-        "opt_state": optimizer.state_dict(),
+        "params": state,
+        "opt_state": opt_state,
         "rec_metrics": {k: torch.as_tensor(np.asarray(v, dtype=np.float64))
                         for k, v in rec_metrics.items()},
     }
@@ -70,8 +78,35 @@ def load_checkpoint(path, params, optimizer):
     a fresh Adam keeps it."""
     if not os.path.isfile(path):
         return params, optimizer, 0, None
+    from ..parallel.collectives import local_rows
+
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    params.load_state_dict(payload["params"])
-    optimizer.load_state_dict(payload["opt_state"])
+    state, opt_state = _rows_of_sharded(params, optimizer, payload["params"],
+                                        payload["opt_state"], local_rows)
+    params.load_state_dict(state)
+    optimizer.load_state_dict(opt_state)
     rec = {k: v.numpy() for k, v in payload["rec_metrics"].items()}
     return params, optimizer, payload["epoch"], rec
+
+
+def _rows_of_sharded(params, optimizer, state, opt_state, rows):
+    """(state, opt_state) with every row-sharded parameter's entry and its
+    optimizer moments (state tensors of its shape but the rows) passed
+    through rows(t, mesh, axis): parallel/collectives.full_rows before a
+    write, local_rows after a read."""
+    from ..parallel.collectives import row_sharding
+
+    for name, p in params.named_parameters():
+        how = row_sharding(p)
+        if how is not None:
+            state[name] = rows(state[name], *how)
+    opt_params = [p for g in optimizer.param_groups for p in g["params"]]
+    for i, p in enumerate(opt_params):
+        how = row_sharding(p)
+        if how is None or i not in opt_state["state"]:
+            continue
+        opt_state["state"][i] = {
+            k: rows(v, *how) if isinstance(v, torch.Tensor) and v.dim() == p.dim()
+            and v.shape[1:] == p.shape[1:] else v
+            for k, v in opt_state["state"][i].items()}
+    return state, opt_state

@@ -14,8 +14,8 @@
   (no epoch is trained again) to the same summary; with ``--metapath_test
   true --full_ranking true`` the log holds the ablation and full-ranking
   lines.
-* Every choice that is not ported raises NotImplementedError before any
-  work, naming its ROADMAP Queue 1 item by a title that ROADMAP.md holds.
+* --parallel a2a and --parallel dp in one process train to --parallel
+  none's losses; --mesh_mp 2 in a world of one raises before any file.
 * The port's HIN cache never reads a pickle that the JAX CLI wrote.
 """
 
@@ -205,18 +205,45 @@ def test_main_runs_the_new_datasets(dataset, extra, tmp_path, capsys):
     assert "Overall HR@10:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--parallel", "a2a"], "Row-sharded embedding table"),
-    (["--parallel", "dp"], "Row-sharded embedding table"),
-    (["--mesh_mp", "2"], "Row-sharded embedding table"),
+def _train_losses(out_root):
+    import re
+
+    return [float(re.search(r"train loss: ([-0-9.]+)", ln).group(1))
+            for ln in _log_lines(out_root) if ln.startswith("Run: ") and "train loss:" in ln]
+
+
+@pytest.fixture(scope="module")
+def one_process_losses(tmp_path_factory):
+    """PEAGAT at the tiny width, one epoch, --parallel none: its log's
+    train losses."""
+    tmp = tmp_path_factory.mktemp("parallel_none")
+    tcli.main(SMALL + ["--model", "PEAGAT", "--epochs", "1", "--out_dir", str(tmp / "runs"),
+                       "--cache_dir", str(tmp / "cache")])
+    return _train_losses(tmp / "runs")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--parallel", "a2a"],
+    ["--parallel", "dp"],
+    ["--parallel", "dp", "--mesh_mp", "2"],
 ])
-def test_unported_choices_raise_before_any_work(argv, item, tmp_path):
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        assert f"**{item}" in f.read()  # a title of ROADMAP Queue 1
-    with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
-        tcli.main(argv + ["--device", "cpu", "--out_dir", str(tmp_path / "runs"),
-                          "--cache_dir", str(tmp_path / "cache")])
-    assert not os.listdir(tmp_path)
+def test_row_sharded_choices(argv, one_process_losses, tmp_path):
+    """--parallel a2a and --parallel dp in one process (a mesh of one) train
+    the tiny flagship's epoch to --parallel none's losses (rtol 2e-4);
+    --mesh_mp 2 in a world of one raises ValueError naming the world size
+    before any file is written."""
+    argv = argv + SMALL + ["--model", "PEAGAT", "--epochs", "1",
+                           "--out_dir", str(tmp_path / "runs"),
+                           "--cache_dir", str(tmp_path / "cache")]
+    if "--mesh_mp" in argv:
+        with pytest.raises(ValueError, match="world of 1 rank"):
+            tcli.main(argv)
+        assert not os.listdir(tmp_path)
+        return
+    tcli.main(argv)
+    losses = _train_losses(tmp_path / "runs")
+    assert len(losses) == len(one_process_losses) == 1
+    np.testing.assert_allclose(losses, one_process_losses, rtol=2e-4)
 
 
 def test_cache_never_reads_a_jax_pickle(tmp_path, monkeypatch):

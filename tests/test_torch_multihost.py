@@ -54,7 +54,7 @@ def test_single_process_is_a_no_op(monkeypatch):
     assert mh.initialize_runtime(device="cpu") is False
     mesh = mh.make_pod_mesh(mp=1, device="cpu")
     assert (mesh.dp, mesh.rank, mesh.size) == (1, 0, 1)
-    with pytest.raises(NotImplementedError, match="Row-sharded embedding table"):
+    with pytest.raises(ValueError, match="world of 1 rank"):
         mh.make_pod_mesh(mp=2, device="cpu")
 
 

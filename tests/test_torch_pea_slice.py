@@ -195,7 +195,7 @@ def test_port_imports_without_jax():
     assert {f"graph_recsys_benchmark_tpu_torch.{m}" for m in (
         "train.engine", "train.optim", "ops.segment_kernels", "ops.gather", "nn.conv",
         "ops.config", "parallel.multihost", "parallel.collectives", "parallel.edge_parallel",
-        "parallel.engine",
+        "parallel.engine", "parallel.a2a", "parallel.sharded_embedding", "parallel.spmd",
     )} <= set(mods)
     code = (
         "import sys\n"

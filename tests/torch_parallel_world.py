@@ -411,9 +411,234 @@ def task_runtime(mesh, inp):
             "files": np.asarray(sorted(os.listdir("stopped")))}
 
 
+# ---------------------------------------------------- the row-sharded table
+
+
+def tiny_a2a_setup(conv, entity_aware=False, heads=1, n_nodes=200, seed=0):
+    """The JAX tests/test_sharded_embedding.py _tiny_setup (numpy only):
+    (PEAConfig keywords, metapath edges of 3 channels, batch int32 [64, 3
+    or 9], row mask)."""
+    rng = np.random.default_rng(seed)
+    c = 3
+    edges = [[rng.integers(0, n_nodes, size=(2, 600)).astype(np.int64) for _ in range(2)]
+             for _ in range(c)]
+    cfg = dict(conv=conv, num_nodes=n_nodes, meta_path_steps=(2,) * c, emb_dim=16,
+               hidden_size=16, repr_dim=8, num_heads=heads, channel_aggr="att",
+               entity_aware=entity_aware, fused=True)
+    b = 64
+    batch = rng.integers(0, n_nodes, size=(b, 9 if entity_aware else 3)).astype(np.int32)
+    if entity_aware:
+        batch[:, 5] = rng.integers(0, 2, size=b) * 2 - 1
+        batch[:, 8] = rng.integers(0, 2, size=b) * 2 - 1
+    return cfg, edges, batch, np.ones((b,), np.float32)
+
+
+def task_row_collectives(mesh, inp):
+    """all_to_all, all_gather and psum_scatter over two ranks: outputs,
+    and the gradients of sum(out * ct_rank)."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import (
+        STATS,
+        all_gather,
+        all_to_all,
+        psum_scatter,
+        reset_stats,
+    )
+
+    r = mesh.rank
+    res = {}
+    reset_stats()
+    for name, fn in (("a2a", all_to_all), ("ag", all_gather), ("ps", psum_scatter)):
+        x = torch.from_numpy(inp[f"{name}_x"][r]).requires_grad_()
+        y = fn(x, mesh, "dp")
+        (y * torch.from_numpy(inp[f"{name}_ct"][r])).sum().backward()
+        res[f"{name}_y"], res[f"{name}_dx"] = y.detach().numpy(), x.grad.numpy()
+    ids = all_to_all(torch.arange(4, dtype=torch.int32) + 10 * r, mesh, "dp")
+    res["ids"] = ids.numpy()
+    res["calls"] = np.asarray(STATS["calls"])
+    res["ops"] = np.asarray(sorted(STATS["ops"]))
+    return res
+
+
+def task_lookups(mesh, inp):
+    """sharded_lookup (twice: at a capacity that holds every bucket, and
+    one that overflows a bucket) and static_lookup with the port's plan,
+    on this rank's rows of inp['table']: values and the gradients of
+    sum(out * ct_rank) on the rank's shard."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.parallel.sharded_embedding import (
+        build_static_plan,
+        lookup_overflowed,
+        plan_arrays,
+        sharded_lookup,
+        static_lookup,
+    )
+
+    r = mesh.rank
+    table = inp["table"]
+    s = table.shape[0] // 2
+    res = {}
+    for name, cap in (("dyn", int(inp["cap"])), ("over", int(inp["cap_over"]))):
+        shard = torch.from_numpy(table[r * s:(r + 1) * s].copy()).requires_grad_()
+        idx = torch.from_numpy(inp["idx"][r])
+        out = sharded_lookup(shard, idx, mesh, "dp", cap)
+        (out * torch.from_numpy(inp["ct"][r])).sum().backward()
+        res[f"{name}_out"], res[f"{name}_grad"] = out.detach().numpy(), shard.grad.numpy()
+        res[f"{name}_overflowed"] = np.asarray(lookup_overflowed(idx, s, 2, cap))
+    plan = build_static_plan(inp["sidx"], s, 2)
+    arr = plan_arrays(plan, r, torch.device("cpu"))
+    shard = torch.from_numpy(table[r * s:(r + 1) * s].copy()).requires_grad_()
+    out = static_lookup(shard, arr["own"], arr["pos"], arr["serve"], mesh, "dp",
+                        plan["capacity"])
+    (out * torch.from_numpy(inp["sct"][r])).sum().backward()
+    res["static_out"], res["static_grad"] = out.detach().numpy(), shard.grad.numpy()
+    return res
+
+
+def _pea(cfg_kw):
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.models.pea import PEAConfig, pea_init
+
+    cfg = PEAConfig(**cfg_kw)
+    return cfg, pea_init(torch.Generator().manual_seed(0), cfg)
+
+
+def task_a2a_step(mesh, inp, conv, entity_aware=False, heads=1, adam=False):
+    """The a2a step (make_a2a_parts) on the tiny setup, this rank's rows of
+    its batch: the total loss, the gradients (x's this rank's rows) and,
+    with `adam`, the parameters after one Adam step."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.models.params import to_numpy
+    from graph_recsys_benchmark_tpu_torch.parallel.a2a import make_a2a_parts
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import STATS, reset_stats
+    from graph_recsys_benchmark_tpu_torch.train.optim import make_optimizer
+
+    cfg_kw, edges, batch, mask = tiny_a2a_setup(conv, entity_aware, heads)
+    cfg, params = _pea(cfg_kw)
+    parts = make_a2a_parts(cfg, edges, mesh)
+    parts["shard"](params)
+    b, m = parts["place"](torch.from_numpy(batch).long(), torch.from_numpy(mask))
+    reset_stats()
+    loss = parts["grads"](params, b, m)
+    res = {"loss": loss.numpy(), "ops": np.asarray(sorted(STATS["ops"])),
+           **flat("grad", grad_tree(params))}
+    if adam:
+        make_optimizer("adam", 1e-3, 1e-3)(params.parameters()).step()
+        res.update(flat("param", to_numpy(params)))
+    return res
+
+
+def task_a2a_dropout(mesh, inp):
+    """GAT at dropout 0.3 through the a2a step from one epoch generator:
+    the loss with and without the masks, and this rank's keep masks'
+    share of one step draw (a2a.rank_generator as the forward uses it)."""
+    import dataclasses
+
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.parallel.a2a import make_a2a_parts, rank_generator
+
+    cfg_kw, edges, batch, mask = tiny_a2a_setup("gat")
+    cfg, params = _pea(cfg_kw)
+    cfg = dataclasses.replace(cfg, dropout=0.3)
+    parts = make_a2a_parts(cfg, edges, mesh)
+    parts["shard"](params)
+    b, m = parts["place"](torch.from_numpy(batch).long(), torch.from_numpy(mask))
+    losses = [float(parts["grads"](params, b, m, gen))
+              for gen in (None, torch.Generator().manual_seed(3))]
+    e_loc = parts["setup"]["graphs"][0].dst.shape[0]
+    keep = torch.rand((e_loc, 1), generator=rank_generator(
+        torch.Generator().manual_seed(3), mesh.rank)) < 0.7
+    return {"losses": np.asarray(losses), "keep": keep.numpy()[:, 0]}
+
+
+def task_dp_step(mesh, inp, conv, entity_aware=False):
+    """The dp step (spmd.make_sharded_train_step) on the tiny setup over
+    the trainer's union graphs, mp 2 (dp the world / 2): the total loss,
+    the gradients (x's the rows of this rank's mp index) and the rank's
+    (d, m)."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.graph import build_fused_metapath_graphs
+    from graph_recsys_benchmark_tpu_torch.parallel.multihost import make_pod_mesh
+    from graph_recsys_benchmark_tpu_torch.parallel.spmd import (
+        make_sharded_train_step,
+        shard_table,
+    )
+
+    m2 = make_pod_mesh(mp=2, device="cpu")
+    cfg_kw, edges, batch, mask = tiny_a2a_setup(conv, entity_aware)
+    cfg, params = _pea(cfg_kw)
+    graphs = build_fused_metapath_graphs(edges, cfg.num_nodes, conv)
+    step, place = make_sharded_train_step(cfg, graphs, m2)
+    shard_table(params, m2)
+    b, m = place(torch.from_numpy(batch).long(), torch.from_numpy(mask))
+    loss = step.grads(params, b, m)
+    return {"loss": loss.numpy(), "coords": np.asarray([m2.axis_index("dp"),
+                                                         m2.axis_index("mp")]),
+            **flat("grad", grad_tree(params))}
+
+
+def task_row_sharded_trainer(mesh, inp, mode):
+    """ShardedPEATrainer (PEAGAT entity-aware on the trainers' world, mode
+    'a2a' or 'dp' at mp 2): two epochs from TRAIN_SEED on one generator,
+    the eval, the full-catalog ranks, the whole trained parameters, and a
+    checkpoint round trip (both ranks save, rank 0 writes; a fresh init
+    resumes from the file: the same rows and moments)."""
+    import torch
+
+    from graph_recsys_benchmark_tpu_torch.parallel.collectives import full_rows
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+    from graph_recsys_benchmark_tpu_torch.parallel.multihost import make_pod_mesh
+    from graph_recsys_benchmark_tpu_torch.models.params import to_numpy
+    from graph_recsys_benchmark_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    base, _ = trainers_setup(device="cpu")
+    m = mesh if mode == "a2a" else make_pod_mesh(mp=2, device="cpu")
+    sh = ShardedPEATrainer(base.hin, base.cfg, base.tcfg, mesh=m, mode=mode)
+    params = sh.init(TRAIN_SEED)
+    opt = sh.optimizer(params)
+    gen = torch.Generator().manual_seed(EPOCH_SEED)
+    out = {"losses": np.asarray([float(sh.run_epoch(params, opt, gen)) for _ in range(2)])}
+    ev = sh.evaluate(params, torch.Generator().manual_seed(EVAL_SEED))
+    for k in ("HR", "NDCG", "AUC", "eval_loss"):
+        out[k] = np.asarray(ev[k])
+    out["full_ranks"] = sh.evaluate_full(params)["ranks"].numpy()
+    path = os.path.join(f"ckpt_{mode}", "latest.ckpt")
+    save_checkpoint(path, params, opt, 2, {})
+    p2 = sh.init(0)
+    o2 = sh.optimizer(p2)
+    load_checkpoint(path, p2, o2)
+    out["same_params"] = np.asarray(all(torch.equal(a, b) for a, b in
+                                        zip(params.parameters(), p2.parameters())))
+    s1, s2 = opt.state_dict()["state"], o2.state_dict()["state"]
+    out["same_moments"] = np.asarray(all(
+        torch.equal(torch.as_tensor(s1[i][k]), torch.as_tensor(s2[i][k]))
+        for i in s1 for k in s1[i]))
+    saved = torch.load(path, weights_only=True)
+    out["file_x_rows"] = np.asarray(saved["params"]["x"].shape[0])
+    out["file_moment_rows"] = np.asarray(saved["opt_state"]["state"][0]["exp_avg"].shape[0])
+    out["x_rows"] = np.asarray(params.x.shape[0])
+    axis = "dp" if mode == "a2a" else "mp"
+    whole = to_numpy(params)
+    whole["x"] = full_rows(params.x, m, axis).numpy()
+    out.update(flat("param", whole))
+    return out
+
+
 TASKS = {"collectives": task_collectives, "softmax_aggregate": task_softmax_aggregate,
          "stream": task_stream, "fused_step": task_fused_step, "stream_step": task_stream_step,
-         "trainers": task_trainers, "runtime": task_runtime}
+         "trainers": task_trainers, "runtime": task_runtime,
+         "row_collectives": task_row_collectives, "lookups": task_lookups,
+         "a2a_step": task_a2a_step, "a2a_dropout": task_a2a_dropout,
+         "dp_step": task_dp_step, "row_sharded_trainer": task_row_sharded_trainer}
 
 
 def _main(spec_path, rank):
