@@ -322,7 +322,12 @@
       PEAGAT step's launches (K12/K1 2, K2 2), its loss and gradients (x's
       mp shards together) against a world of one, an eval (K12/K1 2, its
       metrics against the world of one's), and the step's K12/K1 and K2
-      calls against their plain versions, timed (rank 0);
+      calls against their plain versions, timed (rank 0); then a step
+      with attention dropout DROPOUT (the union graphs' composed route:
+      K8 2, K7 10, K5 6, K6 2, no flash kernel), its loss and gradients
+      against a world of one drawing the same masks (one generator
+      seed), and its K8, K7, K5 and K6 calls against their plain
+      versions, timed (rank 0);
    d. `python -m graph_recsys_benchmark_tpu_torch --parallel edge`, then
       `--parallel a2a` and `--parallel dp --mesh_mp 2` beside each other
       (CLI_MODES), each as two processes (--dist_* flags) against the
@@ -340,8 +345,8 @@
    8 timed steps, the per-channel entries of K5-K8 one step of the mixed
    table, the baselines' entries of K5-K8 their model's timed run (9f), a
    variant route's forward its mode's eval and its
-   backward its mode's 20 steps, the edge-parallel entries one step of
-   rank 0 of 2, or one eval for K1/K12),
+   backward its mode's 20 steps, the edge-parallel and row-sharded
+   entries one step of rank 0 of 2, or one eval for K1/K12),
    then {"ok": true, "device": {...}} last.
 
 Any failed check raises: the exit code is then nonzero and no result line
@@ -1818,11 +1823,11 @@ def ml25m_kernel_phase(trainer, stream, composed, label="ml25m", sweep=True, rep
     return results
 
 
-def record_edge_calls(trainer):
+@contextlib.contextmanager
+def edge_calls_recorded():
     """{"gather": [(v, idx, n)], "segsum" / "scatter": [(rows, ids, n,
     order)]}: the arguments of every K7, K5 and K6 call (the wrappers'
-    sk._gather and sk._sum_by_id) of one training step of `trainer` from
-    init(2020), batch rows from a seeded generator."""
+    sk._gather and sk._sum_by_id) made inside the block."""
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
 
     calls = {"gather": [], "segsum": [], "scatter": []}
@@ -1837,16 +1842,23 @@ def record_edge_calls(trainer):
             (rows.detach(), ids, n) + rest)
         return sum_by_id(counter, rows, ids, n, *rest)
 
+    sk._gather, sk._sum_by_id = rec_gather, rec_sum
+    try:
+        yield calls
+    finally:
+        sk._gather, sk._sum_by_id = gather, sum_by_id
+
+
+def record_edge_calls(trainer):
+    """edge_calls_recorded's record of one training step of `trainer` from
+    init(2020), batch rows from a seeded generator."""
     bs = trainer.tcfg.batch_size
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = trainer.init(2020)
     opt = trainer.optimizer(params)
     rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
-    sk._gather, sk._sum_by_id = rec_gather, rec_sum
-    try:
+    with edge_calls_recorded() as calls:
         trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
-    finally:
-        sk._gather, sk._sum_by_id = gather, sum_by_id
     torch.cuda.synchronize()
     return calls
 
@@ -2889,14 +2901,11 @@ def step_vs_references(trainer, label, cpu=True):
           flush=True)
 
 
-def softmax_calls_phase(trainer, label):
-    """K8 at the shapes one training step gives it: the step's
-    softmax_stats calls recorded (their arguments kept), each replayed
-    against its plain version (check_softmax), then all of them timed back
-    to back beside the plain versions, the library composition
-    (scatter_reduce_ amax + index_add_ of the exps) and the bound (every
-    logit and id read once, the [N, 2] table written once; 4 operations a
-    real edge)."""
+@contextlib.contextmanager
+def softmax_calls_recorded():
+    """[(alpha, dst, n, block_bounds)]: the arguments of every K8 call
+    (sk.softmax_stats, its launches still counted) made inside the block,
+    alpha copied."""
     from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
 
     real = sk.softmax_stats
@@ -2906,17 +2915,38 @@ def softmax_calls_phase(trainer, label):
         calls.append((alpha.detach().clone(), dst, n, block_bounds))
         return real(alpha, dst, n, block_bounds)
 
-    rec.launches = 0
+    rec.launches = real.launches
+    sk.softmax_stats = rec
+    try:
+        yield calls
+    finally:
+        sk.softmax_stats = real
+        real.launches = rec.launches
+
+
+def softmax_calls_phase(trainer, label):
+    """K8 at the shapes one training step gives it: the step's
+    softmax_stats calls recorded, then replay_softmax_calls."""
     bs = trainer.tcfg.batch_size
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = trainer.init(2020)
     opt = trainer.optimizer(params)
     rows = torch.randint(0, trainer.n_rows, (bs,), generator=gen, device="cuda")
-    sk.softmax_stats = rec
-    try:
+    with softmax_calls_recorded() as calls:
         trainer.train_step(params, opt, rows, torch.ones(bs, device="cuda"), gen)
-    finally:
-        sk.softmax_stats = real
+    return replay_softmax_calls(calls, label)
+
+
+def replay_softmax_calls(calls, label):
+    """Each recorded K8 call (softmax_calls_recorded) against its plain
+    version (check_softmax), then all of them timed back to back beside
+    the plain versions, the library composition (scatter_reduce_ amax +
+    index_add_ of the exps) and the bound (every logit and id read once,
+    the [N, 2] table written once; 4 operations a real edge) -> the
+    kernels' JSON entry of the calls' sums."""
+    from graph_recsys_benchmark_tpu_torch.ops import segment_kernels as sk
+
+    real = sk.softmax_stats
     nbytes = flops = 0
     worst = 0.0
     for alpha, dst, n, bb in calls:
@@ -4763,12 +4793,13 @@ def _whole_grads(params, mesh, axis):
 
 
 def _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch, mask, axis, mesh,
-                      zeros=()):
+                      zeros=(), seed=None):
     """The step's loss and gradients (x's re-assembled) against the same
-    code at a world of one (`sh1`, run twice for the spread), rank 0 ->
-    (hold_vs_world1's result, the leaves held as zeros but for rounding:
-    _par_leaf_errors' floor and `zeros`, printed); (None, ()) on the other
-    ranks."""
+    code at a world of one (`sh1`, run twice for the spread; with `seed`,
+    each run's dropout masks drawn from a generator of that seed on the
+    batch's device, as the step's were), rank 0 -> (hold_vs_world1's result, the leaves held
+    as zeros but for rounding: _par_leaf_errors' floor and `zeros`,
+    printed); (None, ()) on the other ranks."""
     names = [n for n, _ in params.named_parameters()]
     check(names[0] == "x", f"{lab}: x is not the first parameter")
     grads = _whole_grads(params, mesh, axis)
@@ -4777,7 +4808,8 @@ def _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch, mask, axis, 
     runs = []
     for _ in range(2):
         p1 = sh1.init(2020)
-        runs.append((sh1.loss_and_grads(p1, batch, mask), _grad_list(p1)))
+        gen = None if seed is None else torch.Generator(device=batch.device).manual_seed(seed)
+        runs.append((sh1.loss_and_grads(p1, batch, mask, gen), _grad_list(p1)))
     (loss1, grads1), (_, grads1b) = runs
     top = max(float(r.abs().max()) for r in grads1)
     floor = {n: (float(r.abs().max()) / top, float((g - r).abs().max()) / top)
@@ -4956,6 +4988,75 @@ def par_phase_g(sh, params, mesh):
     return out
 
 
+# the dp dropout step's generator seed (the same on every rank and in the
+# world of one: the same masks)
+DP_DROPOUT_SEED = 21
+# one composed union GAT step's launches under dropout (_per_channel_step's
+# counts of a composed conv); the flagship has two such steps
+DP_DROPOUT_STEP = dict(softmax=2, gather=10, segsum=6, scatter=2)
+
+
+def par_phase_h_dropout(hin, cfg, m2, mesh, transport, batch, mask, loss0, zeros):
+    """The dp step with attention dropout DROPOUT (flagship PEAGAT at mp 2,
+    `batch` and the parameters of par_phase_h's step): its launches (the
+    union graphs' composed route, DP_DROPOUT_STEP, no flash kernel), its
+    masks' kept share (drawn again from DP_DROPOUT_SEED: within 4 sigma of
+    1 - DROPOUT), its loss (printed beside the no-dropout step's `loss0`:
+    at the init's near-constant scores the masks move it by ~1e-5) and
+    gradients against a world of one drawing the same masks (`zeros`: the
+    f32 dropout step's zeros but for rounding, held as zeros in bf16), and
+    (rank 0) the step's K8, K7, K5 and K6 calls against their plain
+    versions, timed -> (result, the zeros)."""
+    import torch.distributed as dist
+
+    from graph_recsys_benchmark_tpu_torch.models.pea import DropoutMasks
+    from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+    from graph_recsys_benchmark_tpu_torch.parallel.mesh import Mesh
+    from graph_recsys_benchmark_tpu_torch.train.pea_trainer import TrainConfig
+
+    lab = f"parallel h dp mp 2 {transport} dropout {DROPOUT}"
+    cfg = dataclasses.replace(cfg, dropout=DROPOUT)
+    sh = ShardedPEATrainer(hin, cfg, TrainConfig(), mesh=m2, mode="dp", transport=transport)
+    params = sh.init(2020)
+    reset_launches()
+    with edge_calls_recorded() as edge, softmax_calls_recorded() as soft:
+        loss = sh.loss_and_grads(params, batch, mask,
+                                 torch.Generator(device="cuda").manual_seed(DP_DROPOUT_SEED))
+        torch.cuda.synchronize()
+    got = read_launches()
+    want = expected(**DP_DROPOUT_STEP)  # every flash counter 0
+    # the step's masks, drawn again in its order (one head a step here)
+    masks = DropoutMasks(DROPOUT, torch.Generator(device="cuda").manual_seed(DP_DROPOUT_SEED))
+    keep = torch.cat([masks.union(k, g, 1).flatten() for k, g in enumerate(sh.graphs)])
+    kept = float(keep.float().mean())
+    moved = rel_err(loss, loss0)[1]
+    print(f"{lab}: one step's launches {got}; masks of {keep.numel()} edges, kept share "
+          f"{kept:.5f}; loss {float(loss):.6f}, without dropout {float(loss0):.6f} (rel "
+          f"{moved:.3e})", flush=True)
+    check(got == want, f"{lab}: launches {got}, expected {want}")
+    check(abs(kept - (1 - DROPOUT)) <= 4 * (DROPOUT * (1 - DROPOUT) / keep.numel()) ** 0.5,
+          f"{lab}: kept share {kept}")
+    r = dict(launches_step=got, kept=kept, loss_moved=moved)
+    sh1 = None
+    if mesh.rank == 0:
+        sh1 = ShardedPEATrainer(hin, cfg, TrainConfig(), mode="dp", transport=transport,
+                                mesh=Mesh(dp=1, rank=0, device=mesh.device))
+    r["world1"], zeros = _hold_row_sharded(lab, transport, sh, sh1, params, loss, batch, mask,
+                                           "mp", m2, zeros, seed=DP_DROPOUT_SEED)
+    if mesh.rank == 0:
+        label = "parallel dp dropout union (rank 0 of 2)"
+        r["edge_kernels"] = {k: v for (k, _), v in replay_edge_calls(
+            edge, transport, label).items()}
+        for kind, v in r["edge_kernels"].items():
+            check(v["calls"] == got[kind], f"{lab} {kind}: {v['calls']} calls recorded, "
+                  f"{got[kind]} launches")
+        r["softmax"] = replay_softmax_calls(soft, f"{label} {transport}")
+    del sh, sh1, params, edge, soft
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return r, zeros
+
+
 def par_phase_h(hin, mesh):
     """`--parallel dp` at mp 2 (dp 1 x mp 2 on the two ranks sharing the
     card): per transport the flagship PEAGAT through
@@ -4964,8 +5065,9 @@ def par_phase_h(hin, mesh):
     (x's mp shards together) against the same code at a world of one
     (rank 0, hold_vs_world1), ROW_SHARDED_STEPS timed steps (the collectives
     timed), one eval (launches K12/K1 2; its metrics against the world of
-    one's), and (rank 0) the step's K12/K1 and K2 calls against their
-    plain versions, timed.
+    one's), (rank 0) the step's K12/K1 and K2 calls against their
+    plain versions, timed, and the same step with attention dropout
+    (par_phase_h_dropout).
 
     The bf16 step rounds each rank's rows' cotangent to bf16 in the flash
     backward, where the world of one rounds their sum: a leaf that is zero
@@ -4990,6 +5092,7 @@ def par_phase_h(hin, mesh):
     res = {}
     cfg = _flagship_cfg(hin)
     zeros = ()  # the f32 step's zeros but for rounding, held as zeros in bf16
+    zeros_d = ()  # the same of the dropout step
     for transport in TDT:
         lab = f"parallel h dp mp 2 {transport}"
         sh = ShardedPEATrainer(hin, cfg, TrainConfig(), mesh=m2, mode="dp", transport=transport)
@@ -5050,6 +5153,8 @@ def par_phase_h(hin, mesh):
         del sh, sh1, params, fwd, bwd
         dist.barrier()
         torch.cuda.empty_cache()
+        r["dropout"], zeros_d = par_phase_h_dropout(hin, cfg, m2, mesh, transport, batch, mask,
+                                                    loss, zeros_d)
         res[transport] = r
     return res
 
@@ -5607,6 +5712,18 @@ def main():
                 launches=h["launches_step"][kind], max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=None))
+        d = h["dropout"]
+        for kind, r in list(d["edge_kernels"].items()) + [("softmax", d["softmax"])]:
+            kernels.append(dict(
+                name=f"{SEG_KERNELS.get(kind, 'softmax_stats')} ({transport}; PEAGAT --parallel "
+                     f"dp --mesh_mp 2 --dropout {DROPOUT}, rank 0 of 2 on one card: the "
+                     f"composed route on the union graphs over the all-gathered table, "
+                     f"{r['calls']} calls of one step)",
+                route="cuda", source=f"{csrc}/segment.cu",
+                replaces=f"{repo}/ops/pallas_segment.py:{lines[kind]}",
+                launches=d["launches_step"][kind], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
     stream_lines = {"stream_fwd": "220", "stream_bwd_dst": "292", "stream_bwd_src": "364"}
     for key, r in r0["b"]["f32"]["stream_kernels"].items():
         kind, transport = key.split("|")

@@ -48,7 +48,11 @@ the normalized alphas; a `gat_loops` graph runs
 ``ops/stream_gat.stream_gat_reference`` per head, never the streaming
 kernels), as the JAX package does (models/pea.py:338-396, :555-558).  An
 eval forward never drops.  A GAT channel on the ungrouped forward takes
-its masks the same way, per channel, step and head.
+its masks the same way, per channel, step and head.  On union graphs
+(the fused forward, which the 'dp' mode trains) each GAT step takes one
+[E_union, heads] mask (``DropoutMasks.union``) and leaves the flash route
+for the composed one (JAX models/pea.py:193-202, :250-275); GCN and SAGE
+ignore the masks, as JAX ignores the key.
 """
 
 from __future__ import annotations
@@ -85,7 +89,9 @@ class DropoutMasks:
     ``gat(c, k, g, heads)`` gives channel c's step-k conv over graph g its
     masks: a composed graph's bool [E, heads] (one per edge and head, the
     padding edges included), a `gat_loops` graph's tuple of one
-    ``(edge_keep [E], loop_keep [N])`` pair a head.  Here they are drawn
+    ``(edge_keep [E], loop_keep [N])`` pair a head.  ``union(k, g, heads)``
+    gives union step k's (every channel over one union graph g) its bool
+    [E, heads], drawn as ``draw(None, k, g, heads)``.  Here they are drawn
     from `generator` (on its device), each kept with probability 1 - p;
     a conv's masks are drawn once, so the same object replays them, on
     another device through ``to``.  A subclass may draw them otherwise
@@ -100,6 +106,9 @@ class DropoutMasks:
         if (c, k) not in self._drawn:
             self._drawn[(c, k)] = self.draw(c, k, g, heads)
         return self._drawn[(c, k)]
+
+    def union(self, k, g: StepGraph, heads):
+        return self.gat(None, k, g, heads)
 
     def draw(self, c, k, g: StepGraph, heads):
         gen = self.generator
@@ -121,6 +130,15 @@ class DropoutMasks:
             else:
                 out._drawn[key] = tuple((e.to(device), l.to(device)) for e, l in m)
         return out
+
+
+def step_masks(cfg, generator: Optional[torch.Generator]) -> Optional[DropoutMasks]:
+    """A training step's keep masks: DropoutMasks(cfg.dropout, generator)
+    for a GAT with cfg.dropout > 0, else None (also without a generator,
+    as the JAX loss without a dropout key)."""
+    if cfg.conv == "gat" and cfg.dropout > 0.0 and generator is not None:
+        return DropoutMasks(cfg.dropout, generator)
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,16 +276,20 @@ def _fused_sage_step(sp, h, g: StepGraph, num_channels, num_nodes, transport,
 
 
 def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
-                    transport, flash_mode=FlashGATMode(), aggregate=None, softmax=None):
+                    transport, flash_mode=FlashGATMode(), aggregate=None, softmax=None,
+                    keep=None, dropout=0.0):
     """One GAT step of `num_channels` channels over their union graph `g`
     (virtual node space C*N).  h: [N', din] (shared input, step 0) or
     [C, N, din] -> [C, N, H*dout], heads concatenated.  One flash pass per
     head, on the routes of `flash_mode`; with an `aggregate` or `softmax`
-    override (the edge-parallel path) the edge-materialized route instead
-    (_edge_gat_step, JAX models/pea.py:188-195, :250-275)."""
-    if aggregate is not None or softmax is not None:
+    override (the edge-parallel path) or attention dropout's `keep` mask
+    [E, heads] (a training step with dropout at rate `dropout`) the
+    edge-materialized route instead (_edge_gat_step: K7, K8, K5 and K6),
+    as JAX leaves its flash route when overridden or dropout_active (JAX
+    models/pea.py:188-202, :250-275)."""
+    if aggregate is not None or softmax is not None or keep is not None:
         return _edge_gat_step(sp, h, g, num_channels, num_nodes, heads, transport,
-                              aggregate, softmax)
+                              aggregate, softmax, keep, dropout)
     n_virtual = num_channels * num_nodes
     c_dim = sp["w"].shape[-1] // heads
     head_outs = []
@@ -292,10 +314,13 @@ def _fused_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads,
 
 
 def _edge_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads, transport,
-                   aggregate=None, softmax=None):
+                   aggregate=None, softmax=None, keep=None, dropout=0.0):
     """The edge-materialized union GAT step (JAX ``_fused_gat_step``'s
-    overridden route): nn/conv.composed_attention over the union graph
-    with the `softmax` and `aggregate` hooks -> [C, N, H*dout] + b."""
+    overridden or dropout route): nn/conv.composed_attention over the union
+    graph with the `softmax` and `aggregate` hooks -> [C, N, H*dout] + b.
+    Under `keep` the alphas, normalized over the un-dropped logits, are
+    dropped and the kept ones scaled by 1 / (1 - dropout), with no
+    renormalizing, before the transport cast (JAX models/pea.py:268-272)."""
     n_virtual = num_channels * num_nodes
     c_dim = sp["w"].shape[-1] // heads
     if h.dim() == 2:
@@ -307,7 +332,7 @@ def _edge_gat_step(sp, h, g: StepGraph, num_channels, num_nodes, heads, transpor
     a_dst = torch.sum(z * att[:, None, :, :c_dim], dim=-1).reshape(n_virtual, heads)
     a_src = torch.sum(z * att[:, None, :, c_dim:], dim=-1).reshape(n_virtual, heads)
     out = composed_attention(z.reshape(n_virtual, heads, c_dim), a_src, a_dst, g, 0.2,
-                             transport, softmax=softmax, aggregate=aggregate)
+                             transport, keep, dropout, softmax=softmax, aggregate=aggregate)
     return out.reshape(num_channels, num_nodes, heads * c_dim) + sp["b"][:, None, :]
 
 
@@ -430,14 +455,17 @@ def pea_forward_hybrid(model: PEA, plan: HybridGATPlan, cfg: PEAConfig,
 
 
 def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
-                      flash_mode=FlashGATMode(), aggregate=None, softmax=None):
+                      flash_mode=FlashGATMode(), aggregate=None, softmax=None,
+                      masks: Optional[DropoutMasks] = None):
     """All channels advance together over one union graph a step
     (graph.build_fused_metapath_graphs): per step one batched einsum and one
     union aggregation -> [N, C, R].  `aggregate(msgs, g, transport)` and
     `softmax(alpha, dst, num_rows)` override the edge sum and the GAT
     softmax (the edge-parallel path over one rank's shards of the union
     graphs, parallel/edge_parallel.py; GAT then takes the edge-materialized
-    route, _edge_gat_step)."""
+    route, _edge_gat_step).  `masks`: GAT step k drops attention under
+    masks.union(k, g, heads) on that route too (JAX keys it fold_in(key,
+    k), models/pea.py:309-310); GCN and SAGE ignore them."""
     n = cfg.num_nodes
     num_steps = cfg.meta_path_steps[0]
     dims = _channel_layer_dims(cfg, num_steps)
@@ -450,8 +478,10 @@ def pea_forward_fused(model: PEA, fused_graphs, cfg: PEAConfig, transport="f32",
         elif cfg.conv == "sage":
             h = _fused_sage_step(sp, h, g, cfg.num_channels, n, transport, aggregate)
         elif cfg.conv == "gat":
-            h = _fused_gat_step(sp, h, g, cfg.num_channels, n, dims[k][2], transport,
-                                flash_mode, aggregate, softmax)
+            heads = dims[k][2]
+            keep = None if masks is None else masks.union(k, g, heads)
+            h = _fused_gat_step(sp, h, g, cfg.num_channels, n, heads, transport,
+                                flash_mode, aggregate, softmax, keep, cfg.dropout)
         else:
             raise ValueError(cfg.conv)
         if k < num_steps - 1:
@@ -549,19 +579,17 @@ def pea_forward(model: PEA, graphs, cfg: PEAConfig,
     of one depth, else the ungrouped one (_channel_forward a channel).
     flash_mode: the routes of the union flash-GAT passes
     (ops/config.FlashGATMode); the batched, streaming and composed GATs
-    ignore it, as the JAX switches leave them alone.  masks: GAT attention dropout's keep
-    masks (a training forward); a HybridGATPlan then hands the forward to
-    its per-channel graphs."""
-    if masks is not None:
-        if isinstance(graphs, HybridGATPlan):
-            graphs = graphs.per_channel
-        if cfg.conv != "gat" or (len(graphs) > 0 and isinstance(graphs[0], StepGraph)):
-            raise ValueError("attention dropout runs GAT's per-channel graphs or a "
-                             "HybridGATPlan, not union graphs")
+    ignore it, as the JAX switches leave them alone.  masks: GAT attention
+    dropout's keep masks (a training forward); a HybridGATPlan then hands
+    the forward to its per-channel graphs (JAX models/pea.py:555-558), and
+    union graphs drop one mask a step on the composed route
+    (pea_forward_fused; JAX :568).  GCN and SAGE ignore them."""
+    if masks is not None and isinstance(graphs, HybridGATPlan):
+        graphs = graphs.per_channel
     if isinstance(graphs, HybridGATPlan):
         h = pea_forward_hybrid(model, graphs, cfg, transport, flash_mode)
     elif len(graphs) > 0 and isinstance(graphs[0], StepGraph):
-        h = pea_forward_fused(model, graphs, cfg, transport, flash_mode)
+        h = pea_forward_fused(model, graphs, cfg, transport, flash_mode, masks=masks)
     elif cfg.conv == "gat" and len(set(cfg.meta_path_steps)) == 1:
         h = _grouped_gat_forward(model, graphs, cfg, transport, masks)
     else:

@@ -139,8 +139,8 @@ def composed_attention(h, alpha_src, alpha_dst, g, negative_slope=0.2, transport
     K8; or `softmax(alpha, dst, num_rows)`), dropout under `keep`, the
     messages in the transport dtype summed by dst (_aggregate: K5; or
     `aggregate(msgs, g, transport)`).  gat_apply's composed path, and the
-    edge-parallel union step's (models/pea._edge_gat_step) with the
-    sharded softmax and sum."""
+    union step's of models/pea._edge_gat_step: the edge-parallel one with
+    the sharded softmax and sum, the dropout one with `keep`."""
     n, heads, c = h.shape
     packed = msg_cast(torch.cat([h.reshape(n, heads * c), alpha_src], dim=1),
                       transport=transport)

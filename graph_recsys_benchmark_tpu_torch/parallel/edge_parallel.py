@@ -264,7 +264,11 @@ def make_edge_sharded_train_step(cfg, local_graphs, mesh, transport="f32"):
     shard of step k's union graph.  Every rank computes its shard of every
     step's edge messages (GAT on the edge-materialized route with the
     sharded softmax) and its rows of the BPR and entity terms; node
-    aggregates and gradients are all-reduced once a use."""
+    aggregates and gradients are all-reduced once a use.  GAT trains
+    without attention dropout whatever cfg.dropout says, as the reference
+    does: JAX's edge union step passes dropout_key=None (JAX
+    parallel/edge_parallel.py:296), and its streaming route requires
+    dropout 0 (JAX parallel/engine.py:120)."""
     from ..models.pea import pea_forward_fused
 
     aggregate = make_psum_aggregate(mesh)

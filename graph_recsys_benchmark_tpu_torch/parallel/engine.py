@@ -109,8 +109,12 @@ class ShardedPEATrainer(PEATrainer):
     package.
 
     Mode 'dp': the trainer's union graphs (K5/K7/K6; GAT's flash passes
-    K12/K1 forward, K2 backward) over the all-gathered table; no attention
-    dropout (the union route has none).  Mode 'a2a': the interleaved union
+    K12/K1 forward, K2 backward) over the all-gathered table.  GAT's
+    attention dropout draws one global mask a union step from the epoch's
+    generator, the same on every rank (spmd.make_sharded_train_step), and
+    runs the composed route (K7, K8, K5; K6 backward), as JAX's dp step
+    does (JAX parallel/spmd.py:50-55, models/pea.py:193-202); the eval
+    draws nothing.  Mode 'a2a': the interleaved union
     graphs' shards and their exchange plans (``_a2a``, make_a2a_parts);
     GAT's attention dropout draws each rank's masks (a2a.rank_generator).
     Both print the collectives' route (collectives.route)."""
@@ -127,9 +131,6 @@ class ShardedPEATrainer(PEATrainer):
             mesh = default_mesh(mode)
         if mode != "dp" and mesh.mp != 1:
             raise ValueError(f"mode {mode!r} runs over a flat dp axis; got mp {mesh.mp}")
-        if mode == "dp" and cfg.dropout > 0.0:
-            raise ValueError("mode 'dp' runs the union graphs, which have no attention "
-                             "dropout: use --parallel a2a or a single process")
         self.mesh, self.mode, self.n_dp = mesh, mode, mesh.dp
         tcfg = _sharded_tcfg(tcfg, mesh)
         super().__init__(hin, cfg, tcfg, metapath_edges=metapath_edges, device=mesh.device,
@@ -205,18 +206,19 @@ class ShardedPEATrainer(PEATrainer):
         if self.mode == "a2a":
             return self._a2a["step"](params, optimizer, b, m, generator)
         if self.mode == "dp":
-            return self._dp_step(params, optimizer, b, m)
+            return self._dp_step(params, optimizer, b, m, generator)
         return self._edge_step(params, optimizer, b, m)
 
     def loss_and_grads(self, params, batch, row_mask, generator=None):
         """The mode's total loss and reduced gradients (in .grad) on the
         global `batch`, no optimizer step (x's gradient this rank's rows
-        in the row-sharded modes)."""
+        in the row-sharded modes); `generator` draws the dropout masks in
+        modes 'a2a' and 'dp'."""
         b, m = self._place(batch, row_mask)
         if self.mode == "a2a":
             return self._a2a["grads"](params, b, m, generator)
         if self.mode == "dp":
-            return self._dp_step.grads(params, b, m)
+            return self._dp_step.grads(params, b, m, generator)
         return sharded_grads(self._edge_step.local_loss, params, b, m, self.mesh)
 
     # ------------------------------------------------------------ eval

@@ -21,6 +21,19 @@ collectives to GSPMD (``params['x']`` placed ``P('mp', None)``, the batch
                  loss (collectives.all_reduce_grads).  A wrong group shows
                  only at dp > 1 and mp > 1.
 
+GAT attention dropout (``cfg.dropout > 0``): the JAX step hands the
+single-device ``pea_loss`` its one key (JAX parallel/spmd.py:50-55), whose
+union graphs leave the flash route for the composed one and drop the
+normalized alphas under ``bernoulli(fold_in(key, k), 1 - p, [E, H])`` a
+step (JAX models/pea.py:193-202, :268-272, :309-310).  Here each step draws
+its ``DropoutMasks`` (models/pea.step_masks) from the epoch's generator after
+the batch, one [E_union, heads] mask a step (models/pea.pea_forward_fused):
+every rank holds the same generator state (engine.ShardedPEATrainer draws
+the whole batch on every rank), so every rank draws the same global masks,
+as the one GSPMD key does.  Every rank runs the whole union forward, so
+masks that differ by rank (a2a.rank_generator, for a2a's edge shards)
+would give the ranks different forwards.  GCN and SAGE ignore dropout.
+
 Adam's moments for x are shard-shaped because the parameter is the shard:
 the counterpart of JAX ``_opt_shardings``, with no structure matcher.
 """
@@ -29,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.pea import pea_loss, pea_forward
+from ..models.pea import pea_forward, pea_loss, step_masks
 from ..ops.config import FlashGATMode
 from ..train.engine import fill_grads
 from .collectives import all_gather, all_reduce_, all_reduce_grads
@@ -73,27 +86,31 @@ def shard_table(params, mesh):
 
 def make_sharded_train_step(cfg, graphs, mesh, transport="f32", flash_mode=FlashGATMode()):
     """(step, place) of the dp mode over the trainer's `graphs`:
-    step(params, optimizer, batch, row_mask) -> the total loss on this
-    rank's rows (place(batch, row_mask) takes them from the global batch);
-    params sharded by shard_table first.  step.local_loss and step.grads
-    are its pieces (grads leaves the reduced gradients in .grad)."""
+    step(params, optimizer, batch, row_mask, generator=None) -> the total
+    loss on this rank's rows (place(batch, row_mask) takes them from the
+    global batch); params sharded by shard_table first.  A GAT with
+    cfg.dropout > 0 draws the step's masks from `generator` (None: no
+    dropout, as the JAX loss without a key).  step.local_loss and
+    step.grads are its pieces (grads leaves the reduced gradients in
+    .grad)."""
 
-    def local_loss(params, batch, row_mask):
+    def local_loss(params, batch, row_mask, generator=None):
         return pea_loss(gathered(params, mesh), graphs, cfg, batch, row_mask=row_mask,
-                        transport=transport, flash_mode=flash_mode)
+                        transport=transport, flash_mode=flash_mode,
+                        masks=step_masks(cfg, generator))
 
-    def grads(params, batch, row_mask):
+    def grads(params, batch, row_mask, generator=None):
         for p in params.parameters():
             p.grad = None
-        loss = local_loss(params, batch, row_mask)
+        loss = local_loss(params, batch, row_mask, generator)
         loss.backward()
         fill_grads(params)
         all_reduce_(params.x.grad, mesh, axis="dp")
         rest = [p for p in params.parameters() if p is not params.x]
         return all_reduce_grads(rest, mesh, extra=loss.detach())
 
-    def step(params, optimizer, batch, row_mask):
-        loss = grads(params, batch, row_mask)
+    def step(params, optimizer, batch, row_mask, generator=None):
+        loss = grads(params, batch, row_mask, generator)
         optimizer.step()
         return loss
 

@@ -45,13 +45,13 @@ from ..eval.ranking import evaluate_ranking
 from ..graph import build_fused_metapath_graphs, build_metapath_graphs, graphs_to
 from ..models.pea import (
     PEA,
-    DropoutMasks,
     PEAConfig,
     build_hybrid_gat_plan,
     pea_forward,
     pea_init,
     pea_loss,
     pea_predict,
+    step_masks,
 )
 from ..ops.config import FlashGATMode
 from ..ops.flash_gat import t_dtype_of
@@ -156,11 +156,9 @@ class PEATrainer(GraphEpochEngine):
         forward (train/pea_trainer.py:84-88).  A GAT with attention dropout
         draws the step's keep masks from `generator` (None: no dropout, as
         the JAX loss without a dropout key)."""
-        masks = None
-        if self.cfg.conv == "gat" and self.cfg.dropout > 0.0 and generator is not None:
-            masks = DropoutMasks(self.cfg.dropout, generator)
         return pea_loss(params, self.graphs, self.cfg, batch, row_mask=row_mask,
-                        transport=self.transport, flash_mode=self.flash_mode, masks=masks)
+                        transport=self.transport, flash_mode=self.flash_mode,
+                        masks=step_masks(self.cfg, generator))
 
     def eval_forward(self, params: PEA, channel_mask=None):
         """Cached representation of every node [num_nodes, R]."""

@@ -15,7 +15,8 @@
   true --full_ranking true`` the log holds the ablation and full-ranking
   lines.
 * --parallel a2a and --parallel dp in one process train to --parallel
-  none's losses; --mesh_mp 2 in a world of one raises before any file.
+  none's losses; --mesh_mp 2 in a world of one raises before any file;
+  --parallel dp --dropout 0.1 draws one mask a union step and a step.
 * The port's HIN cache never reads a pickle that the JAX CLI wrote.
 """
 
@@ -28,6 +29,7 @@ import torch
 
 from graph_recsys_benchmark_tpu import cli as jcli
 from graph_recsys_benchmark_tpu_torch import cli as tcli
+from graph_recsys_benchmark_tpu_torch.models import pea as tpea
 from torch_raw_files import write_ml25m_csvs, write_ml_csvs, write_yelp_json
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -226,12 +228,15 @@ def one_process_losses(tmp_path_factory):
     ["--parallel", "a2a"],
     ["--parallel", "dp"],
     ["--parallel", "dp", "--mesh_mp", "2"],
+    ["--parallel", "dp", "--dropout", "0.1"],
 ])
-def test_row_sharded_choices(argv, one_process_losses, tmp_path):
+def test_row_sharded_choices(argv, one_process_losses, tmp_path, monkeypatch):
     """--parallel a2a and --parallel dp in one process (a mesh of one) train
     the tiny flagship's epoch to --parallel none's losses (rtol 2e-4);
     --mesh_mp 2 in a world of one raises ValueError naming the world size
-    before any file is written."""
+    before any file is written; --parallel dp --dropout 0.1 trains with one
+    mask a union step and a step (DropoutMasks.draw spied), its loss moved
+    from the no-dropout one but within 1e-2 of it."""
     argv = argv + SMALL + ["--model", "PEAGAT", "--epochs", "1",
                            "--out_dir", str(tmp_path / "runs"),
                            "--cache_dir", str(tmp_path / "cache")]
@@ -240,9 +245,24 @@ def test_row_sharded_choices(argv, one_process_losses, tmp_path):
             tcli.main(argv)
         assert not os.listdir(tmp_path)
         return
+    drawn = []
+    draw = tpea.DropoutMasks.draw
+
+    def spy(self, c, k, g, heads):
+        drawn.append((c, k, heads, self.p))
+        return draw(self, c, k, g, heads)
+
+    monkeypatch.setattr(tpea.DropoutMasks, "draw", spy)
     tcli.main(argv)
     losses = _train_losses(tmp_path / "runs")
     assert len(losses) == len(one_process_losses) == 1
+    if "--dropout" in argv:
+        assert drawn and drawn[:2] == [(None, 0, 1, 0.1), (None, 1, 1, 0.1)]
+        assert drawn == drawn[:2] * (len(drawn) // 2)
+        assert losses != one_process_losses
+        np.testing.assert_allclose(losses, one_process_losses, rtol=1e-2)
+        return
+    assert drawn == []
     np.testing.assert_allclose(losses, one_process_losses, rtol=2e-4)
 
 

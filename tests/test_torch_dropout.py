@@ -11,7 +11,10 @@ allows:
   * a composed conv draws ``bernoulli(dk, 1 - p, [E, H])`` (JAX
     nn/conv.py:154);
   * a `gat_loops` conv splits ``fold_in(dk, head)`` into the edge key and
-    the loop key (nn/conv.py:125-130).
+    the loop key (nn/conv.py:125-130);
+  * union step k (the fused forward: every channel over one union graph)
+    draws ``bernoulli(fold_in(key, k), 1 - p, [E, H])`` (models/pea.py:269-271,
+    :309-310).
 
 Held: ``gat_apply`` composed (2 heads) and on a `gat_loops` graph, and
 ``stream_gat_reference`` with both masks, forward and gradients (f32:
@@ -19,14 +22,16 @@ outputs 1e-5, gradients 1e-4 of their largest value); ``pea_loss`` with
 dropout on the hybrid plan (which hands a training forward to its
 per-channel graphs) and every gradient against ``jax.value_and_grad``
 (1e-5 / 1e-4, slice 2's bar); all-keep masks at rate 0 give the
-no-dropout loss.  The port's own draws (``DropoutMasks`` from a torch
-generator) are held to distribution parity: the keep rate within 4 sigma
-of 1 - p, different masks per channel, step, head and training step, none
-drawn by an eval.  A spy shows that a training forward with dropout never
+no-dropout loss.  ``pea_loss`` on the union graphs under the union
+masks (heads 1 and 2: the composed route in place of the flash one)
+against JAX ``pea_loss(fused, dropout_key=...)`` at the same bars; GCN
+and SAGE unions with masks give the no-dropout loss, and so does their
+``--parallel dp`` step at a mesh of one with dropout set.  The port's own
+draws (``DropoutMasks`` from a torch generator) are held to distribution
+parity: the keep rate within 4 sigma of 1 - p, different masks per
+channel, step, head and training step, none drawn by an eval.  A spy shows that a training forward with dropout never
 calls the streaming kernels' wrappers (K9-K11) and an eval does.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +52,8 @@ from graph_recsys_benchmark_tpu_torch.models import params as tparams
 from graph_recsys_benchmark_tpu_torch.models import pea as tpea
 from graph_recsys_benchmark_tpu_torch.nn import conv as tconv
 from graph_recsys_benchmark_tpu_torch.ops import stream_gat as tsg
+from graph_recsys_benchmark_tpu_torch.parallel.engine import ShardedPEATrainer
+from graph_recsys_benchmark_tpu_torch.parallel.multihost import make_pod_mesh
 from graph_recsys_benchmark_tpu_torch.train import sampling as tsamp
 from graph_recsys_benchmark_tpu_torch.train.pea_trainer import PEATrainer, TrainConfig
 
@@ -89,6 +96,8 @@ class JaxMasks(tpea.DropoutMasks):
         self.key, self.num_steps = key, num_steps
 
     def draw(self, c, k, g, heads):
+        if c is None:  # union step k
+            return conv_masks(jax.random.fold_in(self.key, k), self.p, g, heads)
         dk = jax.random.split(jax.random.fold_in(self.key, c), self.num_steps)[k]
         return conv_masks(dk, self.p, g, heads)
 
@@ -368,12 +377,69 @@ def test_streaming_kernels_skip_a_training_forward_with_dropout(world, monkeypat
     assert {"stream_gat_fwd", "stream_gat_bwd_dst", "stream_gat_bwd_src"} <= set(calls)
 
 
-def test_dropout_rejects_union_graphs(world):
+def _fused(world, conv):
+    jh, th = world[0], world[1]
+    n = jh.num_nodes
+    return (jgraph.build_fused_metapath_graphs(jml.mlsmall_metapath_edges(jh), n, conv),
+            tgraph.build_fused_metapath_graphs(tml.mlsmall_metapath_edges(th), n, conv))
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_union_dropout_loss_matches_jax(world, heads):
+    jh, th = world[0], world[1]
+    n = jh.num_nodes
+    kw = dict(SMALL, num_nodes=n, dropout=P, num_heads=heads)
+    jcfg, tcfg = jpea.PEAConfig(**kw), tpea.PEAConfig(**kw)
+    params = _trained_like(tparams.to_numpy(tpea.pea_init(torch.Generator().manual_seed(0),
+                                                          tcfg)))
+    batch, mask = _batch(th)
+    key = jax.random.PRNGKey(5)
+    jfused, tfused = _fused(world, "gat")
+    for jg_, tg_ in zip(jfused, tfused):  # the masks fall on the same edges
+        np.testing.assert_array_equal(np.asarray(jg_.src), tg_.src.numpy())
+        np.testing.assert_array_equal(np.asarray(jg_.dst), tg_.dst.numpy())
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda q: jpea.pea_loss(q, jfused, jcfg, jnp.asarray(batch),
+                                row_mask=jnp.asarray(mask), training=True,
+                                dropout_key=key)))(params)
+    jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
+    model = tparams.from_jax_numpy(jax.tree_util.tree_map(np.asarray, params))
+    masks = JaxMasks(P, key, 2)
+    loss = tpea.pea_loss(model, tfused, tcfg, torch.from_numpy(batch),
+                         row_mask=torch.from_numpy(mask), masks=masks)
+    loss.backward()
+    assert sorted(masks._drawn) == [(None, 0), (None, 1)]  # one mask a union step
+    assert [tuple(m.shape) for m in masks._drawn.values()] == [
+        (g.dst.shape[0], h) for g, h in zip(tfused, (heads, 1))]
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    tgrads = _grad_leaves(model)
+    assert jax.tree_util.tree_structure(tgrads) == jax.tree_util.tree_structure(jgrads)
+    for t, j in zip(jax.tree_util.tree_leaves(tgrads), jax.tree_util.tree_leaves(jgrads)):
+        assert t.shape == j.shape
+        assert float(np.abs(t - j).max()) <= 1e-4 * max(float(np.abs(j).max()), 1e-30)
+    with torch.no_grad():  # without dropout (the flash route) the loss moves
+        plain = tpea.pea_loss(model, tfused, tcfg, torch.from_numpy(batch),
+                              row_mask=torch.from_numpy(mask))
+    assert abs(float(plain) - float(loss.detach())) > 1e-3 * abs(float(plain))
+
+
+@pytest.mark.parametrize("conv", ["gcn", "sage"])
+def test_union_masks_leave_gcn_and_sage_alone(world, conv):
     th = world[1]
-    cfg = dataclasses.replace(tpea.PEAConfig(num_nodes=th.num_nodes, **SMALL), dropout=P)
-    fused = tgraph.build_fused_metapath_graphs(tml.mlsmall_metapath_edges(th), th.num_nodes,
-                                               "gat")
-    model = tpea.pea_init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="per-channel"):
-        tpea.pea_loss(model, fused, cfg, torch.zeros((4, 9), dtype=torch.long),
-                      masks=tpea.DropoutMasks(P, torch.Generator()))
+    cfg = tpea.PEAConfig(num_nodes=th.num_nodes, **dict(SMALL, conv=conv, dropout=P))
+    tfused = _fused(world, conv)[1]
+    model = tpea.pea_init(torch.Generator().manual_seed(2), cfg)
+    batch, mask = _batch(th, seed=2)
+    b, m = torch.from_numpy(batch), torch.from_numpy(mask)
+    masks = tpea.DropoutMasks(P, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = tpea.pea_loss(model, tfused, cfg, b, row_mask=m)
+        got = tpea.pea_loss(model, tfused, cfg, b, row_mask=m, masks=masks)
+    assert float(got) == float(want)
+    assert masks._drawn == {}
+    # --parallel dp at a mesh of one builds and steps with dropout set
+    sh = ShardedPEATrainer(th, cfg, TrainConfig(batch_size=96), mesh=make_pod_mesh(device="cpu"),
+                           mode="dp")
+    params = sh.init(2)
+    loss = sh.loss_and_grads(params, b, m, torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)

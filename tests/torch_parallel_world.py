@@ -556,31 +556,49 @@ def task_a2a_dropout(mesh, inp):
     return {"losses": np.asarray(losses), "keep": keep.numpy()[:, 0]}
 
 
-def task_dp_step(mesh, inp, conv, entity_aware=False):
+def task_dp_step(mesh, inp, conv, entity_aware=False, dropout=0.0):
     """The dp step (spmd.make_sharded_train_step) on the tiny setup over
     the trainer's union graphs, mp 2 (dp the world / 2): the total loss,
     the gradients (x's the rows of this rank's mp index) and the rank's
-    (d, m)."""
+    (d, m).  With `dropout` the step gets a generator seeded 3 and GAT
+    drops attention under the union masks of inp ('keep0', 'keep1': the
+    JAX package's) or, without an input, under those the step draws from
+    the generator; the masks it used are returned ('keep/0', 'keep/1')."""
+    import dataclasses
+
     import torch
 
     from graph_recsys_benchmark_tpu_torch.graph import build_fused_metapath_graphs
+    from graph_recsys_benchmark_tpu_torch.models.pea import DropoutMasks
+    from graph_recsys_benchmark_tpu_torch.parallel import spmd
     from graph_recsys_benchmark_tpu_torch.parallel.multihost import make_pod_mesh
-    from graph_recsys_benchmark_tpu_torch.parallel.spmd import (
-        make_sharded_train_step,
-        shard_table,
-    )
 
     m2 = make_pod_mesh(mp=2, device="cpu")
     cfg_kw, edges, batch, mask = tiny_a2a_setup(conv, entity_aware)
     cfg, params = _pea(cfg_kw)
+    cfg = dataclasses.replace(cfg, dropout=dropout)
+    used = {}
+    own_draw = DropoutMasks.draw
+
+    def draw(self, c, k, g, heads):
+        assert c is None, f"a per-channel draw ({c}, {k}) on union graphs"
+        keep = torch.from_numpy(inp[f"keep{k}"]) if inp else own_draw(self, c, k, g, heads)
+        used[f"keep/{k}"] = keep.numpy()
+        return keep
+
     graphs = build_fused_metapath_graphs(edges, cfg.num_nodes, conv)
-    step, place = make_sharded_train_step(cfg, graphs, m2)
-    shard_table(params, m2)
+    step, place = spmd.make_sharded_train_step(cfg, graphs, m2)
+    spmd.shard_table(params, m2)
     b, m = place(torch.from_numpy(batch).long(), torch.from_numpy(mask))
-    loss = step.grads(params, b, m)
+    gen = torch.Generator().manual_seed(3) if dropout else None
+    DropoutMasks.draw = draw
+    try:
+        loss = step.grads(params, b, m, gen)
+    finally:
+        DropoutMasks.draw = own_draw
     return {"loss": loss.numpy(), "coords": np.asarray([m2.axis_index("dp"),
                                                          m2.axis_index("mp")]),
-            **flat("grad", grad_tree(params))}
+            **used, **flat("grad", grad_tree(params))}
 
 
 def task_row_sharded_trainer(mesh, inp, mode):
